@@ -1,0 +1,118 @@
+"""Weights into the port, in the reference state_dict key space.
+
+- ``state_dict_from_jax(params)``: the JAX package's TANWithText param tree
+  (numpy leaves) -> tensors under the reference keys.  The port's own copy of
+  ``temporalalignnet_tpu/checkpoint/torch_convert.py::params_to_torch``:
+  Dense kernels [in, out] transpose to ``weight [out, in]``, LayerNorm
+  ``scale`` becomes ``weight``, and the separate q/k/v projections pack into
+  ``attn.in_proj_weight [3D, D]`` rows [q; k; v] as nn.MultiheadAttention
+  stores them.
+- ``load_reference_checkpoint(path, model)``: a reference ``.pth.tar``
+  (``{epoch, state_dict, best_acc, optimizer, iteration}``) read natively and
+  loaded with ``strict=True``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+_MODEL_LN = ("ln_text_init", "ln_video_init", "ln_position_init",
+             "ln_video_post_enc", "ln_joint_post_enc")
+
+# keys of the reference checkpoint that never enter its forward (tan_model.py:68)
+_DROPPED = re.compile(r"^(mlp\.(weight|bias)|logit_scale|entropy_scale)$")
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX TANWithText params (word2vec) -> the reference state_dict, f32 tensors."""
+    out: Dict[str, torch.Tensor] = {}
+    lang = params.get("lang_model", {})
+    if lang:
+        out["bert.word_embd.weight"] = _t(lang["word_embd"]["embedding"])
+        for fc in ("fc1", "fc2"):
+            out[f"bert.{fc}.weight"] = _t(lang[fc]["kernel"]).T.contiguous()
+            out[f"bert.{fc}.bias"] = _t(lang[fc]["bias"])
+
+    al = params.get("aligner", {})
+    for proj in ("video_pre_proj", "text_pre_proj"):
+        if proj in al:
+            out[f"{proj}.weight"] = _t(al[proj]["kernel"]).T.contiguous()
+    if "binary_head" in al:
+        out["binary_head.weight"] = _t(al["binary_head"]["kernel"]).T.contiguous()
+        out["binary_head.bias"] = _t(al["binary_head"]["bias"])
+    for ln in _MODEL_LN:
+        if ln in al:
+            out[f"{ln}.weight"] = _t(al[ln]["scale"])
+            out[f"{ln}.bias"] = _t(al[ln]["bias"])
+    for tbl in ("temporal_pos_embed", "text_temporal_pos_embed"):
+        if tbl in al:
+            out[tbl] = _t(al[tbl])
+
+    for enc in ("video_temporal_encoder", "joint_temporal_encoder"):
+        blocks = sorted((k for k in al.get(enc, {}) if k.startswith("resblocks_")),
+                        key=lambda s: int(s.split("_")[1]))
+        for bname in blocks:
+            blk = al[enc][bname]
+            pre = f"{enc}.resblocks.{bname.split('_')[1]}"
+            attn = blk["attn"]
+            qkv = ("q_proj", "k_proj", "v_proj")
+            out[f"{pre}.attn.in_proj_weight"] = torch.cat(
+                [_t(attn[p]["kernel"]).T for p in qkv]).contiguous()
+            out[f"{pre}.attn.in_proj_bias"] = torch.cat([_t(attn[p]["bias"]) for p in qkv])
+            out[f"{pre}.attn.out_proj.weight"] = _t(attn["out_proj"]["kernel"]).T.contiguous()
+            out[f"{pre}.attn.out_proj.bias"] = _t(attn["out_proj"]["bias"])
+            for ln in ("ln_1", "ln_2"):
+                out[f"{pre}.{ln}.weight"] = _t(blk[ln]["scale"])
+                out[f"{pre}.{ln}.bias"] = _t(blk[ln]["bias"])
+            for fc in ("c_fc", "c_proj"):
+                out[f"{pre}.mlp.{fc}.weight"] = _t(blk["mlp"][fc]["kernel"]).T.contiguous()
+                out[f"{pre}.mlp.{fc}.bias"] = _t(blk["mlp"][fc]["bias"])
+    return out
+
+
+def reference_state_dict(state_dict: Dict[str, Any]) -> Tuple[Dict[str, Any], List[str]]:
+    """Normalize a reference checkpoint's state_dict to the port's key space.
+
+    Keeps the ``online.`` half of a Stage-2 twin checkpoint (tan_model.py:
+    315-351) and drops its ``target.`` (EMA) half; maps the ``lang_model.``
+    spelling of the language model to ``bert.``; drops the keys that never
+    enter the forward.  Returns (state_dict, report of what was dropped).
+    """
+    out: Dict[str, Any] = {}
+    report: List[str] = []
+    n_target = 0
+    for key, value in state_dict.items():
+        if key.startswith("target."):
+            n_target += 1
+            continue
+        if key.startswith("online."):
+            key = key[len("online."):]
+        if key.startswith("lang_model."):
+            key = "bert." + key[len("lang_model."):]
+        if _DROPPED.match(key):
+            report.append(f"dropped (unused in reference forward): {key}")
+            continue
+        out[key] = value
+    if n_target:
+        report.append(f"dropped the {n_target} target (EMA) keys of a twin checkpoint")
+    return out, report
+
+
+def load_reference_checkpoint(path: str, model: torch.nn.Module, verbose: bool = True
+                              ) -> List[str]:
+    """Load a reference ``.pth.tar`` into ``model`` with ``strict=True``.
+    Returns the report of dropped keys."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd, report = reference_state_dict(ckpt.get("state_dict", ckpt))
+    model.load_state_dict(sd, strict=True)
+    if verbose and report:
+        print("[checkpoint] " + "\n[checkpoint] ".join(report))
+    return report

@@ -1,0 +1,4 @@
+from temporalalignnet_torch.eval.cli import main
+
+if __name__ == "__main__":
+    main()

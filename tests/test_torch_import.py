@@ -1,0 +1,47 @@
+"""The PyTorch port imports no JAX and nothing of the JAX package."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "temporalalignnet_torch"
+PORT_SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+for m in ("jax", "flax", "optax", "orbax"):
+    sys.modules[m] = None  # any import of them raises ImportError
+import temporalalignnet_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names + ["chip_smoke"]:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m.startswith("temporalalignnet_tpu"))
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_with_jax_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20  # every module of the port was imported
+
+
+def test_port_sources_never_import_the_jax_package():
+    pattern = re.compile(
+        r"^\s*(from\s+(temporalalignnet_tpu|jax|flax|optax|orbax)\b"
+        r"|import\s+(temporalalignnet_tpu|jax|flax|optax|orbax)\b)", re.M)
+    offenders = {str(p.relative_to(REPO)): pattern.findall(p.read_text())
+                 for p in PORT_SOURCES}
+    assert {k: v for k, v in offenders.items() if v} == {}
+    assert len(PORT_SOURCES) >= 20
