@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100): builds every
 kernel, holds each against its plain PyTorch version, drives the zero-shot
-HTM-Align evaluation of the full-width E6D6 TAN through the kernels, and
-times them.
+HTM-Align evaluation and the Stage-1 training of the full-width E6D6 TAN
+through the kernels, and times them.
 
     python3 chip_smoke.py
 
@@ -10,6 +10,15 @@ Phases, each printing JSON lines:
   1. build   nvcc builds temporalalignnet_torch/csrc/*.cu into build/torch_kernels/.
   2. kernel  mha_fwd against attention_reference on the card at the shapes the
              eval path gives it, ragged key masks, f32 and bf16.
+     kernel_bwd  mha_bwd (dq, dk, dv) against mha_bwd_reference, the plain
+             version with the kernel's bf16 roundings, at the training shapes
+             and an odd S, per element (GRAD_TOL); planted faults must exceed
+             the limit.
+     kernel_milnce  milnce_fwd against milnce_reference, milnce_dv and
+             milnce_dt against milnce_grad_reference, at the B = 64 training
+             shape (shared and per-layer text) and at the shapes where the JAX
+             package takes its column-tiled kernels (B = 128; K = 5120), f32
+             and bf16; planted faults as above.
   3. eval    AlignmentEvaluator (overlap-seq and global) on a synthetic corpus,
              random E6D6 weights from a seed, bf16; every encoder forward call
              must launch the kernel 12 times.  Then the same evaluation in f32
@@ -17,9 +26,20 @@ Phases, each printing JSON lines:
      cli     python -m temporalalignnet_torch.eval on a .pth.tar of that model
              and a corpus written to build/chip_smoke_cli/, against the
              in-process evaluator.
+     train   Stage-1 training of the E6D6 TAN at B = 64, bf16, fused MIL-NCE,
+             on synthetic HowTo100M-format features and captions written to
+             build/chip_smoke_train/: finite losses, and every step launches
+             mha_fwd and mha_bwd 12 times and each MIL-NCE kernel twice.  The
+             fused path against the plain-logits path on the card (bf16), and
+             an f32 step on the card against the CPU's.
+     train_cli  python -m temporalalignnet_torch.train --max_steps on those
+             files, then python -m temporalalignnet_torch.eval on the
+             .pth.tar it wrote.
   4. times   eval-forward windows/s of the bench.py workload, and per shape the
              kernel's, the plain version's and PyTorch's SDPA time beside the
-             card's bound.
+             card's bound; train steps/s at B = 64 with its device time and
+             top kernels, and the same four times for each training kernel
+             at its training shapes (MIL-NCE also at the tiled-kernel ones).
 The card's name and power limit (nvidia-smi) and a ``kernels`` line come
 before the last line, which is {"ok": true, "device": {...}}.  Any failed
 phase raises and the script exits non-zero without that line.  Without CUDA
@@ -46,6 +66,22 @@ F32_TOL = 1e-5
 # bf16: the kernel rounds P and the output to bf16; the reference runs in f32
 # from the same bf16 inputs.
 BF16_TOL = 2e-2
+# Gradient kernels (mha_bwd, milnce_dv, milnce_dt) against the plain version
+# that rounds where the kernel rounds (mha_bwd_reference: P and dS to bf16;
+# milnce_grad_reference: dsim to bf16), per element:
+#   elem_err = max |a - b| / (rms(b) + |b|),
+# so every entry is held to its own size, and an entry near zero to the
+# tensor's typical magnitude rms(b).  What is left is the order of the f32
+# sums, the last bf16 rounding of the output, and the rare P or dsim entry
+# that the two sides round to neighbouring bf16 values.  Each limit must also
+# be exceeded by the planted faults the phase computes from the plain
+# version (a dropped rowsum(dP P), padded keys left unmasked, a dropped
+# column term, padded columns left unmasked).  On an H100 80GB HBM3 the
+# kernels read at most 1.2e-5 (f32) and 7.1e-3 (bf16); the faults 0.24 and up.
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# MIL-NCE values v_el, t_el (f32 from the exact products of the features),
+# the same per-element measure: the order of the f32 sums only
+MILNCE_VALUE_TOL = 1e-4
 # f32 eval, card against CPU: canvases are logits / 0.07, summed over windows
 CANVAS_TOL = 1e-3
 AUC_TOL = 1e-3
@@ -53,6 +89,29 @@ AUC_TOL = 1e-3
 KERNEL_SHAPES = [(192, 8, 64, 64), (192, 8, 72, 64), (64, 8, 200, 64), (1, 8, 1088, 64)]
 TIMED_SHAPE = (192, 8, 72, 64)  # the joint encoder of the bench.py workload
 BENCH = dict(B=192, T=64, C=1024, N=8, W=32)
+TRAIN = dict(B=64, T=64, N=16, W=32)  # the train CLI's defaults
+MHA_BWD_SHAPES = [(64, 8, 64, 64), (64, 8, 80, 64), (8, 8, 37, 64)]  # dual, joint, odd S
+# (S, B, T, N, C, shared text): R = B T rows, K = B N columns
+MILNCE_SHAPES = [(6, 64, 64, 16, 512, True), (6, 64, 64, 16, 512, False),
+                 (6, 128, 64, 16, 512, False), (2, 64, 64, 80, 512, False)]
+TRAIN_STEPS = 10
+# expected launches per train step: 6 + 6 encoder blocks; the dual and joint MIL-NCE
+STEP_LAUNCHES = {"mha_fwd": 12, "mha_bwd": 12, "milnce_fwd": 2, "milnce_dv": 2,
+                 "milnce_dt": 2}
+# fused against plain logits on the card, bf16, two steps on two batches
+# (the first update has lr 0, so both steps see the initial params): the
+# loss differs by the order of f32 sums over the same bf16 features; the
+# gradients also by the bf16 rounding of dsim, carried back through the bf16
+# encoders.  Gradients per tensor, norm-relative: |a - b| / |b|, the worst
+# tensor reported.  The params are not compared: Adam moves each by about
+# +-lr whatever the size of its gradient, so they hold nothing the
+# gradients do not.
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_GRAD_TOL = 5e-2
+TRAIN_LR = 1e-4
+# f32 train step on the card against the CPU, two steps on two batches:
+# loss, and every gradient tensor norm-relative
+F32_STEP_TOL = 1e-4
 # published dense peaks (NVIDIA data sheets): bytes/s, bf16 FLOP/s
 CARD_PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
               "H100": (3.35e12, 989e12)}
@@ -99,8 +158,9 @@ def cuda_ms(torch, fn, reps=20, warmup=3) -> float:
 
 def device_profile(torch, fn, reps=20, warmup=3):
     """Run ``fn`` ``reps`` times under torch.profiler.  Returns (device ms per
-    call summed over every kernel it launched, {kernel name: ms per call}).
-    Host issue time is not in it; ``cuda_ms`` measures with that included."""
+    call summed over every kernel it launched, {kernel name: ms per call},
+    {host op: self CPU ms per call}).  Host issue time is not in the first;
+    ``cuda_ms`` measures with that included."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -111,14 +171,20 @@ def device_profile(torch, fn, reps=20, warmup=3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    events = prof.key_averages()
+    # a record_function range (e.g. Optimizer.step) shows on the device too,
+    # spanning kernels already counted: keep only names the host never ran
+    host = {e.key for e in events if e.device_type == DeviceType.CPU}
     per_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and e.key not in host:
             per_kernel[e.key] = e.self_device_time_total / 1e3 / reps
     total = sum(per_kernel.values())
     if total <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
-    return total, per_kernel
+    host_ms = {e.key: e.self_cpu_time_total / 1e3 / reps for e in events
+               if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0}
+    return total, per_kernel, host_ms
 
 
 def phase_build():
@@ -164,6 +230,219 @@ def phase_kernel_check(torch):
     else:
         raise RuntimeError("mha_fwd accepted a non-contiguous input")
     return worst[torch.float32], worst[torch.bfloat16]
+
+
+def abs_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def rms(b) -> float:
+    return b.float().square().mean().sqrt().item()
+
+
+def elem_err(a, b) -> float:
+    """max |a - b| / (rms(b) + |b|), over the elements (GRAD_TOL)."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs() / (b.abs() + max(rms(b), 1e-30))).max().item()
+
+
+def norm_err(a, b) -> float:
+    """|a - b| / |b| (Frobenius)."""
+    a, b = a.float(), b.float()
+    return (a - b).norm().item() / max(b.norm().item(), 1e-30)
+
+
+def kernel_fns():
+    from temporalalignnet_torch.ops import milnce
+    from temporalalignnet_torch.ops.mha_bwd import mha_bwd
+    from temporalalignnet_torch.ops.mha_fwd import mha_fwd
+
+    return {"mha_fwd": mha_fwd, "mha_bwd": mha_bwd, "milnce_fwd": milnce.milnce_fwd,
+            "milnce_dv": milnce.milnce_dv, "milnce_dt": milnce.milnce_dt}
+
+
+def reset_counts():
+    for fn in kernel_fns().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
+def mha_bwd_dropped_rowsum(torch, q, k, v, mask, dout):
+    """A planted fault: mha_bwd_reference with dS = P dP, the rowsum(dP P)
+    term dropped (dv is unchanged by it)."""
+    from temporalalignnet_torch.ops.attention import NEG_INF
+    from temporalalignnet_torch.ops.mha_bwd import mha_bwd_reference
+
+    qf, kf, vf, df = (t.float() for t in (q, k, v, dout))
+    scale = q.shape[-1] ** -0.5
+    scores = qf @ kf.transpose(-1, -2) * scale
+    if mask is not None:
+        scores = scores.masked_fill(mask[:, None, None, :], NEG_INF)
+    ds = (torch.softmax(scores, -1) * (df @ vf.transpose(-1, -2))).to(q.dtype).float()
+    dv = mha_bwd_reference(q, k, v, mask, dout)[2]
+    return ((ds @ kf * scale).to(q.dtype), (ds.transpose(-1, -2) @ qf * scale).to(q.dtype), dv)
+
+
+def phase_mha_bwd_check(torch):
+    """mha_bwd's dq, dk, dv (through the autograd of multihead_attention)
+    against mha_bwd_reference from the same inputs, masked (ragged, one fully
+    padded row) and not; and the planted faults against the same plain
+    version, each of which the limit must catch."""
+    from temporalalignnet_torch.ops.attention import multihead_attention
+    from temporalalignnet_torch.ops.mha_bwd import mha_bwd_reference
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 4)
+    worst = {}
+    for shape in MHA_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            tol = GRAD_TOL[name]
+            for masked in (False, True):
+                q, k, v, g = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(4))
+                mask = ragged_mask(torch, shape[0], shape[2], gen, dev) if masked else None
+                leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                multihead_attention(*leaves, mask).backward(g)
+                ours = [t.grad for t in leaves]
+                plain = mha_bwd_reference(q, k, v, mask, g)
+                faults = {"rowsum_dropped": mha_bwd_dropped_rowsum(torch, q, k, v, mask, g)}
+                if masked:
+                    faults["padded_keys_unmasked"] = mha_bwd_reference(q, k, v, None, g)
+                torch.cuda.synchronize()
+                errs = [elem_err(a, b) for a, b in zip(ours, plain)]
+                abs_errs = [abs_err(a, b) for a, b in zip(ours, plain)]
+                fault_errs = {f: max(elem_err(a, b) for a, b in zip(fg, plain))
+                              for f, fg in faults.items()}
+                worst[name] = max(worst.get(name, 0.0), *abs_errs)
+                emit({"phase": "kernel_bwd", "name": "mha_bwd", "shape": list(shape),
+                      "dtype": name, "masked": masked, "elem_err_dq_dk_dv": errs,
+                      "norm_err_dq_dk_dv": [norm_err(a, b) for a, b in zip(ours, plain)],
+                      "abs_err_dq_dk_dv": abs_errs, "rms_dq_dk_dv": [rms(b) for b in plain],
+                      "tol": tol, "planted_fault_elem_err": fault_errs})
+                check(all(bool(torch.isfinite(t).all()) and t.dtype == dtype for t in ours),
+                      f"mha_bwd output at {shape} {name}")
+                check(max(errs) <= tol, f"mha_bwd {name} {shape} masked={masked}: {errs}")
+                for f, err in fault_errs.items():
+                    check(err > tol, f"limit {tol} misses the planted fault {f}: {err}")
+    return worst
+
+
+def milnce_problem(torch, S, B, T, N, C, shared, gen, dev):
+    """Unit-norm features and the loss's own masks from a synthetic target
+    (same-video positives, padded sentences)."""
+    from temporalalignnet_torch.data.synthetic import synthetic_batch
+    from temporalalignnet_torch.losses.tan_loss import positive_mask
+
+    n_real = min(N, 40)  # a 64 s window holds at most ~56 spans; the rest are padding
+    spans = synthetic_batch(np.random.RandomState(SEED + B + N), batch_size=B, seq_len=T,
+                            max_sentences=n_real, feature_dim=4, vocab_size=50, max_words=4)
+    pad = lambda x, fill: torch.from_numpy(np.pad(x, ((0, 0), (0, N - n_real)),
+                                                  constant_values=fill))
+    pm, cv = positive_mask(pad(spans["start"], 0.0), pad(spans["end"], 0.0), T,
+                           pad(spans["text_padding_mask"], True))
+    R, K = B * T, B * N
+    unit = lambda *shape: torch.nn.functional.normalize(torch.randn(*shape, generator=gen), dim=-1)
+    v, t = unit(S, R, C), (unit(K, C) if shared else unit(S, K, C))
+    gv, gt = torch.randn(S, R, generator=gen), torch.randn(S, K, generator=gen)
+    return [x.to(dev) for x in (v, t, pm, cv, gv, gt)]
+
+
+def phase_milnce_check(torch):
+    """The three MIL-NCE kernels through MilNCEFunction against the plain
+    versions from the same inputs: the values against milnce_reference, the
+    gradients against milnce_grad_reference from the plain logsumexps; and
+    the planted faults against the same plain version, each of which the
+    limit must catch."""
+    from temporalalignnet_torch.ops.milnce import (
+        fused_milnce_elements, milnce_grad_reference, milnce_lse_reference, milnce_reference)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 5)
+    inv_temp, mv = 1.0 / 0.07, -6.0e4
+    worst = {}
+    for S, B, T, N, C, shared in MILNCE_SHAPES:
+        v32, t32, pm, cv, gv, gt = milnce_problem(torch, S, B, T, N, C, shared, gen, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            ins = [x.detach().to(dtype).clone().requires_grad_() for x in (v32, t32)]
+            out = fused_milnce_elements(*ins, pm, cv, mv, inv_temp)
+            ((out[0] * gv).sum() + (out[1] * gt).sum()).backward()
+            v, t = (x.detach() for x in ins)
+            ref = milnce_reference(v, t, pm, cv, mv, inv_temp)
+            lse = milnce_lse_reference(v, t, pm, cv, mv, inv_temp)
+            plain = milnce_grad_reference(v, t, pm, cv, lse, gv, gt, inv_temp)
+            faults = {"column_term_dropped": milnce_grad_reference(
+                v, t, pm, cv, lse, gv, torch.zeros_like(gt), inv_temp)}
+            if not bool(cv.all()):  # unmasked in the forward and the backward
+                every = torch.ones_like(cv)
+                faults["padded_columns_unmasked"] = milnce_grad_reference(
+                    v, t, pm, every, milnce_lse_reference(v, t, pm, every, mv, inv_temp),
+                    gv, gt, inv_temp)
+            torch.cuda.synchronize()
+            pairs = {"milnce_fwd": list(zip(out, ref)),
+                     "milnce_dv": [(ins[0].grad, plain[0])],
+                     "milnce_dt": [(ins[1].grad, plain[1])]}
+            errs = {k: max(elem_err(a, b) for a, b in ps) for k, ps in pairs.items()}
+            abs_errs = {k: max(abs_err(a, b) for a, b in ps) for k, ps in pairs.items()}
+            fault_errs = {f: max(elem_err(a, b) for a, b in zip(fg, plain))
+                          for f, fg in faults.items()}
+            tols = {"milnce_fwd": MILNCE_VALUE_TOL, "milnce_dv": GRAD_TOL[name],
+                    "milnce_dt": GRAD_TOL[name]}
+            emit({"phase": "kernel_milnce", "S": S, "R": B * T, "K": B * N, "C": C,
+                  "text": "shared" if shared else "per-layer", "dtype": name,
+                  "padded_columns": int((~cv).sum()), "elem_err": errs, "abs_err": abs_errs,
+                  "norm_err_dv_dt": [norm_err(x.grad, b) for x, b in zip(ins, plain)],
+                  "rms_dv_dt": [rms(b) for b in plain], "tol": tols,
+                  "planted_fault_elem_err": fault_errs})
+            for kname, err in errs.items():
+                worst[(kname, name)] = max(worst.get((kname, name), 0.0), abs_errs[kname])
+                check(err <= tols[kname], f"{kname} {name} (S, R, K) = {(S, B * T, B * N)}: {err}")
+            for f, err in fault_errs.items():
+                check(err > GRAD_TOL[name], f"limit {GRAD_TOL[name]} misses the planted fault "
+                                            f"{f}: {err}")
+            check(all(bool(torch.isfinite(x).all()) for x in (*out, ins[0].grad, ins[1].grad)),
+                  "MIL-NCE kernels non-finite")
+            check(ins[1].grad.shape == t32.shape and ins[1].grad.dtype == dtype, "dt shape")
+    v, t, pm, cv, _, _ = milnce_problem(torch, 2, 2, 64, 16, 512, False, gen, dev)
+    for bad, what in (((v[..., :32].contiguous(), t[..., :32].contiguous(), pm, cv), "C"),
+                      ((v, t, pm.float(), cv), "pos_mask")):
+        try:
+            fused_milnce_elements(*bad, mv, inv_temp)
+        except ValueError:
+            continue
+        raise RuntimeError(f"MIL-NCE kernels accepted a bad {what}")
+    return worst
+
+
+def make_train_files(root, num_videos, seed):
+    """A HowTo100M-format feature dir ({vid}.mp4.npy, 1 fps S3D-width
+    features), sentencified captions over the vocab 'w0'..'w66249', and that
+    vocab as an s3d_dict-style .npy."""
+    rng = np.random.RandomState(seed)
+    feats = os.path.join(root, "features")
+    os.makedirs(feats, exist_ok=True)
+    vocab = os.path.join(root, "vocab.npy")
+    np.save(vocab, np.array([f"w{i}" for i in range(66250)]))
+    captions = {}
+    for i in range(num_videos):
+        vlen = int(rng.randint(80, 201))
+        np.save(os.path.join(feats, f"vid{i:03d}.mp4.npy"),
+                rng.randn(vlen, 1024).astype(np.float32))
+        t, rec = float(rng.rand() * 3), {"text": [], "start": [], "end": []}
+        while t < vlen:
+            d = float(rng.randint(2, 9))
+            rec["text"].append(" ".join(f"w{w}" for w in rng.randint(0, 66250, rng.randint(3, 12))))
+            rec["start"].append(t)
+            rec["end"].append(t + d)
+            t += d + float(rng.rand())
+        captions[f"vid{i:03d}"] = rec
+    cap_path = os.path.join(root, "captions.json")
+    with open(cap_path, "w") as f:
+        json.dump(captions, f)
+    return feats, cap_path, vocab
 
 
 def make_corpus(num_videos, min_len, max_len, seed):
@@ -310,6 +589,264 @@ def phase_cli(torch, model):
               f"CLI {method} Recall {cli['Recall']} vs {direct['Recall']}")
         check(abs(cli["AUC"] - direct["AUC"]) <= AUC_TOL,
               f"CLI {method} AUC {cli['AUC']} vs {direct['AUC']}")
+    return feats, anno_path, vocab
+
+
+def train_setup(torch, device, fused, cfg_kw=None, state=None, compute=None):
+    """A TANWithText with its optimizer and train step; params f32 from the
+    seed (or ``state``), compute bf16 on the card unless ``compute`` says."""
+    from temporalalignnet_torch.core.config import LossConfig, ModelConfig, TrainConfig
+    from temporalalignnet_torch.models.net import TANWithText
+    from temporalalignnet_torch.train import Optimizer, make_train_step
+
+    cfg = ModelConfig(fused_milnce=fused, **(cfg_kw or {}))
+    model = TANWithText(cfg, vocab_size=66251)
+    if state is None:
+        model.init_weights(torch.Generator().manual_seed(SEED))
+    else:
+        model.load_state_dict(state)
+    model.to(device)
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_iterations=1, total_iterations=1000)
+    opt = Optimizer(model, tcfg)
+    if compute is None:
+        compute = torch.bfloat16 if device.type == "cuda" else torch.float32
+    step = make_train_step(model, opt, tcfg, LossConfig(use_fused_milnce=fused),
+                           compute_dtype=compute)
+    return model, opt, step
+
+
+def phase_train(torch, files):
+    """Stage-1 training through the kernels at B = 64: the main path of this
+    slice, with its launches counted per step."""
+    from temporalalignnet_torch.core.config import DataConfig
+    from temporalalignnet_torch.data import HTMFeatureDataset, TrainLoader
+    from temporalalignnet_torch.data.synthetic import synthetic_batch
+    from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
+
+    dev = torch.device("cuda")
+    feats, captions, vocab = files
+    B, T, N, W = (TRAIN[k] for k in "BTNW")
+    ds = HTMFeatureDataset(feats, captions, DataConfig(seq_len=T, max_sentences=N, max_words=W),
+                           "train", Word2VecTokenizer(vocab, max_words=W))
+    loader = TrainLoader(ds, B, seed=SEED, num_workers=8, pin_memory=True)
+    model, opt, step = train_setup(torch, dev, fused=True)
+    init_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+    batches, losses, per_step = [], [], []
+    totals = {k: 0 for k in STEP_LAUNCHES}
+    t0 = time.perf_counter()
+    done = 0
+    for epoch in range(TRAIN_STEPS):
+        loader.set_epoch(epoch)
+        for batch in loader:
+            if len(batches) < 2:
+                batches.append(batch)
+            torch.cuda.synchronize()
+            reset_counts()
+            metrics = step(batch)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            losses.append(metrics["loss"].item())
+            per_step.append(counts)
+            for k in totals:
+                totals[k] += counts[k]
+            done += 1
+            if done == TRAIN_STEPS:
+                break
+        if done == TRAIN_STEPS:
+            break
+    secs = time.perf_counter() - t0
+    emit({"phase": "train", "model": "E6D6 width 512, word2vec, fused MIL-NCE, bf16",
+          "batch": TRAIN, "videos": len(ds), "steps": done, "losses": losses,
+          "launches_per_step": per_step[0], "seconds_with_data": secs})
+    check(done == TRAIN_STEPS, f"only {done} train steps")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    for i, counts in enumerate(per_step):
+        check(counts == STEP_LAUNCHES, f"step {i} launched {counts}, expected {STEP_LAUNCHES}")
+
+    # the fused kernels against the plain logits path, on the card, bf16
+    runs = {}
+    for fused in (True, False):
+        m, _, st = train_setup(torch, dev, fused=fused, state=init_state)
+        runs[fused] = two_steps(m, st, batches)
+    loss_err, grad_err, worst_grad = compare_steps(runs[True], runs[False])
+    emit({"phase": "train_fused_vs_plain", "dtype": "bfloat16", "losses_fused": runs[True][0],
+          "losses_plain": runs[False][0], "loss_max_abs_err": loss_err,
+          "grad_max_norm_err": grad_err, "worst_grad": worst_grad,
+          "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL})
+    check(loss_err <= TRAIN_LOSS_TOL, f"fused vs plain loss {loss_err}")
+    check(grad_err <= TRAIN_GRAD_TOL, f"fused vs plain grads {grad_err} ({worst_grad})")
+
+    # f32 on the card (the f32 kernels) against the CPU, reduced depth and batch
+    small = [{k: torch.from_numpy(v) for k, v in synthetic_batch(
+        np.random.RandomState(SEED + i), batch_size=8, seq_len=T, max_sentences=N,
+        feature_dim=1024, vocab_size=66250, max_words=W).items()} for i in range(2)]
+    state, res = None, {}
+    for d in ("cuda", "cpu"):
+        m, _, st = train_setup(torch, torch.device(d), fused=True, state=state,
+                               cfg_kw=dict(num_encoder_layers=2, num_joint_layers=2),
+                               compute=torch.float32)
+        state = state or {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+        res[d] = two_steps(m, st, small)
+    loss_err, grad_err, worst_grad = compare_steps(res["cuda"], res["cpu"])
+    emit({"phase": "train_f32_card_vs_cpu", "model": "E2D2 width 512, fused, f32", "batch": 8,
+          "losses_card": res["cuda"][0], "losses_cpu": res["cpu"][0],
+          "loss_max_abs_err": loss_err, "grad_max_norm_err": grad_err,
+          "worst_grad": worst_grad, "tol": F32_STEP_TOL})
+    check(loss_err <= F32_STEP_TOL, f"f32 step card vs cpu loss {loss_err}")
+    check(grad_err <= F32_STEP_TOL, f"f32 step card vs cpu grads {grad_err} ({worst_grad})")
+    return totals, losses
+
+
+def two_steps(model, step, batches):
+    """Losses and per-step {param: grad} (on the CPU) of two train steps."""
+    losses, grads = [], []
+    for batch in batches[:2]:
+        losses.append(step(batch)["loss"].item())
+        grads.append({n: p.grad.detach().float().cpu()
+                      for n, p in model.named_parameters() if p.grad is not None})
+    return losses, grads
+
+
+def compare_steps(ours, theirs):
+    """(max loss difference, worst per-tensor norm_err of the gradients, and
+    the three worst tensors with |grad|) of two ``two_steps`` results."""
+    check(all(set(a) == set(b) for a, b in zip(ours[1], theirs[1])),
+          "grads of different params on the two paths")
+    loss_err = max(abs(a - b) for a, b in zip(ours[0], theirs[0]))
+    errs = sorted(((norm_err(a[n], b[n]), f"step {i} {n} |g| {b[n].norm().item():.3g}")
+                   for i, (a, b) in enumerate(zip(ours[1], theirs[1])) for n in b), reverse=True)
+    return loss_err, errs[0][0], errs[:3]
+
+
+def phase_train_cli(torch, files, eval_files):
+    """The user's entry point, ``python -m temporalalignnet_torch.train`` on the
+    card (defaults: E6D6, B = 64, bf16, fused MIL-NCE), then the eval CLI on
+    the .pth.tar it wrote."""
+    feats, captions, vocab = files
+    prefix = os.path.join(REPO, "build", "chip_smoke_train", "exp")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "temporalalignnet_torch.train", "--feature_dir", feats,
+         "--captions", captions, "--vocab", vocab, "--max_steps", "4", "--epochs", "4",
+         "--log_every", "2", "--use_alignability_head", "1", "--prefix", prefix],
+        cwd=REPO, capture_output=True, text=True, timeout=900,
+    )
+    check(run.returncode == 0, f"train CLI failed:\n{run.stderr[-4000:]}")
+    lines = [json.loads(l) for l in run.stdout.splitlines() if l.startswith("{")]
+    final = lines[-1]
+    emit({"phase": "train_cli", "log": lines[:-1], "final": final,
+          "seconds": time.perf_counter() - t0})
+    check(final["final_step"] == 4 and final["loss_finite"], f"train CLI final line {final}")
+    check(all(np.isfinite(l["loss"]) for l in lines[:-1]), "train CLI logged a non-finite loss")
+
+    e_feats, anno, e_vocab = eval_files
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "temporalalignnet_torch.eval", "--task", "align",
+         "--ckpt", final["checkpoint"], "--features", e_feats, "--anno", anno,
+         "--vocab", e_vocab],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    check(run.returncode == 0, f"eval CLI on the trained checkpoint failed:\n{run.stderr[-4000:]}")
+    metrics = json.loads(run.stdout.strip().splitlines()[-1])
+    emit({"phase": "train_cli_eval", "metrics": metrics, "seconds": time.perf_counter() - t0})
+    check(0.0 <= metrics["Recall"] <= 1.0 and 0.0 <= metrics["AUC"] <= 1.0,
+          f"eval of the trained checkpoint: {metrics}")
+
+
+def timed_row(torch, fns, nbytes, flops, bw, peak, **info):
+    """Device ms (profiler) and CUDA-event ms of each of ``fns`` {prefix: fn},
+    beside the bound max(bytes / bw, flops / peak)."""
+    row = dict(info)
+    for prefix, fn in fns.items():
+        row[prefix + "ms"] = device_profile(torch, fn)[0]
+        row[prefix + "wall_ms"] = cuda_ms(torch, fn)
+    t_bytes, t_ops = nbytes / bw, flops / peak
+    row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes, flops=flops)
+    return row
+
+
+def phase_train_times(torch, card):
+    import torch.nn.functional as F
+
+    from temporalalignnet_torch.data.synthetic import synthetic_batch
+    from temporalalignnet_torch.ops import milnce
+    from temporalalignnet_torch.ops.attention import attention_reference
+    from temporalalignnet_torch.ops.mha_bwd import mha_bwd
+
+    dev = torch.device("cuda")
+    B, T, N, W = (TRAIN[k] for k in "BTNW")
+    _, _, step = train_setup(torch, dev, fused=True)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+        np.random.RandomState(SEED + 6), batch_size=B, seq_len=T, max_sentences=N,
+        feature_dim=1024, vocab_size=66250, max_words=W).items()}
+    run = lambda: step(batch)
+    step_ms = cuda_ms(torch, run, reps=10, warmup=3)
+    busy_ms, per_kernel, host_ms = device_profile(torch, run, reps=5, warmup=1)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
+    top_host = sorted(host_ms.items(), key=lambda kv: -kv[1])[:15]
+    emit({"phase": "times", "metric": "train_steps_per_s", "card": card,
+          "value": 1e3 / step_ms, "ms_per_step": step_ms, "batch": TRAIN,
+          "model": "E6D6 width 512, word2vec, fused MIL-NCE, bf16 compute, f32 params",
+          "device_busy_ms_per_step": busy_ms, "idle_share": max(0.0, 1.0 - busy_ms / step_ms),
+          "top_kernels_ms_per_step": {k[:90]: v for k, v in top},
+          "host_self_ms_per_step_under_profiler": sum(host_ms.values()),
+          "top_host_ops_self_ms_per_step": {k[:90]: v for k, v in top_host}})
+
+    bw, peak = peaks(card)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    rows = {}
+    for shape in MHA_BWD_SHAPES[:2]:
+        Bq, H, S, D = shape
+        q, k, v, g = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16) for _ in range(4))
+        pad = ragged_mask(torch, Bq, S, gen, dev)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        plain_out = attention_reference(*leaves, pad)
+        lib = [t.clone().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib, attn_mask=~pad[:, None, None, :])
+        fns = {"": lambda: mha_bwd(q, k, v, pad, g),
+               "plain_": lambda: torch.autograd.grad(plain_out, leaves, g, retain_graph=True),
+               "library_": lambda: torch.autograd.grad(lib_out, lib, g, retain_graph=True)}
+        row = timed_row(torch, fns, 7 * q.numel() * q.element_size() + pad.numel(),
+                        10 * Bq * H * S * S * D, bw, peak, shape=list(shape), dtype="bfloat16")
+        emit({"phase": "times", "kernel": "mha_bwd", "card": card, **row})
+        rows[("mha_bwd", S)] = row
+
+    inv_temp, mv = 1.0 / 0.07, -6.0e4
+    for S_, Bm, Tm, Nm, C, shared in MILNCE_SHAPES:
+        v, t, pm, cv, gv, gt = milnce_problem(torch, S_, Bm, Tm, Nm, C, shared, gen, dev)
+        v, t = v.bfloat16(), t.bfloat16()
+        lse = milnce.milnce_fwd(v, t, pm, cv, mv, inv_temp)
+        vr, tr = v.clone().requires_grad_(), t.clone().requires_grad_()
+        a, b = milnce.milnce_reference(vr, tr, pm, cv, mv, inv_temp)
+        plain_loss = (a * gv).sum() + (b * gt).sum()
+        R, K = Bm * Tm, Bm * Nm
+        feat_bytes = (v.numel() + t.numel()) * 2 + pm.numel() + cv.numel()
+        lse_bytes = (2 * S_ * R + 2 * S_ * K) * 4
+        cases = {
+            "milnce_fwd": ({"": lambda: milnce.milnce_fwd(v, t, pm, cv, mv, inv_temp),
+                            "plain_": lambda: milnce.milnce_reference(
+                                v.detach(), t.detach(), pm, cv, mv, inv_temp)},
+                           feat_bytes + lse_bytes, 2 * S_ * R * K * C),
+            "milnce_dv": ({"": lambda: milnce.milnce_dv(v, t, pm, cv, lse, gv, gt, inv_temp),
+                           "plain_": lambda: torch.autograd.grad(plain_loss, [vr],
+                                                                 retain_graph=True)},
+                          feat_bytes + 2 * lse_bytes + v.numel() * 2, 4 * S_ * R * K * C),
+            "milnce_dt": ({"": lambda: milnce.milnce_dt(v, t, pm, cv, lse, gv, gt, inv_temp),
+                           "plain_": lambda: torch.autograd.grad(plain_loss, [tr],
+                                                                 retain_graph=True)},
+                          feat_bytes + 2 * lse_bytes + t.numel() * 2, 4 * S_ * R * K * C),
+        }
+        for name, (fns, nbytes, flops) in cases.items():
+            with torch.no_grad() if name == "milnce_fwd" else torch.enable_grad():
+                row = timed_row(torch, fns, nbytes, flops, bw, peak, S=S_, R=R, K=K, C=C,
+                                text="shared" if shared else "per-layer", dtype="bfloat16",
+                                library_ms=None)
+            emit({"phase": "times", "kernel": name, "card": card, **row})
+            rows[(name, S_, R, K, shared)] = row
+    return rows
 
 
 def phase_times(torch, model, card):
@@ -330,7 +867,7 @@ def phase_times(torch, model, card):
             model.text_visual_sims(video, model.encode_text(ids, mask))
 
     fwd_ms = cuda_ms(torch, forward)
-    busy_ms, per_kernel = device_profile(torch, forward)
+    busy_ms, per_kernel, _ = device_profile(torch, forward)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     emit({"phase": "times", "metric": "eval_forward_windows_per_s", "card": card,
           "value": B / (fwd_ms / 1e3), "ms_per_call": fwd_ms, "workload": BENCH,
@@ -340,7 +877,7 @@ def phase_times(torch, model, card):
 
     bw, bf16_peak = peaks(card)
     rows = []
-    for shape in KERNEL_SHAPES:
+    for shape in KERNEL_SHAPES + MHA_BWD_SHAPES[:2]:  # the eval's, then the training's
         Bq, H, S, D = shape
         q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
         pad = ragged_mask(torch, Bq, S, gen, dev)
@@ -383,9 +920,15 @@ def main() -> int:
 
     phase_build()
     err_f32, err_bf16 = phase_kernel_check(torch)
-    model, launches = phase_eval(torch)
-    phase_cli(torch, model)
+    bwd_err = phase_mha_bwd_check(torch)
+    milnce_err = phase_milnce_check(torch)
+    model, eval_launches = phase_eval(torch)
+    eval_files = phase_cli(torch, model)
+    files = make_train_files(os.path.join(REPO, "build", "chip_smoke_train"), 96, SEED)
+    launches, _ = phase_train(torch, files)
+    phase_train_cli(torch, files, eval_files)
     rows = phase_times(torch, model, card)
+    train_rows = phase_train_times(torch, card)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -393,22 +936,40 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     timed = next(r for r in rows if tuple(r["shape"]) == TIMED_SHAPE)
-    emit({"kernels": [{
-        "name": "mha_fwd",
-        "route": "cuda",
-        "source": "temporalalignnet_torch/csrc/mha_fwd.cu",
-        "replaces": "temporalalignnet_tpu/ops/pallas_attention.py:31 (_mha_kernel)",
-        "launches": launches,
-        "max_abs_err": err_bf16,
-        "max_err_f32": err_f32,
-        "max_err_bf16": err_bf16,
-        "shape": timed["shape"],
-        "ms": timed["ms"],
-        "plain_ms": timed["plain_ms"],
-        "bound_ms": timed["bound_ms"],
-        "bound_by": timed["bound_by"],
-        "library_ms": timed["library_ms"],
-    }]})
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    pallas = "temporalalignnet_tpu/ops/pallas_milnce.py"
+    # launches: this slice's main path (TRAIN_STEPS train steps); mha_fwd's on
+    # slice 1's path (the eval phase) beside it
+    entries = [
+        dict(name="mha_fwd", source="temporalalignnet_torch/csrc/mha_fwd.cu",
+             replaces="temporalalignnet_tpu/ops/pallas_attention.py:31 (_mha_kernel)",
+             launches=launches["mha_fwd"], launches_eval_path=eval_launches,
+             max_abs_err=err_bf16, max_err_f32=err_f32, max_err_bf16=err_bf16,
+             shape=timed["shape"], **{k: timed[k] for k in fields}),
+        dict(name="mha_bwd", source="temporalalignnet_torch/csrc/mha_bwd.cu",
+             replaces="temporalalignnet_tpu/ops/pallas_attention.py:75 (_mha_bwd_kernel)",
+             launches=launches["mha_bwd"], max_abs_err=bwd_err["bfloat16"],
+             max_err_f32=bwd_err["float32"], max_err_bf16=bwd_err["bfloat16"],
+             shape=train_rows[("mha_bwd", 80)]["shape"],
+             **{k: train_rows[("mha_bwd", 80)][k] for k in fields}),
+    ]
+    replaces = {
+        "milnce_fwd": f"{pallas}:82 (_milnce_fwd_kernel), {pallas}:224 (_milnce_fwd_tiled_kernel)",
+        "milnce_dv": f"{pallas}:154 (_milnce_bwd_kernel), {pallas}:294 (_milnce_dv_kernel)",
+        "milnce_dt": f"{pallas}:154 (_milnce_bwd_kernel), {pallas}:334 (_milnce_dt_kernel)",
+    }
+    for name, rep in replaces.items():
+        row = train_rows[(name, 6, TRAIN["B"] * TRAIN["T"], TRAIN["B"] * TRAIN["N"], False)]
+        src = "milnce_fwd.cu" if name == "milnce_fwd" else "milnce_bwd.cu"
+        entries.append(dict(
+            name=name, source=f"temporalalignnet_torch/csrc/{src}", replaces=rep,
+            launches=launches[name], max_abs_err=milnce_err[(name, "bfloat16")],
+            max_err_f32=milnce_err[(name, "float32")],
+            max_err_bf16=milnce_err[(name, "bfloat16")],
+            shape=[row["S"], row["R"], row["K"], row["C"]],
+            library_note="no single PyTorch call computes the masked MIL-NCE logsumexps",
+            **{k: row[k] for k in fields}))
+    emit({"kernels": [dict(route="cuda", **e) for e in entries]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})
     return 0

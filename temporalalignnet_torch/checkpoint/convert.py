@@ -10,10 +10,14 @@
 - ``load_reference_checkpoint(path, model)``: a reference ``.pth.tar``
   (``{epoch, state_dict, best_acc, optimizer, iteration}``) read natively and
   loaded with ``strict=True``.
+- ``save_reference_checkpoint(path, model, optimizer, epoch, iteration)``:
+  writes that layout with ``torch.save`` (train/main.py's save_checkpoint),
+  the real optimizer state included, through a temporary file and a rename.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, Dict, List, Tuple
 
@@ -116,3 +120,19 @@ def load_reference_checkpoint(path: str, model: torch.nn.Module, verbose: bool =
     if verbose and report:
         print("[checkpoint] " + "\n[checkpoint] ".join(report))
     return report
+
+
+def save_reference_checkpoint(path: str, model: torch.nn.Module, optimizer=None, epoch: int = 0,
+                              iteration: int = 0, best_acc: float = 0.0) -> None:
+    """``{epoch, state_dict, best_acc, optimizer, iteration}`` in the reference
+    layout; the weights on the CPU in their own dtype."""
+    state = {
+        "epoch": epoch,
+        "state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+        "best_acc": best_acc,
+        "optimizer": optimizer.state_dict() if optimizer is not None else {},
+        "iteration": iteration,
+    }
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(state, tmp)
+    os.replace(tmp, path)

@@ -1,3 +1,10 @@
-from temporalalignnet_torch.core.config import EvalConfig, ModelConfig, Precision
+from temporalalignnet_torch.core.config import (
+    DataConfig,
+    EvalConfig,
+    LossConfig,
+    ModelConfig,
+    Precision,
+    TrainConfig,
+)
 
-__all__ = ["EvalConfig", "ModelConfig", "Precision"]
+__all__ = ["DataConfig", "EvalConfig", "LossConfig", "ModelConfig", "Precision", "TrainConfig"]

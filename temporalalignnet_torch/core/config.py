@@ -1,9 +1,10 @@
 """Frozen dataclass configs (counterpart of temporalalignnet_tpu/core/config.py).
 
-Only the configs and fields this slice reads are here: the model
-architecture, the eval options and the precision policy.  Dtypes are torch
-dtypes.  Whether the alignability head is read comes from the model's
-ModelConfig, as in the JAX evaluator.
+The model architecture, the Stage-1 loss, data and optimization options, the
+eval options and the precision policy.  Dtypes are torch dtypes.  Whether the
+alignability head is read at eval comes from the model's ModelConfig, as in
+the JAX evaluator.  Fields of the JAX configs that only later slices read
+(the agreement options, the EMA momentum, the mesh sizes) come with them.
 """
 
 from __future__ import annotations
@@ -53,11 +54,59 @@ class ModelConfig:
     use_text_pos_enc: bool = False
     random_pos_start: bool = True  # random window offset in training
     use_alignability_head: bool = False
+    return_dual_feature: bool = True
     mlp_ratio: int = 4
+    # training forward returns the per-layer normalized features instead of
+    # the [B,S,T,B,N] cross-batch logits, for the fused MIL-NCE kernels
+    # (ops/milnce.py); pair with LossConfig.use_fused_milnce
+    fused_milnce: bool = False
 
     @property
     def text_embed_dim(self) -> int:
         return {"bert": 768, "word2vec": 512}[self.language_model]
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss options (reference train/loss.py:55-373)."""
+
+    model: str = "init"  # 'init' (Stage 1); 'cotrain' comes with slice 3
+    sim: str = "cos"
+    temperature: float = 0.07
+    learn_agreement: bool = False  # Stage-2 self-labelling, slice 3
+    loss_threshold: float = 0.0
+    use_alignability_head: bool = False
+    optim_policy: str = "default"  # 'default' | 'bce' (head-only finetune)
+    alignability_layer: int = 2  # the joint head trains on this layer (loss.py:341)
+    mask_value: float = -6.0e4  # fp16/bf16-safe -inf substitute (loss.py:98-100)
+    # MIL-NCE logsumexps from the feature outputs (ModelConfig.fused_milnce)
+    # through ops/milnce.py; the [B,S,T,B,N] logits then never exist
+    use_fused_milnce: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Fixed-shape data options: sentences pad to ``max_sentences`` and tokens
+    to ``max_words`` (reference default 32, model/word2vec_model.py:28)."""
+
+    seq_len: int = 64  # training window (train/config.py:12)
+    max_sentences: int = 16
+    max_words: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization (reference train/config.py:6-53, train/main.py:330-356,486-499)."""
+
+    lr: float = 1.0e-4
+    wd: float = 1.0e-5
+    warmup_iterations: int = 1000
+    total_iterations: int = 100_000
+    backprop_freq: int = 1  # gradient accumulation
+    clip_grad_norm: float = 0.0  # 0 = off
+    clip_mode: str = "per_param"  # 'per_param' (utils/train_utils.py:3-13) or 'global'
+    skip_nonfinite_updates: bool = False  # optax.apply_if_finite semantics
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,6 +31,20 @@ class TANWithText(TemporalAligner):
         out = self.bert(input_ids.reshape(-1, W), attention_mask.reshape(-1, W))
         return out.reshape(*lead, -1)
 
+    def forward(
+        self,
+        video: torch.Tensor,  # [B, T, Cv]
+        input_ids: torch.Tensor,  # [B, N, W]
+        video_padding_mask: Optional[torch.Tensor] = None,
+        lang_padding_mask: Optional[torch.Tensor] = None,
+        deterministic: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Training forward (models/net.py:102-118 of the JAX package)."""
+        text_embed = self.encode_text(input_ids, (input_ids != 0).int())
+        return super().forward(video, text_embed, video_padding_mask, lang_padding_mask,
+                               deterministic=deterministic, generator=generator)
+
     def text_visual_sims(
         self,
         video: torch.Tensor,  # [B, T, Cv]

@@ -12,8 +12,14 @@ Reference model/tan_model.py:
 The parameter names are the reference state_dict key space, so the port loads
 a reference checkpoint or ``checkpoint.convert.state_dict_from_jax`` output
 with ``strict=True``.  The reference's unused ``self.mlp`` Linear is not
-instantiated.  Layout is batch-first [B, T, C].  The training forward
-(tan_model.py:100-149) comes with the training slice.
+instantiated.  Layout is batch-first [B, T, C].
+
+Mixed precision: params stay in their own dtype (f32 in training), and the
+compute dtype is whatever the caller runs the forward under
+(``torch.autocast`` to bf16 on the card, see train/train_step.py).  Under
+autocast LayerNorm returns f32, so the normalized features the training
+forward hands to the loss are cast to the compute dtype explicitly, as the
+JAX model hands them over in its compute dtype.
 """
 
 from __future__ import annotations
@@ -31,6 +37,19 @@ from temporalalignnet_torch.models.transformer import TemporalEncoder
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """x / ||x|| — torch ``x / x.norm(dim=-1, keepdim=True)`` (no eps)."""
     return x / x.norm(dim=dim, keepdim=True)
+
+
+def _compute_dtype(x: torch.Tensor, param_dtype: torch.dtype) -> torch.dtype:
+    dev = x.device.type
+    return torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else param_dtype
+
+
+def _cross_logits(video: torch.Tensor, text: torch.Tensor, eq: str) -> torch.Tensor:
+    """f32 logits of features in the compute dtype: the products of bf16
+    values are exact in f32, so this is the JAX einsum's
+    preferred_element_type=f32 with autocast kept out of it."""
+    with torch.autocast(video.device.type, enabled=False):
+        return torch.einsum(eq, video.float(), text.float())
 
 
 def _cos_sims(video: torch.Tensor, text: torch.Tensor, eq: str) -> torch.Tensor:
@@ -192,6 +211,65 @@ class TemporalAligner(nn.Module):
         taps[-1] = self.ln_joint_post_enc(taps[-1])
         out = torch.stack(taps, dim=1)  # [B, S, T+N, C]
         return out[:, :, :T], out[:, :, T:]
+
+    # ----------------------------------------------------------------- forward
+
+    def forward(
+        self,
+        video_embed: torch.Tensor,  # [B, T, Cv]
+        lang_embed: torch.Tensor,  # [B, N, Ct]
+        video_padding_mask: Optional[torch.Tensor] = None,  # [B, T] True = pad
+        lang_padding_mask: Optional[torch.Tensor] = None,  # [B, N] True = pad
+        interpolate_from: Optional[int] = None,
+        deterministic: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Training forward (tan_model.py:100-149).  Without ``fused_milnce``:
+        the cross-batch per-layer logits 'logits_dual' and 'logits_joint'
+        [B, S, T, B, N] f32, plus the dual features with
+        ``return_dual_feature``; with it: the four per-layer normalized
+        features for ops/milnce.py.  With the head, also the alignability
+        logits 'dual_logits_alignability' [B, N, 1] and
+        'joint_logits_alignability' [B, S, N, 1]."""
+        cfg = self.cfg
+        video_out = self.get_visual_feature(
+            video_embed, video_padding_mask, interpolate_from, deterministic,
+            generator=generator)
+        lang_raw = self.get_textual_feature(lang_embed)
+        fdt = _compute_dtype(video_out, self.dtype)
+        video_norm = l2_normalize(video_out).to(fdt)
+        text_norm = l2_normalize(lang_raw).to(fdt)
+        lang_with_time = (
+            self.get_textual_feature_with_time(lang_embed, interpolate_from, deterministic,
+                                               generator)
+            if cfg.use_text_pos_enc else lang_raw
+        )
+        joint_video, joint_text = self.get_joint_feature(
+            video_embed, video_padding_mask, lang_with_time, lang_padding_mask,
+            interpolate_from, deterministic, generator=generator)
+        joint_video_norm = l2_normalize(joint_video).to(fdt)
+        joint_text_norm = l2_normalize(joint_text).to(fdt)
+
+        if cfg.fused_milnce:
+            out = {
+                "dual_feature_video": video_norm,
+                "dual_feature_text": text_norm,
+                "joint_feature_video": joint_video_norm,
+                "joint_feature_text": joint_text_norm,
+            }
+        else:
+            out = {
+                "logits_dual": _cross_logits(video_norm, text_norm, "astc,bkc->astbk"),
+                "logits_joint": _cross_logits(joint_video_norm, joint_text_norm,
+                                              "astc,bskc->astbk"),
+            }
+            if cfg.return_dual_feature:
+                out["dual_feature_video"] = video_norm
+                out["dual_feature_text"] = text_norm
+        if cfg.use_alignability_head:
+            out["dual_logits_alignability"] = self.binary_head(lang_raw)
+            out["joint_logits_alignability"] = self.binary_head(joint_text)
+        return out
 
     # -------------------------------------------------------------- eval methods
 

@@ -2,8 +2,9 @@
 
 Every ``csrc/<name>.cu`` becomes ``build/torch_kernels/lib<name>-<hash>.so`` at
 the repository root, compiled for ``sm_90a`` into a shared library with a
-plain C interface.  The hash covers the source and the flags, so an edited
-source builds anew and an unchanged one loads the library already there.
+plain C interface.  The hash covers the source, the ``csrc/*.cuh`` headers and
+the flags, so an edited source builds anew and an unchanged one loads the
+library already there.
 ``build_all`` starts one nvcc per source, all at once, and waits for them.
 
 Nothing here runs at import: the CPU tests import every module, on hosts
@@ -44,6 +45,8 @@ def sources() -> List[str]:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -10,8 +10,13 @@ softmax; queries at padded positions still produce values the caller masks.
   uniformly; scores and softmax in f32; P cast to the value dtype before P·V;
   output in the input dtype.  It also holds the causal mask (CLIP text tower),
   which the kernel does not take.
+- ``KernelAttention``: the autograd Function of the Hopper kernels, forward
+  ``ops/mha_fwd.py`` and backward ``ops/mha_bwd.py`` (the counterpart of the
+  custom VJP at pallas_attention.py:198-221).  Only q, k, v and the mask are
+  saved; the backward recomputes P.
 - ``multihead_attention``: dispatch on the device.  A CPU tensor takes the
-  reference; a CUDA tensor launches the Hopper kernel (ops/mha_fwd.py) or raises.
+  reference (autograd through plain PyTorch); a CUDA tensor goes through
+  ``KernelAttention`` or raises.
 """
 
 from __future__ import annotations
@@ -46,6 +51,25 @@ def attention_reference(
     return out.to(v.dtype)
 
 
+class KernelAttention(torch.autograd.Function):
+    """[B, H, S, Dh] attention on the card with the kernels' backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_padding_mask):
+        from temporalalignnet_torch.ops import mha_fwd
+
+        ctx.save_for_backward(q, k, v, key_padding_mask)
+        return mha_fwd.mha_fwd(q, k, v, key_padding_mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        from temporalalignnet_torch.ops import mha_bwd
+
+        q, k, v, key_padding_mask = ctx.saved_tensors
+        dq, dk, dv = mha_bwd.mha_bwd(q, k, v, key_padding_mask, dout)
+        return dq, dk, dv, None
+
+
 def multihead_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -56,7 +80,5 @@ def multihead_attention(
     if q.device.type == "cpu":
         return attention_reference(q, k, v, key_padding_mask)
     if q.device.type == "cuda":
-        from temporalalignnet_torch.ops.mha_fwd import mha_fwd
-
-        return mha_fwd(q, k, v, key_padding_mask)
+        return KernelAttention.apply(q, k, v, key_padding_mask)
     raise ValueError(f"no attention path for device {q.device}")

@@ -3,6 +3,7 @@ Pallas kernel (interpret mode on the CPU, as tests/test_pallas.py runs it) and
 the XLA path.  The device dispatch and the Hopper kernel are held in
 tests/test_torch_kernels.py, which imports no JAX so it also runs on the card."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -63,3 +64,24 @@ def test_reference_bf16_keeps_dtype_and_matches_jax(rng):
     pallas = np.asarray(fused_attention(jq, jk, jv, jnp.asarray(mask)), np.float32)
     # both round P and the output to bf16; the exp/sum orders differ
     np.testing.assert_allclose(ours.float().numpy(), pallas, atol=2e-2)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_reference_grads_match_jax_kernel_vjp(rng, masked):
+    """Autograd of attention_reference against the Pallas backward kernel
+    (_mha_bwd_kernel through fused_attention's custom VJP, interpret mode),
+    with a ragged mask and a fully padded row."""
+    q, k, v, mask = _inputs(rng, 3, 4, 24, 16, masked)
+    g = rng.randn(*q.shape).astype(np.float32)
+    jmask = None if mask is None else jnp.asarray(mask)
+
+    def jax_loss(q, k, v):
+        return jnp.sum(fused_attention(q, k, v, jmask) * g)
+
+    ref = jax.grad(jax_loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ours = [to_torch(x).requires_grad_() for x in (q, k, v)]
+    out = attention_reference(*ours, None if mask is None else to_torch(mask))
+    (out * to_torch(g)).sum().backward()
+    for t, r, name in zip(ours, ref, "qkv"):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), atol=TOL, rtol=0,
+                                   err_msg=f"d{name}")

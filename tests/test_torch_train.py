@@ -1,0 +1,402 @@
+"""The port's Stage-1 training slice against the JAX package's, f32 on the CPU,
+on the same weights (moved through state_dict_from_jax) and the same numpy
+inputs: the training forward, get_loss, the masked statistics, the lr
+schedule, whole train steps, the data pipeline, and the train CLI."""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from port_fixtures import TINY, VOCAB, WORDS, jax_model, port_model, to_torch
+from temporalalignnet_torch.checkpoint import state_dict_from_jax
+from temporalalignnet_torch.core.config import DataConfig, LossConfig, ModelConfig, TrainConfig
+from temporalalignnet_torch.data import HTMFeatureDataset, TrainLoader
+from temporalalignnet_torch.losses import masked_mean, masked_quantile, masked_std
+from temporalalignnet_torch.losses.tan_loss import get_loss
+from temporalalignnet_torch.models.net import TANWithText
+from temporalalignnet_torch.train import Optimizer, lr_at, make_train_step
+from temporalalignnet_tpu.core import config as jcfg
+from temporalalignnet_tpu.data import htm as jax_htm
+from temporalalignnet_tpu.data.prefetch import TrainLoader as JaxTrainLoader
+from temporalalignnet_tpu.data.synthetic import synthetic_batch
+from temporalalignnet_tpu.losses import masked as jax_masked
+from temporalalignnet_tpu.losses.tan_loss import get_loss as jax_get_loss
+from temporalalignnet_tpu.models.net import TANWithText as JaxTANWithText
+from temporalalignnet_tpu.train.optimizer import cosine_warmup_schedule
+from temporalalignnet_tpu.train.train_step import create_train_state
+from temporalalignnet_tpu.train.train_step import make_train_step as jax_make_train_step
+
+torch.set_num_threads(2)
+
+TOL = 2e-5  # the forward bar (tests/test_checkpoint.py::test_full_forward_parity)
+LOSS_TOL = 2e-4  # two train steps (tests/test_fused_milnce.py:146-160)
+PARAM_ATOL, PARAM_RTOL = 2e-4, 1e-3
+
+
+def _batch(seed=0, B=4, T=32, N=4):
+    return synthetic_batch(np.random.RandomState(seed), batch_size=B, seq_len=T,
+                           max_sentences=N, feature_dim=TINY["video_embed_dim"],
+                           vocab_size=VOCAB, max_words=WORDS)
+
+
+def _torch_batch(batch):
+    return {k: to_torch(v) for k, v in batch.items()}
+
+
+# ------------------------------------------------------------ the forward
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_training_forward_matches_jax(fused):
+    kw = dict(use_alignability_head=True, random_pos_start=False, fused_milnce=fused)
+    jm, params = jax_model(**kw)
+    tm = port_model(params, **kw)
+    batch = _batch()
+    batch["video_padding_mask"][1, 25:] = True
+    ref = jm.apply({"params": params}, jnp.asarray(batch["video"]),
+                   jnp.asarray(batch["input_ids"]), jnp.asarray(batch["video_padding_mask"]),
+                   jnp.asarray(batch["text_padding_mask"]), deterministic=False)
+    tb = _torch_batch(batch)
+    with torch.no_grad():
+        ours = tm(tb["video"], tb["input_ids"].long(), tb["video_padding_mask"],
+                  tb["text_padding_mask"], deterministic=False)
+    assert set(ours) == set(ref)
+    for key in ref:
+        assert ours[key].shape == ref[key].shape, key
+        assert ours[key].dtype == torch.float32, key
+        np.testing.assert_allclose(ours[key].numpy(), np.asarray(ref[key]), atol=TOL, rtol=0,
+                                   err_msg=key)
+
+
+def test_random_pos_start_draws_from_the_generator():
+    _, params = jax_model()
+    tm = port_model(params)
+    tb = _torch_batch(_batch())
+    run = lambda seed: tm(tb["video"], tb["input_ids"].long(), deterministic=False,
+                          generator=torch.Generator().manual_seed(seed))["logits_dual"]
+    with torch.no_grad():
+        torch.testing.assert_close(run(3), run(3), rtol=0, atol=0)
+        assert any(not torch.equal(run(3), run(seed)) for seed in range(4, 8))
+        with pytest.raises(ValueError, match="Generator"):
+            tm(tb["video"], tb["input_ids"].long(), deterministic=False)
+
+
+# ------------------------------------------------------------------ losses
+
+
+def test_masked_statistics_match_jax(rng):
+    x = rng.randn(37).astype(np.float32)
+    mask = rng.rand(37) < 0.6
+    tx, tm = to_torch(x), to_torch(mask)
+    np.testing.assert_allclose(masked_mean(tx, tm).item(),
+                               float(jax_masked.masked_mean(x, mask)), rtol=1e-6)
+    np.testing.assert_allclose(masked_std(tx, tm).item(),
+                               float(jax_masked.masked_std(x, mask)), rtol=1e-6)
+    for q in (0.0, 0.3, 0.5, 1.0):
+        ours = masked_quantile(tx, tm, q).item()
+        assert ours == pytest.approx(float(jax_masked.masked_quantile(x, mask, q)), rel=1e-6)
+        assert ours == pytest.approx(torch.quantile(tx[tm], q).item(), rel=1e-6)
+
+
+def _loss_outputs(rng, B=4, S=2, T=32, N=4, C=16):
+    unit = lambda *s: (lambda a: a / np.linalg.norm(a, axis=-1, keepdims=True))(
+        rng.randn(*s).astype(np.float32))
+    out = {"dual_feature_video": unit(B, S, T, C), "dual_feature_text": unit(B, N, C),
+           "joint_feature_video": unit(B, S, T, C), "joint_feature_text": unit(B, S, N, C),
+           "dual_logits_alignability": rng.randn(B, N, 1).astype(np.float32),
+           "joint_logits_alignability": rng.randn(B, S, N, 1).astype(np.float32)}
+    out["logits_dual"] = np.einsum("astc,bkc->astbk", out["dual_feature_video"],
+                                   out["dual_feature_text"])
+    out["logits_joint"] = np.einsum("astc,bskc->astbk", out["joint_feature_video"],
+                                    out["joint_feature_text"])
+    return out
+
+
+LOSS_CONFIGS = {
+    "default": {},
+    "head": dict(use_alignability_head=True),
+    "threshold": dict(loss_threshold=0.5),
+    "head_threshold_bce": dict(use_alignability_head=True, loss_threshold=0.5,
+                               optim_policy="bce"),
+}
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("cfg_name", list(LOSS_CONFIGS))
+def test_get_loss_matches_jax(rng, cfg_name, fused):
+    kw = dict(LOSS_CONFIGS[cfg_name], use_fused_milnce=fused)
+    outputs = _loss_outputs(rng)
+    batch = _batch(T=32)
+    batch["abs_text_pos"][0, 0] = [0.0, 0.1]  # a text near the video's start
+    ref_loss, ref_m = jax_get_loss({k: jnp.asarray(v) for k, v in outputs.items()},
+                                   {k: jnp.asarray(v) for k, v in batch.items()},
+                                   jcfg.LossConfig(**kw))
+    loss, metrics = get_loss({k: to_torch(v) for k, v in outputs.items()}, _torch_batch(batch),
+                             LossConfig(**kw))
+    assert set(metrics) == set(ref_m)
+    np.testing.assert_allclose(loss.item(), float(ref_loss), atol=TOL, rtol=1e-6)
+    for k in ref_m:
+        np.testing.assert_allclose(metrics[k].item(), float(ref_m[k]), atol=TOL, rtol=1e-6,
+                                   err_msg=k)
+
+
+def test_get_loss_refuses_stage_two():
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        get_loss({}, {}, LossConfig(model="cotrain", learn_agreement=True))
+
+
+# ------------------------------------------------------------- optimizer
+
+
+def test_lr_schedule_matches_jax():
+    cfg = TrainConfig(lr=3e-4, warmup_iterations=10, total_iterations=50)
+    ref = cosine_warmup_schedule(jcfg.TrainConfig(lr=3e-4, warmup_iterations=10,
+                                                  total_iterations=50))
+    for step in (0, 1, 5, 9, 10, 11, 30, 49, 50):
+        assert lr_at(cfg, step) == pytest.approx(float(ref(step)), rel=1e-6, abs=1e-12)
+
+
+def test_param_groups():
+    from temporalalignnet_torch.train.optimizer import no_decay, trainable
+
+    model = TANWithText(ModelConfig(**TINY, use_alignability_head=True), vocab_size=VOCAB + 1)
+    names = [n for n, _ in model.named_parameters()]
+    assert "bert.word_embd.weight" not in [n for n in names if trainable(n, "default")]
+    assert [n for n in names if trainable(n, "bce")] == ["binary_head.weight",
+                                                        "binary_head.bias"]
+    assert no_decay("video_temporal_encoder.resblocks.0.attn.in_proj_bias")
+    assert no_decay("ln_video_init.weight")
+    assert no_decay("joint_temporal_encoder.resblocks.1.ln_2.weight")
+    assert not no_decay("video_temporal_encoder.resblocks.0.attn.in_proj_weight")
+    assert not no_decay("temporal_pos_embed")
+
+
+@pytest.mark.parametrize("clip_mode,backprop_freq,nan_at,n_updates", [
+    ("global", 1, (3, 4), 8), ("per_param", 2, (), 5)])
+def test_optimizer_matches_optax_on_a_gradient_sequence(rng, clip_mode, backprop_freq, nan_at,
+                                                        n_updates):
+    """Global or per-param clipping, skip_nonfinite_updates and backprop_freq
+    against the JAX package's optax chain on the same gradients.  NaN
+    gradients are skipped (no update; moments and schedule untouched).  They
+    are not mixed with accumulation: in optax.MultiSteps a NaN stays in the
+    accumulator after the skipped emit ((1 - emit) * NaN), so every later
+    update is skipped too; the port resets its accumulator instead."""
+    import optax
+
+    from temporalalignnet_tpu.train.optimizer import make_optimizer
+
+    kw = dict(lr=1e-2, wd=0.1, warmup_iterations=2, total_iterations=10,
+              backprop_freq=backprop_freq,
+              clip_grad_norm=0.5, clip_mode=clip_mode, skip_nonfinite_updates=True)
+    init = {"w": rng.randn(5, 3).astype(np.float32), "bias": rng.randn(3).astype(np.float32)}
+    tx = make_optimizer(jcfg.TrainConfig(**kw), init)
+    jparams = {k: jnp.asarray(v) for k, v in init.items()}
+    jstate = tx.init(jparams)
+
+    module = torch.nn.Module()
+    for k, v in init.items():
+        module.register_parameter(k, torch.nn.Parameter(to_torch(v.copy())))
+    opt = Optimizer(module, TrainConfig(**kw))
+    for i in range(10):
+        grads = {k: rng.randn(*v.shape).astype(np.float32) for k, v in init.items()}
+        if i in nan_at:
+            grads["w"][0, 0] = np.nan
+        updates, jstate = tx.update({k: jnp.asarray(v) for k, v in grads.items()}, jstate,
+                                    jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for k, p in module.named_parameters():
+            p.grad = to_torch(grads[k])
+        opt.step()
+        for k, p in module.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[k]), atol=1e-6,
+                                       rtol=1e-5, err_msg=f"{k} after micro-step {i}")
+    assert opt.updates == n_updates
+
+
+# ------------------------------------------------------ whole train steps
+
+
+STEP_CASES = {
+    "fused": (dict(fused=True), {}, {}, 2),
+    "plain": (dict(fused=False), {}, {}, 2),
+    "backprop_freq_2": (dict(fused=True), {}, dict(backprop_freq=2), 4),
+    "clip_per_param": (dict(fused=False), {}, dict(clip_grad_norm=0.05), 2),
+    "bce_policy": (dict(fused=True),
+                   dict(use_alignability_head=True, loss_threshold=0.5, optim_policy="bce"),
+                   {}, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_train_steps_match_jax(case):
+    """The slice as a whole: train steps of the port against the JAX package's
+    from the same weights on the same synthetic batch."""
+    flags, loss_kw, train_kw, steps = STEP_CASES[case]
+    fused = flags["fused"]
+    loss_kw = dict(loss_kw, use_fused_milnce=fused)
+    model_kw = dict(TINY, fused_milnce=fused, random_pos_start=False,
+                    use_alignability_head=loss_kw.get("use_alignability_head", False))
+    train_kw = dict(dict(lr=1e-3, warmup_iterations=2, total_iterations=100), **train_kw)
+    batch = _batch()
+
+    jm = JaxTANWithText(jcfg.ModelConfig(**model_kw), vocab_size=VOCAB + 1)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jtrain, jloss = jcfg.TrainConfig(**train_kw), jcfg.LossConfig(**loss_kw)
+    state, tx = create_train_state(jm, jtrain, jloss, jbatch, seed=0)
+    jstep = jax_make_train_step(jm, tx, jtrain, jloss)
+
+    tm = TANWithText(ModelConfig(**model_kw), vocab_size=VOCAB + 1)
+    tm.load_state_dict(state_dict_from_jax(jax.device_get(state.params)), strict=True)
+    tcfg = TrainConfig(**train_kw)
+    opt = Optimizer(tm, tcfg, policy=loss_kw.get("optim_policy", "default"))
+    step = make_train_step(tm, opt, tcfg, LossConfig(**loss_kw))
+    tbatch = _torch_batch(batch)
+    init = {k: v.clone() for k, v in tm.state_dict().items()}
+    for _ in range(steps):
+        state, ref_m = jstep(state, jbatch)
+        ours_m = step(tbatch)
+        assert abs(ours_m["loss"].item() - float(ref_m["loss"])) <= LOSS_TOL
+        for k in ref_m:
+            np.testing.assert_allclose(ours_m[k].item(), float(ref_m[k]), atol=5e-4,
+                                       rtol=1e-3, err_msg=k)
+    assert opt.updates == steps // tcfg.backprop_freq
+    ref = state_dict_from_jax(jax.device_get(state.params))
+    ours = tm.state_dict()
+    for k in ref:
+        np.testing.assert_allclose(ours[k].numpy(), ref[k].numpy(), atol=PARAM_ATOL,
+                                   rtol=PARAM_RTOL, err_msg=k)
+    assert any(not torch.equal(ours[k], init[k]) for k in ours)
+
+
+# ------------------------------------------------------------ data pipeline
+
+
+@pytest.fixture(scope="module")
+def feature_dir(tmp_path_factory):
+    """Six videos of S3D-like features with sentencified captions, as .json
+    and .jsonl, and a vocab; one video held out."""
+    root = tmp_path_factory.mktemp("htm")
+    rng = np.random.RandomState(0)
+    words = [f"w{i}" for i in range(VOCAB)]
+    np.save(root / "vocab.npy", np.array(words))
+    (root / "features").mkdir()
+    caps = {}
+    for v in range(7):
+        vlen = int(rng.randint(70, 160))
+        suffix = ".mp4.npy" if v % 2 else ".webm.npy"
+        np.save(root / "features" / f"vid{v}{suffix}",
+                rng.randn(vlen, TINY["video_embed_dim"]).astype(np.float32))
+        t, text, start, end = 0.0, [], [], []
+        while t < vlen + 5:  # some captions run past the video's end
+            d = float(rng.randint(2, 9)) + rng.rand()
+            text.append(" ".join(rng.choice(words, size=rng.randint(1, 6))))
+            start.append(t)
+            end.append(t + d)
+            t += d + rng.rand() * 2
+        caps[f"vid{v}"] = {"text": text, "start": start, "end": end}
+    (root / "captions.json").write_text(json.dumps(caps))
+    with open(root / "captions.jsonl", "w") as f:
+        for vid, rec in caps.items():
+            f.write(json.dumps({"vid": vid, **rec}) + "\n")
+    (root / "holdout.txt").write_text("vid5\n")
+    return root
+
+
+def _datasets(root, captions):
+    from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
+    from temporalalignnet_tpu.models.word2vec import Word2VecTokenizer as JaxTokenizer
+
+    kw = dict(seq_len=32, max_sentences=4, max_words=WORDS)
+    ours = HTMFeatureDataset(str(root / "features"), str(root / captions), DataConfig(**kw),
+                             "train", Word2VecTokenizer(str(root / "vocab.npy"), WORDS),
+                             holdout=str(root / "holdout.txt"), vlen_table=None)
+    ref = jax_htm.HTMFeatureDataset(str(root / "features"), str(root / captions),
+                                    jcfg.DataConfig(**kw, feature_dim=TINY["video_embed_dim"]),
+                                    "train",
+                                    JaxTokenizer(str(root / "vocab.npy"), WORDS),
+                                    holdout=str(root / "holdout.txt"))
+    return ours, ref
+
+
+@pytest.mark.parametrize("captions", ["captions.json", "captions.jsonl"])
+def test_dataset_samples_bit_equal_jax(feature_dir, captions):
+    ours, ref = _datasets(feature_dir, captions)
+    assert ours.video_ids == ref.video_ids and "vid5" not in ours.video_ids
+    for i in range(len(ours)):
+        for seed in range(3):
+            a = ours.sample(i, np.random.RandomState(seed))
+            b = ref.sample(i, np.random.RandomState(seed))
+            assert set(a) == set(b)
+            for k in a:
+                assert a[k].dtype == b[k].dtype, k
+                np.testing.assert_array_equal(a[k], b[k], err_msg=f"{i} {seed} {k}")
+
+
+def test_loader_epoch_order_bit_equal_jax(feature_dir):
+    ours, ref = _datasets(feature_dir, "captions.json")
+    ol, rl = TrainLoader(ours, 2, seed=7, num_workers=2), JaxTrainLoader(ref, 2, seed=7,
+                                                                         num_workers=2)
+    assert len(ol) == len(rl) == len(ours) // 2
+    for epoch, start in ((0, 0), (1, 1)):
+        ol.set_epoch(epoch, start)
+        rl.set_epoch(epoch, start)
+        got, want = list(ol), list(rl)
+        assert len(got) == len(want) == len(ol) - start
+        for a, b in zip(got, want):
+            for k in b:
+                assert isinstance(a[k], torch.Tensor)
+                np.testing.assert_array_equal(a[k].numpy(), b[k], err_msg=k)
+
+
+# -------------------------------------------------------------------- CLI
+
+
+def test_train_cli_writes_a_checkpoint_the_eval_cli_loads(feature_dir, tmp_path, capsys):
+    from temporalalignnet_torch.eval.cli import main as eval_main
+    from temporalalignnet_torch.train.cli import main as train_main
+
+    shape = ["--video_embed_dim", str(TINY["video_embed_dim"]), "--width", str(TINY["width"]),
+             "--heads", str(TINY["heads"]),
+             "--num_encoder_layers", str(TINY["num_encoder_layers"]),
+             "--num_joint_layers", str(TINY["num_joint_layers"]), "--max_words", str(WORDS)]
+    # an HTM-Align-format corpus over the same features, for both CLIs
+    anno = {f"vid{v}": [[1, 3.0, 9.0, "w1 w2"], [0, 12.0, 20.0, "w3"], [1, 30.0, 41.0, "w4 w5"]]
+            for v in (0, 2)}
+    (tmp_path / "anno.json").write_text(json.dumps(anno))
+    out = train_main(["--feature_dir", str(feature_dir / "features"),
+                      "--captions", str(feature_dir / "captions.json"),
+                      "--vocab", str(feature_dir / "vocab.npy"), "--device", "cpu",
+                      "--batch_size", "2", "--seq_len", "32", "--max_sentences", "4",
+                      "--max_steps", "2", "--log_every", "1", "--num_workers", "2",
+                      "--use_alignability_head", "1", "--prefix", str(tmp_path),
+                      "--align_anno", str(tmp_path / "anno.json"), *shape])
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines() if l.startswith("{")]
+    assert [l["step"] for l in lines[:2]] == [1, 2] and lines[2]["eval_step"] == 2
+    assert lines[-1] == out and out["final_step"] == 2 and out["loss_finite"]
+    ckpt = torch.load(out["checkpoint"], map_location="cpu", weights_only=True)
+    assert set(ckpt) == {"epoch", "state_dict", "best_acc", "optimizer", "iteration"}
+    assert ckpt["iteration"] == 2 and ckpt["optimizer"]["updates"] == 2
+
+    metrics = eval_main(["--task", "align", "--ckpt", out["checkpoint"],
+                         "--features", str(feature_dir / "features"),
+                         "--anno", str(tmp_path / "anno.json"),
+                         "--vocab", str(feature_dir / "vocab.npy"), "--seq_len", "32",
+                         "--device", "cpu", *shape])
+    # the trainer's downstream eval of its final weights is the eval CLI's
+    assert metrics == {k: out[k] for k in metrics}
+    assert 0.0 <= metrics["Recall"] <= 1.0 and 0.0 <= metrics["AUC"] <= 1.0
+
+
+@pytest.mark.parametrize("flag", [["--model", "cotrain"], ["--language_model", "bert"],
+                                  ["--resume", "x"], ["--remat", "1"], ["--dp", "2"],
+                                  ["--steps_per_dispatch", "4"], ["--profile_dir", "p"],
+                                  ["--yc2_anno", "y"], ["--pretrain", "p"], ["--multihost"]])
+def test_train_cli_refuses_flags_of_later_slices(flag):
+    from temporalalignnet_torch.train.cli import main as train_main
+
+    with pytest.raises(SystemExit, match="slice|Queue A"):
+        train_main(["--feature_dir", "f", "--captions", "c", "--vocab", "v", *flag])
