@@ -11,14 +11,16 @@ Phases, each printing JSON lines:
   2. kernel  mha_fwd against attention_reference on the card at the shapes the
              eval path gives it, ragged key masks, f32 and bf16.
      kernel_bwd  mha_bwd (dq, dk, dv) against mha_bwd_reference, the plain
-             version with the kernel's bf16 roundings, at the training shapes
-             and an odd S, per element (GRAD_TOL); planted faults must exceed
-             the limit.
+             version with the kernel's bf16 roundings, per element
+             (GRAD_TOL); planted faults must exceed the limit.  Each route:
+             bf16 "fused" at the training shapes and an odd S, bf16 "v2" at
+             S = 200, "f32" at all four; the route each call took is checked.
      kernel_milnce  milnce_fwd against milnce_reference, milnce_dv and
              milnce_dt against milnce_grad_reference, at the B = 64 training
              shape (shared and per-layer text) and at the shapes where the JAX
              package takes its column-tiled kernels (B = 128; K = 5120), f32
-             and bf16; planted faults as above.
+             and bf16; planted faults as above; milnce_dt's route (bf16
+             "wgmma", f32 "f32") is checked.
   3. eval    AlignmentEvaluator (overlap-seq and global) on a synthetic corpus,
              random E6D6 weights from a seed, bf16; every encoder forward call
              must launch the kernel 12 times.  Then the same evaluation in f32
@@ -29,7 +31,8 @@ Phases, each printing JSON lines:
      train   Stage-1 training of the E6D6 TAN at B = 64, bf16, fused MIL-NCE,
              on synthetic HowTo100M-format features and captions written to
              build/chip_smoke_train/: finite losses, and every step launches
-             mha_fwd and mha_bwd 12 times and each MIL-NCE kernel twice.  The
+             mha_fwd and mha_bwd 12 times (all on the fused route) and each
+             MIL-NCE kernel twice (milnce_dt on the wgmma route).  The
              fused path against the plain-logits path on the card (bf16), and
              an f32 step on the card against the CPU's.
      train_cli  python -m temporalalignnet_torch.train --max_steps on those
@@ -39,7 +42,9 @@ Phases, each printing JSON lines:
              kernel's, the plain version's and PyTorch's SDPA time beside the
              card's bound; train steps/s at B = 64 with its device time and
              top kernels, and the same four times for each training kernel
-             at its training shapes (MIL-NCE also at the tiled-kernel ones).
+             at its training shapes (MIL-NCE also at the tiled-kernel ones),
+             with the earlier bf16 kernel (v2) timed beside the redesigned
+             mha_bwd and milnce_dt.
 The card's name and power limit (nvidia-smi) and a ``kernels`` line come
 before the last line, which is {"ok": true, "device": {...}}.  Any failed
 phase raises and the script exits non-zero without that line.  Without CUDA
@@ -91,6 +96,7 @@ TIMED_SHAPE = (192, 8, 72, 64)  # the joint encoder of the bench.py workload
 BENCH = dict(B=192, T=64, C=1024, N=8, W=32)
 TRAIN = dict(B=64, T=64, N=16, W=32)  # the train CLI's defaults
 MHA_BWD_SHAPES = [(64, 8, 64, 64), (64, 8, 80, 64), (8, 8, 37, 64)]  # dual, joint, odd S
+MHA_BWD_V2_SHAPE = (8, 8, 200, 64)  # bf16 past S = 128 takes the v2 route
 # (S, B, T, N, C, shared text): R = B T rows, K = B N columns
 MILNCE_SHAPES = [(6, 64, 64, 16, 512, True), (6, 64, 64, 16, 512, False),
                  (6, 128, 64, 16, 512, False), (2, 64, 64, 80, 512, False)]
@@ -98,6 +104,8 @@ TRAIN_STEPS = 10
 # expected launches per train step: 6 + 6 encoder blocks; the dual and joint MIL-NCE
 STEP_LAUNCHES = {"mha_fwd": 12, "mha_bwd": 12, "milnce_fwd": 2, "milnce_dv": 2,
                  "milnce_dt": 2}
+# ... and the routes they take (bf16, S = 64 and 80)
+STEP_ROUTES = {"mha_bwd": {"fused": 12, "v2": 0, "f32": 0}, "milnce_dt": {"wgmma": 2, "f32": 0}}
 # fused against plain logits on the card, bf16, two steps on two batches
 # (the first update has lr 0, so both steps see the initial params): the
 # loss differs by the order of f32 sums over the same bf16 features; the
@@ -264,10 +272,24 @@ def kernel_fns():
 def reset_counts():
     for fn in kernel_fns().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 def read_counts():
     return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
+def read_routes():
+    return {name: dict(fn.launches_by_route) for name, fn in kernel_fns().items()
+            if hasattr(fn, "launches_by_route")}
+
+
+def route_taken(fn, before):
+    """The one route whose count moved since ``before`` (a launches_by_route copy)."""
+    moved = [r for r, n in fn.launches_by_route.items() if n != before[r]]
+    check(len(moved) == 1, f"expected one launch on one route, got {moved}")
+    return moved[0]
 
 
 def mha_bwd_dropped_rowsum(torch, q, k, v, mask, dout):
@@ -292,20 +314,23 @@ def phase_mha_bwd_check(torch):
     padded row) and not; and the planted faults against the same plain
     version, each of which the limit must catch."""
     from temporalalignnet_torch.ops.attention import multihead_attention
-    from temporalalignnet_torch.ops.mha_bwd import mha_bwd_reference
+    from temporalalignnet_torch.ops.mha_bwd import mha_bwd, mha_bwd_reference
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 4)
     worst = {}
-    for shape in MHA_BWD_SHAPES:
+    for shape in MHA_BWD_SHAPES + [MHA_BWD_V2_SHAPE]:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             tol = GRAD_TOL[name]
+            expected = "f32" if dtype == torch.float32 else "fused" if shape[2] <= 128 else "v2"
             for masked in (False, True):
                 q, k, v, g = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(4))
                 mask = ragged_mask(torch, shape[0], shape[2], gen, dev) if masked else None
                 leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                before = dict(mha_bwd.launches_by_route)
                 multihead_attention(*leaves, mask).backward(g)
+                taken = route_taken(mha_bwd, before)
                 ours = [t.grad for t in leaves]
                 plain = mha_bwd_reference(q, k, v, mask, g)
                 faults = {"rowsum_dropped": mha_bwd_dropped_rowsum(torch, q, k, v, mask, g)}
@@ -317,13 +342,15 @@ def phase_mha_bwd_check(torch):
                 fault_errs = {f: max(elem_err(a, b) for a, b in zip(fg, plain))
                               for f, fg in faults.items()}
                 worst[name] = max(worst.get(name, 0.0), *abs_errs)
-                emit({"phase": "kernel_bwd", "name": "mha_bwd", "shape": list(shape),
-                      "dtype": name, "masked": masked, "elem_err_dq_dk_dv": errs,
+                emit({"phase": "kernel_bwd", "name": "mha_bwd", "route": taken,
+                      "shape": list(shape), "dtype": name, "masked": masked,
+                      "elem_err_dq_dk_dv": errs,
                       "norm_err_dq_dk_dv": [norm_err(a, b) for a, b in zip(ours, plain)],
                       "abs_err_dq_dk_dv": abs_errs, "rms_dq_dk_dv": [rms(b) for b in plain],
                       "tol": tol, "planted_fault_elem_err": fault_errs})
                 check(all(bool(torch.isfinite(t).all()) and t.dtype == dtype for t in ours),
                       f"mha_bwd output at {shape} {name}")
+                check(taken == expected, f"mha_bwd {name} {shape} took route {taken}")
                 check(max(errs) <= tol, f"mha_bwd {name} {shape} masked={masked}: {errs}")
                 for f, err in fault_errs.items():
                     check(err > tol, f"limit {tol} misses the planted fault {f}: {err}")
@@ -357,7 +384,8 @@ def phase_milnce_check(torch):
     the planted faults against the same plain version, each of which the
     limit must catch."""
     from temporalalignnet_torch.ops.milnce import (
-        fused_milnce_elements, milnce_grad_reference, milnce_lse_reference, milnce_reference)
+        fused_milnce_elements, milnce_dt, milnce_dt_v2, milnce_fwd, milnce_grad_reference,
+        milnce_lse_reference, milnce_reference)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 5)
@@ -369,7 +397,11 @@ def phase_milnce_check(torch):
             name = str(dtype).split(".")[-1]
             ins = [x.detach().to(dtype).clone().requires_grad_() for x in (v32, t32)]
             out = fused_milnce_elements(*ins, pm, cv, mv, inv_temp)
+            before = dict(milnce_dt.launches_by_route)
             ((out[0] * gv).sum() + (out[1] * gt).sum()).backward()
+            taken = route_taken(milnce_dt, before)
+            check(taken == ("wgmma" if dtype == torch.bfloat16 else "f32"),
+                  f"milnce_dt {name} took route {taken}")
             v, t = (x.detach() for x in ins)
             ref = milnce_reference(v, t, pm, cv, mv, inv_temp)
             lse = milnce_lse_reference(v, t, pm, cv, mv, inv_temp)
@@ -381,6 +413,17 @@ def phase_milnce_check(torch):
                 faults["padded_columns_unmasked"] = milnce_grad_reference(
                     v, t, pm, every, milnce_lse_reference(v, t, pm, every, mv, inv_temp),
                     gv, gt, inv_temp)
+            # dt against the plain version from the kernel's own logsumexps (the
+            # ones the backward kernels got), the new and the earlier kernel:
+            # without the ~1e-6 logsumexp difference, which moves some dsim
+            # entries to the neighbouring bf16 value
+            same_lse = {}
+            if dtype == torch.bfloat16:
+                klse = milnce_fwd(v, t, pm, cv, mv, inv_temp)
+                kplain = milnce_grad_reference(v, t, pm, cv, klse, gv, gt, inv_temp)[1]
+                same_lse = {"milnce_dt": elem_err(ins[1].grad, kplain),
+                            "milnce_dt_v2": elem_err(milnce_dt_v2(v, t, pm, cv, klse, gv, gt,
+                                                                  inv_temp), kplain)}
             torch.cuda.synchronize()
             pairs = {"milnce_fwd": list(zip(out, ref)),
                      "milnce_dv": [(ins[0].grad, plain[0])],
@@ -393,16 +436,20 @@ def phase_milnce_check(torch):
                     "milnce_dt": GRAD_TOL[name]}
             emit({"phase": "kernel_milnce", "S": S, "R": B * T, "K": B * N, "C": C,
                   "text": "shared" if shared else "per-layer", "dtype": name,
+                  "milnce_dt_route": taken,
                   "padded_columns": int((~cv).sum()), "elem_err": errs, "abs_err": abs_errs,
                   "norm_err_dv_dt": [norm_err(x.grad, b) for x, b in zip(ins, plain)],
                   "rms_dv_dt": [rms(b) for b in plain], "tol": tols,
-                  "planted_fault_elem_err": fault_errs})
+                  "planted_fault_elem_err": fault_errs,
+                  "elem_err_dt_vs_plain_from_kernel_lse": same_lse})
             for kname, err in errs.items():
                 worst[(kname, name)] = max(worst.get((kname, name), 0.0), abs_errs[kname])
                 check(err <= tols[kname], f"{kname} {name} (S, R, K) = {(S, B * T, B * N)}: {err}")
             for f, err in fault_errs.items():
                 check(err > GRAD_TOL[name], f"limit {GRAD_TOL[name]} misses the planted fault "
                                             f"{f}: {err}")
+            check(same_lse.get("milnce_dt", 0.0) <= GRAD_TOL[name],
+                  f"milnce_dt against the plain version from its own logsumexps: {same_lse}")
             check(all(bool(torch.isfinite(x).all()) for x in (*out, ins[0].grad, ins[1].grad)),
                   "MIL-NCE kernels non-finite")
             check(ins[1].grad.shape == t32.shape and ins[1].grad.dtype == dtype, "dt shape")
@@ -632,7 +679,7 @@ def phase_train(torch, files):
     model, opt, step = train_setup(torch, dev, fused=True)
     init_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
 
-    batches, losses, per_step = [], [], []
+    batches, losses, per_step, routes = [], [], [], []
     totals = {k: 0 for k in STEP_LAUNCHES}
     t0 = time.perf_counter()
     done = 0
@@ -646,6 +693,7 @@ def phase_train(torch, files):
             metrics = step(batch)
             torch.cuda.synchronize()
             counts = read_counts()
+            routes.append(read_routes())
             losses.append(metrics["loss"].item())
             per_step.append(counts)
             for k in totals:
@@ -658,11 +706,15 @@ def phase_train(torch, files):
     secs = time.perf_counter() - t0
     emit({"phase": "train", "model": "E6D6 width 512, word2vec, fused MIL-NCE, bf16",
           "batch": TRAIN, "videos": len(ds), "steps": done, "losses": losses,
-          "launches_per_step": per_step[0], "seconds_with_data": secs})
+          "launches_per_step": per_step[0], "routes_per_step": routes[0],
+          "seconds_with_data": secs})
     check(done == TRAIN_STEPS, f"only {done} train steps")
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
-    for i, counts in enumerate(per_step):
+    for i, (counts, by_route) in enumerate(zip(per_step, routes)):
         check(counts == STEP_LAUNCHES, f"step {i} launched {counts}, expected {STEP_LAUNCHES}")
+        check(by_route == STEP_ROUTES, f"step {i} routes {by_route}, expected {STEP_ROUTES}")
+    totals["routes"] = {k: {r: sum(x[k][r] for x in routes) for r in v}
+                        for k, v in STEP_ROUTES.items()}
 
     # the fused kernels against the plain logits path, on the card, bf16
     runs = {}
@@ -774,7 +826,7 @@ def phase_train_times(torch, card):
     from temporalalignnet_torch.data.synthetic import synthetic_batch
     from temporalalignnet_torch.ops import milnce
     from temporalalignnet_torch.ops.attention import attention_reference
-    from temporalalignnet_torch.ops.mha_bwd import mha_bwd
+    from temporalalignnet_torch.ops.mha_bwd import mha_bwd, mha_bwd_v2
 
     dev = torch.device("cuda")
     B, T, N, W = (TRAIN[k] for k in "BTNW")
@@ -807,6 +859,7 @@ def phase_train_times(torch, card):
         lib = [t.clone().requires_grad_() for t in (q, k, v)]
         lib_out = F.scaled_dot_product_attention(*lib, attn_mask=~pad[:, None, None, :])
         fns = {"": lambda: mha_bwd(q, k, v, pad, g),
+               "v2_": lambda: mha_bwd_v2(q, k, v, pad, g),
                "plain_": lambda: torch.autograd.grad(plain_out, leaves, g, retain_graph=True),
                "library_": lambda: torch.autograd.grad(lib_out, lib, g, retain_graph=True)}
         row = timed_row(torch, fns, 7 * q.numel() * q.element_size() + pad.numel(),
@@ -835,6 +888,8 @@ def phase_train_times(torch, card):
                                                                  retain_graph=True)},
                           feat_bytes + 2 * lse_bytes + v.numel() * 2, 4 * S_ * R * K * C),
             "milnce_dt": ({"": lambda: milnce.milnce_dt(v, t, pm, cv, lse, gv, gt, inv_temp),
+                           "v2_": lambda: milnce.milnce_dt_v2(v, t, pm, cv, lse, gv, gt,
+                                                              inv_temp),
                            "plain_": lambda: torch.autograd.grad(plain_loss, [tr],
                                                                  retain_graph=True)},
                           feat_bytes + 2 * lse_bytes + t.numel() * 2, 4 * S_ * R * K * C),
@@ -948,6 +1003,10 @@ def main() -> int:
              shape=timed["shape"], **{k: timed[k] for k in fields}),
         dict(name="mha_bwd", source="temporalalignnet_torch/csrc/mha_bwd.cu",
              replaces="temporalalignnet_tpu/ops/pallas_attention.py:75 (_mha_bwd_kernel)",
+             kernel_route="fused (wgmma, TMA), bf16 S <= 128",
+             launches_by_route=launches["routes"]["mha_bwd"],
+             earlier_ms=train_rows[("mha_bwd", 80)]["v2_ms"],
+             earlier_version="v2 (mma.sync, two kernels)",
              launches=launches["mha_bwd"], max_abs_err=bwd_err["bfloat16"],
              max_err_f32=bwd_err["float32"], max_err_bf16=bwd_err["bfloat16"],
              shape=train_rows[("mha_bwd", 80)]["shape"],
@@ -960,8 +1019,14 @@ def main() -> int:
     }
     for name, rep in replaces.items():
         row = train_rows[(name, 6, TRAIN["B"] * TRAIN["T"], TRAIN["B"] * TRAIN["N"], False)]
-        src = "milnce_fwd.cu" if name == "milnce_fwd" else "milnce_bwd.cu"
-        entries.append(dict(
+        src = {"milnce_fwd": "milnce_fwd.cu", "milnce_dv": "milnce_bwd.cu",
+               "milnce_dt": "milnce_dt.cu"}[name]
+        extra = {}
+        if name == "milnce_dt":
+            extra = dict(kernel_route="wgmma (TMA, warp specialised), bf16",
+                         launches_by_route=launches["routes"]["milnce_dt"],
+                         earlier_ms=row["v2_ms"], earlier_version="v2 (mma.sync)")
+        entries.append(dict(**extra,
             name=name, source=f"temporalalignnet_torch/csrc/{src}", replaces=rep,
             launches=launches[name], max_abs_err=milnce_err[(name, "bfloat16")],
             max_err_f32=milnce_err[(name, "float32")],

@@ -13,6 +13,11 @@
 // finite -1e30 bias keeps a fully padded row finite: its P is uniform, as in
 // the forward.
 //
+// Three routes, chosen by dtype and S alone (ops/mha_bwd.py::route):
+// - "fused", bf16 with S <= 128 (every training shape): one kernel, one block
+//   per (batch row, head), one pass (mha_bwd_fused_kernel, below).
+// - "v2", bf16 with S > 128, and "f32": the two kernels described next.
+//
 // Two kernels per dtype (FlashAttention-2 shape, any S, D = 64):
 // - dq: a block owns (batch row, head, a run of queries) and streams the keys
 //   twice: first an online (max, sum, sum of e^s dP) recurrence gives each
@@ -37,6 +42,7 @@
 // temporalalignnet_torch/ops/_build.py into a shared library with a plain C
 // interface, called through ctypes.
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -661,6 +667,322 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// ------------------------------------------- bf16, S <= 128: fused, wgmma + TMA
+//
+// The TPU kernel's own schedule: a block holds a whole head, so each score
+// row is complete and the softmax exact, with no statistics scratch and no
+// second sweep.  Five products instead of v2's nine, each input read once.
+//
+// - TMA loads q, k, v, dO of the head into shared memory (3-D tensor maps
+//   over [B H, S, D], 128-byte swizzle; rows past S, up to the tile, are
+//   zero-filled, never the next head's rows) and stores dq, dk, dv the same
+//   way (rows past S are not written).
+// - One warpgroup per 64 query rows (one for S <= 64, two up to 128).  All
+//   products are wgmma (f32 accumulate):
+//     S  = Q K^T, dP = dO V^T   A, B K-major in shared memory, 16 keys a chunk
+//     dQ = dS K                 A = dS from registers, B = K MN-major
+//     dV = P^T dO, dK = dS^T Q  A = P, dS written as bf16 to shared "panels"
+//                               (64 keys x the queries, read MN-major), B MN-major
+//   For dV and dK warpgroup w owns keys 64 w .. +63, so the panels are the
+//   one exchange between the warpgroups (one barrier).
+// - Keys are computed in 16-wide chunks up to the last real key (NCH = S / 16
+//   rounded up, a template parameter): S = 80 costs 80 keys, not 128.
+//
+// What bounds it on an H100: bytes, as for v2 (7 [S, D] tensors per head, ~30
+// MB at the joint training shape against ~2 us of tensor-core work).  With
+// every input read once and the stats scratch gone, the kernel moves only
+// those bytes; what is left is the latency of one head's load -> five
+// products -> store chain, hidden by running 2-4 blocks per SM.
+
+namespace fused {
+
+constexpr int TILE_BYTES = 64 * 128;  // one [64][64] bf16 tile
+
+template <int NCH>
+struct Plan {
+  static constexpr int NWG = NCH > 4 ? 2 : 1;  // warpgroups: one per 64 query rows
+  static constexpr int QR = 64 * NWG;          // rows of the Q and dO tiles
+  static constexpr int KR = 16 * NCH;          // rows of the K and V tiles; rows of a panel
+  static constexpr int Q_OFF = 0;
+  static constexpr int DO_OFF = Q_OFF + QR * 128;
+  static constexpr int K_OFF = DO_OFF + QR * 128;
+  static constexpr int V_OFF = K_OFF + KR * 128;
+  static constexpr int P_OFF = V_OFF + KR * 128;           // NWG panels [KR queries][64 keys]
+  static constexpr int DS_OFF = P_OFF + NWG * KR * 128;    // the same for dS
+  static constexpr int BIAS_OFF = DS_OFF + NWG * KR * 128;  // [KR] f32 key bias
+  static constexpr int BAR_OFF = BIAS_OFF + KR * 4;
+  // dq, dk, dv staging of each warpgroup, over the inputs once they are read
+  static constexpr int OUT_BYTES = 3 * NWG * TILE_BYTES;
+  static_assert(OUT_BYTES <= BIAS_OFF, "staging must not reach the bias and the barrier");
+  static constexpr int BYTES = BAR_OFF + 8 + 1024;  // + room to align the base to 1024
+};
+
+// blocks per SM the registers must allow: 4 of one warpgroup (S <= 64), 2 of
+// two up to S = 96; S > 96 needs more than 128 registers a thread for its
+// score rows, so one block
+template <int NCH>
+constexpr int min_blocks() {
+  return NCH >= 7 ? 1 : (Plan<NCH>::NWG == 2 ? 2 : 4);
+}
+
+template <int NCH>
+__global__ void __launch_bounds__(128 * Plan<NCH>::NWG, min_blocks<NCH>())
+mha_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tdq,
+                     const __grid_constant__ CUtensorMap tdk,
+                     const __grid_constant__ CUtensorMap tdv, const uint8_t* __restrict__ pad,
+                     int H, int S, float scale) {
+  using P = Plan<NCH>;
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  float* bias = reinterpret_cast<float*>(sm + P::BIAS_OFF);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + P::BAR_OFF);
+  const uint32_t base = smem_addr(sm);
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(bar, uint32_t(2 * P::QR + 2 * P::KR) * 128u);
+    tma_load_3d(sm + P::Q_OFF, &tq, bar, 0, 0, bh);
+    tma_load_3d(sm + P::DO_OFF, &tdo, bar, 0, 0, bh);
+    tma_load_3d(sm + P::K_OFF, &tk, bar, 0, 0, bh);
+    tma_load_3d(sm + P::V_OFF, &tv, bar, 0, 0, bh);
+  }
+  // key bias: 0 real, -1e30 padded, -inf past S
+  for (int c = tid; c < P::KR; c += blockDim.x)
+    bias[c] = c >= S ? -INFINITY : ((pad != nullptr && pad[size_t(b) * S + c]) ? MASK_BIAS : 0.f);
+  __syncthreads();
+  mbar_wait(bar, 0);
+
+  // S = Q K^T and dP = dO V^T for this warpgroup's 64 query rows, 16 keys a chunk
+  float sc[NCH][8], dp[NCH][8];
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sc[j][e] = dp[j][e] = 0.f;
+    fence_regs(sc[j]);
+    fence_regs(dp[j]);
+  }
+  const uint32_t qa = base + P::Q_OFF + wg * TILE_BYTES, doa = base + P::DO_OFF + wg * TILE_BYTES;
+  const uint32_t ka = base + P::K_OFF, va = base + P::V_OFF;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {  // D = 64: four 16-deep steps along the row
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      wgmma_ss_n16<0, 0>(sc[j], sw128_desc(qa + kk * 32, 0), sw128_desc(ka + j * 2048 + kk * 32, 0));
+      wgmma_ss_n16<0, 0>(dp[j], sw128_desc(doa + kk * 32, 0), sw128_desc(va + j * 2048 + kk * 32, 0));
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) {
+    fence_regs(sc[j]);
+    fence_regs(dp[j]);
+  }
+
+  // exact softmax of whole rows; register e of chunk j: row g + 8 ((e >> 1) & 1),
+  // key 16 j + 8 (e >> 2) + 2 t + (e & 1)
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NCH; ++j)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float x = sc[j][e] * scale + bias[16 * j + 8 * (e >> 2) + 2 * t + (e & 1)];
+      sc[j][e] = x;
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
+    }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // finite: key 0 is real
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < NCH; ++j)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float p = expf(sc[j][e] - mx[(e >> 1) & 1]);
+      sc[j][e] = p;
+      sum[(e >> 1) & 1] += p;
+    }
+  float delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    sum[h] = 1.f / sum[h];
+  }
+  // P (unrounded, f32), then rowsum(dP P) of it; queries past S give nothing
+  const int row0 = 64 * wg + 16 * warp + g;
+  const bool live[2] = {row0 < S, row0 + 8 < S};
+#pragma unroll
+  for (int j = 0; j < NCH; ++j)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int h = (e >> 1) & 1;
+      const float p = live[h] ? sc[j][e] * sum[h] : 0.f;
+      sc[j][e] = p;
+      delta[h] += p * dp[j][e];
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    delta[h] += __shfl_xor_sync(0xffffffffu, delta[h], 1);
+    delta[h] += __shfl_xor_sync(0xffffffffu, delta[h], 2);
+  }
+#pragma unroll
+  for (int j = 0; j < NCH; ++j)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dp[j][e] = sc[j][e] * (dp[j][e] - delta[(e >> 1) & 1]);  // dS
+
+  // P and dS as bf16 into the panels (key chunks past the last one as zeros)
+#pragma unroll
+  for (int j = 0; j < 4 * P::NWG; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row < P::KR) {
+          const int e = 4 * hh + 2 * h;
+          const int col = (j % 4) * 16 + 8 * hh + 2 * t;
+          const uint32_t off = uint32_t(j / 4) * P::KR * 128 + sw128_offset(row, col);
+          uint32_t pv = 0u, dv2 = 0u;
+          if (j < NCH) {
+            pv = pack_bf16x2(sc[j < NCH ? j : 0][e], sc[j < NCH ? j : 0][e + 1]);
+            dv2 = pack_bf16x2(dp[j < NCH ? j : 0][e], dp[j < NCH ? j : 0][e + 1]);
+          }
+          *reinterpret_cast<uint32_t*>(sm + P::P_OFF + off) = pv;
+          *reinterpret_cast<uint32_t*>(sm + P::DS_OFF + off) = dv2;
+        }
+      }
+  fence_async_smem();
+
+  // dQ = dS K, dS from registers (the same bf16 values as the panel); the
+  // wgmma reads them asynchronously, so they stay live until its wait
+  uint32_t af[NCH][4];
+#pragma unroll
+  for (int kk = 0; kk < NCH; ++kk) {
+    af[kk][0] = pack_bf16x2(dp[kk][0], dp[kk][1]);
+    af[kk][1] = pack_bf16x2(dp[kk][2], dp[kk][3]);
+    af[kk][2] = pack_bf16x2(dp[kk][4], dp[kk][5]);
+    af[kk][3] = pack_bf16x2(dp[kk][6], dp[kk][7]);
+  }
+  float dq[32], dk[32], dv[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dq[e] = dk[e] = dv[e] = 0.f;
+  fence_regs(dq);
+  fence_regs(dk);
+  fence_regs(dv);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NCH; ++kk) wgmma_rs_n64<1>(dq, af[kk], sw128_desc(ka + kk * 2048, 0));
+  wgmma_commit();
+  __syncthreads();  // both warpgroups' panels are written
+
+  // dV = P^T dO and dK = dS^T Q for keys 64 wg .. +63, over the real queries
+  const uint32_t pa = base + P::P_OFF + wg * P::KR * 128;
+  const uint32_t dsa = base + P::DS_OFF + wg * P::KR * 128;
+#pragma unroll
+  for (int kk = 0; kk < NCH; ++kk) {
+    wgmma_ss_n64<1, 1>(dv, sw128_desc(pa + kk * 2048, P::KR * 128),
+                       sw128_desc(base + P::DO_OFF + kk * 2048, 0));
+    wgmma_ss_n64<1, 1>(dk, sw128_desc(dsa + kk * 2048, P::KR * 128),
+                       sw128_desc(base + P::Q_OFF + kk * 2048, 0));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dq);
+  fence_regs(dk);
+  fence_regs(dv);
+#pragma unroll
+  for (int kk = 0; kk < NCH; ++kk) fence_regs(af[kk]);
+  __syncthreads();  // every read of the inputs and the panels is done
+
+  // stage dq (this warpgroup's queries), dk, dv (its keys) as bf16 tiles and
+  // store them with TMA
+  uint8_t* out = sm + wg * TILE_BYTES;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t off = sw128_offset(16 * warp + g + 8 * h, 8 * j + 2 * t);
+      const int e = 4 * j + 2 * h;
+      *reinterpret_cast<uint32_t*>(out + off) = pack_bf16x2(dq[e] * scale, dq[e + 1] * scale);
+      *reinterpret_cast<uint32_t*>(out + P::NWG * TILE_BYTES + off) =
+          pack_bf16x2(dk[e] * scale, dk[e + 1] * scale);
+      *reinterpret_cast<uint32_t*>(out + 2 * P::NWG * TILE_BYTES + off) =
+          pack_bf16x2(dv[e], dv[e + 1]);
+    }
+  fence_async_smem();
+  if (wg == 0)  // this warpgroup's staging is written (constant ids: one barrier each)
+    named_barrier<1, 128>();
+  else
+    named_barrier<2, 128>();
+  if (tid % 128 == 0) {
+    tma_store_3d(&tdq, out, 0, 64 * wg, bh);
+    tma_store_3d(&tdk, out + P::NWG * TILE_BYTES, 0, 64 * wg, bh);
+    tma_store_3d(&tdv, out + 2 * P::NWG * TILE_BYTES, 0, 64 * wg, bh);
+    tma_store_commit_and_wait();
+  }
+}
+
+template <int NCH>
+cudaError_t launch_nch(const CUtensorMap* maps, const uint8_t* pad, int BH, int H, int S,
+                       cudaStream_t stream) {
+  using P = Plan<NCH>;
+  cudaError_t err = cudaFuncSetAttribute(mha_bwd_fused_kernel<NCH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
+  if (err != cudaSuccess) return err;
+  mha_bwd_fused_kernel<NCH><<<BH, 128 * P::NWG, P::BYTES, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], pad, H, S,
+      1.0f / sqrtf(float(D)));
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v, const void* pad, const void* dout,
+                   void* dq, void* dk, void* dv, int B, int H, int S, cudaStream_t stream) {
+  const int nch = (S + 15) / 16, nwg = nch > 4 ? 2 : 1;
+  const int BH = B * H;
+  const uint64_t dims[3] = {uint64_t(D), uint64_t(S), uint64_t(BH)};
+  const uint64_t strides[2] = {uint64_t(D) * 2, uint64_t(S) * D * 2};
+  const uint32_t box_q[3] = {uint32_t(D), uint32_t(64 * nwg), 1};
+  const uint32_t box_k[3] = {uint32_t(D), uint32_t(16 * nch), 1};
+  const uint32_t box_out[3] = {uint32_t(D), 64, 1};
+  const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
+  const uint32_t* boxes[7] = {box_q, box_k, box_k, box_q, box_out, box_out, box_out};
+  CUtensorMap maps[7];
+  for (int i = 0; i < 7; ++i)
+    if (!hopper::make_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptrs[i], dims, strides,
+                          boxes[i], CU_TENSOR_MAP_SWIZZLE_128B))
+      return cudaErrorInvalidValue;
+  const auto* pb = static_cast<const uint8_t*>(pad);
+  switch (nch) {
+    case 1: return launch_nch<1>(maps, pb, BH, H, S, stream);
+    case 2: return launch_nch<2>(maps, pb, BH, H, S, stream);
+    case 3: return launch_nch<3>(maps, pb, BH, H, S, stream);
+    case 4: return launch_nch<4>(maps, pb, BH, H, S, stream);
+    case 5: return launch_nch<5>(maps, pb, BH, H, S, stream);
+    case 6: return launch_nch<6>(maps, pb, BH, H, S, stream);
+    case 7: return launch_nch<7>(maps, pb, BH, H, S, stream);
+    case 8: return launch_nch<8>(maps, pb, BH, H, S, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace fused
+
 }  // namespace
 
 // stats: 3 B H S f32 of scratch.  dtype: 0 = float32, 1 = bfloat16.
@@ -674,4 +996,18 @@ extern "C" int mha_bwd(const void* q, const void* k, const void* v, const void* 
   if (dtype == 0) return int(launch_f32(q, k, v, pad, dout, dq, dk, dv, stats, B, H, S, st));
   if (dtype == 1) return int(launch_bf16(q, k, v, pad, dout, dq, dk, dv, stats, B, H, S, st));
   return int(cudaErrorInvalidValue);
+}
+
+// The fused route: bf16, S <= 128, no scratch.  Pointers 16-byte aligned
+// (TMA).  Returns a cudaError_t (0 = launched).
+extern "C" int mha_bwd_fused(const void* q, const void* k, const void* v, const void* pad,
+                             const void* dout, void* dq, void* dk, void* dv, int B, int H, int S,
+                             int head_dim, void* stream) {
+  const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return int(cudaErrorInvalidValue);
+  if (B <= 0 || H <= 0 || S <= 0 || S > 128 || head_dim != D)
+    return int(cudaErrorInvalidValue);
+  return int(fused::launch(q, k, v, pad, dout, dq, dk, dv, B, H, S,
+                           static_cast<cudaStream_t>(stream)));
 }

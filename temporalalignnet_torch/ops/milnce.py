@@ -18,7 +18,9 @@ layer and its gradient is summed over them.
 - ``MilNCEFunction``: on the card, the Hopper kernels of csrc/milnce_fwd.cu
   (``milnce_fwd``: the four logsumexps) and csrc/milnce_bwd.cu (``milnce_dv``,
   ``milnce_dt``: the feature gradients from the saved logsumexps).  There is
-  no fallback: a CUDA tensor launches the kernels or raises.
+  no fallback: a CUDA tensor launches the kernels or raises.  ``milnce_dt``
+  takes its route from the dtype alone (``dt_route``): bf16 the wgmma/TMA
+  kernel of csrc/milnce_dt.cu, f32 the FMA kernel of csrc/milnce_bwd.cu.
 
 The masks go to the kernels as bytes: ``pos_mask`` as a [R, K] bool tensor
 (it is block-diagonal in the loss, but the contract takes any mask), so the
@@ -176,7 +178,24 @@ def _splits(outer_tiles: int, out_layers: int, inner_tiles: int, sms: int) -> in
     return max(1, min(inner_tiles, -(-_WAVES * sms // (outer_tiles * out_layers))))
 
 
-def _grad(name, video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp):
+def _wave_splits(blocks: int, inner_tiles: int, sms: int) -> int:
+    """Inner-axis splits for a kernel that holds one block per SM.  Its time
+    goes as waves x inner tiles per block (the last wave's idle SMs count);
+    every split also writes and reads back an f32 partial, so take the
+    fewest splits within 5 % of the least such time."""
+    cost = [(-(-blocks * sp // sms)) * -(-inner_tiles // sp) for sp in range(1, inner_tiles + 1)]
+    return next(sp for sp, c in enumerate(cost, 1) if c <= 1.05 * min(cost))
+
+
+DT_ROUTES = ("wgmma", "f32")
+
+
+def dt_route(dtype: torch.dtype) -> str:
+    """The kernel route of ``milnce_dt``, from the dtype alone."""
+    return "wgmma" if dtype == torch.bfloat16 else "f32"
+
+
+def _grad(name, video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp, wgmma=False):
     S, R, K, C, t_ls = _check(name, video, text, pos_mask, col_valid)
     vnum, vden, tnum, tden = lse
     g_v, g_t = g_v.float().contiguous(), g_t.float().contiguous()
@@ -187,19 +206,26 @@ def _grad(name, video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp):
     else:
         out_layers, n_out, n_in = (S if text.dim() == 3 else 1), K, R
         out = torch.empty(text.shape, dtype=text.dtype, device=text.device)
-    splits = _splits(-(-n_out // TILE), out_layers, -(-n_in // TILE), _sm_count(video.device))
-    part = torch.empty(splits * out_layers * n_out * C, **f32)
     args = [video.data_ptr(), text.data_ptr(), t_ls, pos_mask.data_ptr(), col_valid.data_ptr(),
             vnum.data_ptr(), vden.data_ptr(), tnum.data_ptr(), tden.data_ptr(), g_v.data_ptr(),
-            g_t.data_ptr(), out.data_ptr(), part.data_ptr(), S, R, K, C]
-    argtypes = [_P, _P, _L] + [_P] * 10 + [_I] * 4
-    if name == "milnce_dt":
-        args.append(out_layers)
-        argtypes.append(_I)
-    fn = _fn("milnce_bwd", name, argtypes + [_I, _I, _F, _P])
+            g_t.data_ptr(), out.data_ptr()]
+    argtypes = [_P, _P, _L] + [_P] * 9
+    if wgmma:
+        splits = _wave_splits(-(-n_out // TILE) * out_layers, -(-n_in // TILE),
+                              _sm_count(video.device))
+        ints = [S, R, K, C, out_layers, splits]
+        lib, fname = "milnce_dt", "milnce_dt_wgmma"
+    else:
+        splits = _splits(-(-n_out // TILE), out_layers, -(-n_in // TILE), _sm_count(video.device))
+        ints = ([S, R, K, C] + ([out_layers] if name == "milnce_dt" else [])
+                + [splits, _DTYPES[video.dtype]])
+        lib, fname = "milnce_bwd", name
+    part = torch.empty(splits * out_layers * n_out * C, **f32)
+    fn = _fn(lib, fname, argtypes + [_P] + [_I] * len(ints) + [_F, _P])
+    args += [part.data_ptr()] + ints
     with torch.cuda.device(video.device):
         stream = torch.cuda.current_stream(video.device).cuda_stream
-        rc = fn(*args, splits, _DTYPES[video.dtype], float(inv_temp), stream)
+        rc = fn(*args, float(inv_temp), stream)
     _launch(name, rc, (S, R, K, C))
     return out
 
@@ -213,12 +239,23 @@ def milnce_dv(video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp: float):
 
 def milnce_dt(video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp: float):
     """d/d text, [S, K, C] or (shared text) [K, C] summed over the layers."""
-    out = _grad("milnce_dt", video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp)
+    which = dt_route(video.dtype)
+    out = _grad("milnce_dt", video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp,
+                wgmma=which == "wgmma")
     milnce_dt.launches += 1
+    milnce_dt.launches_by_route[which] += 1
     return out
 
 
+def milnce_dt_v2(video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp: float):
+    """The earlier bf16 text-gradient kernel (mma.sync, csrc/milnce_bwd.cu),
+    which no route takes any more: kept so that a run can time the redesign
+    beside it.  Not counted."""
+    return _grad("milnce_dt", video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp)
+
+
 milnce_fwd.launches = milnce_dv.launches = milnce_dt.launches = 0
+milnce_dt.launches_by_route = dict.fromkeys(DT_ROUTES, 0)
 
 
 class MilNCEFunction(torch.autograd.Function):

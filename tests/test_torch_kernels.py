@@ -210,6 +210,29 @@ def test_mha_bwd_matches_reference_grads_on_card(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,S,expected", [(torch.bfloat16, 80, "fused"),
+                                              (torch.bfloat16, 150, "v2"),
+                                              (torch.float32, 80, "f32")])
+def test_mha_bwd_takes_the_route_of_its_dtype_and_length_on_card(cuda, dtype, S, expected):
+    """One launch on the expected route; bf16 at S <= 128 also through the
+    earlier two-kernel version (mha_bwd_v2), both against the plain version."""
+    from temporalalignnet_torch.ops.mha_bwd import mha_bwd, mha_bwd_reference, mha_bwd_v2
+
+    q, k, v, mask = _qkv((2, 4, S, 64), dtype, cuda)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(cuda, dtype)
+    before = dict(mha_bwd.launches_by_route)
+    ours = mha_bwd(q, k, v, mask, g)
+    torch.cuda.synchronize()
+    moved = {r: n - before[r] for r, n in mha_bwd.launches_by_route.items() if n != before[r]}
+    assert moved == {expected: 1}
+    ref = mha_bwd_reference(q, k, v, mask, g)
+    versions = [ours] + ([mha_bwd_v2(q, k, v, mask, g)] if expected == "fused" else [])
+    for grads in versions:
+        for a, b in zip(grads, ref):
+            assert elem_err(a, b) <= _grad_tol(dtype)
+
+
+@pytest.mark.cuda
 def test_mha_bwd_refuses_what_it_does_not_take(cuda):
     from temporalalignnet_torch.ops.mha_bwd import mha_bwd
 
@@ -340,6 +363,27 @@ def test_milnce_kernels_match_reference_on_card(cuda, S, R, K, C, shared, dtype)
     for x, y in zip(ours_in, ref_grads):
         assert x.grad.dtype == dtype and x.grad.shape == x.shape
         assert elem_err(x.grad, y) <= _grad_tol(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,expected", [(torch.bfloat16, "wgmma"), (torch.float32, "f32")])
+def test_milnce_dt_takes_the_route_of_its_dtype_on_card(cuda, dtype, expected):
+    """One launch on the expected route; in bf16 the earlier kernel
+    (milnce_dt_v2) too, both against the plain version."""
+    from temporalalignnet_torch.ops import milnce
+
+    v, t, pm, cv, gv, gt = _milnce_problem(3, 200, 96, 128, False, dtype, cuda)
+    lse = milnce.milnce_lse_reference(v, t, pm, cv, -6e4, 1 / 0.07)
+    before = dict(milnce.milnce_dt.launches_by_route)
+    ours = milnce.milnce_dt(v, t, pm, cv, lse, gv, gt, 1 / 0.07)
+    torch.cuda.synchronize()
+    after = milnce.milnce_dt.launches_by_route
+    assert {r: n - before[r] for r, n in after.items() if n != before[r]} == {expected: 1}
+    ref = milnce.milnce_grad_reference(v, t, pm, cv, lse, gv, gt, 1 / 0.07)[1]
+    versions = [ours] + ([milnce.milnce_dt_v2(v, t, pm, cv, lse, gv, gt, 1 / 0.07)]
+                         if expected == "wgmma" else [])
+    for dt in versions:
+        assert dt.dtype == dtype and elem_err(dt, ref) <= _grad_tol(dtype)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,322 @@
+"""Blocked CPU emulations of the Hopper kernels' tile schedules, held against
+the JAX package's Pallas kernels (interpret mode, as tests/test_pallas.py and
+tests/test_fused_milnce.py run them) and against the port's plain versions.
+
+- ``fused_mha_bwd_schedule`` follows csrc/mha_bwd.cu::mha_bwd_fused_kernel:
+  one head at a time, query rows padded to 64-row warpgroup tiles and keys to
+  16-key chunks (zero-filled past S, as TMA fills them), exact softmax of
+  whole rows, P and dS through the bf16 "panels" (64 keys x the queries),
+  dQ over key chunks, dV and dK per 64-key warpgroup over 16-query steps.
+- ``dt_schedule`` follows csrc/milnce_dt.cu: 64-column blocks, 64-row tiles,
+  sim^T summed over the two consumers' channel chunks, dsim rounded to the
+  feature dtype, the product split over the same chunks, row splits chosen by
+  ``ops.milnce._wave_splits``, and their f32 partials summed in split order
+  (milnce_dt_reduce_kernel).
+
+Also the route selection of ``mha_bwd`` and ``milnce_dt`` (dtype and S).
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import GRAD_TOL, elem_err
+from port_fixtures import to_torch
+from temporalalignnet_torch.ops import milnce
+from temporalalignnet_torch.ops import mha_bwd as bwd
+from temporalalignnet_torch.ops.attention import NEG_INF
+from temporalalignnet_tpu.ops import pallas_attention, pallas_milnce
+
+torch.set_num_threads(2)
+
+F32_TOL = 1e-5  # f32, emulation against the plain version: the order of the sums
+JAX_ATTN_TOL = 1e-5  # tests/test_torch_attention.py: f32 on the CPU
+JAX_MILNCE_TOL = 5e-4  # tests/test_fused_milnce.py:85 (interpret mode)
+BF16_TOL = GRAD_TOL["bfloat16"]  # the chip check's per-element limit (chip_smoke.py)
+MV, INV_TEMP = -6.0e4, 1.0 / 0.07
+
+
+# ------------------------------------------------------ attention backward
+
+
+def fused_mha_bwd_schedule(q, k, v, mask, dout):
+    """(dq, dk, dv) as mha_bwd_fused_kernel computes them, in its order."""
+    dtype = q.dtype
+    B, H, S, D = q.shape
+    nch = -(-S // 16)
+    nwg = 2 if nch > 4 else 1
+    QR, KR = 64 * nwg, 16 * nch
+    scale = 1.0 / math.sqrt(D)
+    rnd = lambda x: x.to(dtype).float()
+
+    def rows(x, n):  # [B, H, S, D] -> [B, H, n, D], zero past S
+        out = torch.zeros(B, H, n, D)
+        out[:, :, :S] = x.float()
+        return out
+
+    Q, dO, K, V = rows(q, QR), rows(dout, QR), rows(k, KR), rows(v, KR)
+    bias = torch.full((B, KR), -math.inf)
+    bias[:, :S] = 0.0 if mask is None else torch.where(mask, NEG_INF, 0.0)
+    p_pan = torch.zeros(B, H, nwg, KR, 64)  # [panel][queries][64 keys]
+    ds_pan = torch.zeros(B, H, nwg, KR, 64)
+    dq = torch.zeros(B, H, QR, D)
+    for w in range(nwg):  # one warpgroup per 64 query rows
+        qr = slice(64 * w, 64 * w + 64)
+        sc = torch.zeros(B, H, 64, KR)
+        dp = torch.zeros(B, H, 64, KR)
+        for j in range(nch):  # 16-key chunks
+            kc = slice(16 * j, 16 * j + 16)
+            sc[..., kc] = Q[:, :, qr] @ K[:, :, kc].transpose(-1, -2)
+            dp[..., kc] = dO[:, :, qr] @ V[:, :, kc].transpose(-1, -2)
+        x = sc * scale + bias[:, None, None, :]
+        p = torch.softmax(x, dim=-1)
+        live = (torch.arange(64 * w, 64 * w + 64) < S)[:, None]
+        p = torch.where(live, p, torch.zeros(()))
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        for j in range(4 * nwg):  # the panels, zero past the last chunk
+            n = min(64, KR - 64 * w)  # panel rows this warpgroup writes
+            if j < nch and n > 0:
+                kc = slice(16 * j, 16 * j + 16)
+                pc = slice((j % 4) * 16, (j % 4) * 16 + 16)
+                p_pan[:, :, j // 4, 64 * w:64 * w + n, pc] = rnd(p[:, :, :n, kc])
+                ds_pan[:, :, j // 4, 64 * w:64 * w + n, pc] = rnd(ds[:, :, :n, kc])
+        for kk in range(nch):  # dQ = dS K, dS from registers
+            kc = slice(16 * kk, 16 * kk + 16)
+            dq[:, :, qr] += rnd(ds[..., kc]) @ K[:, :, kc]
+    dk = torch.zeros(B, H, 64 * nwg, D)
+    dv = torch.zeros(B, H, 64 * nwg, D)
+    for w in range(nwg):  # keys 64 w .. +63
+        kr = slice(64 * w, 64 * w + 64)
+        for kk in range(nch):  # 16 queries a step
+            qc = slice(16 * kk, 16 * kk + 16)
+            dv[:, :, kr] += p_pan[:, :, w, qc].transpose(-1, -2) @ dO[:, :, qc]
+            dk[:, :, kr] += ds_pan[:, :, w, qc].transpose(-1, -2) @ Q[:, :, qc]
+    return ((dq[:, :, :S] * scale).to(dtype), (dk[:, :, :S] * scale).to(dtype),
+            dv[:, :, :S].to(dtype))
+
+
+def _attn_problem(seed, B, H, S, D=64, masked=True):
+    rng = np.random.RandomState(seed)
+    q, k, v, g = (rng.randn(B, H, S, D).astype(np.float32) for _ in range(4))
+    mask = None
+    if masked:
+        mask = rng.rand(B, S) < 0.3
+        mask[:, 0] = False
+        mask[-1] = True  # a fully padded row
+    return q, k, v, g, mask
+
+
+def _jax_attn_bwd(q, k, v, mask, g):
+    B, S = q.shape[0], q.shape[2]
+    bias = np.zeros((B, 1, S), np.float32)
+    if mask is not None:
+        bias = np.where(mask, NEG_INF, 0.0).astype(np.float32)[:, None, :]
+    out = pallas_attention._fused_attention_bwd_call(
+        *(jnp.asarray(x) for x in (q, k, v, bias, g)), interpret=True, group=1)
+    return [np.asarray(x, np.float32) for x in out]
+
+
+@pytest.mark.parametrize("S,masked", [(37, True), (64, False), (80, True), (128, True)])
+def test_fused_mha_bwd_schedule_matches_jax_kernel_and_plain_f32(S, masked):
+    """f32: one warpgroup (S <= 64) and two (S = 80, 128), a fully padded row."""
+    q, k, v, g, mask = _attn_problem(S, 2, 2, S, masked=masked)
+    tm = None if mask is None else to_torch(mask)
+    ours = fused_mha_bwd_schedule(*(to_torch(x) for x in (q, k, v)), tm, to_torch(g))
+    plain = bwd.mha_bwd_reference(*(to_torch(x) for x in (q, k, v)), tm, to_torch(g))
+    jax_ref = _jax_attn_bwd(q, k, v, mask, g)
+    for a, b, c, name in zip(ours, plain, jax_ref, ("dq", "dk", "dv")):
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, b, rtol=F32_TOL, atol=F32_TOL, msg=name)
+        np.testing.assert_allclose(a.numpy(), c, atol=JAX_ATTN_TOL, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("S", [37, 80])
+def test_fused_mha_bwd_schedule_bf16_rounds_as_the_plain_version(S):
+    """bf16 inputs, P and dS rounded where the kernel rounds them: against
+    mha_bwd_reference and the JAX kernel in bf16 by the chip check's limit."""
+    q, k, v, g, mask = _attn_problem(S + 1, 2, 2, S)
+    tq, tk, tv, tg = (to_torch(x).bfloat16() for x in (q, k, v, g))
+    ours = fused_mha_bwd_schedule(tq, tk, tv, to_torch(mask), tg)
+    plain = bwd.mha_bwd_reference(tq, tk, tv, to_torch(mask), tg)
+    bias = np.where(mask, NEG_INF, 0.0).astype(np.float32)[:, None, :]
+    jax_ref = pallas_attention._fused_attention_bwd_call(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (tq, tk, tv)),
+        jnp.asarray(bias), jnp.asarray(tg.float().numpy(), jnp.bfloat16),
+        interpret=True, group=1)
+    for a, b, c, name in zip(ours, plain, jax_ref, ("dq", "dk", "dv")):
+        assert a.dtype == torch.bfloat16, name
+        assert elem_err(a, b) <= BF16_TOL, name
+        assert elem_err(a, torch.from_numpy(np.asarray(c, np.float32))) <= BF16_TOL, name
+
+
+@pytest.mark.parametrize("dtype,S,expected", [
+    (torch.bfloat16, 1, "fused"), (torch.bfloat16, 64, "fused"), (torch.bfloat16, 80, "fused"),
+    (torch.bfloat16, 128, "fused"), (torch.bfloat16, 129, "v2"), (torch.bfloat16, 1088, "v2"),
+    (torch.float32, 64, "f32"), (torch.float32, 200, "f32")])
+def test_mha_bwd_route_depends_on_dtype_and_length(dtype, S, expected):
+    assert bwd.route(dtype, S) == expected
+
+
+def test_mha_bwd_counts_the_route_it_launches(monkeypatch):
+    """The wrapper hands its route to the launch and counts it there."""
+    taken = []
+    monkeypatch.setattr(bwd, "_launch", lambda which, *a: taken.append(which) or (None,) * 3)
+    before = dict(bwd.mha_bwd.launches_by_route)
+    for S in (64, 80, 200):
+        q = torch.zeros(1, 1, S, 64, dtype=torch.bfloat16)
+        bwd.mha_bwd(q, q, q, None, q)
+    bwd.mha_bwd(torch.zeros(1, 1, 64, 64), *[torch.zeros(1, 1, 64, 64)] * 2, None,
+                torch.zeros(1, 1, 64, 64))
+    assert taken == ["fused", "fused", "v2", "f32"]
+    after = bwd.mha_bwd.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {"fused": 2, "v2": 1, "f32": 1}
+
+
+def test_mha_bwd_v2_takes_only_bf16():
+    q = torch.zeros(1, 1, 64, 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        bwd.mha_bwd_v2(q, q, q, None, q)
+
+
+# ------------------------------------------------------- MIL-NCE text grad
+
+
+def dt_schedule(v, t, pm, cv, lse, gv, gt, inv_temp, sms):
+    """dt as milnce_dt_wgmma_kernel computes it, block by block."""
+    vnum, vden, tnum, tden = (x.float() for x in lse)
+    S, R, C = v.shape
+    shared = t.dim() == 2
+    K = t.shape[-2]
+    out_layers = 1 if shared else S
+    layers = S // out_layers
+    ctiles, rtiles = -(-K // 64), -(-R // 64)
+    splits = milnce._wave_splits(ctiles * out_layers, rtiles, sms)
+    per = -(-rtiles // splits)
+    splits = -(-rtiles // per)
+    nb0 = (C // 64 + 1) // 2 * 64  # consumer 0's channels
+    part = torch.zeros(splits, out_layers, K, C)
+    for kb in range(ctiles):
+        cols = slice(64 * kb, min(64 * kb + 64, K))
+        for y in range(out_layers):
+            for sp in range(splits):
+                acc = torch.zeros(cols.stop - cols.start, C)
+                for s in range(y * layers, (y + 1) * layers):
+                    tc = (t if shared else t[s])[cols].float()
+                    for it in range(sp * per, min(sp * per + per, rtiles)):
+                        rows = slice(64 * it, min(64 * it + 64, R))
+                        vr = v[s, rows].float()
+                        # sim^T [k, r]: each consumer's channels, then the swap
+                        x = (tc[:, :nb0] @ vr[:, :nb0].T + tc[:, nb0:] @ vr[:, nb0:].T) * inv_temp
+                        pos = pm[rows, cols].T
+                        keep = cv[cols][:, None]
+                        vn, vd, g_v = (z[s, rows][None] for z in (vnum, vden, gv.float()))
+                        kn, kd, g_t = (z[s, cols][:, None] for z in (tnum, tden, gt.float()))
+                        zero = torch.zeros(())
+                        d = (torch.where(keep, g_v * (x - vd).exp() + g_t * (x - kd).exp(), zero)
+                             - torch.where(pos, g_v * (x - vn).exp() + g_t * (x - kn).exp(), zero))
+                        d = (d * inv_temp).to(v.dtype).float()
+                        acc[:, :nb0] += d @ vr[:, :nb0]
+                        acc[:, nb0:] += d @ vr[:, nb0:]
+                part[sp, y, cols] = acc
+    dt = part[0].clone()
+    for sp in range(1, splits):  # the reduce kernel's fixed order
+        dt += part[sp]
+    return (dt[0] if shared else dt).to(t.dtype)
+
+
+def _milnce_problem(seed, S, R, K, C, shared):
+    rng = np.random.RandomState(seed)
+    unit = lambda *s: (lambda x: x / np.linalg.norm(x, axis=-1, keepdims=True))(
+        rng.randn(*s).astype(np.float32))
+    v = unit(S, R, C)
+    t = unit(K, C) if shared else unit(S, K, C)
+    cv = rng.rand(K) < 0.8
+    pm = (rng.rand(R, K) < 0.1) & cv[None]
+    pm[3] = False  # a row with no positive
+    gv, gt = rng.randn(S, R).astype(np.float32), rng.randn(S, K).astype(np.float32)
+    return v, t, pm, cv, gv, gt
+
+
+def _jax_dt(v, t, pm, cv, lse, gv, gt, tiled):
+    """dt of the JAX backward kernel (untiled _bwd_call, or the column-tiled
+    _bwd_call_tiled), interpret mode; a shared text is broadcast and its
+    gradient summed over the layers, as fused_milnce_elements does."""
+    S, R, _ = v.shape
+    K = t.shape[-2]
+    tt = np.broadcast_to(t, (S,) + t.shape) if t.ndim == 2 else t
+    vnum, vden, tnum, tden = (jnp.asarray(x.numpy()) for x in lse)
+    args = (jnp.asarray(v), jnp.asarray(np.ascontiguousarray(tt)),
+            jnp.asarray(pm.astype(np.float32)), jnp.asarray(cv.astype(np.float32))[None],
+            vnum, vden, tnum, tden, jnp.asarray(-gv), jnp.asarray(gv), jnp.asarray(-gt),
+            jnp.asarray(gt))
+    if tiled:
+        _, dt = pallas_milnce._bwd_call_tiled(*args, True, INV_TEMP, MV, 8, K // 2)
+    else:
+        _, dt = pallas_milnce._bwd_call(*args, True, INV_TEMP, MV, 8)
+    dt = np.asarray(dt, np.float32)
+    return dt.sum(0) if t.ndim == 2 else dt
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_dt_schedule_matches_jax_kernels_and_plain_f32(shared, tiled):
+    """Ragged R and K (two row tiles, two column blocks), C = 192 (three
+    channel chunks: 2 + 1 over the consumers), a split of the row stream."""
+    v, t, pm, cv, gv, gt = _milnce_problem(int(shared) + 2 * int(tiled), 3, 96, 70, 192, shared)
+    tv, tt, tpm, tcv, tgv, tgt = (to_torch(x) for x in (v, t, pm, cv, gv, gt))
+    lse = milnce.milnce_lse_reference(tv, tt, tpm, tcv, MV, INV_TEMP)
+    ours = dt_schedule(tv, tt, tpm, tcv, lse, tgv, tgt, INV_TEMP, sms=4)
+    plain = milnce.milnce_grad_reference(tv, tt, tpm, tcv, lse, tgv, tgt, INV_TEMP)[1]
+    assert ours.shape == tt.shape
+    torch.testing.assert_close(ours, plain, rtol=F32_TOL, atol=F32_TOL)
+    ref = _jax_dt(v, t, pm, cv, lse, gv, gt, tiled)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=JAX_MILNCE_TOL, rtol=6 * JAX_MILNCE_TOL)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_dt_schedule_bf16_rounds_as_the_plain_version(shared):
+    """bf16 features and dsim rounded to bf16: against milnce_grad_reference
+    and the JAX kernel in bf16 by the chip check's limit."""
+    v, t, pm, cv, gv, gt = _milnce_problem(7 + int(shared), 2, 80, 64, 128, shared)
+    tv, tt = to_torch(v).bfloat16(), to_torch(t).bfloat16()
+    tpm, tcv, tgv, tgt = (to_torch(x) for x in (pm, cv, gv, gt))
+    lse = milnce.milnce_lse_reference(tv, tt, tpm, tcv, MV, INV_TEMP)
+    ours = dt_schedule(tv, tt, tpm, tcv, lse, tgv, tgt, INV_TEMP, sms=132)
+    plain = milnce.milnce_grad_reference(tv, tt, tpm, tcv, lse, tgv, tgt, INV_TEMP)[1]
+    assert ours.dtype == torch.bfloat16 and elem_err(ours, plain) <= BF16_TOL
+    S, R, _ = v.shape
+    tt_np = np.broadcast_to(tt.float().numpy(), (S,) + tuple(tt.shape)) if shared else tt.float().numpy()
+    vnum, vden, tnum, tden = (jnp.asarray(x.numpy()) for x in lse)
+    _, ref = pallas_milnce._bwd_call(
+        jnp.asarray(tv.float().numpy(), jnp.bfloat16),
+        jnp.asarray(np.ascontiguousarray(tt_np), jnp.bfloat16),
+        jnp.asarray(pm.astype(np.float32)), jnp.asarray(cv.astype(np.float32))[None],
+        vnum, vden, tnum, tden, jnp.asarray(-gv), jnp.asarray(gv), jnp.asarray(-gt),
+        jnp.asarray(gt), True, INV_TEMP, MV, 8)
+    ref = np.asarray(ref, np.float32)
+    ref = ref.sum(0) if shared else ref
+    assert elem_err(ours, torch.from_numpy(ref)) <= BF16_TOL
+
+
+@pytest.mark.parametrize("blocks,inner,sms,expected", [
+    (96, 64, 132, 4),  # per-layer text at B = 64: 6 layers x 16 column blocks
+    (16, 64, 132, 8),  # shared text at B = 64
+    (1, 1, 132, 1), (6, 2, 4, 2)])
+def test_wave_splits_balance_the_last_wave(blocks, inner, sms, expected):
+    assert milnce._wave_splits(blocks, inner, sms) == expected
+
+
+@pytest.mark.parametrize("dtype,expected", [(torch.bfloat16, "wgmma"), (torch.float32, "f32")])
+def test_milnce_dt_route_depends_on_dtype(dtype, expected, monkeypatch):
+    seen = []
+    monkeypatch.setattr(milnce, "_grad", lambda *a, wgmma=False: seen.append(wgmma))
+    before = dict(milnce.milnce_dt.launches_by_route)
+    x = torch.zeros(2, 2, dtype=dtype)
+    milnce.milnce_dt(x, x, None, None, None, None, None, 1.0)
+    assert milnce.dt_route(dtype) == expected and seen == [expected == "wgmma"]
+    after = milnce.milnce_dt.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == expected) for r in milnce.DT_ROUTES}
