@@ -9,7 +9,11 @@ through the kernels, and times them.
 Phases, each printing JSON lines:
   1. build   nvcc builds temporalalignnet_torch/csrc/*.cu into build/torch_kernels/.
   2. kernel  mha_fwd against attention_reference on the card at the shapes the
-             eval path gives it, ragged key masks, f32 and bf16.
+             eval and train paths give it, ragged key masks, on each route:
+             bf16 "short" (S = 64, 72, 80, 37), bf16 "long" (S = 200 and the
+             global method's [1, 8, 1088, 64], with key splits), "f32" at all
+             of them; the route each call took is checked, and a planted
+             fault (padded keys left unmasked) must exceed the bf16 limit.
      kernel_bwd  mha_bwd (dq, dk, dv) against mha_bwd_reference, the plain
              version with the kernel's bf16 roundings, per element
              (GRAD_TOL); planted faults must exceed the limit.  Each route:
@@ -17,22 +21,25 @@ Phases, each printing JSON lines:
              S = 200, "f32" at all four; the route each call took is checked.
      kernel_milnce  milnce_fwd against milnce_reference, milnce_dv and
              milnce_dt against milnce_grad_reference, at the B = 64 training
-             shape (shared and per-layer text) and at the shapes where the JAX
-             package takes its column-tiled kernels (B = 128; K = 5120), f32
-             and bf16; planted faults as above; milnce_dt's route (bf16
-             "wgmma", f32 "f32") is checked.
+             shape (shared and per-layer text), at the shapes where the JAX
+             package takes its column-tiled kernels (B = 128; K = 5120) and at
+             a small one whose video gradient splits its column stream, f32
+             and bf16; planted faults as above; the routes of milnce_dv and
+             milnce_dt (bf16 "wgmma", f32 "f32") are checked.
   3. eval    AlignmentEvaluator (overlap-seq and global) on a synthetic corpus,
              random E6D6 weights from a seed, bf16; every encoder forward call
-             must launch the kernel 12 times.  Then the same evaluation in f32
-             on the card and on the CPU must agree.
+             must launch the kernel 12 times, on the "short" route for
+             overlap-seq and the "long" one for global.  Then the same
+             evaluation in f32 on the card and on the CPU must agree.
      cli     python -m temporalalignnet_torch.eval on a .pth.tar of that model
              and a corpus written to build/chip_smoke_cli/, against the
              in-process evaluator.
      train   Stage-1 training of the E6D6 TAN at B = 64, bf16, fused MIL-NCE,
              on synthetic HowTo100M-format features and captions written to
              build/chip_smoke_train/: finite losses, and every step launches
-             mha_fwd and mha_bwd 12 times (all on the fused route) and each
-             MIL-NCE kernel twice (milnce_dt on the wgmma route).  The
+             mha_fwd and mha_bwd 12 times (on the short and fused routes) and
+             each MIL-NCE kernel twice (milnce_dv and milnce_dt on the wgmma
+             route).  The
              fused path against the plain-logits path on the card (bf16), and
              an f32 step on the card against the CPU's.
      train_cli  python -m temporalalignnet_torch.train --max_steps on those
@@ -43,8 +50,8 @@ Phases, each printing JSON lines:
              card's bound; train steps/s at B = 64 with its device time and
              top kernels, and the same four times for each training kernel
              at its training shapes (MIL-NCE also at the tiled-kernel ones),
-             with the earlier bf16 kernel (v2) timed beside the redesigned
-             mha_bwd and milnce_dt.
+             with the earlier bf16 kernel timed beside each redesigned one
+             (mha_fwd v1; mha_bwd, milnce_dv and milnce_dt v2).
 The card's name and power limit (nvidia-smi) and a ``kernels`` line come
 before the last line, which is {"ok": true, "device": {...}}.  Any failed
 phase raises and the script exits non-zero without that line.  Without CUDA
@@ -90,9 +97,10 @@ MILNCE_VALUE_TOL = 1e-4
 # f32 eval, card against CPU: canvases are logits / 0.07, summed over windows
 CANVAS_TOL = 1e-3
 AUC_TOL = 1e-3
-# [B, H, S, D]: dual encoder; joint at N = 8; a long sentence bucket; global method
+# [B, H, S, D]: eval dual encoder; eval joint at N = 8; a long sentence bucket;
+# global method (key splits)
 KERNEL_SHAPES = [(192, 8, 64, 64), (192, 8, 72, 64), (64, 8, 200, 64), (1, 8, 1088, 64)]
-TIMED_SHAPE = (192, 8, 72, 64)  # the joint encoder of the bench.py workload
+MHA_FWD_CHECK_SHAPES = KERNEL_SHAPES + [(64, 8, 80, 64), (8, 8, 37, 64)]  # + train joint, odd S
 BENCH = dict(B=192, T=64, C=1024, N=8, W=32)
 TRAIN = dict(B=64, T=64, N=16, W=32)  # the train CLI's defaults
 MHA_BWD_SHAPES = [(64, 8, 64, 64), (64, 8, 80, 64), (8, 8, 37, 64)]  # dual, joint, odd S
@@ -100,12 +108,15 @@ MHA_BWD_V2_SHAPE = (8, 8, 200, 64)  # bf16 past S = 128 takes the v2 route
 # (S, B, T, N, C, shared text): R = B T rows, K = B N columns
 MILNCE_SHAPES = [(6, 64, 64, 16, 512, True), (6, 64, 64, 16, 512, False),
                  (6, 128, 64, 16, 512, False), (2, 64, 64, 80, 512, False)]
+MILNCE_SPLIT_SHAPE = (2, 8, 64, 16, 512, False)  # milnce_dv in two column splits
 TRAIN_STEPS = 10
 # expected launches per train step: 6 + 6 encoder blocks; the dual and joint MIL-NCE
 STEP_LAUNCHES = {"mha_fwd": 12, "mha_bwd": 12, "milnce_fwd": 2, "milnce_dv": 2,
                  "milnce_dt": 2}
 # ... and the routes they take (bf16, S = 64 and 80)
-STEP_ROUTES = {"mha_bwd": {"fused": 12, "v2": 0, "f32": 0}, "milnce_dt": {"wgmma": 2, "f32": 0}}
+STEP_ROUTES = {"mha_fwd": {"short": 12, "long": 0, "f32": 0},
+               "mha_bwd": {"fused": 12, "v2": 0, "f32": 0},
+               "milnce_dv": {"wgmma": 2, "f32": 0}, "milnce_dt": {"wgmma": 2, "f32": 0}}
 # fused against plain logits on the card, bf16, two steps on two batches
 # (the first update has lr 0, so both steps see the initial params): the
 # loss differs by the order of f32 sums over the same bf16 features; the
@@ -207,29 +218,52 @@ def phase_build():
 
 
 def phase_kernel_check(torch):
+    """mha_fwd on each route against attention_reference from the same
+    inputs, masked (ragged, one fully padded row) and not; the route each call
+    took; the earlier bf16 kernel (v1) beside it; and a planted fault (padded
+    keys left unmasked), which the bf16 limit must catch."""
+    from temporalalignnet_torch.ops import _build
     from temporalalignnet_torch.ops.attention import attention_reference
-    from temporalalignnet_torch.ops.mha_fwd import mha_fwd
+    from temporalalignnet_torch.ops.mha_fwd import (
+        KEY_TILE, LONG_QUERIES, key_splits, mha_fwd, mha_fwd_v1, route)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for shape in KERNEL_SHAPES:
+    for shape in MHA_FWD_CHECK_SHAPES:
+        B, H, S, _ = shape
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             for masked in (False, True):
                 q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(3))
-                mask = ragged_mask(torch, shape[0], shape[2], gen, dev) if masked else None
+                mask = ragged_mask(torch, B, S, gen, dev) if masked else None
+                before = dict(mha_fwd.launches_by_route)
                 out = mha_fwd(q, k, v, mask)
+                taken = route_taken(mha_fwd, before)
                 torch.cuda.synchronize()
                 ref = attention_reference(q.float(), k.float(), v.float(), mask)
+                info = {}
+                if dtype == torch.bfloat16:
+                    info["v1_max_abs_err"] = abs_err(mha_fwd_v1(q, k, v, mask), ref)
+                    if taken == "long":
+                        info["key_splits"] = key_splits(B * H * -(-S // LONG_QUERIES),
+                                                        -(-S // KEY_TILE), _build.sm_count(dev))
+                    if masked:
+                        info["planted_fault_max_abs_err"] = {"padded_keys_unmasked": abs_err(
+                            attention_reference(q.float(), k.float(), v.float(), None), ref)}
                 torch.cuda.synchronize()
-                err = (out.float() - ref).abs().max().item()
+                err = abs_err(out, ref)
                 worst[dtype] = max(worst[dtype], err)
-                emit({"phase": "kernel", "name": "mha_fwd", "shape": list(shape),
+                emit({"phase": "kernel", "name": "mha_fwd", "route": taken, "shape": list(shape),
                       "dtype": str(dtype).split(".")[-1], "masked": masked,
-                      "max_abs_err": err, "tol": tol})
+                      "max_abs_err": err, "tol": tol, **info})
+                check(taken == route(dtype, S), f"mha_fwd {dtype} {shape} took route {taken}")
+                if shape == KERNEL_SHAPES[3] and dtype == torch.bfloat16:  # the global method
+                    check(info["key_splits"] > 1, f"mha_fwd took no key split at {shape}")
                 check(bool(torch.isfinite(out).all()), f"mha_fwd non-finite at {shape}")
                 check(out.dtype == dtype, "mha_fwd output dtype")
                 check(err <= tol, f"mha_fwd {dtype} {shape} masked={masked}: {err} > {tol}")
+                for f, ferr in info.get("planted_fault_max_abs_err", {}).items():
+                    check(ferr > tol, f"limit {tol} misses the planted fault {f}: {ferr}")
     q = torch.randn(2, 8, 64, 64, device=dev)
     try:
         mha_fwd(q.transpose(2, 3), q, q)
@@ -383,25 +417,27 @@ def phase_milnce_check(torch):
     gradients against milnce_grad_reference from the plain logsumexps; and
     the planted faults against the same plain version, each of which the
     limit must catch."""
+    from temporalalignnet_torch.ops import _build
     from temporalalignnet_torch.ops.milnce import (
-        fused_milnce_elements, milnce_dt, milnce_dt_v2, milnce_fwd, milnce_grad_reference,
-        milnce_lse_reference, milnce_reference)
+        TILE, _wave_splits, fused_milnce_elements, milnce_dt, milnce_dt_v2, milnce_dv,
+        milnce_dv_v2, milnce_fwd, milnce_grad_reference, milnce_lse_reference, milnce_reference)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 5)
     inv_temp, mv = 1.0 / 0.07, -6.0e4
     worst = {}
-    for S, B, T, N, C, shared in MILNCE_SHAPES:
+    for S, B, T, N, C, shared in MILNCE_SHAPES + [MILNCE_SPLIT_SHAPE]:
         v32, t32, pm, cv, gv, gt = milnce_problem(torch, S, B, T, N, C, shared, gen, dev)
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             ins = [x.detach().to(dtype).clone().requires_grad_() for x in (v32, t32)]
             out = fused_milnce_elements(*ins, pm, cv, mv, inv_temp)
-            before = dict(milnce_dt.launches_by_route)
+            before = {f: dict(f.launches_by_route) for f in (milnce_dv, milnce_dt)}
             ((out[0] * gv).sum() + (out[1] * gt).sum()).backward()
-            taken = route_taken(milnce_dt, before)
-            check(taken == ("wgmma" if dtype == torch.bfloat16 else "f32"),
-                  f"milnce_dt {name} took route {taken}")
+            taken = {f.__name__: route_taken(f, b) for f, b in before.items()}
+            expected = "wgmma" if dtype == torch.bfloat16 else "f32"
+            check(taken == {"milnce_dv": expected, "milnce_dt": expected},
+                  f"MIL-NCE gradients {name} took routes {taken}")
             v, t = (x.detach() for x in ins)
             ref = milnce_reference(v, t, pm, cv, mv, inv_temp)
             lse = milnce_lse_reference(v, t, pm, cv, mv, inv_temp)
@@ -413,17 +449,19 @@ def phase_milnce_check(torch):
                 faults["padded_columns_unmasked"] = milnce_grad_reference(
                     v, t, pm, every, milnce_lse_reference(v, t, pm, every, mv, inv_temp),
                     gv, gt, inv_temp)
-            # dt against the plain version from the kernel's own logsumexps (the
-            # ones the backward kernels got), the new and the earlier kernel:
-            # without the ~1e-6 logsumexp difference, which moves some dsim
-            # entries to the neighbouring bf16 value
+            # dv and dt against the plain version from the kernel's own
+            # logsumexps (the ones the backward kernels got), the new and the
+            # earlier kernels: without the ~1e-6 logsumexp difference, which
+            # moves some dsim entries to the neighbouring bf16 value
             same_lse = {}
             if dtype == torch.bfloat16:
                 klse = milnce_fwd(v, t, pm, cv, mv, inv_temp)
-                kplain = milnce_grad_reference(v, t, pm, cv, klse, gv, gt, inv_temp)[1]
-                same_lse = {"milnce_dt": elem_err(ins[1].grad, kplain),
-                            "milnce_dt_v2": elem_err(milnce_dt_v2(v, t, pm, cv, klse, gv, gt,
-                                                                  inv_temp), kplain)}
+                kdv, kdt = milnce_grad_reference(v, t, pm, cv, klse, gv, gt, inv_temp)
+                kargs = (v, t, pm, cv, klse, gv, gt, inv_temp)
+                same_lse = {"dv": {"milnce_dv": elem_err(ins[0].grad, kdv),
+                                   "milnce_dv_v2": elem_err(milnce_dv_v2(*kargs), kdv)},
+                            "dt": {"milnce_dt": elem_err(ins[1].grad, kdt),
+                                   "milnce_dt_v2": elem_err(milnce_dt_v2(*kargs), kdt)}}
             torch.cuda.synchronize()
             pairs = {"milnce_fwd": list(zip(out, ref)),
                      "milnce_dv": [(ins[0].grad, plain[0])],
@@ -434,22 +472,29 @@ def phase_milnce_check(torch):
                           for f, fg in faults.items()}
             tols = {"milnce_fwd": MILNCE_VALUE_TOL, "milnce_dv": GRAD_TOL[name],
                     "milnce_dt": GRAD_TOL[name]}
+            dv_splits = _wave_splits(-(-B * T // TILE) * S, -(-B * N // TILE), _build.sm_count(dev))
             emit({"phase": "kernel_milnce", "S": S, "R": B * T, "K": B * N, "C": C,
                   "text": "shared" if shared else "per-layer", "dtype": name,
-                  "milnce_dt_route": taken,
+                  "milnce_dv_route": taken["milnce_dv"], "milnce_dt_route": taken["milnce_dt"],
+                  "milnce_dv_splits": dv_splits,
                   "padded_columns": int((~cv).sum()), "elem_err": errs, "abs_err": abs_errs,
                   "norm_err_dv_dt": [norm_err(x.grad, b) for x, b in zip(ins, plain)],
                   "rms_dv_dt": [rms(b) for b in plain], "tol": tols,
                   "planted_fault_elem_err": fault_errs,
-                  "elem_err_dt_vs_plain_from_kernel_lse": same_lse})
+                  "elem_err_dv_vs_plain_from_kernel_lse": same_lse.get("dv", {}),
+                  "elem_err_dt_vs_plain_from_kernel_lse": same_lse.get("dt", {})})
             for kname, err in errs.items():
                 worst[(kname, name)] = max(worst.get((kname, name), 0.0), abs_errs[kname])
                 check(err <= tols[kname], f"{kname} {name} (S, R, K) = {(S, B * T, B * N)}: {err}")
             for f, err in fault_errs.items():
                 check(err > GRAD_TOL[name], f"limit {GRAD_TOL[name]} misses the planted fault "
                                             f"{f}: {err}")
-            check(same_lse.get("milnce_dt", 0.0) <= GRAD_TOL[name],
-                  f"milnce_dt against the plain version from its own logsumexps: {same_lse}")
+            if (S, B, T, N, C, shared) == MILNCE_SPLIT_SHAPE:
+                check(dv_splits > 1, "milnce_dv took one split")
+            for grad in ("dv", "dt"):
+                err = same_lse.get(grad, {}).get(f"milnce_{grad}", 0.0)
+                check(err <= GRAD_TOL[name],
+                      f"milnce_{grad} against the plain version from its own logsumexps: {err}")
             check(all(bool(torch.isfinite(x).all()) for x in (*out, ins[0].grad, ins[1].grad)),
                   "MIL-NCE kernels non-finite")
             check(ins[1].grad.shape == t32.shape and ins[1].grad.dtype == dtype, "dt shape")
@@ -542,13 +587,15 @@ def phase_eval(torch):
     torch.cuda.synchronize()
     mha_fwd.launches = 0
     calls[0] = 0
-    results = {}
+    results, routes = {}, {}
     for method, ev in evaluators.items():
+        mha_fwd.launches_by_route = dict.fromkeys(mha_fwd.launches_by_route, 0)
         t0 = time.perf_counter()
         per_video = ev.evaluate_corpus(corpus)
         metrics = alignment_metrics(corpus, per_video)
         torch.cuda.synchronize()
         results[method] = (per_video, metrics, time.perf_counter() - t0)
+        routes[method] = dict(mha_fwd.launches_by_route)
     launches, forward_calls = mha_fwd.launches, calls[0]
 
     for method, (per_video, metrics, secs) in results.items():
@@ -562,9 +609,14 @@ def phase_eval(torch):
         emit({"phase": "eval", "method": method, "dtype": "bfloat16", "videos": len(corpus),
               "vlens": [int(i["video"].shape[0]) for i in corpus], **metrics,
               "seconds": secs})
-    emit({"phase": "eval", "forward_calls": forward_calls, "mha_fwd_launches": launches})
+    emit({"phase": "eval", "forward_calls": forward_calls, "mha_fwd_launches": launches,
+          "mha_fwd_routes": routes})
     check(forward_calls > 0 and launches == 12 * forward_calls,
           f"{launches} kernel launches for {forward_calls} forward calls, expected 12 each")
+    # windows of 64 s (S = 64, 72) and whole videos of 150 s and more (S > 128)
+    for method, only in (("overlap-seq", "short"), ("global", "long")):
+        n = routes[method]
+        check(n[only] > 0 and n[only] == sum(n.values()), f"{method} mha_fwd routes {n}")
 
     # f32: the whole slice on the card against its CPU path, same weights
     small = make_corpus(2, 100, 160, SEED + 1)
@@ -884,6 +936,8 @@ def phase_train_times(torch, card):
                                 v.detach(), t.detach(), pm, cv, mv, inv_temp)},
                            feat_bytes + lse_bytes, 2 * S_ * R * K * C),
             "milnce_dv": ({"": lambda: milnce.milnce_dv(v, t, pm, cv, lse, gv, gt, inv_temp),
+                           "v2_": lambda: milnce.milnce_dv_v2(v, t, pm, cv, lse, gv, gt,
+                                                              inv_temp),
                            "plain_": lambda: torch.autograd.grad(plain_loss, [vr],
                                                                  retain_graph=True)},
                           feat_bytes + 2 * lse_bytes + v.numel() * 2, 4 * S_ * R * K * C),
@@ -908,7 +962,7 @@ def phase_times(torch, model, card):
     import torch.nn.functional as F
 
     from temporalalignnet_torch.ops.attention import attention_reference
-    from temporalalignnet_torch.ops.mha_fwd import mha_fwd
+    from temporalalignnet_torch.ops.mha_fwd import mha_fwd, mha_fwd_v1, route
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 2)
@@ -939,12 +993,13 @@ def phase_times(torch, model, card):
         keep = ~pad[:, None, None, :]
         fns = {
             "": lambda: mha_fwd(q, k, v, pad),
+            "v1_": lambda: mha_fwd_v1(q, k, v, pad),
             "plain_": lambda: attention_reference(q, k, v, pad),
             "library_": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep),
         }
         # ms: device time of every kernel the call launched (profiler);
         # wall_ms: CUDA events around back-to-back calls, host issue included
-        row = {"shape": list(shape), "dtype": "bfloat16"}
+        row = {"shape": list(shape), "dtype": "bfloat16", "route": route(q.dtype, S)}
         for prefix, fn in fns.items():
             row[prefix + "ms"] = device_profile(torch, fn)[0]
             row[prefix + "wall_ms"] = cuda_ms(torch, fn)
@@ -990,7 +1045,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    timed = next(r for r in rows if tuple(r["shape"]) == TIMED_SHAPE)
+    fwd_rows = {tuple(r["shape"]): r for r in rows}
+    timed, glob = fwd_rows[MHA_BWD_SHAPES[1]], fwd_rows[KERNEL_SHAPES[3]]
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     pallas = "temporalalignnet_tpu/ops/pallas_milnce.py"
     # launches: this slice's main path (TRAIN_STEPS train steps); mha_fwd's on
@@ -998,9 +1054,14 @@ def main() -> int:
     entries = [
         dict(name="mha_fwd", source="temporalalignnet_torch/csrc/mha_fwd.cu",
              replaces="temporalalignnet_tpu/ops/pallas_attention.py:31 (_mha_kernel)",
+             kernel_route="short (wgmma, TMA, warp specialised), bf16 S <= 128",
+             launches_by_route=launches["routes"]["mha_fwd"],
+             earlier_ms=timed["v1_ms"], earlier_version="v1 (mma.sync)",
              launches=launches["mha_fwd"], launches_eval_path=eval_launches,
              max_abs_err=err_bf16, max_err_f32=err_f32, max_err_bf16=err_bf16,
-             shape=timed["shape"], **{k: timed[k] for k in fields}),
+             shape=timed["shape"], **{k: timed[k] for k in fields},
+             long_route={"shape": glob["shape"], "ms": glob["ms"], "earlier_ms": glob["v1_ms"],
+                         "library_ms": glob["library_ms"], "bound_ms": glob["bound_ms"]}),
         dict(name="mha_bwd", source="temporalalignnet_torch/csrc/mha_bwd.cu",
              replaces="temporalalignnet_tpu/ops/pallas_attention.py:75 (_mha_bwd_kernel)",
              kernel_route="fused (wgmma, TMA), bf16 S <= 128",
@@ -1019,12 +1080,11 @@ def main() -> int:
     }
     for name, rep in replaces.items():
         row = train_rows[(name, 6, TRAIN["B"] * TRAIN["T"], TRAIN["B"] * TRAIN["N"], False)]
-        src = {"milnce_fwd": "milnce_fwd.cu", "milnce_dv": "milnce_bwd.cu",
-               "milnce_dt": "milnce_dt.cu"}[name]
+        src = "milnce_fwd.cu" if name == "milnce_fwd" else "milnce_wgmma.cu"
         extra = {}
-        if name == "milnce_dt":
+        if name != "milnce_fwd":
             extra = dict(kernel_route="wgmma (TMA, warp specialised), bf16",
-                         launches_by_route=launches["routes"]["milnce_dt"],
+                         launches_by_route=launches["routes"][name],
                          earlier_ms=row["v2_ms"], earlier_version="v2 (mma.sync)")
         entries.append(dict(**extra,
             name=name, source=f"temporalalignnet_torch/csrc/{src}", replaces=rep,

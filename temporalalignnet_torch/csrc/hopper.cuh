@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks of the redesigned kernels (mha_bwd's fused
-// route, milnce_dt): TMA tensor maps and copies, mbarriers, wgmma and its
-// shared-memory descriptors.
+// Hopper (sm_90a) building blocks of the redesigned kernels (mha_fwd's and
+// mha_bwd's wgmma routes, milnce_dv and milnce_dt): TMA tensor maps and
+// copies, mbarriers, wgmma and its shared-memory descriptors.
 //
 // Shared-memory tiles are the 128-byte-swizzle layout TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: a tile of bf16 rows of 64 elements (128 bytes)
@@ -213,6 +213,13 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// 2^x on the special-function unit (relative error 2^-22; 0 for -inf)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // wgmma.mma_async m64nNk16, bf16 in, f32 accumulate (d += A B).  _ss: A and
 // B from shared memory (descriptors da, db); _rs: A from registers (the
 // fragment of one 16-deep k-step).  TA / TB = 1: that operand is MN-major.
@@ -224,6 +231,19 @@ __device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// m64n16k16 into registers 8 C .. 8 C + 7 of an m64n64 accumulator: columns
+// 16 C .. + 15 of it (the n16 and n64 layouts agree register for register)
+template <int TA, int TB, int C>
+__device__ __forceinline__ void wgmma_ss_n16_of64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[8 * C]), "+f"(d[8 * C + 1]), "+f"(d[8 * C + 2]), "+f"(d[8 * C + 3]),
+        "+f"(d[8 * C + 4]), "+f"(d[8 * C + 5]), "+f"(d[8 * C + 6]), "+f"(d[8 * C + 7])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 

@@ -19,14 +19,18 @@
 // tiles is a loop inside the block, and keys past S get a -inf score so they
 // drop out of the softmax.
 //
-// - bf16 (the eval path): one warp per 16 query rows, and up to S = 128 one
-//   block holds all of a head's queries, so K and V are read from device
-//   memory once.  Q K^T and P V run on the tensor cores (mma.sync m16n8k16,
-//   f32 accumulate, B operands through ldmatrix).  The score fragment of
-//   Q K^T is, register for register, the A fragment of P V, so P never leaves
-//   registers; it is rounded to bf16 there, as the reference casts it.  Keys
-//   go in 16-key chunks, so S = 72 costs 80 keys, and the key tiles are
-//   double buffered with cp.async so the next tile loads while one computes.
+// - bf16, the wgmma routes (mha_fwd_wgmma, below): warp specialised, TMA and
+//   wgmma.  "short" (S <= 128: every encoder block of the train step and of
+//   the overlap-seq eval) has one block per (batch row, head) holding all its
+//   queries, so K and V are read once; "long" (S > 128: the global eval) a
+//   block per (batch row, head, 128 queries), and where that grid is short of
+//   the card the key range is split across blocks and a small kernel merges
+//   the splits' (max, sum, O) in split order.
+// - bf16, v1 (mha_fwd with dtype 1; no route takes it, kept to be timed
+//   beside the wgmma routes): one warp per 16 query rows, mma.sync m16n8k16
+//   with ldmatrix, cp.async double buffering.  Past S = 128 it runs 4 warps
+//   and 64 queries a block, about one block per SM at [1, 8, 1088, 64], each
+//   walking 17 key tiles in series: latency-bound, 2x slower than SDPA there.
 // - f32: every product is an f32 FMA on the CUDA cores (128 threads, 4 rows x
 //   8 keys each, 64-query tiles), so this path is bound by instruction issue,
 //   not by bytes.
@@ -35,10 +39,9 @@
 // (nonzero = padded key) or null.  Built by temporalalignnet_torch/ops/_build.py
 // into a shared library with a plain C interface, called through ctypes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
+
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
@@ -473,9 +476,346 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
+// -------------------------------------- bf16: wgmma + TMA, warp specialised
+//
+// A block has NWG consumer warpgroups, each owning 64 query rows (its Q tile
+// loaded once by TMA), and one producer warp that keeps a ring of STAGES
+// 64-key K and V tiles in flight by TMA (3-D tensor maps over [B H, S, D],
+// 128-byte swizzle: rows past S are zero-filled, never the next head's),
+// guarded by full/empty mbarriers, with the tile's key bias staged beside it
+// by the producer's lanes (log2 domain: 0 real, -1e30 log2(e) padded, -inf
+// past S).  Per key tile each consumer
+// - computes S = Q K^T by wgmma (A and B K-major; m64n64, or m64n16 per
+//   16-key chunk up to the last real key on a ragged last tile);
+// - runs the online softmax in registers: x = s log2(e)/sqrt(D) + bias, the
+//   row max across the quad by shfl, p = ex2(x - max) (branch-free: masked
+//   keys carry -inf), the running sum kept per thread and summed across the
+//   quad once at the end;
+// - rounds P to bf16 in registers and accumulates O += P V by wgmma with A
+//   from registers (the m64nN accumulator layout is the A-fragment layout, so
+//   P never goes to shared memory) and V the MN-major B operand.
+// O stays in f32 registers; at the end it is scaled by 1/sum, staged as bf16
+// over the warpgroup's Q tile and stored by TMA (rows past S are clipped).
+// With a key split (gridDim.z > 1) each block writes its rows' unnormalised
+// O and (max, sum) as f32 partials instead, and mha_fwd_merge_kernel combines
+// them in split order.
+//
+// Fully padded rows: every score is -1e30 log2(e) exactly (the product is
+// absorbed), so max and score agree, p = 1 for each padded key and the row
+// averages V as the reference's does; the max and the sum are kept apart, never
+// folded into one log-sum (-1e30 + log S rounds to -1e30).  A split whose
+// keys are all padded has a finite max too, and drops out of the merge by its
+// max whenever another split holds a real key.
+//
+// What bounds it on an H100: bytes at the training and overlap-seq shapes
+// (q, k, v, out once: 4 B H S D x 2 bytes, e.g. 21 MB at [64, 8, 80, 64] =
+// 6.3 us at 3.35 TB/s); operations and latency at the global method's long
+// rows (4 B H S^2 D = 2.4 GFLOP at [1, 8, 1088, 64] = 2.5 us at 989 TFLOP/s,
+// over only 8 heads).  The short route keeps 2-4 blocks per SM in flight to
+// cover the load -> products -> store chain; the long route splits the key
+// range so that 2 blocks of two warpgroups run on each SM.
+
+namespace fwd {
+
+using namespace hopper;
+
+constexpr int TILE_BYTES = 64 * 128;  // [64 rows][64 d] bf16
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int NWG, int STAGES>
+struct Plan {
+  static constexpr int THREADS = 128 * NWG + 32;  // consumer warpgroups, then the producer warp
+  static constexpr int Q_OFF = 0;                 // NWG Q tiles; at the end, the output staging
+  static constexpr int K_OFF = Q_OFF + NWG * TILE_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
+  static constexpr int BIAS_OFF = V_OFF + STAGES * TILE_BYTES;  // [STAGES][64] f32
+  static constexpr int BAR_OFF = BIAS_OFF + STAGES * 64 * 4;   // full, empty, q
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + room to align to 1024
+};
+
+// blocks per SM the registers must allow: 4 of one warpgroup, 2 of two
+template <int NWG>
+constexpr int min_blocks() {
+  return NWG == 1 ? 4 : 2;
+}
+
+struct Args {
+  const uint8_t* pad;
+  float* part_o;    // [splits][B H][Sq][64] f32, unnormalised O (key splits only)
+  float2* part_ml;  // [splits][B H][Sq] (max, sum), log2 domain
+  int H, S, Sq, tiles_per_split;
+  float scale2;  // log2(e) / sqrt(D)
+};
+
+template <int NWG, int STAGES>
+__device__ __forceinline__ void consume(uint8_t* sm, const CUtensorMap* to, const Args& a, int t0,
+                                        int nt) {
+  using P = Plan<NWG, STAGES>;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, q0 = blockIdx.y * 64 * NWG + 64 * wg;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + P::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+  const uint32_t base = smem_addr(sm);
+  const uint32_t qa = base + P::Q_OFF + wg * TILE_BYTES;
+
+  // register 4 j + e of o (and 8 j + e of sc): row g + 8 ((e >> 1) & 1) of
+  // this warp's 16; o column 8 j + 2 t + (e & 1), sc key 16 j + 8 (e >> 2) +
+  // 2 t + (e & 1)
+  float o[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) o[e] = 0.f;
+  fence_regs(o);
+  float m[2] = {-INFINITY, -INFINITY};  // running row max, log2 domain
+  float l[2] = {0.f, 0.f};              // this thread's share of the running row sum
+
+  mbar_wait(qbar, 0);
+  for (int n = 0; n < nt; ++n) {
+    const int st = n % STAGES;
+    const uint32_t ph = uint32_t(n / STAGES) & 1u;
+    const int k0 = (t0 + n) * 64;
+    const int chunks = min(4, (a.S - k0 + 15) / 16);  // 16-key chunks holding a key < S
+    const uint32_t ka = base + P::K_OFF + st * TILE_BYTES;
+    const uint32_t va = base + P::V_OFF + st * TILE_BYTES;
+    mbar_wait(&full[st], ph);
+
+    float sc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+    if (chunks == 4) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // D = 64: four 16-deep steps
+        wgmma_ss_n64<0, 0>(sc, sw128_desc(qa + kk * 32, 0), sw128_desc(ka + kk * 32, 0));
+    } else {  // a ragged last tile: its chunks up to the last key < S
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = sw128_desc(qa + kk * 32, 0);
+        wgmma_ss_n16_of64<0, 0, 0>(sc, da, sw128_desc(ka + kk * 32, 0));
+        if (chunks > 1) wgmma_ss_n16_of64<0, 0, 1>(sc, da, sw128_desc(ka + 2048 + kk * 32, 0));
+        if (chunks > 2) wgmma_ss_n16_of64<0, 0, 2>(sc, da, sw128_desc(ka + 4096 + kk * 32, 0));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // scores in the log2 domain; the skipped chunks (zeros) get their keys'
+    // -inf bias like every key past S
+    const float* bias = reinterpret_cast<const float*>(sm + P::BIAS_OFF) + st * 64;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 b0 = *reinterpret_cast<const float2*>(&bias[16 * j + 2 * t]);
+      const float2 b1 = *reinterpret_cast<const float2*>(&bias[16 * j + 8 + 2 * t]);
+      const float bb[4] = {b0.x, b0.y, b1.x, b1.y};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float x = fmaf(sc[8 * j + e], a.scale2, bb[2 * (e >> 2) + (e & 1)]);
+        sc[8 * j + e] = x;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the 4 lanes of a quad share rows g and g + 8
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+    // mx is finite (every tile holds a key < S); on the first tile m = -inf
+    // and the correction is 0
+    const float corr[2] = {ex2(m[0] - mx[0]), ex2(m[1] - mx[1])};
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const float p = ex2(sc[e] - mx[(e >> 1) & 1]);
+      sc[e] = p;
+      sum[(e >> 1) & 1] += p;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = l[h] * corr[h] + sum[h];
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[e] *= corr[(e >> 1) & 1];
+
+    // P rounded to bf16 in registers: chunk kk's registers are the A
+    // fragment of the 16-key step kk of P V
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16x2(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (kk < chunks) wgmma_rs_n64<1>(o, pa[kk], sw128_desc(va + kk * 2048, 0));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  if (gridDim.z == 1) {
+    // O / sum as bf16, staged over this warpgroup's Q tile (every warp's
+    // reads of it are done at the first barrier), stored by TMA
+    uint8_t* stage = sm + P::Q_OFF + wg * TILE_BYTES;
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    if (wg == 0) named_barrier<1, 128>(); else named_barrier<2, 128>();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(stage + sw128_offset(16 * warp + g + 8 * h, 8 * j + 2 * t)) =
+            pack_bf16x2(o[4 * j + 2 * h] * inv[h], o[4 * j + 2 * h + 1] * inv[h]);
+    fence_async_smem();
+    if (wg == 0) named_barrier<1, 128>(); else named_barrier<2, 128>();
+    if (threadIdx.x % 128 == 0) {
+      tma_store_3d(to, stage, 0, q0, bh);
+      tma_store_commit_and_wait();
+    }
+  } else {  // this split's partials of the rows < S
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = q0 + 16 * warp + g + 8 * h;
+      if (r < a.S) {
+        const size_t row = (size_t(blockIdx.z) * gridDim.x + bh) * a.Sq + r;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(a.part_o + row * 64 + 8 * j + 2 * t) =
+              make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+        if (t == 0) a.part_ml[row] = make_float2(m[h], l[h]);
+      }
+    }
+  }
+}
+
+// the producer warp: the block's Q tiles once, then per key tile K and V by
+// TMA and the tile's key bias by the lanes
+template <int NWG, int STAGES>
+__device__ __forceinline__ void produce(uint8_t* sm, const CUtensorMap* tq, const CUtensorMap* tk,
+                                        const CUtensorMap* tv, const Args& a, int t0, int nt) {
+  using P = Plan<NWG, STAGES>;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + P::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.x;
+  const uint8_t* pad = a.pad != nullptr ? a.pad + size_t(bh / a.H) * a.S : nullptr;
+  if (lane == 0) {
+    mbar_arrive_expect_tx(qbar, NWG * TILE_BYTES);
+    for (int w = 0; w < NWG; ++w)
+      tma_load_3d(sm + P::Q_OFF + w * TILE_BYTES, tq, qbar, 0, blockIdx.y * 64 * NWG + 64 * w, bh);
+  }
+  for (int n = 0; n < nt; ++n) {
+    const int st = n % STAGES;
+    const uint32_t ph = uint32_t(n / STAGES) & 1u;
+    const int k0 = (t0 + n) * 64;
+    mbar_wait(&empty[st], ph ^ 1u);
+    if (lane == 0) {
+      mbar_expect_tx(&full[st], 2 * TILE_BYTES);
+      tma_load_3d(sm + P::K_OFF + st * TILE_BYTES, tk, &full[st], 0, k0, bh);
+      tma_load_3d(sm + P::V_OFF + st * TILE_BYTES, tv, &full[st], 0, k0, bh);
+    }
+    float* bias = reinterpret_cast<float*>(sm + P::BIAS_OFF) + st * 64;
+    for (int j = lane; j < 64; j += 32) {
+      const int key = k0 + j;
+      bias[j] = key >= a.S ? -INFINITY
+                           : ((pad != nullptr && pad[key]) ? MASK_BIAS * LOG2E : 0.f);
+    }
+    __threadfence_block();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&full[st]);
+  }
+}
+
+// grid (B H, query blocks of 64 NWG, key splits)
+template <int NWG, int STAGES>
+__global__ void __launch_bounds__(Plan<NWG, STAGES>::THREADS, min_blocks<NWG>())
+mha_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap to, const Args a) {
+  using P = Plan<NWG, STAGES>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + P::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+  const int ktiles = (a.S + 63) / 64;
+  const int t0 = blockIdx.z * a.tiles_per_split;
+  const int nt = min(t0 + a.tiles_per_split, ktiles) - t0;  // > 0: the launcher makes no empty split
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4 * NWG);  // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 128 * NWG)
+    produce<NWG, STAGES>(sm, &tq, &tk, &tv, a, t0, nt);
+  else
+    consume<NWG, STAGES>(sm, &to, a, t0, nt);
+}
+
+// out[bh, r, :] from the key splits' partials, in split order: M = max of the
+// splits' maxima, out = sum O_s 2^(m_s - M) / sum l_s 2^(m_s - M); one thread
+// per 8 output columns of a row
+__global__ void mha_fwd_merge_kernel(const float* __restrict__ part_o,
+                                     const float2* __restrict__ part_ml, uint4* __restrict__ out,
+                                     int BH, int S, int Sq, int splits) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= BH * S * 8) return;
+  const int c = idx % 8, row = idx / 8, bh = row / S, r = row % S;
+  float M = -INFINITY;
+  for (int s = 0; s < splits; ++s) M = fmaxf(M, part_ml[(size_t(s) * BH + bh) * Sq + r].x);
+  float L = 0.f, acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int s = 0; s < splits; ++s) {
+    const size_t i = (size_t(s) * BH + bh) * Sq + r;
+    const float2 ml = part_ml[i];
+    const float w = ex2(ml.x - M);
+    L += ml.y * w;
+    const float4* po = reinterpret_cast<const float4*>(part_o + i * 64 + 8 * c);
+    const float4 x0 = po[0], x1 = po[1];
+    acc[0] += w * x0.x, acc[1] += w * x0.y, acc[2] += w * x0.z, acc[3] += w * x0.w;
+    acc[4] += w * x1.x, acc[5] += w * x1.y, acc[6] += w * x1.z, acc[7] += w * x1.w;
+  }
+  const float inv = 1.f / L;
+  out[size_t(row) * 8 + c] = make_uint4(pack_bf16x2(acc[0] * inv, acc[1] * inv),
+                                        pack_bf16x2(acc[2] * inv, acc[3] * inv),
+                                        pack_bf16x2(acc[4] * inv, acc[5] * inv),
+                                        pack_bf16x2(acc[6] * inv, acc[7] * inv));
+}
+
+template <int NWG, int STAGES>
+cudaError_t launch_plan(const CUtensorMap* maps, const Args& a, dim3 grid, cudaStream_t stream) {
+  using P = Plan<NWG, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(mha_fwd_wgmma_kernel<NWG, STAGES>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
+  if (err != cudaSuccess) return err;
+  mha_fwd_wgmma_kernel<NWG, STAGES><<<grid, P::THREADS, P::BYTES, stream>>>(maps[0], maps[1],
+                                                                           maps[2], maps[3], a);
+  return cudaGetLastError();
+}
+
+}  // namespace fwd
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// The f32 kernel (dtype 0) and the v1 bf16 kernel (dtype 1).  Returns a
+// cudaError_t (0 = launched).
 extern "C" int mha_fwd(const void* q, const void* k, const void* v, const void* pad,
                        void* out, int B, int H, int S, int D, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || D != 64 || (S + BQ - 1) / BQ > 65535)
@@ -484,4 +824,59 @@ extern "C" int mha_fwd(const void* q, const void* k, const void* v, const void* 
   if (dtype == 0) return int(launch_f32<64>(q, k, v, pad, out, B, H, S, st));
   if (dtype == 1) return int(launch_bf16<64>(q, k, v, pad, out, B, H, S, st));
   return int(cudaErrorInvalidValue);
+}
+
+// The wgmma routes, bf16: "short" for S <= 128 (one block per (row, head),
+// splits must be 1), "long" for S > 128 (128 queries a block, the key range
+// in `splits` parts, fewer if a part would be empty).  part: with more than
+// one split, splits * B H * Sq * 66 f32 of scratch (Sq = S rounded up to
+// 128), else unused.  Pointers 16-byte aligned (TMA).  Returns a cudaError_t
+// (0 = launched).
+extern "C" int mha_fwd_wgmma(const void* q, const void* k, const void* v, const void* pad,
+                             void* out, void* part, int B, int H, int S, int head_dim, int splits,
+                             void* stream) {
+  const void* aligned[5] = {q, k, v, out, part};
+  for (const void* p : aligned)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return int(cudaErrorInvalidValue);
+  if (B <= 0 || H <= 0 || S <= 0 || head_dim != 64 || splits <= 0 || splits > 65535)
+    return int(cudaErrorInvalidValue);
+  const bool long_route = S > 128;
+  const int BH = B * H, ktiles = (S + 63) / 64;
+  const int per = (ktiles + splits - 1) / splits;
+  splits = (ktiles + per - 1) / per;  // no empty split
+  if ((!long_route && splits != 1) || (splits > 1 && part == nullptr))
+    return int(cudaErrorInvalidValue);
+  const int qblocks = long_route ? (S + 127) / 128 : 1;
+
+  const uint64_t dims[3] = {64, uint64_t(S), uint64_t(BH)};
+  const uint64_t strides[2] = {128, uint64_t(S) * 128};
+  const uint32_t box[3] = {64, 64, 1};
+  const void* ptrs[4] = {q, k, v, out};
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i)
+    if (!hopper::make_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptrs[i], dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_128B))
+      return int(cudaErrorInvalidValue);
+
+  fwd::Args a;
+  a.pad = static_cast<const uint8_t*>(pad);
+  a.H = H, a.S = S, a.Sq = qblocks * 128, a.tiles_per_split = per;
+  a.part_o = static_cast<float*>(part);
+  a.part_ml = splits > 1 ? reinterpret_cast<float2*>(a.part_o + size_t(splits) * BH * a.Sq * 64)
+                         : nullptr;
+  a.scale2 = fwd::LOG2E / sqrtf(float(head_dim));
+  const dim3 grid{unsigned(BH), unsigned(qblocks), unsigned(splits)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (S <= 64)
+    err = fwd::launch_plan<1, 2>(maps, a, grid, st);
+  else if (!long_route)
+    err = fwd::launch_plan<2, 2>(maps, a, grid, st);
+  else
+    err = fwd::launch_plan<2, 4>(maps, a, grid, st);
+  if (err != cudaSuccess || splits == 1) return int(err);
+  const int n = BH * S * 8;
+  fwd::mha_fwd_merge_kernel<<<unsigned((n + 255) / 256), 256, 0, st>>>(
+      a.part_o, a.part_ml, static_cast<uint4*>(out), BH, S, a.Sq, splits);
+  return int(cudaGetLastError());
 }

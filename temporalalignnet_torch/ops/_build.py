@@ -14,6 +14,7 @@ without nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -90,6 +91,14 @@ def build_log(name: str) -> str:
     """The compiler's output of the last build of ``name`` (ptxas -v lines)."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The card's number of SMs, which the launchers size their grids by."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -16,11 +16,13 @@ layer and its gradient is summed over them.
   ``milnce_grad_reference`` is the plain version of the two gradient
   kernels, with their rounding of dsim to the feature dtype.
 - ``MilNCEFunction``: on the card, the Hopper kernels of csrc/milnce_fwd.cu
-  (``milnce_fwd``: the four logsumexps) and csrc/milnce_bwd.cu (``milnce_dv``,
-  ``milnce_dt``: the feature gradients from the saved logsumexps).  There is
-  no fallback: a CUDA tensor launches the kernels or raises.  ``milnce_dt``
-  takes its route from the dtype alone (``dt_route``): bf16 the wgmma/TMA
-  kernel of csrc/milnce_dt.cu, f32 the FMA kernel of csrc/milnce_bwd.cu.
+  (``milnce_fwd``: the four logsumexps) and of the feature gradients from the
+  saved logsumexps (``milnce_dv``, ``milnce_dt``).  There is no fallback: a
+  CUDA tensor launches the kernels or raises.  Each gradient takes its route
+  from the dtype alone (``dv_route``, ``dt_route``): bf16 the wgmma/TMA kernel
+  of csrc/milnce_wgmma.cu (one template over the orientation), f32 the FMA
+  kernel of csrc/milnce_bwd.cu.  ``milnce_dv_v2`` and ``milnce_dt_v2`` call
+  the earlier bf16 kernels of csrc/milnce_bwd.cu, uncounted, for timing.
 
 The masks go to the kernels as bytes: ``pos_mask`` as a [R, K] bool tensor
 (it is block-diagonal in the loss, but the contract takes any mask), so the
@@ -32,7 +34,6 @@ is ported (the VMEM plan pickers, the (8, 128) layouts, the padding of K to
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
@@ -166,11 +167,6 @@ def milnce_fwd(video, text, pos_mask, col_valid, mask_value: float, inv_temp: fl
     return vnum, vden, tnum, tden
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _splits(outer_tiles: int, out_layers: int, inner_tiles: int, sms: int) -> int:
     """Inner-axis splits that bring the grid near ``_WAVES`` waves of one
     block per SM (the bf16 kernel's registers and the f32 kernel's shared
@@ -187,12 +183,15 @@ def _wave_splits(blocks: int, inner_tiles: int, sms: int) -> int:
     return next(sp for sp, c in enumerate(cost, 1) if c <= 1.05 * min(cost))
 
 
-DT_ROUTES = ("wgmma", "f32")
+DV_ROUTES = DT_ROUTES = ("wgmma", "f32")
 
 
-def dt_route(dtype: torch.dtype) -> str:
-    """The kernel route of ``milnce_dt``, from the dtype alone."""
+def dv_route(dtype: torch.dtype) -> str:
+    """The kernel route of ``milnce_dv``, from the dtype alone."""
     return "wgmma" if dtype == torch.bfloat16 else "f32"
+
+
+dt_route = dv_route  # the same kernel, the other orientation
 
 
 def _grad(name, video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp, wgmma=False):
@@ -210,19 +209,21 @@ def _grad(name, video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp, wgmma
             vnum.data_ptr(), vden.data_ptr(), tnum.data_ptr(), tden.data_ptr(), g_v.data_ptr(),
             g_t.data_ptr(), out.data_ptr()]
     argtypes = [_P, _P, _L] + [_P] * 9
+    sms = _build.sm_count(video.device)
     if wgmma:
-        splits = _wave_splits(-(-n_out // TILE) * out_layers, -(-n_in // TILE),
-                              _sm_count(video.device))
+        splits = _wave_splits(-(-n_out // TILE) * out_layers, -(-n_in // TILE), sms)
         ints = [S, R, K, C, out_layers, splits]
-        lib, fname = "milnce_dt", "milnce_dt_wgmma"
+        lib, fname = "milnce_wgmma", f"{name}_wgmma"
     else:
-        splits = _splits(-(-n_out // TILE), out_layers, -(-n_in // TILE), _sm_count(video.device))
+        splits = _splits(-(-n_out // TILE), out_layers, -(-n_in // TILE), sms)
         ints = ([S, R, K, C] + ([out_layers] if name == "milnce_dt" else [])
                 + [splits, _DTYPES[video.dtype]])
         lib, fname = "milnce_bwd", name
-    part = torch.empty(splits * out_layers * n_out * C, **f32)
+    # one split of the wgmma kernel writes the output straight away
+    part = (torch.empty(splits * out_layers * n_out * C, **f32) if splits > 1 or not wgmma
+            else None)
     fn = _fn(lib, fname, argtypes + [_P] + [_I] * len(ints) + [_F, _P])
-    args += [part.data_ptr()] + ints
+    args += [None if part is None else part.data_ptr()] + ints
     with torch.cuda.device(video.device):
         stream = torch.cuda.current_stream(video.device).cuda_stream
         rc = fn(*args, float(inv_temp), stream)
@@ -232,8 +233,11 @@ def _grad(name, video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp, wgmma
 
 def milnce_dv(video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp: float):
     """d/d video [S, R, C] of sum(g_v · v_el) + sum(g_t · t_el), on the card."""
-    out = _grad("milnce_dv", video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp)
+    which = dv_route(video.dtype)
+    out = _grad("milnce_dv", video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp,
+                wgmma=which == "wgmma")
     milnce_dv.launches += 1
+    milnce_dv.launches_by_route[which] += 1
     return out
 
 
@@ -247,14 +251,20 @@ def milnce_dt(video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp: float):
     return out
 
 
-def milnce_dt_v2(video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp: float):
-    """The earlier bf16 text-gradient kernel (mma.sync, csrc/milnce_bwd.cu),
+def milnce_dv_v2(video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp: float):
+    """The earlier bf16 video-gradient kernel (mma.sync, csrc/milnce_bwd.cu),
     which no route takes any more: kept so that a run can time the redesign
     beside it.  Not counted."""
+    return _grad("milnce_dv", video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp)
+
+
+def milnce_dt_v2(video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp: float):
+    """The earlier bf16 text-gradient kernel, as ``milnce_dv_v2``.  Not counted."""
     return _grad("milnce_dt", video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp)
 
 
 milnce_fwd.launches = milnce_dv.launches = milnce_dt.launches = 0
+milnce_dv.launches_by_route = dict.fromkeys(DV_ROUTES, 0)
 milnce_dt.launches_by_route = dict.fromkeys(DT_ROUTES, 0)
 
 

@@ -8,7 +8,7 @@ card's tests run on a machine without it:
 import pytest
 import torch
 
-from chip_smoke import GRAD_TOL, MILNCE_VALUE_TOL, elem_err, mha_bwd_dropped_rowsum
+from chip_smoke import BF16_TOL, GRAD_TOL, MILNCE_VALUE_TOL, elem_err, mha_bwd_dropped_rowsum
 from temporalalignnet_torch.core.config import ModelConfig
 from temporalalignnet_torch.models.net import TANWithText
 from temporalalignnet_torch.ops.attention import attention_reference, multihead_attention
@@ -74,6 +74,40 @@ def test_kernel_wrapper_refuses_what_it_does_not_take(cuda):
         mha_fwd(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="key_padding_mask"):
         mha_fwd(q, k, v, mask[:, :10].contiguous())
+
+
+def test_bf16_limit_catches_the_planted_attention_forward_fault():
+    """The chip check's bf16 limit for mha_fwd against its planted fault:
+    padded keys left unmasked, from the same bf16 inputs."""
+    q, k, v, mask = _qkv((4, 2, 64, 64), torch.bfloat16)
+    ref = attention_reference(q.float(), k.float(), v.float(), mask)
+    fault = attention_reference(q.float(), k.float(), v.float(), None)
+    assert (fault - ref).abs().max().item() > BF16_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,S,expected", [
+    (torch.bfloat16, 2, 37, "short"), (torch.bfloat16, 2, 80, "short"),
+    (torch.bfloat16, 2, 200, "long"), (torch.bfloat16, 1, 1088, "long"),
+    (torch.float32, 2, 80, "f32")])
+def test_mha_fwd_takes_the_route_of_its_dtype_and_length_on_card(cuda, dtype, B, S, expected):
+    """One launch on the expected route (at [1, 8, 1088, 64] with key splits);
+    in bf16 the earlier kernel (mha_fwd_v1) too, both against the plain
+    version."""
+    from temporalalignnet_torch.ops.mha_fwd import mha_fwd_v1
+
+    q, k, v, mask = _qkv((B, 8, S, 64), dtype, cuda)
+    tol = BF16_TOL if dtype == torch.bfloat16 else 1e-5
+    for m in (None, mask):
+        before = dict(mha_fwd.launches_by_route)
+        out = mha_fwd(q, k, v, m)
+        torch.cuda.synchronize()
+        after = mha_fwd.launches_by_route
+        assert {r: n - before[r] for r, n in after.items() if n != before[r]} == {expected: 1}
+        ref = attention_reference(q.float(), k.float(), v.float(), m)
+        versions = [out] + ([mha_fwd_v1(q, k, v, m)] if dtype == torch.bfloat16 else [])
+        for o in versions:
+            assert o.dtype == dtype and (o.float() - ref).abs().max().item() <= tol
 
 
 @pytest.mark.cuda
@@ -384,6 +418,32 @@ def test_milnce_dt_takes_the_route_of_its_dtype_on_card(cuda, dtype, expected):
                          if expected == "wgmma" else [])
     for dt in versions:
         assert dt.dtype == dtype and elem_err(dt, ref) <= _grad_tol(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,expected", [(torch.bfloat16, "wgmma"), (torch.float32, "f32")])
+@pytest.mark.parametrize("S,R,K,C", [(3, 200, 96, 128), (2, 100, 48, 64)])
+@pytest.mark.parametrize("shared", [False, True])
+def test_milnce_dv_takes_the_route_of_its_dtype_on_card(cuda, dtype, expected, S, R, K, C,
+                                                        shared):
+    """One launch on the expected route (split column streams and one split);
+    in bf16 the earlier kernel (milnce_dv_v2) too, both against the plain
+    version."""
+    from temporalalignnet_torch.ops import milnce
+
+    v, t, pm, cv, gv, gt = _milnce_problem(S, R, K, C, shared, dtype, cuda)
+    lse = milnce.milnce_lse_reference(v, t, pm, cv, -6e4, 1 / 0.07)
+    before = dict(milnce.milnce_dv.launches_by_route)
+    ours = milnce.milnce_dv(v, t, pm, cv, lse, gv, gt, 1 / 0.07)
+    torch.cuda.synchronize()
+    after = milnce.milnce_dv.launches_by_route
+    assert {r: n - before[r] for r, n in after.items() if n != before[r]} == {expected: 1}
+    ref = milnce.milnce_grad_reference(v, t, pm, cv, lse, gv, gt, 1 / 0.07)[0]
+    versions = [ours] + ([milnce.milnce_dv_v2(v, t, pm, cv, lse, gv, gt, 1 / 0.07)]
+                         if expected == "wgmma" else [])
+    for dv in versions:
+        assert dv.dtype == dtype and dv.shape == v.shape
+        assert elem_err(dv, ref) <= _grad_tol(dtype)
 
 
 @pytest.mark.cuda

@@ -7,13 +7,21 @@ tests/test_fused_milnce.py run them) and against the port's plain versions.
   16-key chunks (zero-filled past S, as TMA fills them), exact softmax of
   whole rows, P and dS through the bf16 "panels" (64 keys x the queries),
   dQ over key chunks, dV and dK per 64-key warpgroup over 16-query steps.
-- ``dt_schedule`` follows csrc/milnce_dt.cu: 64-column blocks, 64-row tiles,
-  sim^T summed over the two consumers' channel chunks, dsim rounded to the
-  feature dtype, the product split over the same chunks, row splits chosen by
-  ``ops.milnce._wave_splits``, and their f32 partials summed in split order
-  (milnce_dt_reduce_kernel).
+- ``mha_fwd_schedule`` follows csrc/mha_fwd.cu::mha_fwd_wgmma_kernel: 64-query
+  warpgroup tiles, 64-key tiles zero-filled past S (16-key chunks up to the
+  last key < S), the online softmax in the log2 domain with the unnormalised
+  P rounded to the value dtype before P V, and the key range split into
+  parts whose (max, sum, O) merge in split order (mha_fwd_merge_kernel).
+- ``dt_schedule`` and ``dv_schedule`` follow csrc/milnce_wgmma.cu, one template
+  over the orientation: 64 outer entries a block (text columns for dt, video
+  rows for dv), 64-entry inner tiles, sim summed over the two consumers'
+  channel chunks, dsim rounded to the feature dtype, the product split over
+  the same chunks, inner splits chosen by ``ops.milnce._wave_splits``, and
+  their f32 partials summed in split order (milnce_reduce_kernel); one split
+  goes out without partials.
 
-Also the route selection of ``mha_bwd`` and ``milnce_dt`` (dtype and S).
+Also the route selection of ``mha_fwd``, ``mha_bwd``, ``milnce_dv`` and
+``milnce_dt`` (dtype and S), and the key-split chooser of ``mha_fwd``.
 """
 
 import math
@@ -23,11 +31,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import GRAD_TOL, elem_err
+from chip_smoke import BF16_TOL as FWD_BF16_TOL, GRAD_TOL, elem_err
 from port_fixtures import to_torch
 from temporalalignnet_torch.ops import milnce
 from temporalalignnet_torch.ops import mha_bwd as bwd
-from temporalalignnet_torch.ops.attention import NEG_INF
+from temporalalignnet_torch.ops import mha_fwd as fwd
+from temporalalignnet_torch.ops.attention import NEG_INF, attention_reference
 from temporalalignnet_tpu.ops import pallas_attention, pallas_milnce
 
 torch.set_num_threads(2)
@@ -37,6 +46,137 @@ JAX_ATTN_TOL = 1e-5  # tests/test_torch_attention.py: f32 on the CPU
 JAX_MILNCE_TOL = 5e-4  # tests/test_fused_milnce.py:85 (interpret mode)
 BF16_TOL = GRAD_TOL["bfloat16"]  # the chip check's per-element limit (chip_smoke.py)
 MV, INV_TEMP = -6.0e4, 1.0 / 0.07
+
+
+# ------------------------------------------------------- attention forward
+
+
+def mha_fwd_schedule(q, k, v, mask, splits=1):
+    """out as mha_fwd_wgmma_kernel computes it, in its order."""
+    dtype = q.dtype
+    B, H, S, D = q.shape
+    kt = -(-S // 64)  # 64-key tiles
+    per = -(-kt // splits)
+    splits = -(-kt // per)  # no empty split
+    QR, KR = -(-S // 64) * 64, kt * 64
+    scale2 = math.log2(math.e) / math.sqrt(D)
+    rnd = lambda x: x.to(dtype).float()
+
+    def rows(x, n):  # [B, H, S, D] -> [B, H, n, D], zero past S
+        out = torch.zeros(B, H, n, D)
+        out[:, :, :S] = x.float()
+        return out
+
+    Q, K, V = rows(q, QR), rows(k, KR), rows(v, KR)
+    bias = torch.full((B, KR), -math.inf)  # log2 domain: 0, -1e30 log2(e), -inf past S
+    bias[:, :S] = 0.0 if mask is None else torch.where(mask, NEG_INF * math.log2(math.e), 0.0)
+    parts = []
+    for sp in range(splits):
+        m = torch.full((B, H, QR, 1), -math.inf)
+        l = torch.zeros(B, H, QR, 1)
+        o = torch.zeros(B, H, QR, D)
+        for it in range(sp * per, min(sp * per + per, kt)):
+            ks = slice(64 * it, 64 * it + 64)
+            chunks = min(4, -(-(S - 64 * it) // 16))  # 16-key chunks with a key < S
+            s = Q @ K[:, :, ks].transpose(-1, -2)
+            s[..., 16 * chunks:] = 0.0  # not computed; their keys' bias is -inf
+            x = s * scale2 + bias[:, None, None, ks]
+            mx = torch.maximum(m, x.amax(-1, keepdim=True))
+            corr = torch.exp2(m - mx)  # 0 on the first tile
+            p = torch.exp2(x - mx)
+            l = l * corr + p.sum(-1, keepdim=True)
+            o = o * corr + rnd(p) @ V[:, :, ks]  # P rounded unnormalised
+            m = mx
+        parts.append((m, l, o))
+    if splits == 1:
+        out = o / l
+    else:  # mha_fwd_merge_kernel
+        M = torch.stack([pm for pm, _, _ in parts]).amax(0)
+        L, O = torch.zeros_like(l), torch.zeros_like(o)
+        for pm, pl_, po in parts:
+            w = torch.exp2(pm - M)
+            L, O = L + pl_ * w, O + po * w
+        out = O / L
+    return out[:, :, :S].to(dtype)
+
+
+def _jax_attn_fwd(q, k, v, mask, dtype=jnp.float32):
+    B, S = q.shape[0], q.shape[2]
+    bias = np.zeros((B, 1, S), np.float32)
+    if mask is not None:
+        bias = np.where(mask, NEG_INF, 0.0).astype(np.float32)[:, None, :]
+    out = pallas_attention._fused_attention_call(
+        *(jnp.asarray(x, dtype) for x in (q, k, v)), jnp.asarray(bias), interpret=True, group=1)
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.parametrize("S,masked,splits", [(37, True, 1), (64, False, 1), (80, True, 2),
+                                             (200, True, 3), (200, False, 4), (176, True, 3)])
+def test_mha_fwd_schedule_matches_jax_kernel_and_plain_f32(S, masked, splits):
+    """f32: one and two warpgroup tiles, ragged last key tiles, 1-4 key splits
+    (S = 200 asked for 3 takes 2: no split is empty), a fully padded row."""
+    q, k, v, _, mask = _attn_problem(S + 7, 2, 2, S, masked=masked)
+    tm = None if mask is None else to_torch(mask)
+    ours = mha_fwd_schedule(*(to_torch(x) for x in (q, k, v)), tm, splits)
+    plain = attention_reference(*(to_torch(x) for x in (q, k, v)), tm)
+    assert bool(torch.isfinite(ours).all())
+    torch.testing.assert_close(ours, plain, rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(ours.numpy(), _jax_attn_fwd(q, k, v, mask), atol=JAX_ATTN_TOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("S,splits", [(37, 1), (80, 1), (200, 3)])
+def test_mha_fwd_schedule_bf16_rounds_within_the_chip_limit(S, splits):
+    """bf16 inputs, the unnormalised P rounded to bf16 before P V: against
+    attention_reference (P normalised, then rounded) and the JAX kernel in
+    bf16 by the chip check's limit."""
+    q, k, v, _, mask = _attn_problem(S + 11, 2, 2, S)
+    tq, tk, tv = (to_torch(x).bfloat16() for x in (q, k, v))
+    ours = mha_fwd_schedule(tq, tk, tv, to_torch(mask), splits)
+    plain = attention_reference(tq.float(), tk.float(), tv.float(), to_torch(mask))
+    assert ours.dtype == torch.bfloat16
+    assert (ours.float() - plain).abs().max().item() <= FWD_BF16_TOL
+    jax_ref = _jax_attn_fwd(*(x.float().numpy() for x in (tq, tk, tv)), mask, jnp.bfloat16)
+    assert np.abs(ours.float().numpy() - jax_ref).max() <= FWD_BF16_TOL
+
+
+@pytest.mark.parametrize("dtype,S,expected", [
+    (torch.bfloat16, 1, "short"), (torch.bfloat16, 64, "short"), (torch.bfloat16, 80, "short"),
+    (torch.bfloat16, 128, "short"), (torch.bfloat16, 129, "long"), (torch.bfloat16, 1088, "long"),
+    (torch.float32, 64, "f32"), (torch.float32, 1088, "f32")])
+def test_mha_fwd_route_depends_on_dtype_and_length(dtype, S, expected):
+    assert fwd.route(dtype, S) == expected
+
+
+def test_mha_fwd_counts_the_route_it_launches(monkeypatch):
+    """The wrapper hands its route to the launch and counts it there; v1 is
+    launched uncounted."""
+    taken = []
+    monkeypatch.setattr(fwd, "_launch", lambda which, *a: taken.append(which))
+    before = dict(fwd.mha_fwd.launches_by_route)
+    for S in (64, 80, 200, 1088):
+        q = torch.zeros(1, 1, S, 64, dtype=torch.bfloat16)
+        fwd.mha_fwd(q, q, q)
+    fwd.mha_fwd(*[torch.zeros(1, 1, 64, 64)] * 3)
+    fwd.mha_fwd_v1(*[torch.zeros(1, 1, 64, 64, dtype=torch.bfloat16)] * 3)
+    assert taken == ["short", "short", "long", "long", "f32", "v1"]
+    after = fwd.mha_fwd.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {"short": 2, "long": 2, "f32": 1}
+    with pytest.raises(ValueError, match="bfloat16"):
+        fwd.mha_fwd_v1(*[torch.zeros(1, 1, 64, 64)] * 3)
+
+
+@pytest.mark.parametrize("blocks,key_tiles,sms,expected", [
+    (8 * 9, 17, 132, 3),  # the global method: [1, 8, 1088, 64], 9 query blocks
+    (8 * 2, 4, 132, 4),   # [1, 8, 200, 64]: one key tile per split
+    (512 * 2, 4, 132, 1),  # [64, 8, 200, 64] fills the card
+    (132, 17, 132, 1), (131, 17, 132, 2),
+    (72, 17, 16, 1), (8, 5, 132, 5), (8, 17, 20, 5)])  # 17 tiles in 5 parts: 4, 4, 4, 4, 1
+def test_key_splits_fill_the_card_without_empty_splits(blocks, key_tiles, sms, expected):
+    splits = fwd.key_splits(blocks, key_tiles, sms)
+    assert splits == expected
+    per = -(-key_tiles // splits)
+    assert (splits - 1) * per < key_tiles  # the last split holds a key tile
 
 
 # ------------------------------------------------------ attention backward
@@ -240,10 +380,10 @@ def _milnce_problem(seed, S, R, K, C, shared):
     return v, t, pm, cv, gv, gt
 
 
-def _jax_dt(v, t, pm, cv, lse, gv, gt, tiled):
-    """dt of the JAX backward kernel (untiled _bwd_call, or the column-tiled
-    _bwd_call_tiled), interpret mode; a shared text is broadcast and its
-    gradient summed over the layers, as fused_milnce_elements does."""
+def _jax_bwd(v, t, pm, cv, lse, gv, gt, tiled):
+    """(dv, dt) of the JAX backward kernel (untiled _bwd_call, or the
+    column-tiled _bwd_call_tiled), interpret mode; a shared text is broadcast
+    and its gradient summed over the layers, as fused_milnce_elements does."""
     S, R, _ = v.shape
     K = t.shape[-2]
     tt = np.broadcast_to(t, (S,) + t.shape) if t.ndim == 2 else t
@@ -253,11 +393,11 @@ def _jax_dt(v, t, pm, cv, lse, gv, gt, tiled):
             vnum, vden, tnum, tden, jnp.asarray(-gv), jnp.asarray(gv), jnp.asarray(-gt),
             jnp.asarray(gt))
     if tiled:
-        _, dt = pallas_milnce._bwd_call_tiled(*args, True, INV_TEMP, MV, 8, K // 2)
+        dv, dt = pallas_milnce._bwd_call_tiled(*args, True, INV_TEMP, MV, 8, K // 2)
     else:
-        _, dt = pallas_milnce._bwd_call(*args, True, INV_TEMP, MV, 8)
+        dv, dt = pallas_milnce._bwd_call(*args, True, INV_TEMP, MV, 8)
     dt = np.asarray(dt, np.float32)
-    return dt.sum(0) if t.ndim == 2 else dt
+    return np.asarray(dv, np.float32), dt.sum(0) if t.ndim == 2 else dt
 
 
 @pytest.mark.parametrize("shared", [False, True])
@@ -272,7 +412,7 @@ def test_dt_schedule_matches_jax_kernels_and_plain_f32(shared, tiled):
     plain = milnce.milnce_grad_reference(tv, tt, tpm, tcv, lse, tgv, tgt, INV_TEMP)[1]
     assert ours.shape == tt.shape
     torch.testing.assert_close(ours, plain, rtol=F32_TOL, atol=F32_TOL)
-    ref = _jax_dt(v, t, pm, cv, lse, gv, gt, tiled)
+    ref = _jax_bwd(v, t, pm, cv, lse, gv, gt, tiled)[1]
     np.testing.assert_allclose(ours.numpy(), ref, atol=JAX_MILNCE_TOL, rtol=6 * JAX_MILNCE_TOL)
 
 
@@ -301,12 +441,123 @@ def test_dt_schedule_bf16_rounds_as_the_plain_version(shared):
     assert elem_err(ours, torch.from_numpy(ref)) <= BF16_TOL
 
 
+# ------------------------------------------------------ MIL-NCE video grad
+
+
+def dv_schedule(v, t, pm, cv, lse, gv, gt, inv_temp, sms):
+    """dv as milnce_grad_wgmma_kernel<ROWS_OUTER> computes it, block by block."""
+    vnum, vden, tnum, tden = (x.float() for x in lse)
+    S, R, C = v.shape
+    shared = t.dim() == 2
+    K = t.shape[-2]
+    rtiles, ctiles = -(-R // 64), -(-K // 64)
+    splits = milnce._wave_splits(rtiles * S, ctiles, sms)
+    per = -(-ctiles // splits)
+    splits = -(-ctiles // per)
+    nb0 = (C // 64 + 1) // 2 * 64  # consumer 0's channels
+    part = torch.zeros(splits, S, R, C)
+    for rb in range(rtiles):
+        rows = slice(64 * rb, min(64 * rb + 64, R))
+        for s in range(S):  # one output layer per block
+            vr = v[s, rows].float()
+            vn, vd, g_v = (z[s, rows][:, None] for z in (vnum, vden, gv.float()))
+            for sp in range(splits):
+                acc = torch.zeros(rows.stop - rows.start, C)
+                for it in range(sp * per, min(sp * per + per, ctiles)):
+                    cols = slice(64 * it, min(64 * it + 64, K))
+                    tc = (t if shared else t[s])[cols].float()
+                    # sim [r, k]: each consumer's channels, then the swap
+                    x = (vr[:, :nb0] @ tc[:, :nb0].T + vr[:, nb0:] @ tc[:, nb0:].T) * inv_temp
+                    pos = pm[rows, cols]
+                    keep = cv[cols][None]
+                    kn, kd, g_t = (z[s, cols][None] for z in (tnum, tden, gt.float()))
+                    zero = torch.zeros(())
+                    d = (torch.where(keep, g_v * (x - vd).exp() + g_t * (x - kd).exp(), zero)
+                         - torch.where(pos, g_v * (x - vn).exp() + g_t * (x - kn).exp(), zero))
+                    d = (d * inv_temp).to(v.dtype).float()
+                    acc[:, :nb0] += d @ tc[:, :nb0]
+                    acc[:, nb0:] += d @ tc[:, nb0:]
+                part[sp, s, rows] = acc
+    dv = part[0].clone()  # one split: the accumulators straight to the output
+    for sp in range(1, splits):  # the reduce kernel's fixed order
+        dv += part[sp]
+    return dv.to(v.dtype)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_dv_schedule_matches_jax_kernels_and_plain_f32(shared, tiled):
+    """Ragged R and K (two row blocks, two column tiles), C = 192 (three
+    channel chunks: 2 + 1 over the consumers), the column stream in two
+    splits."""
+    v, t, pm, cv, gv, gt = _milnce_problem(11 + int(shared) + 2 * int(tiled), 3, 96, 70, 192,
+                                           shared)
+    tv, tt, tpm, tcv, tgv, tgt = (to_torch(x) for x in (v, t, pm, cv, gv, gt))
+    lse = milnce.milnce_lse_reference(tv, tt, tpm, tcv, MV, INV_TEMP)
+    assert milnce._wave_splits(2 * 3, 2, 4) == 2
+    ours = dv_schedule(tv, tt, tpm, tcv, lse, tgv, tgt, INV_TEMP, sms=4)
+    plain = milnce.milnce_grad_reference(tv, tt, tpm, tcv, lse, tgv, tgt, INV_TEMP)[0]
+    assert ours.shape == tv.shape
+    torch.testing.assert_close(ours, plain, rtol=F32_TOL, atol=F32_TOL)
+    ref = _jax_bwd(v, t, pm, cv, lse, gv, gt, tiled)[0]
+    np.testing.assert_allclose(ours.numpy(), ref, atol=JAX_MILNCE_TOL, rtol=6 * JAX_MILNCE_TOL)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_dv_schedule_bf16_rounds_as_the_plain_version(shared):
+    """bf16 features, dsim rounded to bf16, one split (no partials): against
+    milnce_grad_reference and the JAX kernel in bf16 by the chip check's
+    limit."""
+    v, t, pm, cv, gv, gt = _milnce_problem(17 + int(shared), 2, 80, 72, 128, shared)
+    tv, tt = to_torch(v).bfloat16(), to_torch(t).bfloat16()
+    tpm, tcv, tgv, tgt = (to_torch(x) for x in (pm, cv, gv, gt))
+    lse = milnce.milnce_lse_reference(tv, tt, tpm, tcv, MV, INV_TEMP)
+    assert milnce._wave_splits(2 * 2, 2, 2) == 1  # 4 blocks on 2 SMs: two waves either way
+    ours = dv_schedule(tv, tt, tpm, tcv, lse, tgv, tgt, INV_TEMP, sms=2)
+    plain = milnce.milnce_grad_reference(tv, tt, tpm, tcv, lse, tgv, tgt, INV_TEMP)[0]
+    assert ours.dtype == torch.bfloat16 and elem_err(ours, plain) <= BF16_TOL
+    S, R, _ = v.shape
+    tt_np = np.broadcast_to(tt.float().numpy(), (S,) + tuple(tt.shape)) if shared else tt.float().numpy()
+    vnum, vden, tnum, tden = (jnp.asarray(x.numpy()) for x in lse)
+    ref, _ = pallas_milnce._bwd_call(
+        jnp.asarray(tv.float().numpy(), jnp.bfloat16),
+        jnp.asarray(np.ascontiguousarray(tt_np), jnp.bfloat16),
+        jnp.asarray(pm.astype(np.float32)), jnp.asarray(cv.astype(np.float32))[None],
+        vnum, vden, tnum, tden, jnp.asarray(-gv), jnp.asarray(gv), jnp.asarray(-gt),
+        jnp.asarray(gt), True, INV_TEMP, MV, 8)
+    assert elem_err(ours, torch.from_numpy(np.asarray(ref, np.float32))) <= BF16_TOL
+
+
 @pytest.mark.parametrize("blocks,inner,sms,expected", [
     (96, 64, 132, 4),  # per-layer text at B = 64: 6 layers x 16 column blocks
     (16, 64, 132, 8),  # shared text at B = 64
     (1, 1, 132, 1), (6, 2, 4, 2)])
 def test_wave_splits_balance_the_last_wave(blocks, inner, sms, expected):
     assert milnce._wave_splits(blocks, inner, sms) == expected
+
+
+@pytest.mark.parametrize("blocks,inner,sms,expected", [
+    (64 * 6, 16, 132, 1),  # milnce_dv at B = 64: 64 row blocks x 6 layers, 16 column tiles
+    (128 * 6, 32, 132, 1), (64 * 2, 80, 132, 1)])  # B = 128; K = 5120
+def test_wave_splits_leave_the_video_gradient_in_one_split(blocks, inner, sms, expected):
+    """At the training and tiled-kernel shapes dv streams its columns in one
+    split, so it writes no partials."""
+    assert milnce._wave_splits(blocks, inner, sms) == expected
+
+
+@pytest.mark.parametrize("dtype,expected", [(torch.bfloat16, "wgmma"), (torch.float32, "f32")])
+def test_milnce_dv_route_depends_on_dtype(dtype, expected, monkeypatch):
+    seen = []
+    monkeypatch.setattr(milnce, "_grad", lambda name, *a, wgmma=False: seen.append((name, wgmma)))
+    before = dict(milnce.milnce_dv.launches_by_route)
+    x = torch.zeros(2, 2, dtype=dtype)
+    milnce.milnce_dv(x, x, None, None, None, None, None, 1.0)
+    milnce.milnce_dv_v2(x, x, None, None, None, None, None, 1.0)  # uncounted
+    assert milnce.dv_route(dtype) == expected
+    assert seen == [("milnce_dv", expected == "wgmma"), ("milnce_dv", False)]
+    after = milnce.milnce_dv.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == expected) for r in milnce.DV_ROUTES}
 
 
 @pytest.mark.parametrize("dtype,expected", [(torch.bfloat16, "wgmma"), (torch.float32, "f32")])
