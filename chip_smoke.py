@@ -19,13 +19,16 @@ Phases, each printing JSON lines:
              (GRAD_TOL); planted faults must exceed the limit.  Each route:
              bf16 "fused" at the training shapes and an odd S, bf16 "v2" at
              S = 200, "f32" at all four; the route each call took is checked.
-     kernel_milnce  milnce_fwd against milnce_reference, milnce_dv and
-             milnce_dt against milnce_grad_reference, at the B = 64 training
-             shape (shared and per-layer text), at the shapes where the JAX
-             package takes its column-tiled kernels (B = 128; K = 5120) and at
-             a small one whose video gradient splits its column stream, f32
-             and bf16; planted faults as above; the routes of milnce_dv and
-             milnce_dt (bf16 "wgmma", f32 "f32") are checked.
+     kernel_milnce  milnce_fwd against milnce_reference (the loss's
+             elements) and its four logsumexps against milnce_lse_reference,
+             milnce_dv and milnce_dt against milnce_grad_reference, at the
+             B = 64 training shape (shared and per-layer text), at the shapes
+             where the JAX package takes its column-tiled kernels (B = 128;
+             K = 5120) and at a small one whose video gradient splits its
+             column stream, f32 and bf16; planted faults as above (for the
+             forward: padded columns left unmasked, the last row block left
+             out of the column logsumexps); the routes of the three (bf16
+             "wgmma", f32 "f32") are checked.
   3. eval    AlignmentEvaluator (overlap-seq and global) on a synthetic corpus,
              random E6D6 weights from a seed, bf16; every encoder forward call
              must launch the kernel 12 times, on the "short" route for
@@ -38,20 +41,23 @@ Phases, each printing JSON lines:
              on synthetic HowTo100M-format features and captions written to
              build/chip_smoke_train/: finite losses, and every step launches
              mha_fwd and mha_bwd 12 times (on the short and fused routes) and
-             each MIL-NCE kernel twice (milnce_dv and milnce_dt on the wgmma
-             route).  The
+             each MIL-NCE kernel twice (on the wgmma route).  The
              fused path against the plain-logits path on the card (bf16), and
              an f32 step on the card against the CPU's.
      train_cli  python -m temporalalignnet_torch.train --max_steps on those
              files, then python -m temporalalignnet_torch.eval on the
              .pth.tar it wrote.
-  4. times   eval-forward windows/s of the bench.py workload, and per shape the
-             kernel's, the plain version's and PyTorch's SDPA time beside the
-             card's bound; train steps/s at B = 64 with its device time and
-             top kernels, and the same four times for each training kernel
-             at its training shapes (MIL-NCE also at the tiled-kernel ones),
-             with the earlier bf16 kernel timed beside each redesigned one
-             (mha_fwd v1; mha_bwd, milnce_dv and milnce_dt v2).
+  4. times   per shape mha_fwd's, the plain version's and PyTorch's SDPA
+             time beside the card's bound, and the same four times for each
+             training kernel at its training shapes (MIL-NCE also at the
+             tiled-kernel ones), with the earlier bf16 kernel timed beside
+             each redesigned one (mha_fwd and milnce_fwd v1; mha_bwd,
+             milnce_dv and milnce_dt v2); then eval-forward windows/s of the
+             bench.py workload and train steps/s at B = 64, each with its
+             device time and top kernels.
+             Device times come from torch.profiler; a time whose sessions
+             all recorded no device activity is taken with CUDA events and
+             marked "timing": "cuda_events".
 The card's name and power limit (nvidia-smi) and a ``kernels`` line come
 before the last line, which is {"ok": true, "device": {...}}.  Any failed
 phase raises and the script exits non-zero without that line.  Without CUDA
@@ -115,7 +121,7 @@ STEP_LAUNCHES = {"mha_fwd": 12, "mha_bwd": 12, "milnce_fwd": 2, "milnce_dv": 2,
                  "milnce_dt": 2}
 # ... and the routes they take (bf16, S = 64 and 80)
 STEP_ROUTES = {"mha_fwd": {"short": 12, "long": 0, "f32": 0},
-               "mha_bwd": {"fused": 12, "v2": 0, "f32": 0},
+               "mha_bwd": {"fused": 12, "v2": 0, "f32": 0}, "milnce_fwd": {"wgmma": 2, "f32": 0},
                "milnce_dv": {"wgmma": 2, "f32": 0}, "milnce_dt": {"wgmma": 2, "f32": 0}}
 # fused against plain logits on the card, bf16, two steps on two batches
 # (the first update has lr 0, so both steps see the initial params): the
@@ -175,35 +181,48 @@ def cuda_ms(torch, fn, reps=20, warmup=3) -> float:
     return start.elapsed_time(end) / reps
 
 
+PROFILER_TRIES = 3
+
+
 def device_profile(torch, fn, reps=20, warmup=3):
     """Run ``fn`` ``reps`` times under torch.profiler.  Returns (device ms per
     call summed over every kernel it launched, {kernel name: ms per call},
-    {host op: self CPU ms per call}).  Host issue time is not in the first;
-    ``cuda_ms`` measures with that included."""
+    {host op: self CPU ms per call}, timing).  Host issue time is not in the
+    first; ``cuda_ms`` measures with that included.
+
+    A profiler session now and then loses device activity (seen on an H100:
+    a session of 20 calls that recorded no kernel at all, and sessions that
+    recorded some of a kernel's 20 launches).  ``fn`` launches the same
+    kernels on every call, so a session is whole only if every kernel's
+    count is a multiple of ``reps``.  Any other is run again, up to
+    PROFILER_TRIES times; if none is whole, the first value is the
+    CUDA-event time of the same calls, the dicts are empty, and timing says
+    "cuda_events" instead of "profiler"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    # a record_function range (e.g. Optimizer.step) shows on the device too,
-    # spanning kernels already counted: keep only names the host never ran
-    host = {e.key for e in events if e.device_type == DeviceType.CPU}
-    per_kernel = {}
-    for e in events:
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and e.key not in host:
-            per_kernel[e.key] = e.self_device_time_total / 1e3 / reps
-    total = sum(per_kernel.values())
-    if total <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    host_ms = {e.key: e.self_cpu_time_total / 1e3 / reps for e in events
-               if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0}
-    return total, per_kernel, host_ms
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        # a record_function range (e.g. Optimizer.step) shows on the device
+        # too, spanning kernels already counted: keep only names the host
+        # never ran
+        host = {e.key for e in events if e.device_type == DeviceType.CPU}
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0 and e.key not in host]
+        per_kernel = {e.key: e.self_device_time_total / 1e3 / reps for e in kernels}
+        total = sum(per_kernel.values())
+        if total > 0 and all(e.count % reps == 0 for e in kernels):
+            host_ms = {e.key: e.self_cpu_time_total / 1e3 / reps for e in events
+                       if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0}
+            return total, per_kernel, host_ms, "profiler"
+    return cuda_ms(torch, fn, reps, warmup=0), {}, {}, "cuda_events"
 
 
 def phase_build():
@@ -411,16 +430,33 @@ def milnce_problem(torch, S, B, T, N, C, shared, gen, dev):
     return [x.to(dev) for x in (v, t, pm, cv, gv, gt)]
 
 
+def milnce_fwd_faults(torch, v, t, pm, cv, lse, mv, inv_temp):
+    """Planted faults of the forward's four logsumexps, from the plain
+    version: the column logsumexps without the last 64-row block, and (with
+    padded columns) every column left unmasked."""
+    from temporalalignnet_torch.ops.milnce import TILE, milnce_lse_reference
+
+    r_last = (v.shape[1] - 1) // TILE * TILE
+    faults = {"last_row_block_dropped": tuple(lse[:2]) + milnce_lse_reference(
+        v[:, :r_last], t, pm[:r_last], cv, mv, inv_temp)[2:]}
+    if not bool(cv.all()):
+        faults["padded_columns_unmasked"] = milnce_lse_reference(
+            v, t, pm, torch.ones_like(cv), mv, inv_temp)
+    return faults
+
+
 def phase_milnce_check(torch):
     """The three MIL-NCE kernels through MilNCEFunction against the plain
     versions from the same inputs: the values against milnce_reference, the
-    gradients against milnce_grad_reference from the plain logsumexps; and
-    the planted faults against the same plain version, each of which the
-    limit must catch."""
+    forward's four logsumexps against milnce_lse_reference, the gradients
+    against milnce_grad_reference from the plain logsumexps; and the planted
+    faults against the same plain versions, each of which the limit must
+    catch."""
     from temporalalignnet_torch.ops import _build
     from temporalalignnet_torch.ops.milnce import (
         TILE, _wave_splits, fused_milnce_elements, milnce_dt, milnce_dt_v2, milnce_dv,
-        milnce_dv_v2, milnce_fwd, milnce_grad_reference, milnce_lse_reference, milnce_reference)
+        milnce_dv_v2, milnce_fwd, milnce_fwd_v1, milnce_grad_reference, milnce_lse_reference,
+        milnce_reference)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 5)
@@ -431,31 +467,33 @@ def phase_milnce_check(torch):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             ins = [x.detach().to(dtype).clone().requires_grad_() for x in (v32, t32)]
+            before = {f: dict(f.launches_by_route) for f in (milnce_fwd, milnce_dv, milnce_dt)}
             out = fused_milnce_elements(*ins, pm, cv, mv, inv_temp)
-            before = {f: dict(f.launches_by_route) for f in (milnce_dv, milnce_dt)}
             ((out[0] * gv).sum() + (out[1] * gt).sum()).backward()
             taken = {f.__name__: route_taken(f, b) for f, b in before.items()}
             expected = "wgmma" if dtype == torch.bfloat16 else "f32"
-            check(taken == {"milnce_dv": expected, "milnce_dt": expected},
-                  f"MIL-NCE gradients {name} took routes {taken}")
+            check(taken == dict.fromkeys(("milnce_fwd", "milnce_dv", "milnce_dt"), expected),
+                  f"MIL-NCE kernels {name} took routes {taken}")
             v, t = (x.detach() for x in ins)
             ref = milnce_reference(v, t, pm, cv, mv, inv_temp)
             lse = milnce_lse_reference(v, t, pm, cv, mv, inv_temp)
+            klse = milnce_fwd(v, t, pm, cv, mv, inv_temp)  # the four logsumexps, directly
             plain = milnce_grad_reference(v, t, pm, cv, lse, gv, gt, inv_temp)
             faults = {"column_term_dropped": milnce_grad_reference(
                 v, t, pm, cv, lse, gv, torch.zeros_like(gt), inv_temp)}
-            if not bool(cv.all()):  # unmasked in the forward and the backward
-                every = torch.ones_like(cv)
+            fwd_faults = milnce_fwd_faults(torch, v, t, pm, cv, lse, mv, inv_temp)
+            if "padded_columns_unmasked" in fwd_faults:  # in the forward and the backward
                 faults["padded_columns_unmasked"] = milnce_grad_reference(
-                    v, t, pm, every, milnce_lse_reference(v, t, pm, every, mv, inv_temp),
-                    gv, gt, inv_temp)
+                    v, t, pm, torch.ones_like(cv), fwd_faults["padded_columns_unmasked"], gv, gt,
+                    inv_temp)
             # dv and dt against the plain version from the kernel's own
             # logsumexps (the ones the backward kernels got), the new and the
             # earlier kernels: without the ~1e-6 logsumexp difference, which
             # moves some dsim entries to the neighbouring bf16 value
-            same_lse = {}
+            same_lse, v1_lse_err = {}, None
             if dtype == torch.bfloat16:
-                klse = milnce_fwd(v, t, pm, cv, mv, inv_temp)
+                v1_lse_err = max(elem_err(a, b) for a, b in zip(
+                    milnce_fwd_v1(v, t, pm, cv, mv, inv_temp), lse))
                 kdv, kdt = milnce_grad_reference(v, t, pm, cv, klse, gv, gt, inv_temp)
                 kargs = (v, t, pm, cv, klse, gv, gt, inv_temp)
                 same_lse = {"dv": {"milnce_dv": elem_err(ins[0].grad, kdv),
@@ -463,24 +501,29 @@ def phase_milnce_check(torch):
                             "dt": {"milnce_dt": elem_err(ins[1].grad, kdt),
                                    "milnce_dt_v2": elem_err(milnce_dt_v2(*kargs), kdt)}}
             torch.cuda.synchronize()
-            pairs = {"milnce_fwd": list(zip(out, ref)),
+            pairs = {"milnce_fwd": list(zip(out, ref)), "milnce_fwd_lse": list(zip(klse, lse)),
                      "milnce_dv": [(ins[0].grad, plain[0])],
                      "milnce_dt": [(ins[1].grad, plain[1])]}
             errs = {k: max(elem_err(a, b) for a, b in ps) for k, ps in pairs.items()}
             abs_errs = {k: max(abs_err(a, b) for a, b in ps) for k, ps in pairs.items()}
             fault_errs = {f: max(elem_err(a, b) for a, b in zip(fg, plain))
                           for f, fg in faults.items()}
-            tols = {"milnce_fwd": MILNCE_VALUE_TOL, "milnce_dv": GRAD_TOL[name],
-                    "milnce_dt": GRAD_TOL[name]}
+            fwd_fault_errs = {f: max(elem_err(a, b) for a, b in zip(fl, lse))
+                              for f, fl in fwd_faults.items()}
+            tols = {"milnce_fwd": MILNCE_VALUE_TOL, "milnce_fwd_lse": MILNCE_VALUE_TOL,
+                    "milnce_dv": GRAD_TOL[name], "milnce_dt": GRAD_TOL[name]}
             dv_splits = _wave_splits(-(-B * T // TILE) * S, -(-B * N // TILE), _build.sm_count(dev))
             emit({"phase": "kernel_milnce", "S": S, "R": B * T, "K": B * N, "C": C,
                   "text": "shared" if shared else "per-layer", "dtype": name,
+                  "milnce_fwd_route": taken["milnce_fwd"],
                   "milnce_dv_route": taken["milnce_dv"], "milnce_dt_route": taken["milnce_dt"],
                   "milnce_dv_splits": dv_splits,
                   "padded_columns": int((~cv).sum()), "elem_err": errs, "abs_err": abs_errs,
                   "norm_err_dv_dt": [norm_err(x.grad, b) for x, b in zip(ins, plain)],
                   "rms_dv_dt": [rms(b) for b in plain], "tol": tols,
                   "planted_fault_elem_err": fault_errs,
+                  "planted_fault_elem_err_fwd_lse": fwd_fault_errs,
+                  "elem_err_fwd_lse_v1": v1_lse_err,
                   "elem_err_dv_vs_plain_from_kernel_lse": same_lse.get("dv", {}),
                   "elem_err_dt_vs_plain_from_kernel_lse": same_lse.get("dt", {})})
             for kname, err in errs.items():
@@ -489,13 +532,17 @@ def phase_milnce_check(torch):
             for f, err in fault_errs.items():
                 check(err > GRAD_TOL[name], f"limit {GRAD_TOL[name]} misses the planted fault "
                                             f"{f}: {err}")
+            for f, err in fwd_fault_errs.items():
+                check(err > MILNCE_VALUE_TOL, f"limit {MILNCE_VALUE_TOL} misses the planted "
+                                              f"fault {f}: {err}")
             if (S, B, T, N, C, shared) == MILNCE_SPLIT_SHAPE:
                 check(dv_splits > 1, "milnce_dv took one split")
             for grad in ("dv", "dt"):
                 err = same_lse.get(grad, {}).get(f"milnce_{grad}", 0.0)
                 check(err <= GRAD_TOL[name],
                       f"milnce_{grad} against the plain version from its own logsumexps: {err}")
-            check(all(bool(torch.isfinite(x).all()) for x in (*out, ins[0].grad, ins[1].grad)),
+            check(all(bool(torch.isfinite(x).all())
+                      for x in (*out, *klse, ins[0].grad, ins[1].grad)),
                   "MIL-NCE kernels non-finite")
             check(ins[1].grad.shape == t32.shape and ins[1].grad.dtype == dtype, "dt shape")
     v, t, pm, cv, _, _ = milnce_problem(torch, 2, 2, 64, 16, 512, False, gen, dev)
@@ -861,10 +908,13 @@ def phase_train_cli(torch, files, eval_files):
 
 def timed_row(torch, fns, nbytes, flops, bw, peak, **info):
     """Device ms (profiler) and CUDA-event ms of each of ``fns`` {prefix: fn},
-    beside the bound max(bytes / bw, flops / peak)."""
+    beside the bound max(bytes / bw, flops / peak); for the kernel's own call
+    (prefix "") also the device ms of each kernel it launched."""
     row = dict(info)
     for prefix, fn in fns.items():
-        row[prefix + "ms"] = device_profile(torch, fn)[0]
+        row[prefix + "ms"], per_kernel, _, row[prefix + "timing"] = device_profile(torch, fn)
+        if not prefix:
+            row["kernels_ms"] = {k[:60]: v for k, v in per_kernel.items()}
         row[prefix + "wall_ms"] = cuda_ms(torch, fn)
     t_bytes, t_ops = nbytes / bw, flops / peak
     row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
@@ -875,30 +925,11 @@ def timed_row(torch, fns, nbytes, flops, bw, peak, **info):
 def phase_train_times(torch, card):
     import torch.nn.functional as F
 
-    from temporalalignnet_torch.data.synthetic import synthetic_batch
     from temporalalignnet_torch.ops import milnce
     from temporalalignnet_torch.ops.attention import attention_reference
     from temporalalignnet_torch.ops.mha_bwd import mha_bwd, mha_bwd_v2
 
     dev = torch.device("cuda")
-    B, T, N, W = (TRAIN[k] for k in "BTNW")
-    _, _, step = train_setup(torch, dev, fused=True)
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
-        np.random.RandomState(SEED + 6), batch_size=B, seq_len=T, max_sentences=N,
-        feature_dim=1024, vocab_size=66250, max_words=W).items()}
-    run = lambda: step(batch)
-    step_ms = cuda_ms(torch, run, reps=10, warmup=3)
-    busy_ms, per_kernel, host_ms = device_profile(torch, run, reps=5, warmup=1)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
-    top_host = sorted(host_ms.items(), key=lambda kv: -kv[1])[:15]
-    emit({"phase": "times", "metric": "train_steps_per_s", "card": card,
-          "value": 1e3 / step_ms, "ms_per_step": step_ms, "batch": TRAIN,
-          "model": "E6D6 width 512, word2vec, fused MIL-NCE, bf16 compute, f32 params",
-          "device_busy_ms_per_step": busy_ms, "idle_share": max(0.0, 1.0 - busy_ms / step_ms),
-          "top_kernels_ms_per_step": {k[:90]: v for k, v in top},
-          "host_self_ms_per_step_under_profiler": sum(host_ms.values()),
-          "top_host_ops_self_ms_per_step": {k[:90]: v for k, v in top_host}})
-
     bw, peak = peaks(card)
     gen = torch.Generator().manual_seed(SEED + 7)
     rows = {}
@@ -932,6 +963,7 @@ def phase_train_times(torch, card):
         lse_bytes = (2 * S_ * R + 2 * S_ * K) * 4
         cases = {
             "milnce_fwd": ({"": lambda: milnce.milnce_fwd(v, t, pm, cv, mv, inv_temp),
+                            "v1_": lambda: milnce.milnce_fwd_v1(v, t, pm, cv, mv, inv_temp),
                             "plain_": lambda: milnce.milnce_reference(
                                 v.detach(), t.detach(), pm, cv, mv, inv_temp)},
                            feat_bytes + lse_bytes, 2 * S_ * R * K * C),
@@ -958,11 +990,11 @@ def phase_train_times(torch, card):
     return rows
 
 
-def phase_times(torch, model, card):
-    import torch.nn.functional as F
-
-    from temporalalignnet_torch.ops.attention import attention_reference
-    from temporalalignnet_torch.ops.mha_fwd import mha_fwd, mha_fwd_v1, route
+def phase_step_times(torch, model, card):
+    """Eval-forward windows/s and train steps/s with their device time.  Run
+    after every kernel's timing: on an H100, profiler sessions that followed
+    the train step's (thousands of kernels) lost device activity."""
+    from temporalalignnet_torch.data.synthetic import synthetic_batch
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 2)
@@ -976,14 +1008,44 @@ def phase_times(torch, model, card):
             model.text_visual_sims(video, model.encode_text(ids, mask))
 
     fwd_ms = cuda_ms(torch, forward)
-    busy_ms, per_kernel, _ = device_profile(torch, forward)
+    busy_ms, per_kernel, _, timing = device_profile(torch, forward)
+    busy_ms = busy_ms if timing == "profiler" else None  # events time the host too
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     emit({"phase": "times", "metric": "eval_forward_windows_per_s", "card": card,
           "value": B / (fwd_ms / 1e3), "ms_per_call": fwd_ms, "workload": BENCH,
           "model": "E6D6 width 512, bf16, head on", "device_busy_ms_per_call": busy_ms,
-          "idle_share": max(0.0, 1.0 - busy_ms / fwd_ms),
+          "idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / fwd_ms),
           "top_kernels_ms_per_call": {k[:90]: v for k, v in top}})
 
+    B, T, N, W = (TRAIN[k] for k in "BTNW")
+    _, _, step = train_setup(torch, dev, fused=True)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+        np.random.RandomState(SEED + 6), batch_size=B, seq_len=T, max_sentences=N,
+        feature_dim=1024, vocab_size=66250, max_words=W).items()}
+    run = lambda: step(batch)
+    step_ms = cuda_ms(torch, run, reps=10, warmup=3)
+    busy_ms, per_kernel, host_ms, timing = device_profile(torch, run, reps=5, warmup=1)
+    busy_ms = busy_ms if timing == "profiler" else None
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
+    top_host = sorted(host_ms.items(), key=lambda kv: -kv[1])[:15]
+    emit({"phase": "times", "metric": "train_steps_per_s", "card": card,
+          "value": 1e3 / step_ms, "ms_per_step": step_ms, "batch": TRAIN,
+          "model": "E6D6 width 512, word2vec, fused MIL-NCE, bf16 compute, f32 params",
+          "device_busy_ms_per_step": busy_ms,
+          "idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / step_ms),
+          "top_kernels_ms_per_step": {k[:90]: v for k, v in top},
+          "host_self_ms_per_step_under_profiler": sum(host_ms.values()),
+          "top_host_ops_self_ms_per_step": {k[:90]: v for k, v in top_host}})
+
+
+def phase_times(torch, card):
+    import torch.nn.functional as F
+
+    from temporalalignnet_torch.ops.attention import attention_reference
+    from temporalalignnet_torch.ops.mha_fwd import mha_fwd, mha_fwd_v1, route
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 2)
     bw, bf16_peak = peaks(card)
     rows = []
     for shape in KERNEL_SHAPES + MHA_BWD_SHAPES[:2]:  # the eval's, then the training's
@@ -1001,7 +1063,7 @@ def phase_times(torch, model, card):
         # wall_ms: CUDA events around back-to-back calls, host issue included
         row = {"shape": list(shape), "dtype": "bfloat16", "route": route(q.dtype, S)}
         for prefix, fn in fns.items():
-            row[prefix + "ms"] = device_profile(torch, fn)[0]
+            row[prefix + "ms"], _, _, row[prefix + "timing"] = device_profile(torch, fn)
             row[prefix + "wall_ms"] = cuda_ms(torch, fn)
         nbytes = 4 * q.numel() * q.element_size() + pad.numel()
         flops = 4 * Bq * H * S * S * D
@@ -1037,8 +1099,9 @@ def main() -> int:
     files = make_train_files(os.path.join(REPO, "build", "chip_smoke_train"), 96, SEED)
     launches, _ = phase_train(torch, files)
     phase_train_cli(torch, files, eval_files)
-    rows = phase_times(torch, model, card)
+    rows = phase_times(torch, card)
     train_rows = phase_train_times(torch, card)
+    phase_step_times(torch, model, card)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1047,7 +1110,7 @@ def main() -> int:
     print(smi, flush=True)
     fwd_rows = {tuple(r["shape"]): r for r in rows}
     timed, glob = fwd_rows[MHA_BWD_SHAPES[1]], fwd_rows[KERNEL_SHAPES[3]]
-    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    fields = ("ms", "timing", "plain_ms", "bound_ms", "bound_by", "library_ms")
     pallas = "temporalalignnet_tpu/ops/pallas_milnce.py"
     # launches: this slice's main path (TRAIN_STEPS train steps); mha_fwd's on
     # slice 1's path (the eval phase) beside it
@@ -1080,14 +1143,14 @@ def main() -> int:
     }
     for name, rep in replaces.items():
         row = train_rows[(name, 6, TRAIN["B"] * TRAIN["T"], TRAIN["B"] * TRAIN["N"], False)]
-        src = "milnce_fwd.cu" if name == "milnce_fwd" else "milnce_wgmma.cu"
-        extra = {}
-        if name != "milnce_fwd":
-            extra = dict(kernel_route="wgmma (TMA, warp specialised), bf16",
-                         launches_by_route=launches["routes"][name],
-                         earlier_ms=row["v2_ms"], earlier_version="v2 (mma.sync)")
-        entries.append(dict(**extra,
-            name=name, source=f"temporalalignnet_torch/csrc/{src}", replaces=rep,
+        earlier = "v1" if name == "milnce_fwd" else "v2"
+        lse_err = ({"max_abs_err_lse_bf16": milnce_err[("milnce_fwd_lse", "bfloat16")]}
+                   if name == "milnce_fwd" else {})
+        entries.append(dict(**lse_err,
+            name=name, source="temporalalignnet_torch/csrc/milnce_wgmma.cu", replaces=rep,
+            kernel_route="wgmma (TMA, warp specialised), bf16",
+            launches_by_route=launches["routes"][name], earlier_ms=row[earlier + "_ms"],
+            earlier_version=f"{earlier} (mma.sync)",
             launches=launches[name], max_abs_err=milnce_err[(name, "bfloat16")],
             max_err_f32=milnce_err[(name, "float32")],
             max_err_bf16=milnce_err[(name, "bfloat16")],

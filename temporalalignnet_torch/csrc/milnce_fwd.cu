@@ -1,5 +1,7 @@
-// Fused MIL-NCE forward for Hopper (sm_90a): per layer s, the four masked
-// logsumexps of sim = inv_temp * v[s] t[s]^T without writing sim:
+// Fused MIL-NCE forward (sm_90a), the f32 route and the earlier bf16 kernel
+// (milnce_fwd_v1; the bf16 route is milnce_wgmma.cu's milnce_fwd_wgmma): per
+// layer s, the four masked logsumexps of sim = inv_temp * v[s] t[s]^T
+// without writing sim:
 //   vnum[s, r] = lse_k pos,  vden[s, r] = lse_k neg,
 //   tnum[s, k] = lse_r pos,  tden[s, k] = lse_r neg,
 // pos = where(pm[r, k], sim, mask_value), neg = where(cv[k], sim, mask_value).
@@ -18,8 +20,8 @@
 // logsumexps run as an online (max, sum) recurrence, so vnum and vden need no
 // second pass;
 // every tile's column (max, sum) pairs over its 64 rows go to a
-// [4, S, R/64, K] scratch, which milnce_colmerge_kernel folds into tnum and
-// tden with the same recurrence (pallas_milnce.py:108-120).
+// [4, S, R/64, K] scratch, which milnce_colmerge_kernel (milnce_colmerge.cuh)
+// folds into tnum and tden with the same recurrence (pallas_milnce.py:108-120).
 //
 // The dual branch's text, shared by every layer, is read with a layer stride
 // of 0 and never broadcast in memory.  pm is a [R, K] byte mask (nonzero =
@@ -29,6 +31,7 @@
 // C a multiple of 64.  Built by temporalalignnet_torch/ops/_build.py into a
 // shared library with a plain C interface, called through ctypes.
 
+#include "milnce_colmerge.cuh"
 #include "milnce_tile.cuh"
 
 namespace {
@@ -128,23 +131,6 @@ milnce_fwd_kernel(const T* __restrict__ v, const T* __restrict__ t, long long t_
   }
 }
 
-// tnum, tden [S, K] from the per-row-block partials, in row-block order
-__global__ void milnce_colmerge_kernel(const float* __restrict__ part, float* __restrict__ tnum,
-                                       float* __restrict__ tden, int S, int nrb, int K) {
-  const size_t idx = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= size_t(S) * K) return;
-  const size_t s = idx / K, k = idx % K;
-  const size_t plane = size_t(S) * nrb * K;
-  float mp = -INFINITY, sp = 0.f, mn = -INFINITY, sn = 0.f;
-  for (int rb = 0; rb < nrb; ++rb) {
-    const size_t p = (s * nrb + rb) * K + k;
-    lse_merge(mp, sp, part[p], part[plane + p]);
-    lse_merge(mn, sn, part[2 * plane + p], part[3 * plane + p]);
-  }
-  tnum[idx] = mp + logf(sp);
-  tden[idx] = mn + logf(sn);
-}
-
 template <typename T>
 cudaError_t launch(const void* v, const void* t, long long t_ls, const void* pm, const void* cv,
                    void* vnum, void* vden, void* tnum, void* tden, void* part, int S, int R,
@@ -157,11 +143,7 @@ cudaError_t launch(const void* v, const void* t, long long t_ls, const void* pm,
       mv, inv_temp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t n = size_t(S) * K;
-  milnce_colmerge_kernel<<<unsigned((n + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<float*>(tnum), static_cast<float*>(tden), S,
-      nrb, K);
-  return cudaGetLastError();
+  return colmerge(part, tnum, tden, S, R, K, stream);
 }
 
 }  // namespace

@@ -34,14 +34,6 @@ constexpr int F_LD = TILE + 4;
 constexpr int imax(int a, int b) { return a > b ? a : b; }
 constexpr int STAGE_BYTES = imax(2 * TILE * BF_LD * 2, imax(2 * F_KC * F_LD * 4, TILE * F_LD * 4));
 
-// (m, s) of a logsumexp merged with another (m2, s2); -inf entries are empty
-__device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2) {
-  const float mn = fmaxf(m, m2);
-  if (mn == -INFINITY) return;
-  s = s * expf(m - mn) + s2 * expf(m2 - mn);
-  m = mn;
-}
-
 // rows [n0, n0 + 64) x channels [c0, c0 + BF_KC) of a row-major [n, C] bf16
 // array into dst[64][BF_LD]; 16 bytes per load (C is a multiple of 64)
 __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,

@@ -1,10 +1,12 @@
-// MIL-NCE feature gradients for Hopper (sm_90a), bf16: the wgmma/TMA kernel
-// of milnce_dv and milnce_dt, one template over the orientation
-// (csrc/milnce_bwd.cu keeps the f32 route and the earlier v2 kernels).
+// MIL-NCE for Hopper (sm_90a), bf16: the wgmma/TMA kernels of the fused
+// loss's forward (milnce_fwd) and of its feature gradients (milnce_dv and
+// milnce_dt, one template over the orientation), on one skeleton
+// (csrc/milnce_fwd.cu and csrc/milnce_bwd.cu keep the f32 routes and the
+// earlier bf16 kernels).
 //
-// Replaces temporalalignnet_tpu/ops/pallas_milnce.py::_milnce_bwd_kernel and
-// the column-tiled ::_milnce_dv_kernel and ::_milnce_dt_kernel: for each
-// layer s, video row r and text column k,
+// The gradients replace temporalalignnet_tpu/ops/pallas_milnce.py::
+// _milnce_bwd_kernel and the column-tiled ::_milnce_dv_kernel and
+// ::_milnce_dt_kernel: for each layer s, video row r and text column k,
 //   dv[r] = sum_k dsim[r, k] t[k],   dt[k] = sum_r dsim[r, k] v[r],
 //   dsim = inv_temp * (gv[r] (p_neg - p_pos) + gt[k] (q_neg - q_pos)),
 //   p_pos = pm ? exp(sim - vnum[r]) : 0,  p_neg = cv ? exp(sim - vden[r]) : 0,
@@ -62,6 +64,36 @@
 //   four-stage ring, the next tile's sim started before this tile's dsim: the
 //   halved tiles doubled the per-tile barriers and waits.)
 //
+// The forward (milnce_fwd_wgmma_kernel) replaces ::_milnce_fwd_kernel and the
+// column-tiled ::_milnce_fwd_tiled_kernel (one kernel at any K): per layer s,
+// without writing sim,
+//   vnum[s, r] = lse_k pos,  vden[s, r] = lse_k neg,
+//   tnum[s, k] = lse_r pos,  tden[s, k] = lse_r neg,
+//   pos = pm ? sim : mask_value,  neg = cv ? sim : mask_value.
+// Bound by operations too: 2 S R K C FLOPs, 25.8 GFLOP at the training shape
+// (26 us), against ~36 MB of v, t and pm (11 us).  It runs on milnce_dv's
+// grid, ring and producer (rows outer, one split; no inner vectors staged)
+// and its sim with the partial-sum swap; then, in the log2 domain (x = sim
+// inv_temp log2(e); masked entries mask_value log2(e), never -inf; entries
+// past K or past R -inf), consumer h, holding sim of the 64 rows x its 32
+// columns of the tile:
+// - rows: folds its 8 entries of each of its 2 rows into a running (max,
+//   sum) per row, positives and negatives, kept in registers for the whole
+//   stream; at the end the quad's four and the two consumers' merge, and
+//   vnum, vden go out as (max + log2 sum) ln 2;
+// - columns: (max, sum) over its 2 rows, over the warp's 16 rows by shuffles,
+//   then over the 4 warps through shared memory (a per-tile scratch in the
+//   dsim tile's place, double buffered by tile parity); one warp writes the
+//   row block's column partials in natural-log terms (max ln 2, sum), which
+//   milnce_colmerge_kernel (milnce_colmerge.cuh) folds in row-block order, as
+//   for the f32 route.
+// The exponentials are ex2 without branches: the reference of an all -inf
+// (max, sum) is 0 (a select), so it merges as (-inf, 0) and not as NaN.
+// (Issuing the next tile's sim before this tile's (max, sum) pairs, so that
+// the tensor cores would run during them, was tried and was slower on an
+// H100 at every timed shape: ptxas injects a warpgroup wait where the
+// epilogue reuses registers, which serialises the two.)
+//
 // Layout: v [S, R, C] bf16; t [S, K, C] (t_layer_stride = K C) or [K, C]
 // (stride 0); pm [R, K] and cv [K] bytes; vnum, vden, gv [S, R] and tnum,
 // tden, gt [S, K] f32; dv [S, R, C], dt [out_layers, K, C] bf16.  C a
@@ -69,6 +101,7 @@
 // plain C interface.
 
 #include "hopper.cuh"
+#include "milnce_colmerge.cuh"
 
 namespace {
 
@@ -81,6 +114,7 @@ constexpr int THREADS = 128 * (CONSUMERS + 1);
 constexpr int CHUNK = TILE * 128;    // [64 entries][64 channels] bf16, 8 KB
 constexpr int MAX_NC = 8;            // C / 64
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int NC>
 struct Plan {
@@ -90,11 +124,13 @@ struct Plan {
   // each stage's inner entries: NC chunks [64][64 c]
   static constexpr int I_OFF = O_OFF + NC * CHUNK;
   static constexpr int I_BYTES = NC * CHUNK;
-  // the dsim tile [64 outer][64 inner]
+  // the dsim tile [64 outer][64 inner]; in the forward, the column scratch
+  // [2 tile parities][2 consumers][4 warps][32 columns] (max, sum) x 2 f32
   static constexpr int DS_OFF = I_OFF + STAGES * I_BYTES;
   // each stage's pm [64 r][64 k] bytes | inner num log2(e), den log2(e),
-  // g inv_temp [64] f32 | inner cv [64] bytes (dv), padded so that the next
-  // stage's pm tile keeps the 128-byte alignment of a TMA destination
+  // g inv_temp [64] f32 | inner cv [64] bytes (dv and the forward), padded
+  // so that the next stage's pm tile keeps the 128-byte alignment of a TMA
+  // destination
   static constexpr int AUX_OFF = DS_OFF + CHUNK;
   static constexpr int AUX_VEC = TILE * TILE;
   static constexpr int AUX_CV = AUX_VEC + 3 * TILE * 4;
@@ -109,6 +145,7 @@ struct Plan {
 static_assert(Plan<MAX_NC>::BYTES <= 232448, "a block's shared memory on an H100");
 static_assert(Plan<MAX_NC>::AUX_OFF % 128 == 0 && Plan<MAX_NC>::AUX_BYTES % 128 == 0,
               "TMA destinations are 128-byte aligned");
+static_assert(2 * CONSUMERS * 4 * 32 * 16 <= CHUNK, "the forward's column scratch");
 
 // acc += A B for a 64 x (64 NB) tile, B MN-major (the channels of the inner tile)
 template <int NB>
@@ -124,10 +161,45 @@ struct Args {
   const uint8_t* cv;
   const float *onum, *oden, *og;  // the outer entries' vectors [S, n_outer]
   const float *inum, *iden, *ig;  // the inner entries' [S, n_inner]
-  float* part;                    // f32 partials of an inner split, or null (one split)
+  float* part;         // f32 partials of an inner split, or null; the forward's column partials
+  float *vnum, *vden;  // the forward's row logsumexps [S, R]
   int R, K, n_outer, n_inner, C, layers, tiles_per_split, shared_text, pm_tma;
-  float inv_temp;
+  float inv_temp, mask_value;
 };
+
+// the partial sim[o][i] = outer_o . inner_i over channel chunks C0 .. C0 +
+// NB - 1 (a consumer's half), all 64 inner entries (m64n64k16, A and B
+// K-major), issued; the caller waits
+template <int NC, int NB, int C0>
+__device__ __forceinline__ void partial_sim(float (&sim)[32], uint32_t base, uint32_t i_a) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) sim[e] = 0.f;
+  fence_regs(sim);
+  if constexpr (NB > 0) {
+    wgmma_fence();
+#pragma unroll
+    for (int c = C0; c < C0 + NB; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n64<0, 0>(sim, sw128_desc(base + Plan<NC>::O_OFF + c * CHUNK + kk * 32, 0),
+                           sw128_desc(i_a + c * CHUNK + kk * 32, 0));
+    wgmma_commit();
+  }
+}
+
+// swap partial sums: the other consumer's entries out, this one's in (the
+// two consumers' threads hold the same (o, i) entries); after it, registers
+// 16 H .. 16 H + 15 hold the full sim of this consumer's inner entries
+template <int NC, int H>
+__device__ __forceinline__ void swap_halves(uint8_t* sm, float (&sim)[32]) {
+  float* xch = reinterpret_cast<float*>(sm + Plan<NC>::XCH_OFF);
+  const int tid = threadIdx.x % 128;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) xch[(H * 16 + e) * 128 + tid] = sim[16 * (1 - H) + e];
+  named_barrier<1, 128 * CONSUMERS>();
+#pragma unroll
+  for (int e = 0; e < 16; ++e) sim[16 * H + e] += xch[((1 - H) * 16 + e) * 128 + tid];
+}
 
 // consumer H: channels from chunk C0, NB chunks of them; inner entries
 // 32 H .. +31 of each tile for dsim
@@ -184,22 +256,8 @@ __device__ __forceinline__ void consume(uint8_t* sm, const Args& a, const CUtens
     const uint8_t* aux = sm + P::AUX_OFF + st * P::AUX_BYTES;
     mbar_wait(&full[st], ph);
 
-    // partial sim[o][i] over this consumer's channels, all 64 inner entries
-    // i: m64n64k16 (A = outer, B = inner, both K-major)
     float sim[32];
-#pragma unroll
-    for (int e = 0; e < 32; ++e) sim[e] = 0.f;
-    fence_regs(sim);
-    if constexpr (NB > 0) {
-      wgmma_fence();
-#pragma unroll
-      for (int c = C0; c < C0 + NB; ++c)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss_n64<0, 0>(sim, sw128_desc(base + P::O_OFF + c * CHUNK + kk * 32, 0),
-                             sw128_desc(i_a + c * CHUNK + kk * 32, 0));
-      wgmma_commit();
-    }
+    partial_sim<NC, NB, C0>(sim, base, i_a);
 
     // while the tensor cores run: the vectors and mask bits of this
     // consumer's inner entries (register e of chunk j: outer entry 16 warp +
@@ -227,16 +285,7 @@ __device__ __forceinline__ void consume(uint8_t* sm, const Args& a, const CUtens
     }
     if constexpr (NB > 0) wgmma_wait<0>();
     fence_regs(sim);
-
-    // swap partial sums: the other consumer's entries out, this one's in (the
-    // two consumers' threads hold the same (o, i) entries)
-    float* xch = reinterpret_cast<float*>(sm + P::XCH_OFF);
-    const int tid = threadIdx.x % 128;
-#pragma unroll
-    for (int e = 0; e < 16; ++e) xch[(H * 16 + e) * 128 + tid] = sim[16 * (1 - H) + e];
-    named_barrier<1, 128 * CONSUMERS>();
-#pragma unroll
-    for (int e = 0; e < 16; ++e) sim[16 * H + e] += xch[((1 - H) * 16 + e) * 128 + tid];
+    swap_halves<NC, H>(sm, sim);
 
     // dsim of this consumer's inner entries, re-masked, rounded to bf16 into
     // the tile
@@ -315,10 +364,205 @@ __device__ __forceinline__ void consume(uint8_t* sm, const Args& a, const CUtens
   }
 }
 
+// ------------------------------------------------- the forward's (max, sum)
+
+// the exponent reference of a log2-domain (max, sum): the max, or 0 where it
+// is -inf (every entry is, and each 2^(-inf - 0) = 0 keeps the sum at 0)
+__device__ __forceinline__ float ex2_ref(float m) { return m == -INFINITY ? 0.f : m; }
+
+// (m, s) with s = sum 2^(x - m), folded with the 8 entries x
+__device__ __forceinline__ void fold8(float& m, float& s, const float (&x)[8]) {
+  float mx = m;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) mx = fmaxf(mx, x[c]);
+  const float r = ex2_ref(mx);
+  float sum = s * ex2(m - r);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) sum += ex2(x[c] - r);
+  m = mx, s = sum;
+}
+
+// (m, s) merged with (m2, s2)
+__device__ __forceinline__ void merge2(float& m, float& s, float m2, float s2) {
+  const float mx = fmaxf(m, m2), r = ex2_ref(mx);
+  s = s * ex2(m - r) + s2 * ex2(m2 - r);
+  m = mx;
+}
+
+// over the 8 lanes of a warp that share t (the rows g of a column)
+__device__ __forceinline__ float max_over_g(float x) {
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float sum_over_g(float x) {
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// forward consumer H: the partial sim over channel chunks C0 .. C0 + NB - 1,
+// then the masked (max, sum) of text columns 32 H .. 32 H + 31 of each tile
+template <int NC, int NB, int C0, int H>
+__device__ __forceinline__ void consume_fwd(uint8_t* sm, const Args& a, int total) {
+  using P = Plan<NC>;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, tid = threadIdx.x % 128;
+  const int rb = blockIdx.x, s = blockIdx.y, nrb = gridDim.x;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + P::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* obar = empty + STAGES;
+  const uint32_t base = smem_addr(sm);
+  float4* scratch = reinterpret_cast<float4*>(sm + P::DS_OFF);
+  const float c2 = a.inv_temp * LOG2E, mv2 = a.mask_value * LOG2E;
+
+  // this thread's two rows of the tile, 16 warp + g and + 8, and their
+  // running (max, sum) of the positives [0] and negatives [1]
+  bool rlive[2];
+  float rm[2][2], rs[2][2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    rlive[hh] = rb * TILE + 16 * warp + g + 8 * hh < a.R;
+    rm[hh][0] = rm[hh][1] = -INFINITY;
+    rs[hh][0] = rs[hh][1] = 0.f;
+  }
+
+  mbar_wait(obar, 0);
+  for (int n = 0; n < total; ++n) {
+    const int st = n % STAGES, i0 = n * TILE;
+    const uint32_t ph = uint32_t(n / STAGES) & 1u;
+    const uint8_t* aux = sm + P::AUX_OFF + st * P::AUX_BYTES;
+    mbar_wait(&full[st], ph);
+
+    float sim[32];
+    partial_sim<NC, NB, C0>(sim, base, base + P::I_OFF + st * P::I_BYTES);
+
+    // while the tensor cores run: the mask bits of this consumer's columns
+    // (c = 2 j + i: column 32 H + 8 j + 2 t + i)
+    bool pos[8][2], keep[8], live[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = 32 * H + 8 * (c / 2) + 2 * t + c % 2;
+      live[c] = i0 + col < a.K;
+      keep[c] = aux[P::AUX_CV + col] != 0;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) pos[c][hh] = aux[(16 * warp + g + 8 * hh) * TILE + col] != 0;
+    }
+    if constexpr (NB > 0) wgmma_wait<0>();
+    fence_regs(sim);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+    swap_halves<NC, H>(sm, sim);
+
+    // the entries in the log2 domain: masked mask_value log2(e), dead -inf
+    float xp[2][8], xn[2][8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int c = 2 * j + i;
+          const float x = sim[16 * H + 4 * j + 2 * hh + i] * c2;
+          const bool in = rlive[hh] && live[c];
+          xp[hh][c] = in ? (pos[c][hh] ? x : mv2) : -INFINITY;
+          xn[hh][c] = in ? (keep[c] ? x : mv2) : -INFINITY;
+        }
+
+    // rows: this thread's 8 entries of each into the running (max, sum)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      fold8(rm[hh][0], rs[hh][0], xp[hh]);
+      fold8(rm[hh][1], rs[hh][1], xn[hh]);
+    }
+
+    // columns: (max, sum) over the warp's 16 rows, into the scratch of this
+    // tile's parity [consumer][warp][column] as (mp, sp, mn, sn)
+    float4* sc = scratch + ((n & 1) * CONSUMERS + H) * 4 * 32;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float mp = max_over_g(fmaxf(xp[0][c], xp[1][c]));
+      const float mn = max_over_g(fmaxf(xn[0][c], xn[1][c]));
+      const float rp = ex2_ref(mp), rn = ex2_ref(mn);
+      const float sp = sum_over_g(ex2(xp[0][c] - rp) + ex2(xp[1][c] - rp));
+      const float sn = sum_over_g(ex2(xn[0][c] - rn) + ex2(xn[1][c] - rn));
+      if (g == 0) sc[warp * 32 + 8 * (c / 2) + 2 * t + c % 2] = make_float4(mp, sp, mn, sn);
+    }
+    // every warp's columns are in; and both consumers have read their
+    // partial sums, so the next tile may swap again
+    named_barrier<2, 128 * CONSUMERS>();
+
+    // ... over the 4 warps: this row block's partial of each column
+    if (warp == 0) {
+      float4 w[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) w[v] = sc[v * 32 + lane];
+      const float mp = fmaxf(fmaxf(w[0].x, w[1].x), fmaxf(w[2].x, w[3].x));
+      const float mn = fmaxf(fmaxf(w[0].z, w[1].z), fmaxf(w[2].z, w[3].z));
+      const float rp = ex2_ref(mp), rn = ex2_ref(mn);
+      float sp = 0.f, sn = 0.f;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        sp += w[v].y * ex2(w[v].x - rp);
+        sn += w[v].w * ex2(w[v].z - rn);
+      }
+      const int k = i0 + 32 * H + lane;
+      if (k < a.K) {  // natural-log terms, as milnce_colmerge_kernel reads them
+        const size_t plane = size_t(gridDim.y) * nrb * a.K;
+        const size_t p = (size_t(s) * nrb + rb) * a.K + k;
+        a.part[p] = mp * LN2;
+        a.part[plane + p] = sp;
+        a.part[2 * plane + p] = mn * LN2;
+        a.part[3 * plane + p] = sn;
+      }
+    }
+  }
+
+  // rows: merged over the quad (the thread's 8 columns of each tile x 4),
+  // then consumer 1's into consumer 0's through the exchange area, which no
+  // one reads any more (both passed the last tile's barrier 2)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1)
+        merge2(rm[hh][q], rs[hh][q], __shfl_xor_sync(0xffffffffu, rm[hh][q], off),
+               __shfl_xor_sync(0xffffffffu, rs[hh][q], off));
+  float* xch = reinterpret_cast<float*>(sm + P::XCH_OFF);
+  if constexpr (H == 1) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        xch[(4 * hh + 2 * q) * 128 + tid] = rm[hh][q];
+        xch[(4 * hh + 2 * q + 1) * 128 + tid] = rs[hh][q];
+      }
+  }
+  named_barrier<3, 128 * CONSUMERS>();
+  if constexpr (H == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        merge2(rm[hh][q], rs[hh][q], xch[(4 * hh + 2 * q) * 128 + tid],
+               xch[(4 * hh + 2 * q + 1) * 128 + tid]);
+      if (t == 0 && rlive[hh]) {
+        const size_t r = size_t(s) * a.R + rb * TILE + 16 * warp + g + 8 * hh;
+        a.vnum[r] = (rm[hh][0] + log2f(rs[hh][0])) * LN2;
+        a.vden[r] = (rm[hh][1] + log2f(rs[hh][1])) * LN2;
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ producer
+
 // the producer warp: the block's outer entries once, then per tile its inner
-// entries (TMA), mask tile (TMA, or staged by the lanes) and the inner
-// entries' vectors
-template <bool ROWS_OUTER, int NC>
+// entries (TMA), mask tile (TMA, or staged by the lanes), and the inner
+// entries' vectors (VECS: the gradients) and, rows outer, their cv bytes
+template <bool ROWS_OUTER, int NC, bool VECS>
 __device__ __forceinline__ void produce(uint8_t* sm, const Args& a, const CUtensorMap* to,
                                         const CUtensorMap* ti, const CUtensorMap* tpm, int total,
                                         int per) {
@@ -342,7 +586,7 @@ __device__ __forceinline__ void produce(uint8_t* sm, const Args& a, const CUtens
     uint8_t* is = sm + P::I_OFF + st * P::I_BYTES;
     uint8_t* aux = sm + P::AUX_OFF + st * P::AUX_BYTES;
     mbar_wait(&empty[st], ph ^ 1u);
-    if (lane == 0) {  // ... and the inner operand of dv
+    if (lane == 0) {  // ... and the inner operand of dv and the forward
       const int layer = (ROWS_OUTER && a.shared_text) ? 0 : s;
       mbar_expect_tx(&full[st], NC * CHUNK + (a.pm_tma ? TILE * TILE : 0));
       for (int c = 0; c < NC; ++c) tma_load_3d(is + c * CHUNK, ti, &full[st], c * 64, i0, layer);
@@ -354,20 +598,43 @@ __device__ __forceinline__ void produce(uint8_t* sm, const Args& a, const CUtens
         aux[e] = (r < a.R && k < a.K) ? a.pm[size_t(r) * a.K + k] : 0;
       }
     }
-    float* vec = reinterpret_cast<float*>(aux + P::AUX_VEC);
     for (int e = lane; e < TILE; e += 32) {
       const int i = i0 + e;
       const bool in = i < a.n_inner;
-      const size_t idx = size_t(s) * a.n_inner + (in ? i : 0);
-      vec[e] = in ? a.inum[idx] * LOG2E : 0.f;
-      vec[TILE + e] = in ? a.iden[idx] * LOG2E : 0.f;
-      vec[2 * TILE + e] = in ? a.ig[idx] * a.inv_temp : 0.f;
+      if constexpr (VECS) {
+        float* vec = reinterpret_cast<float*>(aux + P::AUX_VEC);
+        const size_t idx = size_t(s) * a.n_inner + (in ? i : 0);
+        vec[e] = in ? a.inum[idx] * LOG2E : 0.f;
+        vec[TILE + e] = in ? a.iden[idx] * LOG2E : 0.f;
+        vec[2 * TILE + e] = in ? a.ig[idx] * a.inv_temp : 0.f;
+      }
       if (ROWS_OUTER) aux[P::AUX_CV + e] = in ? a.cv[i] : 0;
     }
     __threadfence_block();
     __syncwarp();
     if (lane == 0) mbar_arrive(&full[st]);
   }
+}
+
+template <int NC>
+__device__ __forceinline__ void init_barriers(uint8_t* sm) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Plan<NC>::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4 * CONSUMERS);  // one arrival per consumer warp
+    }
+    mbar_init(empty + STAGES, 1);  // the outer entries
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// the dynamic shared memory from its first 1024-byte boundary (128-byte
+// swizzled tiles)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* smem_raw) {
+  return smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
 }
 
 // grid (outer / 64, out_layers, splits)
@@ -379,35 +646,49 @@ milnce_grad_wgmma_kernel(const __grid_constant__ CUtensorMap to,
                          const __grid_constant__ CUtensorMap tout, const Args a) {
   using P = Plan<NC>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + P::BAR_OFF);
-  uint64_t* empty = full + STAGES;
-  uint64_t* obar = empty + STAGES;
+  uint8_t* sm = align1024(smem_raw);
   const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
   const int n_tiles = (a.n_inner + TILE - 1) / TILE;
   const int it0 = blockIdx.z * a.tiles_per_split;
   const int per = min(it0 + a.tiles_per_split, n_tiles) - it0;  // > 0: no empty split
   const int total = a.layers * per;
-
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < STAGES; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 4 * CONSUMERS);  // one arrival per consumer warp
-    }
-    mbar_init(obar, 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
+  init_barriers<NC>(sm);
 
   if (wg == CONSUMERS) {  // producer
     setmaxnreg_dec<40>();
-    if (warp == 0) produce<ROWS_OUTER, NC>(sm, a, &to, &ti, &tpm, total, per);
+    if (warp == 0) produce<ROWS_OUTER, NC, true>(sm, a, &to, &ti, &tpm, total, per);
   } else {  // consumers
     setmaxnreg_inc<232>();
     if (wg == 0)
       consume<ROWS_OUTER, NC, P::NB0, 0, 0>(sm, a, &tout, total, per);
     else
       consume<ROWS_OUTER, NC, P::NB1, P::NB0, 1>(sm, a, &tout, total, per);
+  }
+}
+
+// grid (R / 64, S); tout is not read
+template <int NC>
+__global__ void __launch_bounds__(THREADS, 1)
+milnce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tt,
+                        const __grid_constant__ CUtensorMap tpm,
+                        const __grid_constant__ CUtensorMap tout, const Args a) {
+  using P = Plan<NC>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+  const int total = (a.K + TILE - 1) / TILE;
+  init_barriers<NC>(sm);
+
+  if (wg == CONSUMERS) {
+    setmaxnreg_dec<40>();
+    if (warp == 0) produce<true, NC, false>(sm, a, &tv, &tt, &tpm, total, total);
+  } else {
+    setmaxnreg_inc<232>();
+    if (wg == 0)
+      consume_fwd<NC, P::NB0, 0, 0>(sm, a, total);
+    else
+      consume_fwd<NC, P::NB1, P::NB0, 1>(sm, a, total);
   }
 }
 
@@ -425,31 +706,87 @@ __global__ void milnce_reduce_kernel(const float4* __restrict__ part, uint2* __r
   out[idx] = make_uint2(pack_bf16x2(x.x, x.y), pack_bf16x2(x.z, x.w));
 }
 
-template <bool ROWS_OUTER, int NC>
-cudaError_t launch_nc(const CUtensorMap* maps, const Args& a, dim3 grid, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(milnce_grad_wgmma_kernel<ROWS_OUTER, NC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+// -------------------------------------------------------------- launchers
+
+enum Kind { FWD, DV, DT };
+
+template <int NC>
+cudaError_t launch_nc(Kind kind, const CUtensorMap* maps, const Args& a, dim3 grid,
+                      cudaStream_t stream) {
+  auto kernel = kind == FWD  ? milnce_fwd_wgmma_kernel<NC>
+                : kind == DV ? milnce_grad_wgmma_kernel<true, NC>
+                             : milnce_grad_wgmma_kernel<false, NC>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Plan<NC>::BYTES);
   if (err != cudaSuccess) return err;
-  milnce_grad_wgmma_kernel<ROWS_OUTER, NC><<<grid, THREADS, Plan<NC>::BYTES, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], a);
+  kernel<<<grid, THREADS, Plan<NC>::BYTES, stream>>>(maps[0], maps[1], maps[2], maps[3], a);
   return cudaGetLastError();
 }
 
-template <bool ROWS_OUTER>
-int launch(const void* v, const void* t, long long t_layer_stride, const void* pm, const void* cv,
-           const void* vnum, const void* vden, const void* tnum, const void* tden, const void* gv,
-           const void* gt, void* out, void* part, int S, int R, int K, int C, int out_layers,
-           int splits, float inv_temp, void* stream) {
-  if (S <= 0 || S > 65535 || R <= 0 || K <= 0 || C <= 0 || C % 64 != 0 || C > 64 * MAX_NC ||
-      splits <= 0 || splits > 65535 || (out_layers != S && out_layers != 1) ||
-      (ROWS_OUTER && out_layers != S) ||
-      (t_layer_stride != 0 && t_layer_stride != (long long)K * C) ||
-      (!ROWS_OUTER && S > 1 && (t_layer_stride == 0) != (out_layers == 1)))
-    return int(cudaErrorInvalidValue);
-  const void* aligned[5] = {v, t, pm, out, part};
+cudaError_t launch_kind(Kind kind, int C, const CUtensorMap* maps, const Args& a, dim3 grid,
+                        cudaStream_t stream) {
+  switch (C / 64) {
+    case 1: return launch_nc<1>(kind, maps, a, grid, stream);
+    case 2: return launch_nc<2>(kind, maps, a, grid, stream);
+    case 3: return launch_nc<3>(kind, maps, a, grid, stream);
+    case 4: return launch_nc<4>(kind, maps, a, grid, stream);
+    case 5: return launch_nc<5>(kind, maps, a, grid, stream);
+    case 6: return launch_nc<6>(kind, maps, a, grid, stream);
+    case 7: return launch_nc<7>(kind, maps, a, grid, stream);
+    case 8: return launch_nc<8>(kind, maps, a, grid, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// what every launcher takes: S up to 65535 (a grid dimension), C a multiple
+// of 64 up to 512, a text layer stride of 0 (shared) or K C, and 16-byte
+// aligned TMA operands
+bool inputs_ok(const void* v, const void* t, long long t_layer_stride, const void* pm, int S,
+               int R, int K, int C) {
+  const void* aligned[3] = {v, t, pm};
   for (const void* p : aligned)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return int(cudaErrorInvalidValue);
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return S > 0 && S <= 65535 && R > 0 && K > 0 && C > 0 && C % 64 == 0 && C <= 64 * MAX_NC &&
+         (t_layer_stride == 0 || t_layer_stride == (long long)K * C);
+}
+
+// tensor maps of v [S, R, C] and t [S or 1, K, C] ([64 entries][64 channels]
+// boxes, 128-byte swizzle) and, when K is a multiple of 16, of pm [R, K]
+// ([64][64] boxes; else the producer stages it and pmmap is not read)
+bool input_maps(CUtensorMap* vmap, CUtensorMap* tmap, CUtensorMap* pmmap, const void* v,
+                const void* t, long long t_layer_stride, const void* pm, int S, int R, int K,
+                int C) {
+  const uint64_t v_dims[3] = {uint64_t(C), uint64_t(R), uint64_t(S)};
+  const uint64_t v_strides[2] = {uint64_t(C) * 2, uint64_t(R) * C * 2};
+  const uint64_t t_dims[3] = {uint64_t(C), uint64_t(K), uint64_t(t_layer_stride ? S : 1)};
+  const uint64_t t_strides[2] = {uint64_t(C) * 2, uint64_t(K) * C * 2};
+  const uint32_t box[3] = {64, TILE, 1};
+  const uint64_t pm_dims[2] = {uint64_t(K), uint64_t(R)};
+  const uint64_t pm_strides[1] = {uint64_t(K)};
+  const uint32_t pm_box[2] = {TILE, TILE};
+  if (!make_map(vmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v, v_dims, v_strides, box,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(tmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, t, t_dims, t_strides, box,
+                CU_TENSOR_MAP_SWIZZLE_128B))
+    return false;
+  if (K % 16 != 0) {
+    *pmmap = *vmap;
+    return true;
+  }
+  return make_map(pmmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, pm, pm_dims, pm_strides, pm_box,
+                  CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+template <bool ROWS_OUTER>
+int launch_grad(const void* v, const void* t, long long t_layer_stride, const void* pm,
+                const void* cv, const void* vnum, const void* vden, const void* tnum,
+                const void* tden, const void* gv, const void* gt, void* out, void* part, int S,
+                int R, int K, int C, int out_layers, int splits, float inv_temp, void* stream) {
+  if (!inputs_ok(v, t, t_layer_stride, pm, S, R, K, C) || splits <= 0 || splits > 65535 ||
+      (out_layers != S && out_layers != 1) || (ROWS_OUTER && out_layers != S) ||
+      (!ROWS_OUTER && S > 1 && (t_layer_stride == 0) != (out_layers == 1)) ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 || reinterpret_cast<uintptr_t>(part) % 16 != 0)
+    return int(cudaErrorInvalidValue);
   const int n_outer = ROWS_OUTER ? R : K, n_inner = ROWS_OUTER ? K : R;
   const int itiles = (n_inner + TILE - 1) / TILE;
   const int per_split = (itiles + splits - 1) / splits;
@@ -457,35 +794,16 @@ int launch(const void* v, const void* t, long long t_layer_stride, const void* p
   if (splits > 1 && part == nullptr) return int(cudaErrorInvalidValue);
 
   // to, ti, pm, out
-  CUtensorMap maps[4];
-  const uint64_t v_dims[3] = {uint64_t(C), uint64_t(R), uint64_t(S)};
-  const uint64_t v_strides[2] = {uint64_t(C) * 2, uint64_t(R) * C * 2};
-  const uint64_t t_dims[3] = {uint64_t(C), uint64_t(K), uint64_t(t_layer_stride ? S : 1)};
-  const uint64_t t_strides[2] = {uint64_t(C) * 2, uint64_t(K) * C * 2};
+  CUtensorMap maps[4], vmap, tmap;
   const uint64_t o_dims[3] = {uint64_t(C), uint64_t(n_outer), uint64_t(out_layers)};
   const uint64_t o_strides[2] = {uint64_t(C) * 2, uint64_t(n_outer) * C * 2};
   const uint32_t box[3] = {64, TILE, 1};
-  const bool pm_tma = K % 16 == 0;
-  const uint64_t pm_dims[2] = {uint64_t(K), uint64_t(R)};
-  const uint64_t pm_strides[1] = {uint64_t(K)};
-  const uint32_t pm_box[2] = {TILE, TILE};
-  CUtensorMap vmap, tmap;
-  if (!make_map(&vmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v, v_dims, v_strides, box,
-                CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map(&tmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, t, t_dims, t_strides, box,
-                CU_TENSOR_MAP_SWIZZLE_128B) ||
+  if (!input_maps(&vmap, &tmap, &maps[2], v, t, t_layer_stride, pm, S, R, K, C) ||
       !make_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, out, o_dims, o_strides, box,
                 CU_TENSOR_MAP_SWIZZLE_128B))
     return int(cudaErrorInvalidValue);
   maps[0] = ROWS_OUTER ? vmap : tmap;
   maps[1] = ROWS_OUTER ? tmap : vmap;
-  if (pm_tma) {
-    if (!make_map(&maps[2], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, pm, pm_dims, pm_strides, pm_box,
-                  CU_TENSOR_MAP_SWIZZLE_NONE))
-      return int(cudaErrorInvalidValue);
-  } else {
-    maps[2] = maps[0];  // not read
-  }
 
   const float* rows[3] = {static_cast<const float*>(vnum), static_cast<const float*>(vden),
                           static_cast<const float*>(gv)};
@@ -493,7 +811,7 @@ int launch(const void* v, const void* t, long long t_layer_stride, const void* p
                           static_cast<const float*>(gt)};
   const float* const* outer = ROWS_OUTER ? rows : cols;
   const float* const* inner = ROWS_OUTER ? cols : rows;
-  Args a;
+  Args a{};
   a.pm = static_cast<const uint8_t*>(pm);
   a.cv = static_cast<const uint8_t*>(cv);
   a.onum = outer[0], a.oden = outer[1], a.og = outer[2];
@@ -501,21 +819,11 @@ int launch(const void* v, const void* t, long long t_layer_stride, const void* p
   a.part = splits > 1 ? static_cast<float*>(part) : nullptr;
   a.R = R, a.K = K, a.n_outer = n_outer, a.n_inner = n_inner, a.C = C;
   a.layers = S / out_layers, a.tiles_per_split = per_split;
-  a.shared_text = t_layer_stride == 0, a.pm_tma = pm_tma, a.inv_temp = inv_temp;
+  a.shared_text = t_layer_stride == 0, a.pm_tma = K % 16 == 0, a.inv_temp = inv_temp;
 
   const dim3 grid(unsigned((n_outer + TILE - 1) / TILE), unsigned(out_layers), unsigned(splits));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (C / 64) {
-    case 1: err = launch_nc<ROWS_OUTER, 1>(maps, a, grid, st); break;
-    case 2: err = launch_nc<ROWS_OUTER, 2>(maps, a, grid, st); break;
-    case 3: err = launch_nc<ROWS_OUTER, 3>(maps, a, grid, st); break;
-    case 4: err = launch_nc<ROWS_OUTER, 4>(maps, a, grid, st); break;
-    case 5: err = launch_nc<ROWS_OUTER, 5>(maps, a, grid, st); break;
-    case 6: err = launch_nc<ROWS_OUTER, 6>(maps, a, grid, st); break;
-    case 7: err = launch_nc<ROWS_OUTER, 7>(maps, a, grid, st); break;
-    case 8: err = launch_nc<ROWS_OUTER, 8>(maps, a, grid, st); break;
-  }
+  const cudaError_t err = launch_kind(ROWS_OUTER ? DV : DT, C, maps, a, grid, st);
   if (err != cudaSuccess || splits == 1) return int(err);
   const size_t n4 = size_t(out_layers) * n_outer * C / 4;
   milnce_reduce_kernel<<<unsigned((n4 + 255) / 256), 256, 0, st>>>(
@@ -525,10 +833,41 @@ int launch(const void* v, const void* t, long long t_layer_stride, const void* p
 
 }  // namespace
 
-// bf16 only.  Inputs as milnce_dv / milnce_dt in milnce_bwd.cu; part: with
-// more than one split, splits * out_layers * n_out * C f32 of scratch, else
-// unused (may be null).  Pointers of v, t, pm and the output 16-byte aligned
+// bf16 only.  v [S, R, C]; t [K, C] per layer at a stride of t_layer_stride
+// elements (0: one text shared by every layer); pm [R, K] and cv [K] bytes;
+// vnum, vden [S, R], tnum, tden [S, K] f32; part: 4 S ceil(R/64) K f32 of
+// scratch (the column partials).  Pointers of v, t and pm 16-byte aligned
 // (TMA).  Returns a cudaError_t (0 = launched).
+extern "C" int milnce_fwd_wgmma(const void* v, const void* t, long long t_layer_stride,
+                                const void* pm, const void* cv, void* vnum, void* vden,
+                                void* tnum, void* tden, void* part, int S, int R, int K, int C,
+                                float mask_value, float inv_temp, void* stream) {
+  if (!inputs_ok(v, t, t_layer_stride, pm, S, R, K, C)) return int(cudaErrorInvalidValue);
+  CUtensorMap maps[4];  // v, t, pm; the fourth is not read
+  if (!input_maps(&maps[0], &maps[1], &maps[2], v, t, t_layer_stride, pm, S, R, K, C))
+    return int(cudaErrorInvalidValue);
+  maps[3] = maps[0];
+  Args a{};
+  a.pm = static_cast<const uint8_t*>(pm);
+  a.cv = static_cast<const uint8_t*>(cv);
+  a.part = static_cast<float*>(part);
+  a.vnum = static_cast<float*>(vnum), a.vden = static_cast<float*>(vden);
+  a.R = R, a.K = K, a.n_outer = R, a.n_inner = K, a.C = C;
+  a.layers = 1, a.tiles_per_split = (K + TILE - 1) / TILE;
+  a.shared_text = t_layer_stride == 0, a.pm_tma = K % 16 == 0;
+  a.inv_temp = inv_temp, a.mask_value = mask_value;
+
+  const dim3 grid(unsigned((R + TILE - 1) / TILE), unsigned(S));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = launch_kind(FWD, C, maps, a, grid, st);
+  if (err != cudaSuccess) return int(err);
+  return int(milnce::colmerge(part, tnum, tden, S, R, K, st));
+}
+
+// The gradients, bf16 only.  Inputs as milnce_dv / milnce_dt in
+// milnce_bwd.cu; part: with more than one split, splits * out_layers * n_out
+// * C f32 of scratch, else unused (may be null).  Pointers of v, t, pm and the
+// output 16-byte aligned (TMA).  Returns a cudaError_t (0 = launched).
 //
 // milnce_dv_wgmma: dv [S, R, C] (out_layers = S).
 extern "C" int milnce_dv_wgmma(const void* v, const void* t, long long t_layer_stride,
@@ -536,8 +875,8 @@ extern "C" int milnce_dv_wgmma(const void* v, const void* t, long long t_layer_s
                                const void* tnum, const void* tden, const void* gv, const void* gt,
                                void* dv, void* part, int S, int R, int K, int C, int out_layers,
                                int splits, float inv_temp, void* stream) {
-  return launch<true>(v, t, t_layer_stride, pm, cv, vnum, vden, tnum, tden, gv, gt, dv, part, S,
-                      R, K, C, out_layers, splits, inv_temp, stream);
+  return launch_grad<true>(v, t, t_layer_stride, pm, cv, vnum, vden, tnum, tden, gv, gt, dv, part,
+                           S, R, K, C, out_layers, splits, inv_temp, stream);
 }
 
 // milnce_dt_wgmma: dt [out_layers, K, C]; out_layers = 1 sums over the layers
@@ -547,6 +886,6 @@ extern "C" int milnce_dt_wgmma(const void* v, const void* t, long long t_layer_s
                                const void* tnum, const void* tden, const void* gv, const void* gt,
                                void* dt, void* part, int S, int R, int K, int C, int out_layers,
                                int splits, float inv_temp, void* stream) {
-  return launch<false>(v, t, t_layer_stride, pm, cv, vnum, vden, tnum, tden, gv, gt, dt, part, S,
-                       R, K, C, out_layers, splits, inv_temp, stream);
+  return launch_grad<false>(v, t, t_layer_stride, pm, cv, vnum, vden, tnum, tden, gv, gt, dt,
+                            part, S, R, K, C, out_layers, splits, inv_temp, stream);
 }

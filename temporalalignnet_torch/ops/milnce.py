@@ -15,14 +15,15 @@ layer and its gradient is summed over them.
   logsumexps of pallas_milnce.py:958-968.  A CPU tensor takes it (autograd).
   ``milnce_grad_reference`` is the plain version of the two gradient
   kernels, with their rounding of dsim to the feature dtype.
-- ``MilNCEFunction``: on the card, the Hopper kernels of csrc/milnce_fwd.cu
-  (``milnce_fwd``: the four logsumexps) and of the feature gradients from the
-  saved logsumexps (``milnce_dv``, ``milnce_dt``).  There is no fallback: a
-  CUDA tensor launches the kernels or raises.  Each gradient takes its route
-  from the dtype alone (``dv_route``, ``dt_route``): bf16 the wgmma/TMA kernel
-  of csrc/milnce_wgmma.cu (one template over the orientation), f32 the FMA
-  kernel of csrc/milnce_bwd.cu.  ``milnce_dv_v2`` and ``milnce_dt_v2`` call
-  the earlier bf16 kernels of csrc/milnce_bwd.cu, uncounted, for timing.
+- ``MilNCEFunction``: on the card, the Hopper kernels of the four
+  logsumexps (``milnce_fwd``) and of the feature gradients from the saved
+  logsumexps (``milnce_dv``, ``milnce_dt``).  There is no fallback: a CUDA
+  tensor launches the kernels or raises.  Each takes its route from the
+  dtype alone (``fwd_route``, ``dv_route``, ``dt_route``): bf16 the
+  wgmma/TMA kernels of csrc/milnce_wgmma.cu (one skeleton), f32 the FMA
+  kernels of csrc/milnce_fwd.cu and csrc/milnce_bwd.cu.  ``milnce_fwd_v1``,
+  ``milnce_dv_v2`` and ``milnce_dt_v2`` call the earlier bf16 kernels of
+  those two files, uncounted, for timing.
 
 The masks go to the kernels as bytes: ``pos_mask`` as a [R, K] bool tensor
 (it is block-diagonal in the loss, but the contract takes any mask), so the
@@ -148,23 +149,58 @@ def _launch(name, rc, shape):
         raise RuntimeError(f"{name} launch failed: cudaError {rc} at (S, R, K, C) = {shape}")
 
 
-def milnce_fwd(video, text, pos_mask, col_valid, mask_value: float, inv_temp: float):
-    """(vnum, vden [S, R], tnum, tden [S, K]) f32 on the card."""
+FWD_ROUTES = DV_ROUTES = DT_ROUTES = ("wgmma", "f32")
+
+
+def fwd_route(dtype: torch.dtype) -> str:
+    """The kernel route of each MIL-NCE kernel, from the dtype alone: bf16
+    the wgmma/TMA kernels of csrc/milnce_wgmma.cu, f32 the FMA ones."""
+    return "wgmma" if dtype == torch.bfloat16 else "f32"
+
+
+dv_route = dt_route = fwd_route  # one skeleton, three kernels
+
+
+def _fwd(video, text, pos_mask, col_valid, mask_value, inv_temp, wgmma=False):
+    """The four logsumexps through the wgmma/TMA kernel of csrc/milnce_wgmma.cu
+    (``wgmma``) or the kernel of csrc/milnce_fwd.cu; both write the same
+    per-row-block column partials and merge them with the same kernel."""
     S, R, K, C, t_ls = _check("milnce_fwd", video, text, pos_mask, col_valid)
     f32 = dict(dtype=torch.float32, device=video.device)
     vnum, vden = torch.empty(S, R, **f32), torch.empty(S, R, **f32)
     tnum, tden = torch.empty(S, K, **f32), torch.empty(S, K, **f32)
     part = torch.empty(4 * S * -(-R // TILE) * K, **f32)
-    fn = _fn("milnce_fwd", "milnce_fwd", [_P, _P, _L] + [_P] * 7 + [_I] * 5 + [_F, _F, _P])
+    if wgmma:
+        lib, fname, ints = "milnce_wgmma", "milnce_fwd_wgmma", [S, R, K, C]
+    else:
+        lib, fname, ints = "milnce_fwd", "milnce_fwd", [S, R, K, C, _DTYPES[video.dtype]]
+    fn = _fn(lib, fname, [_P, _P, _L] + [_P] * 7 + [_I] * len(ints) + [_F, _F, _P])
     with torch.cuda.device(video.device):
         stream = torch.cuda.current_stream(video.device).cuda_stream
         rc = fn(video.data_ptr(), text.data_ptr(), t_ls, pos_mask.data_ptr(),
                 col_valid.data_ptr(), vnum.data_ptr(), vden.data_ptr(), tnum.data_ptr(),
-                tden.data_ptr(), part.data_ptr(), S, R, K, C, _DTYPES[video.dtype],
-                float(mask_value), float(inv_temp), stream)
+                tden.data_ptr(), part.data_ptr(), *ints, float(mask_value), float(inv_temp),
+                stream)
     _launch("milnce_fwd", rc, (S, R, K, C))
-    milnce_fwd.launches += 1
     return vnum, vden, tnum, tden
+
+
+def milnce_fwd(video, text, pos_mask, col_valid, mask_value: float, inv_temp: float):
+    """(vnum, vden [S, R], tnum, tden [S, K]) f32 on the card."""
+    which = fwd_route(video.dtype)
+    out = _fwd(video, text, pos_mask, col_valid, mask_value, inv_temp, wgmma=which == "wgmma")
+    milnce_fwd.launches += 1
+    milnce_fwd.launches_by_route[which] += 1
+    return out
+
+
+def milnce_fwd_v1(video, text, pos_mask, col_valid, mask_value: float, inv_temp: float):
+    """The earlier bf16 forward kernel (mma.sync, csrc/milnce_fwd.cu), which
+    no route takes any more: kept so that a run can time the redesign beside
+    it.  Not counted."""
+    if video.dtype != torch.bfloat16:
+        raise ValueError(f"milnce_fwd_v1 takes bfloat16 features, got {video.dtype}")
+    return _fwd(video, text, pos_mask, col_valid, mask_value, inv_temp)
 
 
 def _splits(outer_tiles: int, out_layers: int, inner_tiles: int, sms: int) -> int:
@@ -181,17 +217,6 @@ def _wave_splits(blocks: int, inner_tiles: int, sms: int) -> int:
     fewest splits within 5 % of the least such time."""
     cost = [(-(-blocks * sp // sms)) * -(-inner_tiles // sp) for sp in range(1, inner_tiles + 1)]
     return next(sp for sp, c in enumerate(cost, 1) if c <= 1.05 * min(cost))
-
-
-DV_ROUTES = DT_ROUTES = ("wgmma", "f32")
-
-
-def dv_route(dtype: torch.dtype) -> str:
-    """The kernel route of ``milnce_dv``, from the dtype alone."""
-    return "wgmma" if dtype == torch.bfloat16 else "f32"
-
-
-dt_route = dv_route  # the same kernel, the other orientation
 
 
 def _grad(name, video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp, wgmma=False):
@@ -264,6 +289,7 @@ def milnce_dt_v2(video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp: floa
 
 
 milnce_fwd.launches = milnce_dv.launches = milnce_dt.launches = 0
+milnce_fwd.launches_by_route = dict.fromkeys(FWD_ROUTES, 0)
 milnce_dv.launches_by_route = dict.fromkeys(DV_ROUTES, 0)
 milnce_dt.launches_by_route = dict.fromkeys(DT_ROUTES, 0)
 

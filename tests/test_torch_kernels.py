@@ -8,7 +8,8 @@ card's tests run on a machine without it:
 import pytest
 import torch
 
-from chip_smoke import BF16_TOL, GRAD_TOL, MILNCE_VALUE_TOL, elem_err, mha_bwd_dropped_rowsum
+from chip_smoke import (BF16_TOL, GRAD_TOL, MILNCE_VALUE_TOL, elem_err, mha_bwd_dropped_rowsum,
+                        milnce_fwd_faults, milnce_problem)
 from temporalalignnet_torch.core.config import ModelConfig
 from temporalalignnet_torch.models.net import TANWithText
 from temporalalignnet_torch.ops.attention import attention_reference, multihead_attention
@@ -369,6 +370,24 @@ def test_bf16_grad_limit_catches_the_planted_milnce_faults():
         assert max(elem_err(a, b) for a, b in zip(fault, plain)) > _grad_tol(torch.bfloat16)
 
 
+@pytest.mark.parametrize("shared", [False, True])
+def test_value_limit_catches_the_planted_milnce_fwd_faults(shared):
+    """The chip check's per-element limit on the four logsumexps against
+    its planted faults (the last row block left out of the column
+    logsumexps, padded columns left unmasked), on the loss's own masks at a
+    reduced size: eight 64-frame videos, 16 sentences each, some padded."""
+    from temporalalignnet_torch.ops import milnce
+
+    gen = torch.Generator().manual_seed(1)
+    v, t, pm, cv, _, _ = milnce_problem(torch, 2, 8, 64, 16, 64, shared, gen,
+                                        torch.device("cpu"))
+    lse = milnce.milnce_lse_reference(v, t, pm, cv, -6e4, 1 / 0.07)
+    faults = milnce_fwd_faults(torch, v, t, pm, cv, lse, -6e4, 1 / 0.07)
+    assert set(faults) == {"last_row_block_dropped", "padded_columns_unmasked"}
+    for name, fault in faults.items():
+        assert max(elem_err(a, b) for a, b in zip(fault, lse)) > MILNCE_VALUE_TOL, name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,R,K,C", [(3, 100, 70, 64), (2, 256, 320, 128), (6, 130, 30, 512)])
@@ -397,6 +416,33 @@ def test_milnce_kernels_match_reference_on_card(cuda, S, R, K, C, shared, dtype)
     for x, y in zip(ours_in, ref_grads):
         assert x.grad.dtype == dtype and x.grad.shape == x.shape
         assert elem_err(x.grad, y) <= _grad_tol(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,expected", [(torch.bfloat16, "wgmma"), (torch.float32, "f32")])
+@pytest.mark.parametrize("S,R,K,C", [(3, 100, 70, 192), (2, 256, 320, 128), (6, 130, 30, 512)])
+@pytest.mark.parametrize("shared", [False, True])
+def test_milnce_fwd_takes_the_route_of_its_dtype_on_card(cuda, dtype, expected, S, R, K, C,
+                                                         shared):
+    """One launch on the expected route; its four logsumexps, and in bf16 the
+    earlier kernel's (milnce_fwd_v1), against milnce_lse_reference per
+    element: ragged R and K (the pm tile by TMA at K = 320, staged at 70 and
+    30), a row without a positive, padded columns."""
+    from temporalalignnet_torch.ops import milnce
+
+    v, t, pm, cv, _, _ = _milnce_problem(S, R, K, C, shared, dtype, cuda)
+    before = dict(milnce.milnce_fwd.launches_by_route)
+    ours = milnce.milnce_fwd(v, t, pm, cv, -6e4, 1 / 0.07)
+    torch.cuda.synchronize()
+    after = milnce.milnce_fwd.launches_by_route
+    assert {r: n - before[r] for r, n in after.items() if n != before[r]} == {expected: 1}
+    ref = milnce.milnce_lse_reference(v, t, pm, cv, -6e4, 1 / 0.07)
+    versions = [ours] + ([milnce.milnce_fwd_v1(v, t, pm, cv, -6e4, 1 / 0.07)]
+                         if expected == "wgmma" else [])
+    for lse in versions:
+        for a, b in zip(lse, ref):
+            assert a.shape == b.shape and bool(torch.isfinite(a).all())
+            assert elem_err(a, b) <= MILNCE_VALUE_TOL
 
 
 @pytest.mark.cuda

@@ -19,9 +19,16 @@ tests/test_fused_milnce.py run them) and against the port's plain versions.
   the same chunks, inner splits chosen by ``ops.milnce._wave_splits``, and
   their f32 partials summed in split order (milnce_reduce_kernel); one split
   goes out without partials.
+- ``milnce_fwd_schedule`` follows the same file's milnce_fwd_wgmma_kernel and
+  milnce_colmerge_kernel: 64-row blocks, 64-column tiles zero-filled past R
+  and K, sim summed over the two consumers' channel chunks, the masked
+  entries in the log2 domain (mask_value where masked, -inf where dead), row
+  (max, sum) pairs per consumer half merged at the end, column partials per
+  row block in natural-log terms, merged in row-block order.
 
-Also the route selection of ``mha_fwd``, ``mha_bwd``, ``milnce_dv`` and
-``milnce_dt`` (dtype and S), and the key-split chooser of ``mha_fwd``.
+Also the route selection of ``mha_fwd``, ``mha_bwd``, ``milnce_fwd``,
+``milnce_dv`` and ``milnce_dt`` (dtype and S), and the key-split chooser of
+``mha_fwd``.
 """
 
 import math
@@ -31,7 +38,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import BF16_TOL as FWD_BF16_TOL, GRAD_TOL, elem_err
+from chip_smoke import BF16_TOL as FWD_BF16_TOL, GRAD_TOL, MILNCE_VALUE_TOL, elem_err
 from port_fixtures import to_torch
 from temporalalignnet_torch.ops import milnce
 from temporalalignnet_torch.ops import mha_bwd as bwd
@@ -571,3 +578,166 @@ def test_milnce_dt_route_depends_on_dtype(dtype, expected, monkeypatch):
     after = milnce.milnce_dt.launches_by_route
     assert {r: after[r] - before[r] for r in after} == {
         r: int(r == expected) for r in milnce.DT_ROUTES}
+
+
+# ---------------------------------------------------------- MIL-NCE forward
+
+
+def milnce_fwd_schedule(v, t, pm, cv, mv, inv_temp):
+    """(vnum, vden [S, R], tnum, tden [S, K]) as milnce_fwd_wgmma_kernel and
+    milnce_colmerge_kernel compute them, block by block."""
+    S, R, C = v.shape
+    shared = t.dim() == 2
+    K = t.shape[-2]
+    rtiles, ctiles = -(-R // 64), -(-K // 64)
+    nb0 = (C // 64 + 1) // 2 * 64  # consumer 0's channels
+    c2, mv2, ln2 = inv_temp * math.log2(math.e), mv * math.log2(math.e), math.log(2.0)
+    ninf = torch.tensor(-math.inf)
+    ref = lambda m: torch.where(m == -math.inf, torch.zeros(()), m)  # the select of ex2_ref
+
+    def merge(m, s, m2, s2):  # log2-domain (max, sum) pairs
+        mx = torch.maximum(m, m2)
+        r = ref(mx)
+        return mx, s * torch.exp2(m - r) + s2 * torch.exp2(m2 - r)
+
+    def tile(x, n, width):  # rows past n zero-filled, as TMA fills them
+        out = torch.zeros((64,) + x.shape[1:], dtype=x.dtype)
+        out[:n] = x
+        return out if width is None else out[:, :width]
+
+    rows_out = torch.zeros(2, S, R)  # vnum, vden
+    part = torch.zeros(4, S, rtiles, K)  # mp, sp, mn, sn per row block
+    for s in range(S):
+        for rb in range(rtiles):
+            rs_ = slice(64 * rb, min(64 * rb + 64, R))
+            nr = rs_.stop - rs_.start
+            vr = tile(v[s, rs_].float(), nr, None)
+            rlive = torch.arange(64) < nr
+            rm = torch.full((2, 2, 64), -math.inf)  # [pos / neg, consumer, row]
+            rsum = torch.zeros(2, 2, 64)
+            for it in range(ctiles):
+                cs = slice(64 * it, min(64 * it + 64, K))
+                nk = cs.stop - cs.start
+                tc = tile((t if shared else t[s])[cs].float(), nk, None)
+                x = (vr[:, :nb0] @ tc[:, :nb0].T + vr[:, nb0:] @ tc[:, nb0:].T) * c2
+                pmt = tile(tile(pm[rs_, cs], nr, None).T, nk, None).T  # [64 r][64 k]
+                cvt = tile(cv[cs], nk, None)
+                live = rlive[:, None] & (torch.arange(64) < nk)[None]
+                xs = [torch.where(live, torch.where(keep, x, torch.tensor(mv2)), ninf)
+                      for keep in (pmt, cvt[None].expand(64, 64))]
+                for q, xq in enumerate(xs):
+                    for h in range(2):  # each consumer's 32 columns into its row states
+                        xh = xq[:, 32 * h:32 * h + 32]
+                        tm = xh.amax(1)
+                        rm[q, h], rsum[q, h] = merge(rm[q, h], rsum[q, h], tm,
+                                                     torch.exp2(xh - ref(tm)[:, None]).sum(1))
+                    cm = xq.amax(0)  # the row block's column (max, sum)
+                    csum = torch.exp2(xq - ref(cm)[None]).sum(0)
+                    part[2 * q, s, rb, cs] = (cm * ln2)[:nk]
+                    part[2 * q + 1, s, rb, cs] = csum[:nk]
+            for q in range(2):  # the two consumers' row states
+                m, ssum = merge(rm[q, 0], rsum[q, 0], rm[q, 1], rsum[q, 1])
+                rows_out[q, s, rs_] = ((m + torch.log2(ssum)) * ln2)[:nr]
+    cols_out = []
+    for q in range(2):  # milnce_colmerge_kernel: natural log, row-block order
+        m, ssum = torch.full((S, K), -math.inf), torch.zeros(S, K)
+        for rb in range(rtiles):
+            m2, s2 = part[2 * q, :, rb], part[2 * q + 1, :, rb]
+            mx = torch.maximum(m, m2)
+            ssum = ssum * torch.exp(m - mx) + s2 * torch.exp(m2 - mx)
+            m = mx
+        cols_out.append(m + torch.log(ssum))
+    return rows_out[0], rows_out[1], cols_out[0], cols_out[1]
+
+
+def _jax_fwd(v, t, pm, cv, tiled):
+    """(vnum, vden, tnum, tden) of the JAX forward kernel (untiled _fwd_call,
+    or the column-tiled _fwd_call_tiled), interpret mode; a shared text is
+    broadcast over the layers, as fused_milnce_elements does."""
+    S = v.shape[0]
+    K = t.shape[-2]
+    tt = np.broadcast_to(t, (S,) + t.shape) if t.ndim == 2 else t
+    args = (jnp.asarray(v), jnp.asarray(np.ascontiguousarray(tt)),
+            jnp.asarray(pm.astype(np.float32)), jnp.asarray(cv.astype(np.float32))[None])
+    if tiled:
+        out = pallas_milnce._fwd_call_tiled(*args, True, INV_TEMP, MV, 8, K // 2)
+    else:
+        out = pallas_milnce._fwd_call(*args, True, INV_TEMP, MV, 8)
+    vnum, vden, mp, sp, mn, sn = (np.asarray(x, np.float32) for x in out)
+    return vnum, vden, mp + np.log(sp), mn + np.log(sn)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_milnce_fwd_schedule_matches_jax_kernels_and_plain_f32(shared, tiled):
+    """Ragged R and K (two row blocks, two column tiles, the second's upper
+    consumer half all past K), C = 192 (three channel chunks: 2 + 1 over the
+    consumers), a row without a positive, padded columns."""
+    v, t, pm, cv, _, _ = _milnce_problem(21 + int(shared) + 2 * int(tiled), 3, 96, 70, 192,
+                                         shared)
+    tv, tt, tpm, tcv = (to_torch(x) for x in (v, t, pm, cv))
+    ours = milnce_fwd_schedule(tv, tt, tpm, tcv, MV, INV_TEMP)
+    plain = milnce.milnce_lse_reference(tv, tt, tpm, tcv, MV, INV_TEMP)
+    jax_ref = _jax_fwd(v, t, pm, cv, tiled)
+    for a, b, c, name in zip(ours, plain, jax_ref, ("vnum", "vden", "tnum", "tden")):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, b, rtol=F32_TOL, atol=F32_TOL, msg=name)
+        np.testing.assert_allclose(a.numpy(), c, atol=JAX_MILNCE_TOL, rtol=6 * JAX_MILNCE_TOL,
+                                   err_msg=name)
+
+
+def test_milnce_fwd_schedule_masks_with_mask_value_and_drops_dead_entries():
+    """Masked but live entries count as mask_value, never -inf: a row without
+    a positive gives vnum = mask_value + ln K, a padded column tnum = tden =
+    mask_value + ln R; the zero-filled rows and columns past R and K count
+    as nothing."""
+    v, t, pm, cv, _, _ = _milnce_problem(25, 2, 100, 70, 64, False)
+    tv, tt, tpm, tcv = (to_torch(x) for x in (v, t, pm, cv))
+    vnum, _, tnum, tden = milnce_fwd_schedule(tv, tt, tpm, tcv, MV, INV_TEMP)
+    torch.testing.assert_close(vnum[:, 3], torch.full((2,), MV + math.log(70)), rtol=0,
+                               atol=1e-2)
+    pad = ~tcv
+    assert int(pad.sum()) > 0
+    for x in (tnum, tden):
+        torch.testing.assert_close(x[:, pad], torch.full_like(x[:, pad], MV + math.log(100)),
+                                   rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_milnce_fwd_schedule_bf16_is_within_the_chip_limit(shared):
+    """bf16 features: against milnce_lse_reference on the same features, per
+    element by the chip check's limit."""
+    v, t, pm, cv, _, _ = _milnce_problem(27 + int(shared), 2, 80, 72, 128, shared)
+    tv, tt = to_torch(v).bfloat16(), to_torch(t).bfloat16()
+    tpm, tcv = to_torch(pm), to_torch(cv)
+    ours = milnce_fwd_schedule(tv, tt, tpm, tcv, MV, INV_TEMP)
+    plain = milnce.milnce_lse_reference(tv, tt, tpm, tcv, MV, INV_TEMP)
+    for a, b in zip(ours, plain):
+        assert a.dtype == torch.float32 and elem_err(a, b) <= MILNCE_VALUE_TOL
+
+
+@pytest.mark.parametrize("dtype,expected", [(torch.bfloat16, "wgmma"), (torch.float32, "f32")])
+def test_milnce_fwd_route_depends_on_dtype(dtype, expected, monkeypatch):
+    seen = []
+    monkeypatch.setattr(milnce, "_fwd", lambda *a, wgmma=False: seen.append(wgmma))
+    before = dict(milnce.milnce_fwd.launches_by_route)
+    launches = milnce.milnce_fwd.launches
+    x = torch.zeros(2, 2, dtype=dtype)
+    milnce.milnce_fwd(x, x, None, None, MV, 1.0)
+    assert milnce.fwd_route(dtype) == expected and seen == [expected == "wgmma"]
+    after = milnce.milnce_fwd.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == expected) for r in milnce.FWD_ROUTES}
+    assert milnce.milnce_fwd.launches == launches + 1
+
+
+def test_milnce_fwd_v1_launches_the_earlier_kernel_uncounted(monkeypatch):
+    seen = []
+    monkeypatch.setattr(milnce, "_fwd", lambda *a, wgmma=False: seen.append(wgmma))
+    counts = lambda: (milnce.milnce_fwd.launches, dict(milnce.milnce_fwd.launches_by_route))
+    before = counts()
+    x = torch.zeros(2, 2, dtype=torch.bfloat16)
+    milnce.milnce_fwd_v1(x, x, None, None, MV, 1.0)
+    assert seen == [False] and counts() == before
+    with pytest.raises(ValueError, match="bfloat16"):
+        milnce.milnce_fwd_v1(x.float(), x.float(), None, None, MV, 1.0)
