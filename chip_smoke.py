@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100): builds every
 kernel, holds each against its plain PyTorch version, drives the zero-shot
-HTM-Align evaluation and the Stage-1 training of the full-width E6D6 TAN
-through the kernels, and times them.
+HTM-Align evaluation, the Stage-1 training and the Stage-2 co-training of
+the full-width E6D6 TAN through the kernels, and times them.
 
     python3 chip_smoke.py
 
@@ -47,6 +47,20 @@ Phases, each printing JSON lines:
      train_cli  python -m temporalalignnet_torch.train --max_steps on those
              files, then python -m temporalalignnet_torch.eval on the
              .pth.tar it wrote.
+     cotrain Stage-2 co-training (EMA twin, agreement targets, head on) of
+             the E6D6 TAN at B = 64, bf16, fused, from the train phase's
+             Stage-1 state: finite losses, confidence-ratio in [0, 1], every
+             step launches mha_fwd 24 times (12 of them the twin's forward),
+             mha_bwd 12 times and each MIL-NCE kernel twice, on the short,
+             fused and wgmma routes; the target after a step against
+             t0·m + online·(1 - m); with backprop_freq = 2 one micro-step
+             leaves it bit-equal.  An f32 cotrain step on the card against
+             the CPU's (E2D2), and the fused against the plain-logits
+             cotrain step at full width in f32 (the kernels' f32 routes),
+             each after counting the agreement targets that differ.
+     cotrain_cli  python -m temporalalignnet_torch.train --model cotrain
+             --pretrain on train_cli's checkpoint, then the eval CLI on the
+             twin checkpoint it wrote.
   4. times   per shape mha_fwd's, the plain version's and PyTorch's SDPA
              time beside the card's bound, and the same four times for each
              training kernel at its training shapes (MIL-NCE also at the
@@ -135,8 +149,33 @@ TRAIN_LOSS_TOL = 1e-3
 TRAIN_GRAD_TOL = 5e-2
 TRAIN_LR = 1e-4
 # f32 train step on the card against the CPU, two steps on two batches:
-# loss, and every gradient tensor norm-relative
+# loss, and every gradient tensor norm-relative; for cotrain also every
+# target (EMA) tensor, and the same limit for the f32 fused-vs-plain
+# cotrain steps at full width
 F32_STEP_TOL = 1e-4
+COTRAIN_STEPS = 10
+# a cotrain step adds the EMA twin's forward: 12 more mha_fwd launches, no
+# backward; the agreement targets change only the MIL-NCE kernels' pos mask
+COTRAIN_STEP_LAUNCHES = dict(STEP_LAUNCHES, mha_fwd=24)
+COTRAIN_STEP_ROUTES = dict(STEP_ROUTES, mha_fwd={"short": 24, "long": 0, "f32": 0})
+# the f32 cotrain steps (fused and plain): every kernel on its f32 route
+F32_COTRAIN_ROUTES = {"mha_fwd": "f32", "mha_bwd": "f32", "milnce_fwd": "f32",
+                      "milnce_dv": "f32", "milnce_dt": "f32"}
+# the target after a step with lr > 0 against t·m + online·(1 - m) from the
+# params just before and after it, computed here in f64, per tensor
+# norm-relative: only f32 rounding differs.  A wrong update moves the target
+# by about (1 - m)·lr = 1e-7 per element, above this bar on tensors of norm
+# below 0.1 per element (every bias); planted wrong updates must exceed it.
+EMA_TOL = 1e-6
+# two cotrain runs' targets after two steps, per element:
+#   |a - b| <= F32_STEP_TOL·|b| + TARGET_ATOL.
+# Adam moves a param by up to about lr whatever the size of its gradient, so
+# where the gradient is rounding noise (the key third of every in_proj_bias:
+# a key bias leaves the softmax unchanged) the two runs' online params may
+# step opposite ways, and the EMA passes (1 - m) of that to the target.  Of
+# the two steps only the second updates with lr > 0 (warm-up); 4 covers
+# Adam's bias-corrected step at its second update.
+TARGET_ATOL = 4 * (1 - 0.999) * TRAIN_LR
 # published dense peaks (NVIDIA data sheets): bytes/s, bf16 FLOP/s
 CARD_PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
               "H100": (3.35e12, 989e12)}
@@ -738,32 +777,81 @@ def phase_cli(torch, model):
     return feats, anno_path, vocab
 
 
-def train_setup(torch, device, fused, cfg_kw=None, state=None, compute=None):
-    """A TANWithText with its optimizer and train step; params f32 from the
-    seed (or ``state``), compute bf16 on the card unless ``compute`` says."""
+def train_setup(torch, device, fused, cfg_kw=None, state=None, compute=None, cotrain=False,
+                train_kw=None):
+    """A TANWithText with its optimizer, train step and, for ``cotrain`` (head
+    on, agreement targets), its EMA twin; params f32 from the seed (or
+    ``state``; for cotrain merged as ``--pretrain`` does, so a Stage-1 state
+    without the head loads), compute bf16 on the card unless ``compute``
+    says.  Returns (model, optimizer, step, twin or None)."""
+    from temporalalignnet_torch.checkpoint import merge_state_dict
     from temporalalignnet_torch.core.config import LossConfig, ModelConfig, TrainConfig
     from temporalalignnet_torch.models.net import TANWithText
-    from temporalalignnet_torch.train import Optimizer, make_train_step
+    from temporalalignnet_torch.train import EMATwin, Optimizer, make_train_step
 
-    cfg = ModelConfig(fused_milnce=fused, **(cfg_kw or {}))
+    cfg = ModelConfig(fused_milnce=fused, use_alignability_head=cotrain, **(cfg_kw or {}))
     model = TANWithText(cfg, vocab_size=66251)
-    if state is None:
-        model.init_weights(torch.Generator().manual_seed(SEED))
-    else:
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    if state is not None and cotrain:
+        model.load_state_dict(merge_state_dict(model.state_dict(), state)[0])
+    elif state is not None:
         model.load_state_dict(state)
     model.to(device)
-    tcfg = TrainConfig(lr=TRAIN_LR, warmup_iterations=1, total_iterations=1000)
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_iterations=1, total_iterations=1000,
+                       **(train_kw or {}))
     opt = Optimizer(model, tcfg)
+    twin = EMATwin(model, tcfg) if cotrain else None
     if compute is None:
         compute = torch.bfloat16 if device.type == "cuda" else torch.float32
-    step = make_train_step(model, opt, tcfg, LossConfig(use_fused_milnce=fused),
-                           compute_dtype=compute)
-    return model, opt, step
+    loss_kw = dict(model="cotrain", learn_agreement=True, use_alignability_head=True) \
+        if cotrain else {}
+    step = make_train_step(model, opt, tcfg, LossConfig(use_fused_milnce=fused, **loss_kw),
+                           compute_dtype=compute, twin=twin)
+    return model, opt, step, twin
+
+
+def run_steps(torch, loader, step, n, wrap=None, wrap_at=0):
+    """``n`` train steps over ``loader``'s epochs, each with the launch counts
+    set to 0 just before it and read just after.  ``wrap(run)`` runs step
+    ``wrap_at`` (from 0) itself.  Returns (the first two batches, each step's
+    metrics as floats, launches per step, routes per step, seconds)."""
+    batches, metrics, per_step, routes = [], [], [], []
+    t0 = time.perf_counter()
+    epoch = 0
+    while len(metrics) < n:
+        loader.set_epoch(epoch)
+        epoch += 1
+        for batch in loader:
+            if len(batches) < 2:
+                batches.append(batch)
+            torch.cuda.synchronize()
+            reset_counts()
+            run = lambda: step(batch)
+            out = wrap(run) if wrap and len(metrics) == wrap_at else run()
+            torch.cuda.synchronize()
+            per_step.append(read_counts())
+            routes.append(read_routes())
+            metrics.append({k: v.item() for k, v in out.items()})
+            if len(metrics) == n:
+                break
+    return batches, metrics, per_step, routes, time.perf_counter() - t0
+
+
+def check_launches(per_step, routes, launches, by_route, what):
+    """Every step launched ``launches`` on the routes ``by_route``; returns
+    the totals, with the routes' under "routes"."""
+    for i, (counts, r) in enumerate(zip(per_step, routes)):
+        check(counts == launches, f"{what} step {i} launched {counts}, expected {launches}")
+        check(r == by_route, f"{what} step {i} routes {r}, expected {by_route}")
+    totals = {k: sum(c[k] for c in per_step) for k in launches}
+    totals["routes"] = {k: {r: sum(x[k][r] for x in routes) for r in v}
+                        for k, v in by_route.items()}
+    return totals
 
 
 def phase_train(torch, files):
-    """Stage-1 training through the kernels at B = 64: the main path of this
-    slice, with its launches counted per step."""
+    """Stage-1 training through the kernels at B = 64 (slice 2's path), with
+    its launches counted per step."""
     from temporalalignnet_torch.core.config import DataConfig
     from temporalalignnet_torch.data import HTMFeatureDataset, TrainLoader
     from temporalalignnet_torch.data.synthetic import synthetic_batch
@@ -775,50 +863,23 @@ def phase_train(torch, files):
     ds = HTMFeatureDataset(feats, captions, DataConfig(seq_len=T, max_sentences=N, max_words=W),
                            "train", Word2VecTokenizer(vocab, max_words=W))
     loader = TrainLoader(ds, B, seed=SEED, num_workers=8, pin_memory=True)
-    model, opt, step = train_setup(torch, dev, fused=True)
+    model, opt, step, _ = train_setup(torch, dev, fused=True)
     init_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-
-    batches, losses, per_step, routes = [], [], [], []
-    totals = {k: 0 for k in STEP_LAUNCHES}
-    t0 = time.perf_counter()
-    done = 0
-    for epoch in range(TRAIN_STEPS):
-        loader.set_epoch(epoch)
-        for batch in loader:
-            if len(batches) < 2:
-                batches.append(batch)
-            torch.cuda.synchronize()
-            reset_counts()
-            metrics = step(batch)
-            torch.cuda.synchronize()
-            counts = read_counts()
-            routes.append(read_routes())
-            losses.append(metrics["loss"].item())
-            per_step.append(counts)
-            for k in totals:
-                totals[k] += counts[k]
-            done += 1
-            if done == TRAIN_STEPS:
-                break
-        if done == TRAIN_STEPS:
-            break
-    secs = time.perf_counter() - t0
+    batches, metrics, per_step, routes, secs = run_steps(torch, loader, step, TRAIN_STEPS)
+    losses = [m["loss"] for m in metrics]
     emit({"phase": "train", "model": "E6D6 width 512, word2vec, fused MIL-NCE, bf16",
-          "batch": TRAIN, "videos": len(ds), "steps": done, "losses": losses,
+          "batch": TRAIN, "videos": len(ds), "steps": len(metrics), "losses": losses,
           "launches_per_step": per_step[0], "routes_per_step": routes[0],
           "seconds_with_data": secs})
-    check(done == TRAIN_STEPS, f"only {done} train steps")
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
-    for i, (counts, by_route) in enumerate(zip(per_step, routes)):
-        check(counts == STEP_LAUNCHES, f"step {i} launched {counts}, expected {STEP_LAUNCHES}")
-        check(by_route == STEP_ROUTES, f"step {i} routes {by_route}, expected {STEP_ROUTES}")
-    totals["routes"] = {k: {r: sum(x[k][r] for x in routes) for r in v}
-                        for k, v in STEP_ROUTES.items()}
+    totals = check_launches(per_step, routes, STEP_LAUNCHES, STEP_ROUTES, "train")
+    stage1_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del model, opt, step
 
     # the fused kernels against the plain logits path, on the card, bf16
     runs = {}
     for fused in (True, False):
-        m, _, st = train_setup(torch, dev, fused=fused, state=init_state)
+        m, _, st, _ = train_setup(torch, dev, fused=fused, state=init_state)
         runs[fused] = two_steps(m, st, batches)
     loss_err, grad_err, worst_grad = compare_steps(runs[True], runs[False])
     emit({"phase": "train_fused_vs_plain", "dtype": "bfloat16", "losses_fused": runs[True][0],
@@ -834,9 +895,9 @@ def phase_train(torch, files):
         feature_dim=1024, vocab_size=66250, max_words=W).items()} for i in range(2)]
     state, res = None, {}
     for d in ("cuda", "cpu"):
-        m, _, st = train_setup(torch, torch.device(d), fused=True, state=state,
-                               cfg_kw=dict(num_encoder_layers=2, num_joint_layers=2),
-                               compute=torch.float32)
+        m, _, st, _ = train_setup(torch, torch.device(d), fused=True, state=state,
+                                  cfg_kw=dict(num_encoder_layers=2, num_joint_layers=2),
+                                  compute=torch.float32)
         state = state or {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
         res[d] = two_steps(m, st, small)
     loss_err, grad_err, worst_grad = compare_steps(res["cuda"], res["cpu"])
@@ -846,17 +907,20 @@ def phase_train(torch, files):
           "worst_grad": worst_grad, "tol": F32_STEP_TOL})
     check(loss_err <= F32_STEP_TOL, f"f32 step card vs cpu loss {loss_err}")
     check(grad_err <= F32_STEP_TOL, f"f32 step card vs cpu grads {grad_err} ({worst_grad})")
-    return totals, losses
+    return totals, stage1_state
 
 
-def two_steps(model, step, batches):
-    """Losses and per-step {param: grad} (on the CPU) of two train steps."""
+def two_steps(model, step, batches, twin=None):
+    """Losses, per-step {param: grad} and, with a twin, the target's
+    {param: value} after the two steps (on the CPU) of two train steps."""
     losses, grads = [], []
     for batch in batches[:2]:
         losses.append(step(batch)["loss"].item())
         grads.append({n: p.grad.detach().float().cpu()
                       for n, p in model.named_parameters() if p.grad is not None})
-    return losses, grads
+    target = None if twin is None else {n: p.detach().float().cpu()
+                                        for n, p in twin.model.named_parameters()}
+    return losses, grads, target
 
 
 def compare_steps(ours, theirs):
@@ -868,6 +932,255 @@ def compare_steps(ours, theirs):
     errs = sorted(((norm_err(a[n], b[n]), f"step {i} {n} |g| {b[n].norm().item():.3g}")
                    for i, (a, b) in enumerate(zip(ours[1], theirs[1])) for n in b), reverse=True)
     return loss_err, errs[0][0], errs[:3]
+
+
+def target_err(ours, theirs):
+    """The targets of two ``two_steps`` runs with a twin: (the worst
+    |a - b| / (F32_STEP_TOL·|b| + TARGET_ATOL) over the elements, which
+    must not exceed 1, its tensor, and the worst per-tensor norm_err)."""
+    ratio, name = max(
+        (((a - b).abs() / (F32_STEP_TOL * b.abs() + TARGET_ATOL)).max().item(), n)
+        for n, b in theirs[2].items() for a in [ours[2][n]])
+    return ratio, name, max(norm_err(ours[2][n], theirs[2][n]) for n in theirs[2])
+
+
+def ema_check(twin, model, run, out):
+    """Runs one train step (``run``) and fills ``out``: "err", the worst per
+    tensor norm-relative error of the target after it against t·m + online·(1 - m) from
+    the params just before and after it (in f64, m and 1 - m rounded to f32
+    as the step rounds them), with its "tensor"; "planted", the same worst
+    error of two wrong updates, the target left as it was and the EMA taken
+    from the online params before the step, which must exceed EMA_TOL;
+    "moved", whether the step changed the online params at all."""
+    t_b = [p.detach().double() for p in twin.model.parameters()]
+    o_b = [p.detach().double() for p in model.parameters()]
+    res = run()
+    m = np.float32(twin.momentum)
+    m, w = float(m), float(np.float32(1) - m)
+    o_a = [p.detach().double() for p in model.parameters()]
+    want = [t * m + o * w for t, o in zip(t_b, o_a)]
+    names = [n for n, _ in twin.model.named_parameters()]
+
+    def worst(got):  # norm_err in f64
+        return max(((g - x).norm().item() / max(x.norm().item(), 1e-30), n)
+                   for g, x, n in zip(got, want, names))
+
+    out["err"], out["tensor"] = worst([p.detach().double() for p in twin.model.parameters()])
+    out["planted"] = {"target_unchanged": worst(t_b)[0],
+                      "online_before_step": worst([t * m + o * w for t, o in zip(t_b, o_b)])[0]}
+    out["moved"] = any(not a.equal(b) for a, b in zip(o_a, o_b))
+    return res
+
+
+class TargetRecorder:
+    """Within ``with``, records every agreement_self_labelling call of
+    get_loss: its inputs and its target, on the CPU."""
+
+    def __enter__(self):
+        from temporalalignnet_torch.losses import tan_loss
+
+        self.module, self.inner, self.calls = tan_loss, tan_loss.agreement_self_labelling, []
+
+        def recorded(*args):
+            tgt, metrics = self.inner(*args)
+            self.calls.append(([a.detach().cpu() if hasattr(a, "detach") else a for a in args],
+                               tgt.cpu()))
+            return tgt, metrics
+
+        tan_loss.agreement_self_labelling = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module.agreement_self_labelling = self.inner
+
+
+def window_margins(torch, args, b, n):
+    """(joint, dual): the relative gap between the two best windows' scores of
+    sentence n of video b for one recorded agreement call."""
+    from temporalalignnet_torch.losses import agreement as ag
+
+    joint, dual, vpm, tpm, raw, cfg = args
+    C = ag._window_kernel_bank(raw, tpm.bool())
+    gaps = []
+    for x in (joint, dual):
+        x = ag.pad_fill(x, vpm, tpm, cfg.mask_value)
+        top = ag.window_scores(x, C, cfg.temperature)[b, n].topk(2).values
+        gaps.append(((top[0] - top[1]) / top[0]).item())
+    return gaps
+
+
+def compare_targets(torch, ours, theirs):
+    """The entries where two runs' agreement targets differ (step by step),
+    and for each differing sentence the two best windows' margins of both
+    runs' inputs: a difference is legitimate only at a near-tie."""
+    check(len(ours) == len(theirs), f"{len(ours)} vs {len(theirs)} agreement calls")
+    n_diff, where = 0, []
+    for i, ((args_a, a), (args_b, b)) in enumerate(zip(ours, theirs)):
+        differ = a != b
+        n_diff += int(differ.sum())
+        for bb, nn in sorted({(int(x), int(z)) for x, _, z in differ.nonzero().tolist()}):
+            where.append({"step": i, "video": bb, "sentence": nn,
+                          "margins_joint_dual": window_margins(torch, args_a, bb, nn),
+                          "margins_joint_dual_other": window_margins(torch, args_b, bb, nn)})
+    return n_diff, where
+
+
+def phase_cotrain(torch, files, stage1_state):
+    """Stage-2 co-training through the kernels at B = 64 from the Stage-1
+    state of phase_train: the main path of this slice, its launches counted
+    per step; the EMA rule; an f32 cotrain step on the card against the
+    CPU's; the fused against the plain-logits cotrain step at full width."""
+    from temporalalignnet_torch.core.config import DataConfig
+    from temporalalignnet_torch.data import HTMFeatureDataset, TrainLoader
+    from temporalalignnet_torch.data.synthetic import synthetic_batch
+    from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
+
+    dev = torch.device("cuda")
+    feats, captions, vocab = files
+    B, T, N, W = (TRAIN[k] for k in "BTNW")
+    ds = HTMFeatureDataset(feats, captions, DataConfig(seq_len=T, max_sentences=N, max_words=W),
+                           "train", Word2VecTokenizer(vocab, max_words=W))
+    loader = TrainLoader(ds, B, seed=SEED + 1, num_workers=8, pin_memory=True)
+    model, _, step, twin = train_setup(torch, dev, fused=True, cotrain=True, state=stage1_state)
+    init_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    ema = {}
+    # the EMA rule on the second step: the first updates with lr 0 (warm-up),
+    # so after it online = t0 and any update of the target would read as right
+    batches, metrics, per_step, routes, secs = run_steps(
+        torch, loader, step, COTRAIN_STEPS, wrap=lambda run: ema_check(twin, model, run, ema),
+        wrap_at=1)
+    losses = [m["loss"] for m in metrics]
+    ratios = [m["confidence-ratio"] for m in metrics]
+    emit({"phase": "cotrain", "model": "E6D6 width 512, word2vec, fused MIL-NCE, bf16, "
+          "agreement keep, head on, m 0.999", "batch": TRAIN, "steps": len(metrics),
+          "losses": losses, "confidence_ratio": ratios,
+          "launches_per_step": per_step[0], "routes_per_step": routes[0],
+          "ema_step": 1, "ema_lr_moved_online": ema["moved"], "ema_max_norm_err": ema["err"],
+          "ema_worst_tensor": ema["tensor"], "ema_planted_min_norm_err": ema["planted"],
+          "ema_tol": EMA_TOL, "seconds_with_data": secs})
+    check(all(np.isfinite(losses)), f"cotrain non-finite loss: {losses}")
+    check(all(0.0 <= r <= 1.0 for r in ratios), f"confidence-ratio out of [0, 1]: {ratios}")
+    check(ema["moved"], f"the EMA check's step left the online params as they were: {ema}")
+    check(ema["err"] <= EMA_TOL, f"EMA update off t·m + online·(1 - m): {ema}")
+    check(all(v > EMA_TOL for v in ema["planted"].values()),
+          f"the EMA check passes a planted wrong update: {ema}")
+    totals = check_launches(per_step, routes, COTRAIN_STEP_LAUNCHES, COTRAIN_STEP_ROUTES,
+                            "cotrain")
+    del model, step, twin
+
+    # backprop_freq = 2: one micro-step accumulates and leaves the target bit-equal
+    _, _, step, twin = train_setup(torch, dev, fused=True, cotrain=True, state=stage1_state,
+                                   train_kw=dict(backprop_freq=2))
+    before = [p.detach().clone() for p in twin.model.parameters()]
+    step(batches[0])
+    held = all(torch.equal(a, b) for a, b in zip(before, twin.model.parameters()))
+    emit({"phase": "cotrain_micro_step", "backprop_freq": 2, "target_bit_equal": held})
+    check(held, "the target moved on an accumulation-only micro-step")
+    del step, twin, before
+
+    # f32 on the card (the f32 kernels) against the CPU, reduced depth and batch
+    small = [{k: torch.from_numpy(v) for k, v in synthetic_batch(
+        np.random.RandomState(SEED + 10 + i), batch_size=8, seq_len=T, max_sentences=N,
+        feature_dim=1024, vocab_size=66250, max_words=W).items()} for i in range(2)]
+    state, res, rec = None, {}, {}
+    for d in ("cuda", "cpu"):
+        m, _, st, tw = train_setup(torch, torch.device(d), fused=True, state=state, cotrain=True,
+                                   cfg_kw=dict(num_encoder_layers=2, num_joint_layers=2),
+                                   compute=torch.float32)
+        state = state or {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+        with TargetRecorder() as r:
+            res[d] = two_steps(m, st, small, tw)
+        rec[d] = r.calls
+    n_diff, where = compare_targets(torch, rec["cuda"], rec["cpu"])
+    loss_err, grad_err, worst_grad = compare_steps(res["cuda"], res["cpu"])
+    t_err, t_worst, t_norm = target_err(res["cuda"], res["cpu"])
+    emit({"phase": "cotrain_f32_card_vs_cpu", "model": "E2D2 width 512, fused, f32", "batch": 8,
+          "target_entries_differing": n_diff, "differing_sentences": where,
+          "losses_card": res["cuda"][0], "losses_cpu": res["cpu"][0],
+          "loss_max_abs_err": loss_err, "grad_max_norm_err": grad_err, "worst_grad": worst_grad,
+          "target_err_over_limit": t_err, "worst_target": t_worst,
+          "target_max_norm_err": t_norm, "tol": F32_STEP_TOL, "target_atol": TARGET_ATOL})
+    check(loss_err <= F32_STEP_TOL, f"f32 cotrain card vs cpu loss {loss_err}")
+    check(grad_err <= F32_STEP_TOL, f"f32 cotrain card vs cpu grads {grad_err} ({worst_grad})")
+    check(t_err <= 1.0, f"f32 cotrain card vs cpu target {t_err} of its limit ({t_worst})")
+
+    # the fused kernels (their f32 routes) against the plain logits at full
+    # width, f32 compute: in bf16 the two paths round the same-video diagonals
+    # differently, and the discrete agreement targets may then legitimately
+    # differ; the bf16 run above covers the wgmma and short routes
+    runs, rec = {}, {}
+    for fused in (True, False):
+        m, _, st, tw = train_setup(torch, dev, fused=fused, state=init_state, cotrain=True,
+                                   compute=torch.float32)
+        torch.cuda.synchronize()
+        reset_counts()
+        with TargetRecorder() as r:
+            runs[fused] = two_steps(m, st, batches, tw)
+        rec[fused] = r.calls
+        if fused:
+            f32_routes = read_routes()
+        del m, st, tw
+    n_diff, where = compare_targets(torch, rec[True], rec[False])
+    loss_err, grad_err, worst_grad = compare_steps(runs[True], runs[False])
+    t_err, t_worst, t_norm = target_err(runs[True], runs[False])
+    emit({"phase": "cotrain_fused_vs_plain", "model": "E6D6 width 512, f32", "batch": TRAIN,
+          "fused_routes": f32_routes, "target_entries_differing": n_diff,
+          "differing_sentences": where, "losses_fused": runs[True][0],
+          "losses_plain": runs[False][0], "loss_max_abs_err": loss_err,
+          "grad_max_norm_err": grad_err, "worst_grad": worst_grad,
+          "target_err_over_limit": t_err, "worst_target": t_worst,
+          "target_max_norm_err": t_norm, "tol": F32_STEP_TOL, "target_atol": TARGET_ATOL})
+    for name, only in F32_COTRAIN_ROUTES.items():
+        n = f32_routes[name]
+        check(n[only] > 0 and n[only] == sum(n.values()), f"f32 cotrain {name} routes {n}")
+    check(loss_err <= F32_STEP_TOL, f"f32 cotrain fused vs plain loss {loss_err}")
+    check(grad_err <= F32_STEP_TOL, f"f32 cotrain fused vs plain grads {grad_err} ({worst_grad})")
+    check(t_err <= 1.0, f"f32 cotrain fused vs plain target {t_err} of its limit ({t_worst})")
+    return totals
+
+
+def phase_cotrain_cli(torch, files, stage1_ckpt, eval_files):
+    """The user's entry point for Stage 2, ``python -m
+    temporalalignnet_torch.train --model cotrain --pretrain`` on the
+    checkpoint phase_train_cli wrote, then the eval CLI on the twin
+    checkpoint it writes."""
+    feats, captions, vocab = files
+    prefix = os.path.join(REPO, "build", "chip_smoke_train", "exp")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "temporalalignnet_torch.train", "--model", "cotrain",
+         "--pretrain", stage1_ckpt, "--feature_dir", feats, "--captions", captions,
+         "--vocab", vocab, "--max_steps", "4", "--epochs", "4", "--log_every", "2",
+         "--prefix", prefix],
+        cwd=REPO, capture_output=True, text=True, timeout=900,
+    )
+    check(run.returncode == 0, f"cotrain CLI failed:\n{run.stderr[-4000:]}")
+    lines = [json.loads(l) for l in run.stdout.splitlines() if l.startswith("{")]
+    report = [l for l in run.stdout.splitlines() if l.startswith("[pretrain]")]
+    final = lines[-1]
+    sd = torch.load(final["checkpoint"], map_location="cpu", weights_only=True)["state_dict"]
+    halves = {p: sum(k.startswith(p) for k in sd) for p in ("online.", "target.")}
+    emit({"phase": "cotrain_cli", "log": lines[:-1], "final": final, "pretrain_report": report,
+          "state_dict_keys": halves, "seconds": time.perf_counter() - t0})
+    check(final["final_step"] == 4 and final["loss_finite"], f"cotrain CLI final line {final}")
+    check(all(np.isfinite(l["loss"]) and 0.0 <= l["confidence-ratio"] <= 1.0
+              for l in lines[:-1]), "cotrain CLI logged a non-finite loss or a ratio out of range")
+    check(halves["online."] > 0 and halves["online."] == halves["target."],
+          f"cotrain checkpoint halves {halves}")
+
+    e_feats, anno, e_vocab = eval_files
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "temporalalignnet_torch.eval", "--task", "align",
+         "--ckpt", final["checkpoint"], "--features", e_feats, "--anno", anno,
+         "--vocab", e_vocab],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    check(run.returncode == 0, f"eval CLI on the twin checkpoint failed:\n{run.stderr[-4000:]}")
+    metrics = json.loads(run.stdout.strip().splitlines()[-1])
+    emit({"phase": "cotrain_cli_eval", "metrics": metrics, "seconds": time.perf_counter() - t0})
+    check(0.0 <= metrics["Recall"] <= 1.0 and 0.0 <= metrics["AUC"] <= 1.0,
+          f"eval of the twin checkpoint: {metrics}")
 
 
 def phase_train_cli(torch, files, eval_files):
@@ -904,6 +1217,7 @@ def phase_train_cli(torch, files, eval_files):
     emit({"phase": "train_cli_eval", "metrics": metrics, "seconds": time.perf_counter() - t0})
     check(0.0 <= metrics["Recall"] <= 1.0 and 0.0 <= metrics["AUC"] <= 1.0,
           f"eval of the trained checkpoint: {metrics}")
+    return final["checkpoint"]
 
 
 def timed_row(torch, fns, nbytes, flops, bw, peak, **info):
@@ -991,11 +1305,10 @@ def phase_train_times(torch, card):
 
 
 def phase_step_times(torch, model, card):
-    """Eval-forward windows/s and train steps/s with their device time.  Run
-    after every kernel's timing: on an H100, profiler sessions that followed
-    the train step's (thousands of kernels) lost device activity."""
-    from temporalalignnet_torch.data.synthetic import synthetic_batch
-
+    """Eval-forward windows/s, the agreement self-labelling's device time, and
+    Stage-1 and cotrain steps/s with their device time.  Run after every
+    kernel's timing: on an H100, profiler sessions that followed the train
+    step's (thousands of kernels) lost device activity."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 2)
     B, T, C, N, W = (BENCH[k] for k in "BTCNW")
@@ -1017,23 +1330,107 @@ def phase_step_times(torch, model, card):
           "idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / fwd_ms),
           "top_kernels_ms_per_call": {k[:90]: v for k, v in top}})
 
+    # the agreement self-labelling's and each step's times in a process of
+    # its own: on an H100, profiler sessions after a train step's profile
+    # (thousands of kernels) lost device activity, and the agreement's
+    # after the eval forward's did
+    for which in ("agreement", "init", "cotrain"):
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--step-time", which],
+                             cwd=REPO, capture_output=True, text=True, timeout=900)
+        check(run.returncode == 0, f"step times of {which} failed:\n{run.stderr[-4000:]}")
+        emit(json.loads(run.stdout.strip().splitlines()[-1]))
+
+
+def by_name(per_kernel, n=90):
+    """{name cut to n characters: device ms}, summed over the kernels whose
+    names agree that far, largest first."""
+    out = {}
+    for k, v in per_kernel.items():
+        out[k[:n]] = out.get(k[:n], 0.0) + v
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def host_syncs(torch, fn):
+    """{where: count} of the host-device synchronisations one call of ``fn``
+    makes (torch.cuda's sync debug mode warns at each): the frame that
+    warned, then the innermost frame of this repo that led to it.  Only
+    warnings raised within ``fn`` count: turning the mode on warns once from
+    ``torch.cuda.set_sync_debug_mode`` itself (seen on an H100, torch 2.11)."""
+    import traceback
+    import warnings
+
+    where, inside = {}, [False]
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if not inside[0] or "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(REPO)]
+        key = f"{os.path.relpath(filename, REPO)}:{lineno}"
+        if ours:
+            key += f" from {os.path.relpath(ours[-1].filename, REPO)}:{ours[-1].lineno}"
+        where[key] = where.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            inside[0] = True
+            fn()
+        finally:
+            inside[0] = False
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()  # after the debug mode: not one of fn's
+    return where
+
+
+def step_time(torch, which, card):
+    """One JSON line of times at B = 64: ``which`` 'init' (a Stage-1 train
+    step) or 'cotrain' (a Stage-2 one): steps/s with the device time, idle
+    share, every kernel's device ms and the top host ops; 'agreement': the
+    agreement self-labelling alone at the cotrain step's shapes.  Each also
+    counts the call's host-device synchronisations."""
+    from temporalalignnet_torch.core.config import LossConfig
+    from temporalalignnet_torch.data.synthetic import synthetic_batch
+    from temporalalignnet_torch.losses.agreement import agreement_self_labelling
+    from temporalalignnet_torch.losses.tan_loss import mask_from_time
+
+    dev = torch.device("cuda")
     B, T, N, W = (TRAIN[k] for k in "BTNW")
-    _, _, step = train_setup(torch, dev, fused=True)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
         np.random.RandomState(SEED + 6), batch_size=B, seq_len=T, max_sentences=N,
         feature_dim=1024, vocab_size=66250, max_words=W).items()}
+    if which == "agreement":
+        S = 6
+        gen = torch.Generator().manual_seed(SEED + 8)
+        diags = [torch.randn(B, S, T, N, generator=gen).to(dev) * 2.0 for _ in range(2)]
+        raw = mask_from_time(batch["start"], batch["end"], T, batch["text_padding_mask"])
+        cfg = LossConfig(model="cotrain", learn_agreement=True)
+        run = lambda: agreement_self_labelling(*diags, batch["video_padding_mask"],
+                                               batch["text_padding_mask"], raw, cfg)
+        busy_ms, per_kernel, host_ms, timing = device_profile(torch, run)
+        emit({"phase": "times", "metric": "agreement_ms", "card": card, "shape": [B, S, T, N],
+              "device_ms": busy_ms if timing == "profiler" else None, "timing": timing,
+              "wall_ms": cuda_ms(torch, run), "kernels_per_call": len(per_kernel),
+              "host_self_ms_under_profiler": sum(host_ms.values()),
+              "host_syncs": host_syncs(torch, run),
+              "kernels_ms": by_name(per_kernel)})
+        return
+    cotrain = which == "cotrain"
+    _, _, step, _ = train_setup(torch, dev, fused=True, cotrain=cotrain)
     run = lambda: step(batch)
     step_ms = cuda_ms(torch, run, reps=10, warmup=3)
     busy_ms, per_kernel, host_ms, timing = device_profile(torch, run, reps=5, warmup=1)
     busy_ms = busy_ms if timing == "profiler" else None
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
     top_host = sorted(host_ms.items(), key=lambda kv: -kv[1])[:15]
-    emit({"phase": "times", "metric": "train_steps_per_s", "card": card,
-          "value": 1e3 / step_ms, "ms_per_step": step_ms, "batch": TRAIN,
-          "model": "E6D6 width 512, word2vec, fused MIL-NCE, bf16 compute, f32 params",
-          "device_busy_ms_per_step": busy_ms,
+    model = "E6D6 width 512, word2vec, fused MIL-NCE, bf16 compute, f32 params"
+    emit({"phase": "times", "metric": "cotrain_steps_per_s" if cotrain else "train_steps_per_s",
+          "card": card, "value": 1e3 / step_ms, "ms_per_step": step_ms, "batch": TRAIN,
+          "model": model + (", EMA twin, agreement keep, head on" if cotrain else ""),
+          "device_busy_ms_per_step": busy_ms, "timing": timing,
           "idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / step_ms),
-          "top_kernels_ms_per_step": {k[:90]: v for k, v in top},
+          "host_syncs_per_step": host_syncs(torch, run),
+          "kernels_ms_per_step": by_name(per_kernel),
           "host_self_ms_per_step_under_profiler": sum(host_ms.values()),
           "top_host_ops_self_ms_per_step": {k[:90]: v for k, v in top_host}})
 
@@ -1076,7 +1473,7 @@ def phase_times(torch, card):
     return rows
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1087,6 +1484,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = torch.cuda.get_device_name(0)
+    if argv[:1] == ["--step-time"]:  # a child of phase_step_times
+        step_time(torch, argv[1], card)
+        return 0
     emit({"python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "card": card})
 
@@ -1097,8 +1497,10 @@ def main() -> int:
     model, eval_launches = phase_eval(torch)
     eval_files = phase_cli(torch, model)
     files = make_train_files(os.path.join(REPO, "build", "chip_smoke_train"), 96, SEED)
-    launches, _ = phase_train(torch, files)
-    phase_train_cli(torch, files, eval_files)
+    launches, stage1_state = phase_train(torch, files)
+    stage1_ckpt = phase_train_cli(torch, files, eval_files)
+    cotrain_launches = phase_cotrain(torch, files, stage1_state)
+    phase_cotrain_cli(torch, files, stage1_ckpt, eval_files)
     rows = phase_times(torch, card)
     train_rows = phase_train_times(torch, card)
     phase_step_times(torch, model, card)
@@ -1112,8 +1514,9 @@ def main() -> int:
     timed, glob = fwd_rows[MHA_BWD_SHAPES[1]], fwd_rows[KERNEL_SHAPES[3]]
     fields = ("ms", "timing", "plain_ms", "bound_ms", "bound_by", "library_ms")
     pallas = "temporalalignnet_tpu/ops/pallas_milnce.py"
-    # launches: this slice's main path (TRAIN_STEPS train steps); mha_fwd's on
-    # slice 1's path (the eval phase) beside it
+    # launches: slice 2's path (TRAIN_STEPS Stage-1 train steps); beside it
+    # this slice's (COTRAIN_STEPS cotrain steps) and mha_fwd's on slice 1's
+    # path (the eval phase)
     entries = [
         dict(name="mha_fwd", source="temporalalignnet_torch/csrc/mha_fwd.cu",
              replaces="temporalalignnet_tpu/ops/pallas_attention.py:31 (_mha_kernel)",
@@ -1121,6 +1524,8 @@ def main() -> int:
              launches_by_route=launches["routes"]["mha_fwd"],
              earlier_ms=timed["v1_ms"], earlier_version="v1 (mma.sync)",
              launches=launches["mha_fwd"], launches_eval_path=eval_launches,
+             launches_cotrain_path=cotrain_launches["mha_fwd"],
+             launches_by_route_cotrain=cotrain_launches["routes"]["mha_fwd"],
              max_abs_err=err_bf16, max_err_f32=err_f32, max_err_bf16=err_bf16,
              shape=timed["shape"], **{k: timed[k] for k in fields},
              long_route={"shape": glob["shape"], "ms": glob["ms"], "earlier_ms": glob["v1_ms"],
@@ -1132,6 +1537,8 @@ def main() -> int:
              earlier_ms=train_rows[("mha_bwd", 80)]["v2_ms"],
              earlier_version="v2 (mma.sync, two kernels)",
              launches=launches["mha_bwd"], max_abs_err=bwd_err["bfloat16"],
+             launches_cotrain_path=cotrain_launches["mha_bwd"],
+             launches_by_route_cotrain=cotrain_launches["routes"]["mha_bwd"],
              max_err_f32=bwd_err["float32"], max_err_bf16=bwd_err["bfloat16"],
              shape=train_rows[("mha_bwd", 80)]["shape"],
              **{k: train_rows[("mha_bwd", 80)][k] for k in fields}),
@@ -1152,6 +1559,8 @@ def main() -> int:
             launches_by_route=launches["routes"][name], earlier_ms=row[earlier + "_ms"],
             earlier_version=f"{earlier} (mma.sync)",
             launches=launches[name], max_abs_err=milnce_err[(name, "bfloat16")],
+            launches_cotrain_path=cotrain_launches[name],
+            launches_by_route_cotrain=cotrain_launches["routes"][name],
             max_err_f32=milnce_err[(name, "float32")],
             max_err_bf16=milnce_err[(name, "bfloat16")],
             shape=[row["S"], row["R"], row["K"], row["C"]],
@@ -1164,4 +1573,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -10,16 +10,24 @@
 - ``load_reference_checkpoint(path, model)``: a reference ``.pth.tar``
   (``{epoch, state_dict, best_acc, optimizer, iteration}``) read natively and
   loaded with ``strict=True``.
-- ``save_reference_checkpoint(path, model, optimizer, epoch, iteration)``:
-  writes that layout with ``torch.save`` (train/main.py's save_checkpoint),
-  the real optimizer state included, through a temporary file and a rename.
+- ``save_reference_checkpoint(path, model, optimizer, epoch, iteration,
+  target=None)``: writes that layout with ``torch.save`` (train/main.py's
+  save_checkpoint), the real optimizer state included, through a temporary
+  file and a rename; with the Stage-2 ``target`` it writes the
+  TwinTemporalAligner key space (tan_model.py:315-323), as
+  ``temporalalignnet_tpu/checkpoint/torch_convert.py::flax_to_torch_state``
+  does with ``ema_params``.
+- ``merge_state_dict(base, loaded)``: the non-strict load of a ``--pretrain``
+  checkpoint (JAX ``neq_merge``; reference utils/utils.py:302-312).  The
+  EMA target then starts as ``train.EMATwin``'s copy of the online model
+  that holds the merged weights (train/main.py:463-484).
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -122,13 +130,32 @@ def load_reference_checkpoint(path: str, model: torch.nn.Module, verbose: bool =
     return report
 
 
+def twin_state_dict(online: Dict[str, Any], target: Dict[str, Any]) -> Dict[str, Any]:
+    """The TwinTemporalAligner key space: ``online.*``, ``target.*``, and the
+    ``bert.*`` keys of the online language model once more at the top level,
+    because the twin registers ``self.bert = self.online.bert``
+    (tan_model.py:323) and torch's state_dict lists a module under each name
+    it has.  The reference names its language model ``bert`` for word2vec
+    too (tan_model.py:38-40), so a strict load into the reference twin needs
+    them (the JAX package's ``flax_to_torch_state`` emits the same keys)."""
+    out = {f"online.{k}": v for k, v in online.items()}
+    out.update({f"target.{k}": v for k, v in target.items()})
+    out.update({k: v for k, v in online.items() if k.startswith("bert.")})
+    return out
+
+
 def save_reference_checkpoint(path: str, model: torch.nn.Module, optimizer=None, epoch: int = 0,
-                              iteration: int = 0, best_acc: float = 0.0) -> None:
+                              iteration: int = 0, best_acc: float = 0.0,
+                              target: Optional[torch.nn.Module] = None) -> None:
     """``{epoch, state_dict, best_acc, optimizer, iteration}`` in the reference
-    layout; the weights on the CPU in their own dtype."""
+    layout; the weights on the CPU in their own dtype.  With ``target`` (the
+    EMA twin's model) the state_dict is ``twin_state_dict``'s."""
+    def cpu(m):
+        return {k: v.detach().cpu() for k, v in m.state_dict().items()}
+
     state = {
         "epoch": epoch,
-        "state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+        "state_dict": cpu(model) if target is None else twin_state_dict(cpu(model), cpu(target)),
         "best_acc": best_acc,
         "optimizer": optimizer.state_dict() if optimizer is not None else {},
         "iteration": iteration,
@@ -136,3 +163,29 @@ def save_reference_checkpoint(path: str, model: torch.nn.Module, optimizer=None,
     tmp = f"{path}.tmp{os.getpid()}"
     torch.save(state, tmp)
     os.replace(tmp, path)
+
+
+def merge_state_dict(base: Dict[str, torch.Tensor], loaded: Dict[str, Any]
+                     ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """Non-strict load (JAX ``neq_merge``; reference utils/utils.py:302-312 and
+    train/main.py:458-484): the value of every key of ``base`` that
+    ``loaded`` holds, ``base``'s own (a fresh init) for the keys it lacks,
+    such as the alignability head of a Stage-1 run without one; keys of
+    ``loaded`` that ``base`` lacks are dropped.  ``loaded`` is normalized by
+    ``reference_state_dict`` first (a twin's online half).  Returns (merged,
+    report); a key whose shape differs raises."""
+    loaded, report = reference_state_dict(loaded)
+    merged = {}
+    for k, v in base.items():
+        if k not in loaded:
+            report.append(f"missing in checkpoint (kept init): {k}")
+            merged[k] = v
+            continue
+        new = torch.as_tensor(loaded[k])
+        if new.shape != v.shape:
+            raise ValueError(f"{k}: checkpoint shape {tuple(new.shape)}, model {tuple(v.shape)}")
+        merged[k] = new.to(v.dtype)
+    report += [f"unexpected in checkpoint (dropped): {k}" for k in loaded if k not in base]
+    return merged, report
+
+    return state_dict, {k: v.detach().clone() for k, v in state_dict.items()}

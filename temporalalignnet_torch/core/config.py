@@ -1,10 +1,10 @@
 """Frozen dataclass configs (counterpart of temporalalignnet_tpu/core/config.py).
 
-The model architecture, the Stage-1 loss, data and optimization options, the
-eval options and the precision policy.  Dtypes are torch dtypes.  Whether the
-alignability head is read at eval comes from the model's ModelConfig, as in
-the JAX evaluator.  Fields of the JAX configs that only later slices read
-(the agreement options, the EMA momentum, the mesh sizes) come with them.
+The model architecture, the loss of both stages, data and optimization
+options, the eval options and the precision policy.  Dtypes are torch dtypes.
+Whether the alignability head is read at eval comes from the model's
+ModelConfig, as in the JAX evaluator.  Fields of the JAX configs that only
+later slices read (the mesh sizes) come with them.
 """
 
 from __future__ import annotations
@@ -70,10 +70,13 @@ class ModelConfig:
 class LossConfig:
     """Loss options (reference train/loss.py:55-373)."""
 
-    model: str = "init"  # 'init' (Stage 1); 'cotrain' comes with slice 3
+    model: str = "init"  # 'init' (Stage 1) or 'cotrain' (Stage 2, the EMA twin's targets)
     sim: str = "cos"
     temperature: float = 0.07
-    learn_agreement: bool = False  # Stage-2 self-labelling, slice 3
+    learn_agreement: bool = False  # Stage-2 agreement self-labelling (losses/agreement.py)
+    temporal_agreement_type: str = "keep"  # 'i' | 'u' | 'keep' | 'keep-joint'
+    iou_threshold: float = 0.5
+    confidence_quantile: float = 0.3
     loss_threshold: float = 0.0
     use_alignability_head: bool = False
     optim_policy: str = "default"  # 'default' | 'bce' (head-only finetune)
@@ -106,6 +109,7 @@ class TrainConfig:
     clip_grad_norm: float = 0.0  # 0 = off
     clip_mode: str = "per_param"  # 'per_param' (utils/train_utils.py:3-13) or 'global'
     skip_nonfinite_updates: bool = False  # optax.apply_if_finite semantics
+    ema_momentum: float = 0.999  # the Stage-2 target's m (tan_model.py:340-344)
     seed: int = 0
 
 

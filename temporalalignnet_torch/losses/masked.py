@@ -30,7 +30,9 @@ def masked_std(x: torch.Tensor, mask: torch.Tensor, ddof: int = 1) -> torch.Tens
 def masked_quantile(x: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
     """torch.quantile(x[mask], q) with linear interpolation, fixed shape:
     invalid entries sort to +inf at the tail, and the quantile sits at
-    position q·(n-1) of the n valid ones."""
+    position q·(n-1) of the n valid ones.  The two entries are read with
+    ``take``: indexing by a 0-d tensor would copy the index to the host and
+    wait for the device."""
     x = x.reshape(-1).float()
     mask = mask.reshape(-1)
     xs = torch.sort(torch.where(mask, x, torch.full_like(x, float("inf")))).values
@@ -39,4 +41,4 @@ def masked_quantile(x: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tens
     lo = pos.floor().long()
     hi = torch.minimum(lo + 1, n_max)
     frac = pos - lo.float()
-    return xs[lo] * (1.0 - frac) + xs[hi] * frac
+    return xs.take(lo) * (1.0 - frac) + xs.take(hi) * frac

@@ -1,5 +1,5 @@
-"""Multi-layer MIL-NCE, thresholding and the alignability BCE, Stage 1
-(counterpart of temporalalignnet_tpu/losses/tan_loss.py; reference
+"""Multi-layer MIL-NCE, thresholding, the alignability BCE and the Stage-2
+agreement targets (counterpart of temporalalignnet_tpu/losses/tan_loss.py; reference
 train/loss.py:55-373).
 
 Fixed-shape throughout: every boolean compress of the reference
@@ -7,10 +7,12 @@ Fixed-shape throughout: every boolean compress of the reference
 masked means, the same in f32 (exp(-6e4) == 0).
 
 ``get_loss(outputs, batch, cfg) -> (loss, metrics)``:
-- outputs: the training forward's dict (models/tan.py::TemporalAligner.forward);
+- outputs: the training forward's dict (models/tan.py::TemporalAligner.forward),
+  and for ``model='cotrain'`` the EMA twin's under ``ema-<key>``;
 - batch: start, end [B, N] (seconds in the window), video_padding_mask [B, T],
   text_padding_mask [B, N] (True = pad), and abs_text_pos [B, N, 2] or absent.
-The agreement self-labelling of Stage 2 (``learn_agreement``) is slice 3.
+With ``learn_agreement`` the positives come from the agreement targets
+(losses/agreement.py) instead of the ASR spans.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from temporalalignnet_torch.core.config import LossConfig
+from temporalalignnet_torch.losses.agreement import agreement_self_labelling
 from temporalalignnet_torch.losses.masked import masked_mean, masked_quantile, masked_std
 from temporalalignnet_torch.ops.milnce import fused_milnce_elements, masked_lse_elements
 
@@ -36,18 +39,23 @@ def mask_from_time(start: torch.Tensor, end: torch.Tensor, num_timestamps: int,
     return m
 
 
+def positive_mask_from_target(tgt_diag: torch.Tensor, text_padding_mask: torch.Tensor):
+    """(pos_mask [B·T, B·N], col_valid [B·N]) bool from a same-video target
+    [B, T, N]: a window position and a sentence of the same video where the
+    target is positive (loss.py:84-85); padded sentences excluded."""
+    B, T, N = tgt_diag.shape
+    eye = torch.eye(B, dtype=torch.bool, device=tgt_diag.device)
+    col_valid = (~text_padding_mask).reshape(B * N)
+    pos = (tgt_diag > 0)[:, :, None, :] & eye[:, None, :, None]  # [B, T, B, N]
+    return pos.reshape(B * T, B * N) & col_valid[None], col_valid
+
+
 def positive_mask(start: torch.Tensor, end: torch.Tensor, num_timestamps: int,
                   text_padding_mask: torch.Tensor):
-    """(pos_mask [B·T, B·N], col_valid [B·N]) bool: a window position and a
-    sentence of the same video whose span holds it (loss.py:84-85); only
-    same-video positives, padded sentences excluded."""
-    B, N = start.shape
+    """``positive_mask_from_target`` of the ASR spans: a position is positive
+    for a sentence of the same video whose span holds it."""
     tgt = mask_from_time(start, end, num_timestamps, text_padding_mask)  # [B, N, T]
-    eye = torch.eye(B, dtype=torch.bool, device=tgt.device)
-    col_valid = (~text_padding_mask).reshape(B * N)
-    pos = tgt.transpose(1, 2)[:, :, :, None] & eye[:, None, None, :]  # [B, T, N, B]
-    pos_mask = pos.permute(0, 1, 3, 2).reshape(B * num_timestamps, B * N) & col_valid[None]
-    return pos_mask, col_valid
+    return positive_mask_from_target(tgt.transpose(1, 2), text_padding_mask)
 
 
 def _same_video_diagonal(logits: torch.Tensor) -> torch.Tensor:
@@ -73,12 +81,18 @@ def _milnce_means(v_el, t_el, row_mask, col_mask):
             + masked_mean(t_el, col_mask[None].expand_as(t_el))) / 2.0
 
 
+def _diag_dual(vfeat, tfeat, inv_temp):
+    """Same-video per-layer sims [B, S, T, N] from the dual features."""
+    return torch.einsum("bstc,bnc->bstn", vfeat.float(), tfeat.float()) * inv_temp
+
+
+def _diag_joint(vfeat, tfeat, inv_temp):
+    """... and from the joint features (per-layer text)."""
+    return torch.einsum("bstc,bsnc->bstn", vfeat.float(), tfeat.float()) * inv_temp
+
+
 def get_loss(outputs: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
              cfg: LossConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    if cfg.learn_agreement or cfg.model != "init":
-        raise NotImplementedError(
-            "Stage-2 co-training (learn_agreement, model='cotrain') comes with slice 3 "
-            "of the port")
     inv_temp = 1.0 / cfg.temperature if cfg.sim == "cos" else 1.0  # loss.py:65-70
     mv = cfg.mask_value
     fused = cfg.use_fused_milnce
@@ -87,8 +101,8 @@ def get_loss(outputs: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
         vfj, tfj = outputs["joint_feature_video"], outputs["joint_feature_text"]
         B, S, T, _ = vfd.shape
         N = tfd.shape[1]
-        diag_dual = torch.einsum("bstc,bnc->bstn", vfd.float(), tfd.float()) * inv_temp
-        diag_joint = torch.einsum("bstc,bsnc->bstn", vfj.float(), tfj.float()) * inv_temp
+        diag_dual = _diag_dual(vfd, tfd, inv_temp)
+        diag_joint = _diag_joint(vfj, tfj, inv_temp)
     else:
         logits_dual = outputs["logits_dual"].float() * inv_temp
         logits_joint = outputs["logits_joint"].float() * inv_temp
@@ -98,8 +112,28 @@ def get_loss(outputs: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
 
     text_padding_mask = batch["text_padding_mask"].bool()
     metrics: Dict[str, torch.Tensor] = {}
-    pos_mask, col_valid = positive_mask(batch["start"].float(), batch["end"].float(), T,
-                                        text_padding_mask)
+    binary_tgt = mask_from_time(batch["start"].float(), batch["end"].float(), T,
+                                text_padding_mask)  # [B, N, T]
+    if cfg.learn_agreement:
+        # the targets' source: the EMA twin's same-video sims for cotrain, the
+        # online model's own for init (loss.py:88-104)
+        if cfg.model == "cotrain" and fused:
+            src_joint = _diag_joint(outputs["ema-joint_feature_video"],
+                                    outputs["ema-joint_feature_text"], inv_temp)
+            src_dual = _diag_dual(outputs["ema-dual_feature_video"],
+                                  outputs["ema-dual_feature_text"], inv_temp)
+        elif cfg.model == "cotrain":
+            src_joint = _same_video_diagonal(outputs["ema-logits_joint"].float() * inv_temp)
+            src_dual = _same_video_diagonal(outputs["ema-logits_dual"].float() * inv_temp)
+        else:
+            src_joint, src_dual = diag_joint, diag_dual
+        tgt_diag, agree_metrics = agreement_self_labelling(
+            src_joint.detach(), src_dual.detach(), batch["video_padding_mask"],
+            text_padding_mask, binary_tgt, cfg)
+        metrics.update(agree_metrics)
+    else:
+        tgt_diag = binary_tgt.transpose(1, 2)  # [B, T, N]
+    pos_mask, col_valid = positive_mask_from_target(tgt_diag, text_padding_mask)
     row_mask = pos_mask.any(-1)  # video positions with a positive
     col_mask = pos_mask.any(-2)  # texts with a positive
 

@@ -1,18 +1,29 @@
-"""Stage-1 training CLI (the init model of temporalalignnet_tpu/train/cli.py;
-reference train/main.py):
+"""Training CLI, Stage 1 and Stage 2 (counterpart of
+temporalalignnet_tpu/train/cli.py; reference train/main.py):
 
   python -m temporalalignnet_torch.train --model init \\
       --feature_dir <dir> --captions sentencified_htm_370k.json --vocab s3d_dict.npy
+  python -m temporalalignnet_torch.train --model cotrain --pretrain <stage1>/latest.pth.tar \\
+      --feature_dir <dir> --captions sentencified_htm_370k.json --vocab s3d_dict.npy
+
+``--model cotrain`` forces the agreement self-labelling and the alignability
+head (train/main.py:361-363) and trains with the EMA twin
+(``--momentum_m``).  ``--pretrain`` takes a ``.pth.tar`` in the reference
+layout, plain or twin (its online half), merges it non-strictly into the
+fresh model (keys it lacks keep their init, keys the model lacks are
+dropped; each printed as a ``[pretrain]`` line) and, for cotrain, starts the
+target as a copy.  It reads no orbax directory of the JAX trainer.
 
 Runs on ``--device cuda`` (the default): f32 params, bf16 compute (``--f32``
 for f32 compute), every attention and, with ``--fused_milnce`` (auto: on for
 CUDA, off for the CPU), every MIL-NCE logsumexp in the Hopper kernels.
 ``--device cpu`` runs the plain PyTorch path in f32.  At each epoch end and at
 the ``--max_steps`` stop it writes ``<prefix>/<experiment>/latest.pth.tar``
-in the reference layout, which ``python -m temporalalignnet_torch.eval``
-loads.  Prints one JSON line per ``--log_every`` steps and a final one.
+in the reference layout (with cotrain the twin's ``online.*`` / ``target.*``
+keys), which ``python -m temporalalignnet_torch.eval`` loads.  Prints one
+JSON line per ``--log_every`` steps and a final one.
 
-Flags of the JAX trainer that later slices bring (Stage 2, BERT, resume and
+Flags of the JAX trainer that later slices bring (BERT, resume and
 checkpoint rotation, multi-GPU, rematerialization, grouped dispatch,
 profiling, YC2) exit with a message naming that work.
 """
@@ -28,17 +39,16 @@ from typing import Optional
 
 # flag -> (the value that means "not used", the work that brings it)
 _LATER = {
-    "pretrain": (None, "Stage-2 co-training (slice 3)"),
-    "resume": (None, "checkpoint resume and rotation (ROADMAP Queue A item 6)"),
-    "milnce_ckpt": (None, "the MIL-NCE S3D/word2vec converter (ROADMAP Queue A item 9)"),
+    "resume": (None, "checkpoint resume and rotation (ROADMAP Queue A, next)"),
+    "milnce_ckpt": (None, "the MIL-NCE S3D/word2vec converter (ROADMAP Queue A)"),
     "remat": (0, "activation rematerialization (a later slice)"),
     "steps_per_dispatch": (1, "grouped dispatch (a later slice; CUDA graphs)"),
-    "profile_dir": (None, "the port's profiling tools (ROADMAP Queue A item 10)"),
-    "dp": (-1, "multi-GPU training (ROADMAP Queue A item 8)"),
-    "tp": (1, "multi-GPU training (ROADMAP Queue A item 8)"),
-    "multihost": (False, "multi-GPU training (ROADMAP Queue A item 8)"),
-    "yc2_anno": (None, "YC2 retrieval (ROADMAP Queue A item 7)"),
-    "yc2_features": (None, "YC2 retrieval (ROADMAP Queue A item 7)"),
+    "profile_dir": (None, "the port's profiling tools (ROADMAP Queue A)"),
+    "dp": (-1, "multi-GPU training (ROADMAP Queue A)"),
+    "tp": (1, "multi-GPU training (ROADMAP Queue A)"),
+    "multihost": (False, "multi-GPU training (ROADMAP Queue A)"),
+    "yc2_anno": (None, "YC2 retrieval (ROADMAP Queue A)"),
+    "yc2_features": (None, "YC2 retrieval (ROADMAP Queue A)"),
 }
 
 
@@ -63,7 +73,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "feature outputs; auto = on for CUDA, off for the CPU")
     p.add_argument("--loss_threshold", type=float, default=0.0)
     p.add_argument("--learn_agreement", type=int, default=0)
+    p.add_argument("--temporal_agreement_type", default="keep",
+                   choices=["i", "u", "keep", "keep-joint"])
     p.add_argument("--optim_policy", default="default", choices=["default", "bce"])
+    p.add_argument("--momentum_m", type=float, default=0.999)
     # data (train/config.py:11-16)
     p.add_argument("--feature_dir", required=True)
     p.add_argument("--captions", required=True)
@@ -93,7 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefix", default="exp", help="experiment dir root")
     p.add_argument("--name_prefix", default="")
     p.add_argument("--resume", default=None)
-    p.add_argument("--pretrain", default=None)
+    p.add_argument("--pretrain", default=None,
+                   help="a .pth.tar (reference layout, plain or twin) to start from")
     p.add_argument("--eval_every_epochs", type=int, default=1)
     p.add_argument("--log_every", type=int, default=5)
     p.add_argument("--max_steps", type=int, default=0, help="stop after N steps")
@@ -122,20 +136,39 @@ def experiment_name(args) -> str:
 
 
 def _refuse_later_flags(args) -> None:
-    if args.model == "cotrain" or args.learn_agreement:
-        raise SystemExit("--model cotrain / --learn_agreement: Stage-2 co-training comes "
-                         "with slice 3 of the port")
     if args.language_model == "bert":
         raise SystemExit("--language_model bert: the BERT tower comes with ROADMAP Queue A "
-                         "item 10 of the port")
+                         "(towers) of the port")
     for flag, (unused, work) in _LATER.items():
         if getattr(args, flag) != unused:
             raise SystemExit(f"--{flag}: not in the port yet; it comes with {work}")
+    if args.pretrain and (os.path.isdir(args.pretrain)
+                          or not args.pretrain.endswith((".pth.tar", ".pth", ".tar"))):
+        raise SystemExit(f"--pretrain {args.pretrain}: the port reads a .pth.tar in the "
+                         "reference layout, not an orbax directory of the JAX trainer "
+                         "(export one with python -m temporalalignnet_tpu.tools.export_torch)")
+
+
+def load_pretrain(path: str, model) -> dict:
+    """``--pretrain``: a reference-layout ``.pth.tar`` merged non-strictly into
+    ``model``'s state_dict, the merge report printed."""
+    import torch
+
+    from temporalalignnet_torch.checkpoint import merge_state_dict
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    merged, report = merge_state_dict(model.state_dict(), ckpt.get("state_dict", ckpt))
+    for line in report:
+        print(f"[pretrain] {line}", flush=True)
+    return merged
 
 
 def main(argv: Optional[list] = None) -> dict:
     args = build_parser().parse_args(argv)
     _refuse_later_flags(args)
+    if args.model == "cotrain":  # the cotrain preset (train/main.py:361-363)
+        args.learn_agreement = 1
+        args.use_alignability_head = 1
 
     import torch
 
@@ -147,7 +180,7 @@ def main(argv: Optional[list] = None) -> dict:
     from temporalalignnet_torch.models.net import TANWithText
     from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
     from temporalalignnet_torch.train.optimizer import Optimizer, lr_at
-    from temporalalignnet_torch.train.train_step import make_train_step
+    from temporalalignnet_torch.train.train_step import EMATwin, make_train_step
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -164,7 +197,8 @@ def main(argv: Optional[list] = None) -> dict:
         use_text_pos_enc=bool(args.use_text_pos_enc),
         use_alignability_head=bool(args.use_alignability_head), fused_milnce=fused)
     loss_cfg = LossConfig(
-        model=args.model, sim=args.sim, loss_threshold=args.loss_threshold,
+        model=args.model, sim=args.sim, learn_agreement=bool(args.learn_agreement),
+        temporal_agreement_type=args.temporal_agreement_type, loss_threshold=args.loss_threshold,
         use_alignability_head=bool(args.use_alignability_head),
         optim_policy=args.optim_policy, use_fused_milnce=fused)
     tokenizer = Word2VecTokenizer(args.vocab, max_words=args.max_words)
@@ -183,7 +217,8 @@ def main(argv: Optional[list] = None) -> dict:
         lr=args.lr, wd=args.wd, warmup_iterations=args.warmup_iterations,
         total_iterations=steps_per_epoch * args.epochs, backprop_freq=args.backprop_freq,
         clip_grad_norm=args.clip_grad_norm, clip_mode=args.clip_mode,
-        skip_nonfinite_updates=bool(args.skip_nonfinite), seed=args.seed)
+        skip_nonfinite_updates=bool(args.skip_nonfinite), ema_momentum=args.momentum_m,
+        seed=args.seed)
 
     exp_dir = os.path.join(args.prefix, experiment_name(args))
     os.makedirs(exp_dir, exist_ok=True)
@@ -192,9 +227,14 @@ def main(argv: Optional[list] = None) -> dict:
     ckpt_path = os.path.join(exp_dir, "latest.pth.tar")
 
     model = TANWithText(mcfg, vocab_size=tokenizer.vocab_size)
-    model.init_weights(torch.Generator().manual_seed(args.seed)).to(device)
+    model.init_weights(torch.Generator().manual_seed(args.seed))
+    if args.pretrain:
+        model.load_state_dict(load_pretrain(args.pretrain, model), strict=True)
+    model.to(device)
+    # the target starts as a copy of the online weights (train/main.py:463-484)
+    twin = EMATwin(model, tcfg) if args.model == "cotrain" else None
     optimizer = Optimizer(model, tcfg, policy=args.optim_policy)
-    step_fn = make_train_step(model, optimizer, tcfg, loss_cfg, compute_dtype=compute)
+    step_fn = make_train_step(model, optimizer, tcfg, loss_cfg, compute_dtype=compute, twin=twin)
     loader = TrainLoader(dataset, args.batch_size, seed=args.seed,
                          num_workers=args.num_workers, pin_memory=device.type == "cuda")
 
@@ -238,7 +278,8 @@ def main(argv: Optional[list] = None) -> dict:
         if (epoch + 1) % args.eval_every_epochs == 0 or stop:
             final_metrics = evaluate_downstream()
         save_reference_checkpoint(ckpt_path, model, optimizer, epoch=epoch,
-                                  iteration=global_step)
+                                  iteration=global_step,
+                                  target=twin.model if twin is not None else None)
         if stop:
             break
     out = {"final_step": global_step, "loss": last_loss,

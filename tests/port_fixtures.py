@@ -1,7 +1,10 @@
 """Shared fixtures of the PyTorch port's tests: a tiny JAX TANWithText, its
-weights moved into the port through ``state_dict_from_jax``, and synthetic
-HTM-Align corpora made from a numpy seed so both packages see the same data.
+weights moved into the port through ``state_dict_from_jax``, synthetic
+HTM-Align corpora made from a numpy seed so both packages see the same data,
+and a tiny HowTo100M-format training directory.
 """
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -56,3 +59,39 @@ def make_corpus(rng, **kw):
 
 def to_torch(x):
     return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def write_feature_dir(root):
+    """Seven videos of S3D-like features with sentencified captions, as .json
+    and .jsonl, a vocab, and a holdout list naming vid5 (``root`` a Path)."""
+    rng = np.random.RandomState(0)
+    words = [f"w{i}" for i in range(VOCAB)]
+    np.save(root / "vocab.npy", np.array(words))
+    (root / "features").mkdir()
+    caps = {}
+    for v in range(7):
+        vlen = int(rng.randint(70, 160))
+        suffix = ".mp4.npy" if v % 2 else ".webm.npy"
+        np.save(root / "features" / f"vid{v}{suffix}",
+                rng.randn(vlen, TINY["video_embed_dim"]).astype(np.float32))
+        t, text, start, end = 0.0, [], [], []
+        while t < vlen + 5:  # some captions run past the video's end
+            d = float(rng.randint(2, 9)) + rng.rand()
+            text.append(" ".join(rng.choice(words, size=rng.randint(1, 6))))
+            start.append(t)
+            end.append(t + d)
+            t += d + rng.rand() * 2
+        caps[f"vid{v}"] = {"text": text, "start": start, "end": end}
+    (root / "captions.json").write_text(json.dumps(caps))
+    with open(root / "captions.jsonl", "w") as f:
+        for vid, rec in caps.items():
+            f.write(json.dumps({"vid": vid, **rec}) + "\n")
+    (root / "holdout.txt").write_text("vid5\n")
+    return root
+
+
+# the tiny model's shape flags of the train and eval CLIs
+CLI_SHAPE = ["--video_embed_dim", str(TINY["video_embed_dim"]), "--width", str(TINY["width"]),
+             "--heads", str(TINY["heads"]),
+             "--num_encoder_layers", str(TINY["num_encoder_layers"]),
+             "--num_joint_layers", str(TINY["num_joint_layers"]), "--max_words", str(WORDS)]

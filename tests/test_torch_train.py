@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from port_fixtures import TINY, VOCAB, WORDS, jax_model, port_model, to_torch
+from port_fixtures import (CLI_SHAPE, TINY, VOCAB, WORDS, jax_model, port_model, to_torch,
+                           write_feature_dir)
 from temporalalignnet_torch.checkpoint import state_dict_from_jax
 from temporalalignnet_torch.core.config import DataConfig, LossConfig, ModelConfig, TrainConfig
 from temporalalignnet_torch.data import HTMFeatureDataset, TrainLoader
@@ -50,9 +51,12 @@ def _torch_batch(batch):
 # ------------------------------------------------------------ the forward
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_training_forward_matches_jax(fused):
-    kw = dict(use_alignability_head=True, random_pos_start=False, fused_milnce=fused)
+@pytest.mark.parametrize("fused,extra", [
+    (False, {}), (True, {}), (True, dict(use_text_pos_enc=True)), (False, dict(pos_enc="sine")),
+    (True, dict(pos_enc="sine", use_text_pos_enc=True))],
+    ids=["False", "True", "text_pos_enc", "sine", "sine_text_pos_enc"])
+def test_training_forward_matches_jax(fused, extra):
+    kw = dict(use_alignability_head=True, random_pos_start=False, fused_milnce=fused, **extra)
     jm, params = jax_model(**kw)
     tm = port_model(params, **kw)
     batch = _batch()
@@ -144,11 +148,6 @@ def test_get_loss_matches_jax(rng, cfg_name, fused):
                                    err_msg=k)
 
 
-def test_get_loss_refuses_stage_two():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        get_loss({}, {}, LossConfig(model="cotrain", learn_agreement=True))
-
-
 # ------------------------------------------------------------- optimizer
 
 
@@ -228,6 +227,7 @@ STEP_CASES = {
     "bce_policy": (dict(fused=True),
                    dict(use_alignability_head=True, loss_threshold=0.5, optim_policy="bce"),
                    {}, 2),
+    "text_pos_enc": (dict(fused=True, use_text_pos_enc=True), {}, {}, 2),
 }
 
 
@@ -236,10 +236,12 @@ def test_train_steps_match_jax(case):
     """The slice as a whole: train steps of the port against the JAX package's
     from the same weights on the same synthetic batch."""
     flags, loss_kw, train_kw, steps = STEP_CASES[case]
-    fused = flags["fused"]
+    model_extra = dict(flags)
+    fused = model_extra.pop("fused")
     loss_kw = dict(loss_kw, use_fused_milnce=fused)
     model_kw = dict(TINY, fused_milnce=fused, random_pos_start=False,
-                    use_alignability_head=loss_kw.get("use_alignability_head", False))
+                    use_alignability_head=loss_kw.get("use_alignability_head", False),
+                    **model_extra)
     train_kw = dict(dict(lr=1e-3, warmup_iterations=2, total_iterations=100), **train_kw)
     batch = _batch()
 
@@ -279,31 +281,7 @@ def test_train_steps_match_jax(case):
 def feature_dir(tmp_path_factory):
     """Six videos of S3D-like features with sentencified captions, as .json
     and .jsonl, and a vocab; one video held out."""
-    root = tmp_path_factory.mktemp("htm")
-    rng = np.random.RandomState(0)
-    words = [f"w{i}" for i in range(VOCAB)]
-    np.save(root / "vocab.npy", np.array(words))
-    (root / "features").mkdir()
-    caps = {}
-    for v in range(7):
-        vlen = int(rng.randint(70, 160))
-        suffix = ".mp4.npy" if v % 2 else ".webm.npy"
-        np.save(root / "features" / f"vid{v}{suffix}",
-                rng.randn(vlen, TINY["video_embed_dim"]).astype(np.float32))
-        t, text, start, end = 0.0, [], [], []
-        while t < vlen + 5:  # some captions run past the video's end
-            d = float(rng.randint(2, 9)) + rng.rand()
-            text.append(" ".join(rng.choice(words, size=rng.randint(1, 6))))
-            start.append(t)
-            end.append(t + d)
-            t += d + rng.rand() * 2
-        caps[f"vid{v}"] = {"text": text, "start": start, "end": end}
-    (root / "captions.json").write_text(json.dumps(caps))
-    with open(root / "captions.jsonl", "w") as f:
-        for vid, rec in caps.items():
-            f.write(json.dumps({"vid": vid, **rec}) + "\n")
-    (root / "holdout.txt").write_text("vid5\n")
-    return root
+    return write_feature_dir(tmp_path_factory.mktemp("htm"))
 
 
 def _datasets(root, captions):
@@ -359,10 +337,7 @@ def test_train_cli_writes_a_checkpoint_the_eval_cli_loads(feature_dir, tmp_path,
     from temporalalignnet_torch.eval.cli import main as eval_main
     from temporalalignnet_torch.train.cli import main as train_main
 
-    shape = ["--video_embed_dim", str(TINY["video_embed_dim"]), "--width", str(TINY["width"]),
-             "--heads", str(TINY["heads"]),
-             "--num_encoder_layers", str(TINY["num_encoder_layers"]),
-             "--num_joint_layers", str(TINY["num_joint_layers"]), "--max_words", str(WORDS)]
+    shape = CLI_SHAPE
     # an HTM-Align-format corpus over the same features, for both CLIs
     anno = {f"vid{v}": [[1, 3.0, 9.0, "w1 w2"], [0, 12.0, 20.0, "w3"], [1, 30.0, 41.0, "w4 w5"]]
             for v in (0, 2)}
@@ -391,10 +366,10 @@ def test_train_cli_writes_a_checkpoint_the_eval_cli_loads(feature_dir, tmp_path,
     assert 0.0 <= metrics["Recall"] <= 1.0 and 0.0 <= metrics["AUC"] <= 1.0
 
 
-@pytest.mark.parametrize("flag", [["--model", "cotrain"], ["--language_model", "bert"],
+@pytest.mark.parametrize("flag", [["--language_model", "bert"],
                                   ["--resume", "x"], ["--remat", "1"], ["--dp", "2"],
                                   ["--steps_per_dispatch", "4"], ["--profile_dir", "p"],
-                                  ["--yc2_anno", "y"], ["--pretrain", "p"], ["--multihost"]])
+                                  ["--yc2_anno", "y"], ["--multihost"]])
 def test_train_cli_refuses_flags_of_later_slices(flag):
     from temporalalignnet_torch.train.cli import main as train_main
 
