@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100): builds every
 kernel, holds each against its plain PyTorch version, drives the zero-shot
-HTM-Align evaluation, the Stage-1 training and the Stage-2 co-training of
-the full-width E6D6 TAN through the kernels, and times them.
+HTM-Align evaluation, the Stage-1 training, the YouCook2 retrieval, the
+Stage-2 co-training and a stopped-and-resumed training run of the
+full-width E6D6 TAN through the kernels, and times them.
 
     python3 chip_smoke.py
 
@@ -12,8 +13,12 @@ Phases, each printing JSON lines:
              eval and train paths give it, ragged key masks, on each route:
              bf16 "short" (S = 64, 72, 80, 37), bf16 "long" (S = 200 and the
              global method's [1, 8, 1088, 64], with key splits), "f32" at all
-             of them; the route each call took is checked, and a planted
-             fault (padded keys left unmasked) must exceed the bf16 limit.
+             of them; then at the retrieval buckets S = 32, 96, 128 (short),
+             160 and 256 (long) with the retrieval's key padding (S - 31
+             valid keys, one row with 1), [250, 8, S, 64] and one-clip calls
+             [10, 8, S, 64] on the long route; the route each call took is
+             checked, and a planted fault (padded keys left unmasked) must
+             exceed the bf16 limit.
      kernel_bwd  mha_bwd (dq, dk, dv) against mha_bwd_reference, the plain
              version with the kernel's bf16 roundings, per element
              (GRAD_TOL); planted faults must exceed the limit.  Each route:
@@ -46,7 +51,20 @@ Phases, each printing JSON lines:
              an f32 step on the card against the CPU's.
      train_cli  python -m temporalalignnet_torch.train --max_steps on those
              files, then python -m temporalalignnet_torch.eval on the
-             .pth.tar it wrote.
+             .pth.tar it wrote: --task align, and at the same time --task
+             retrieval on the YC2 corpus below (checked in retrieval_cli).
+     retrieval  RetrievalEvaluator (10 windows per clip, bf16) on the
+             checkpoint train_cli wrote and a synthetic YouCook2-format corpus
+             written to build/chip_smoke_yc2/ (64 videos, every window bucket
+             Lb = 32 ... 256, both window plans): every forward call must
+             launch mha_fwd 6 times on its bucket's route; 12 finite metrics
+             with R1 <= R5 <= R10; clips/s and windows/s (the device ms
+             of a forward call come with the times).  Then f32 on the card
+             against the CPU on 40
+             clips: pooled features within RETRIEVAL_F32_TOL, equal metrics.
+     retrieval_cli  python -m temporalalignnet_torch.eval --task retrieval on
+             the same files (run in train_cli) must print the in-process
+             metrics.
      cotrain Stage-2 co-training (EMA twin, agreement targets, head on) of
              the E6D6 TAN at B = 64, bf16, fused, from the train phase's
              Stage-1 state: finite losses, confidence-ratio in [0, 1], every
@@ -61,17 +79,35 @@ Phases, each printing JSON lines:
      cotrain_cli  python -m temporalalignnet_torch.train --model cotrain
              --pretrain on train_cli's checkpoint, then the eval CLI on the
              twin checkpoint it wrote.
+     resume  the train CLI run uninterrupted for 2k steps twice, and stopped
+             at step k (a runtime checkpoint there, and the YC2 eval after
+             it), in this process; then continued with --resume auto in a
+             new process, both cases' at once: Stage 1
+             at E6D6, B = 64, bf16, fused, and cotrain at E2D2 with
+             backprop_freq 2 (stopped mid-accumulation); per-step losses and
+             final params (with the twin's) must stay within the two
+             uninterrupted runs' spread.  Data: build/chip_smoke_resume/.
   4. times   per shape mha_fwd's, the plain version's and PyTorch's SDPA
-             time beside the card's bound, and the same four times for each
+             time beside the card's bound (K and V counted at the valid keys
+             only, ``attention_work``), and the same four times for each
              training kernel at its training shapes (MIL-NCE also at the
              tiled-kernel ones), with the earlier bf16 kernel timed beside
              each redesigned one (mha_fwd and milnce_fwd v1; mha_bwd,
-             milnce_dv and milnce_dt v2); then eval-forward windows/s of the
-             bench.py workload and train steps/s at B = 64, each with its
-             device time and top kernels.
-             Device times come from torch.profiler; a time whose sessions
-             all recorded no device activity is taken with CUDA events and
-             marked "timing": "cuda_events".
+             milnce_dv and milnce_dt v2): these kernel rows run right after
+             the kernel phase, before any larger profile, and eval-forward
+             windows/s of the bench.py workload right after the eval phase.
+             Last, in child processes, the device ms of a retrieval forward
+             call at Lb = 96 and 256, and train steps/s at B = 64, each with
+             its device time and top kernels.
+             Device times come from torch.profiler (a kernel row's only
+             when two sessions recorded the same launches); a time without
+             such a session is taken with CUDA events and marked
+             "timing": "cuda_events".
+A ``phase_seconds`` line gives each phase's wall seconds.  The child
+processes (the CLIs, the step-time runs) share one bytecode cache under
+build/pycache, and runs that time nothing go at once: the eval CLI's two
+methods, its two tasks on the trained checkpoint, the two resumed training
+runs.
 The card's name and power limit (nvidia-smi) and a ``kernels`` line come
 before the last line, which is {"ok": true, "device": {...}}.  Any failed
 phase raises and the script exits non-zero without that line.  Without CUDA
@@ -121,6 +157,11 @@ AUC_TOL = 1e-3
 # global method (key splits)
 KERNEL_SHAPES = [(192, 8, 64, 64), (192, 8, 72, 64), (64, 8, 200, 64), (1, 8, 1088, 64)]
 MHA_FWD_CHECK_SHAPES = KERNEL_SHAPES + [(64, 8, 80, 64), (8, 8, 37, 64)]  # + train joint, odd S
+# the YC2 retrieval path's buckets S = Lb: a full forward call (25 clips of
+# 10 windows) at each route's edges, and one-clip calls on the long route
+YC2_SHAPES = [(250, 8, S, 64) for S in (32, 96, 128, 160, 256)] + [
+    (10, 8, 160, 64), (10, 8, 256, 64)]
+YC2_TIMED_SHAPES = [(250, 8, 96, 64), (250, 8, 256, 64)]  # one per route
 BENCH = dict(B=192, T=64, C=1024, N=8, W=32)
 TRAIN = dict(B=64, T=64, N=16, W=32)  # the train CLI's defaults
 MHA_BWD_SHAPES = [(64, 8, 64, 64), (64, 8, 80, 64), (8, 8, 37, 64)]  # dual, joint, odd S
@@ -176,9 +217,54 @@ EMA_TOL = 1e-6
 # the two steps only the second updates with lr > 0 (warm-up); 4 covers
 # Adam's bias-corrected step at its second update.
 TARGET_ATOL = 4 * (1 - 0.999) * TRAIN_LR
+# the retrieval phase's synthetic YC2 corpus (a cut of YouCook2's validation
+# split, 457 videos): segment lengths in s, [lo, hi + 1) in turn, one range
+# per window bucket Lb = round_up(clip(2 d, 32, 256), 32) (64 twice: below
+# seq_len and at it, where the pos-enc is resized), and past 256 s the lag
+# branch of plan_clip_windows
+YC2 = dict(videos=64)
+YC2_SEGMENTS = [(5, 16), (17, 31), (32, 32), (33, 48), (49, 64), (65, 80), (81, 96),
+                (97, 112), (113, 256), (257, 300)]
+# f32 pooled clip and text features (unit vectors of width 512), card
+# against the CPU: the order of f32 sums through the 6-block dual encoder
+RETRIEVAL_F32_TOL = 1e-4
+# resume: 6 steps per epoch at B = 64; each case stops at k (mid-epoch; for
+# cotrain with backprop_freq 2 also mid-accumulation) and runs to 2k
+RESUME = dict(videos=384, cases=[
+    ("stage1_e6d6", 4, []),
+    ("cotrain_e2d2_backprop_freq2", 3, ["--model", "cotrain", "--num_encoder_layers", "2",
+                                        "--num_joint_layers", "2", "--backprop_freq", "2"]),
+])
 # published dense peaks (NVIDIA data sheets): bytes/s, bf16 FLOP/s
 CARD_PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
               "H100": (3.35e12, 989e12)}
+
+
+def start(args):
+    """A child process running ``args`` from the repo root, output captured."""
+    return subprocess.Popen(args, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish(proc, what, timeout):
+    """The stdout of a ``start``ed child, which must exit 0 within ``timeout``
+    seconds; killed if it does not."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    check(proc.returncode == 0, f"{what} failed:\n{err[-4000:]}")
+    return out
+
+
+def stop(procs):
+    """Kill the ``start``ed children still running (after a failed check)."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 def emit(obj) -> None:
@@ -207,6 +293,26 @@ def ragged_mask(torch, B, S, gen, device):
     return mask.to(device)
 
 
+def yc2_mask(torch, B, S, device):
+    """Key padding of a retrieval forward call at bucket S = Lb: L = S - 31
+    valid keys (the most padding a bucket holds), and a last row with L = 1."""
+    mask = (torch.arange(S) >= S - 31)[None].repeat(B, 1)
+    mask[-1, 1:] = True
+    return mask.to(device)
+
+
+def attention_work(q, pad, full, passes):
+    """(bytes, operations) an attention function of q, k, v [B, H, S, D] under
+    key padding ``pad`` [B, S] needs: ``full`` tensors of q's size read or
+    written whole (q, the output, gradients), K and V read at the valid keys
+    only, the mask once; ``passes`` multiply-adds of length D per head for
+    each (query, valid key) pair, 2 operations each."""
+    _, H, S, D = q.shape
+    valid = int((~pad).sum().item())  # valid keys, summed over the rows
+    nbytes = (full * q.numel() + 2 * valid * H * D) * q.element_size() + pad.numel()
+    return nbytes, 2 * passes * H * S * D * valid
+
+
 def cuda_ms(torch, fn, reps=20, warmup=3) -> float:
     for _ in range(warmup):
         fn()
@@ -223,27 +329,34 @@ def cuda_ms(torch, fn, reps=20, warmup=3) -> float:
 PROFILER_TRIES = 3
 
 
-def device_profile(torch, fn, reps=20, warmup=3):
+def device_profile(torch, fn, reps=20, warmup=3, confirm=False):
     """Run ``fn`` ``reps`` times under torch.profiler.  Returns (device ms per
     call summed over every kernel it launched, {kernel name: ms per call},
     {host op: self CPU ms per call}, timing).  Host issue time is not in the
     first; ``cuda_ms`` measures with that included.
 
     A profiler session now and then loses device activity (seen on an H100:
-    a session of 20 calls that recorded no kernel at all, and sessions that
-    recorded some of a kernel's 20 launches).  ``fn`` launches the same
-    kernels on every call, so a session is whole only if every kernel's
-    count is a multiple of ``reps``.  Any other is run again, up to
-    PROFILER_TRIES times; if none is whole, the first value is the
-    CUDA-event time of the same calls, the dicts are empty, and timing says
-    "cuda_events" instead of "profiler"."""
+    a session of 20 calls that recorded no kernel at all, sessions that
+    recorded some of a kernel's 20 launches, and sessions whose every count
+    was a multiple of 20 but whose device time was under half that of other
+    runs' sessions of the same calls: all launches of a kernel lost).
+    ``fn`` launches the same kernels on every call, so a session counts only
+    if every kernel's count is a multiple of ``reps`` and (with ``confirm``)
+    an earlier session of the same calls recorded the same kernels the same
+    number of times.  Up to PROFILER_TRIES sessions are run, one more to
+    confirm; if none counts, the first value is the CUDA-event time of the
+    same calls, the dicts are empty, and timing says "cuda_events" instead
+    of "profiler".  The kernel rows confirm; a whole forward or step does
+    not: on an H100 a session after one of thousands of kernels lost
+    activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILER_TRIES):
+    seen = []  # {kernel: launches} of the earlier whole sessions
+    for _ in range(PROFILER_TRIES + confirm):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -257,10 +370,14 @@ def device_profile(torch, fn, reps=20, warmup=3):
                    and e.self_device_time_total > 0 and e.key not in host]
         per_kernel = {e.key: e.self_device_time_total / 1e3 / reps for e in kernels}
         total = sum(per_kernel.values())
-        if total > 0 and all(e.count % reps == 0 for e in kernels):
+        counts = {e.key: e.count for e in kernels}
+        if total == 0 or any(c % reps for c in counts.values()):
+            continue
+        if counts in seen or not confirm:
             host_ms = {e.key: e.self_cpu_time_total / 1e3 / reps for e in events
                        if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0}
             return total, per_kernel, host_ms, "profiler"
+        seen.append(counts)
     return cuda_ms(torch, fn, reps, warmup=0), {}, {}, "cuda_events"
 
 
@@ -288,40 +405,50 @@ def phase_kernel_check(torch):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for shape in MHA_FWD_CHECK_SHAPES:
+
+    def check_one(shape, dtype, tol, masked, make_mask):
         B, H, S, _ = shape
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(3))
+        mask = make_mask() if masked else None
+        before = dict(mha_fwd.launches_by_route)
+        out = mha_fwd(q, k, v, mask)
+        taken = route_taken(mha_fwd, before)
+        torch.cuda.synchronize()
+        ref = attention_reference(q.float(), k.float(), v.float(), mask)
+        info = {}
+        if dtype == torch.bfloat16:
+            info["v1_max_abs_err"] = abs_err(mha_fwd_v1(q, k, v, mask), ref)
+            if taken == "long":
+                info["key_splits"] = key_splits(B * H * -(-S // LONG_QUERIES),
+                                                -(-S // KEY_TILE), _build.sm_count(dev))
+            if masked:
+                info["planted_fault_max_abs_err"] = {"padded_keys_unmasked": abs_err(
+                    attention_reference(q.float(), k.float(), v.float(), None), ref)}
+        torch.cuda.synchronize()
+        err = abs_err(out, ref)
+        worst[dtype] = max(worst[dtype], err)
+        emit({"phase": "kernel", "name": "mha_fwd", "route": taken, "shape": list(shape),
+              "dtype": str(dtype).split(".")[-1], "masked": masked,
+              "max_abs_err": err, "tol": tol, **info})
+        check(taken == route(dtype, S), f"mha_fwd {dtype} {shape} took route {taken}")
+        if shape == KERNEL_SHAPES[3] and dtype == torch.bfloat16:  # the global method
+            check(info["key_splits"] > 1, f"mha_fwd took no key split at {shape}")
+        check(bool(torch.isfinite(out).all()), f"mha_fwd non-finite at {shape}")
+        check(out.dtype == dtype, "mha_fwd output dtype")
+        check(err <= tol, f"mha_fwd {dtype} {shape} masked={masked}: {err} > {tol}")
+        for f, ferr in info.get("planted_fault_max_abs_err", {}).items():
+            check(ferr > tol, f"limit {tol} misses the planted fault {f}: {ferr}")
+
+    dtypes = ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL))
+    for shape in MHA_FWD_CHECK_SHAPES:
+        for dtype, tol in dtypes:
             for masked in (False, True):
-                q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(3))
-                mask = ragged_mask(torch, B, S, gen, dev) if masked else None
-                before = dict(mha_fwd.launches_by_route)
-                out = mha_fwd(q, k, v, mask)
-                taken = route_taken(mha_fwd, before)
-                torch.cuda.synchronize()
-                ref = attention_reference(q.float(), k.float(), v.float(), mask)
-                info = {}
-                if dtype == torch.bfloat16:
-                    info["v1_max_abs_err"] = abs_err(mha_fwd_v1(q, k, v, mask), ref)
-                    if taken == "long":
-                        info["key_splits"] = key_splits(B * H * -(-S // LONG_QUERIES),
-                                                        -(-S // KEY_TILE), _build.sm_count(dev))
-                    if masked:
-                        info["planted_fault_max_abs_err"] = {"padded_keys_unmasked": abs_err(
-                            attention_reference(q.float(), k.float(), v.float(), None), ref)}
-                torch.cuda.synchronize()
-                err = abs_err(out, ref)
-                worst[dtype] = max(worst[dtype], err)
-                emit({"phase": "kernel", "name": "mha_fwd", "route": taken, "shape": list(shape),
-                      "dtype": str(dtype).split(".")[-1], "masked": masked,
-                      "max_abs_err": err, "tol": tol, **info})
-                check(taken == route(dtype, S), f"mha_fwd {dtype} {shape} took route {taken}")
-                if shape == KERNEL_SHAPES[3] and dtype == torch.bfloat16:  # the global method
-                    check(info["key_splits"] > 1, f"mha_fwd took no key split at {shape}")
-                check(bool(torch.isfinite(out).all()), f"mha_fwd non-finite at {shape}")
-                check(out.dtype == dtype, "mha_fwd output dtype")
-                check(err <= tol, f"mha_fwd {dtype} {shape} masked={masked}: {err} > {tol}")
-                for f, ferr in info.get("planted_fault_max_abs_err", {}).items():
-                    check(ferr > tol, f"limit {tol} misses the planted fault {f}: {ferr}")
+                check_one(shape, dtype, tol, masked,
+                          lambda: ragged_mask(torch, shape[0], shape[2], gen, dev))
+    # the retrieval path's buckets, with its key padding
+    for shape in YC2_SHAPES:
+        for dtype, tol in dtypes:
+            check_one(shape, dtype, tol, "yc2", lambda: yc2_mask(torch, shape[0], shape[2], dev))
     q = torch.randn(2, 8, 64, 64, device=dev)
     try:
         mha_fwd(q.transpose(2, 3), q, q)
@@ -756,24 +883,26 @@ def phase_cli(torch, model):
         json.dump(anno, f)
     corpus = list(HTMAlignDataset(feats, anno_path, Word2VecTokenizer(vocab), 32))
     n_aligned = sum(s["aligned"] for item in corpus for s in item["sentences"])
-    for method in ("overlap-seq", "global"):
-        t0 = time.perf_counter()
-        run = subprocess.run(
-            [sys.executable, "-m", "temporalalignnet_torch.eval", "--task", "align",
-             "--ckpt", ckpt, "--features", feats, "--anno", anno_path, "--vocab", vocab,
-             "--method", method],
-            cwd=REPO, capture_output=True, text=True, timeout=600,
-        )
-        check(run.returncode == 0, f"eval CLI {method} failed:\n{run.stderr[-4000:]}")
-        cli = json.loads(run.stdout.strip().splitlines()[-1])
-        direct = AlignmentEvaluator(model, EvalConfig(method=method)).evaluate(corpus)
-        emit({"phase": "cli", "method": method, "cli": cli, "in_process": direct,
-              "seconds": time.perf_counter() - t0})
-        # same bf16 model and files; only the order of index_add_'s atomic sums differs
-        check(abs(cli["Recall"] - direct["Recall"]) * n_aligned <= 1 + 1e-9,
-              f"CLI {method} Recall {cli['Recall']} vs {direct['Recall']}")
-        check(abs(cli["AUC"] - direct["AUC"]) <= AUC_TOL,
-              f"CLI {method} AUC {cli['AUC']} vs {direct['AUC']}")
+    # both methods' CLI runs at once (nothing here is timed but their wall)
+    t0 = time.perf_counter()
+    runs = {method: start([sys.executable, "-m", "temporalalignnet_torch.eval", "--task",
+                           "align", "--ckpt", ckpt, "--features", feats, "--anno", anno_path,
+                           "--vocab", vocab, "--method", method])
+            for method in ("overlap-seq", "global")}
+    try:
+        for method, proc in runs.items():
+            out = finish(proc, f"eval CLI {method}", timeout=600)
+            cli = json.loads(out.strip().splitlines()[-1])
+            direct = AlignmentEvaluator(model, EvalConfig(method=method)).evaluate(corpus)
+            emit({"phase": "cli", "method": method, "cli": cli, "in_process": direct,
+                  "seconds_both": time.perf_counter() - t0})
+            # same bf16 model and files; only the order of index_add_'s atomic sums differs
+            check(abs(cli["Recall"] - direct["Recall"]) * n_aligned <= 1 + 1e-9,
+                  f"CLI {method} Recall {cli['Recall']} vs {direct['Recall']}")
+            check(abs(cli["AUC"] - direct["AUC"]) <= AUC_TOL,
+                  f"CLI {method} AUC {cli['AUC']} vs {direct['AUC']}")
+    finally:
+        stop(runs.values())
     return feats, anno_path, vocab
 
 
@@ -1183,10 +1312,12 @@ def phase_cotrain_cli(torch, files, stage1_ckpt, eval_files):
           f"eval of the twin checkpoint: {metrics}")
 
 
-def phase_train_cli(torch, files, eval_files):
+def phase_train_cli(torch, files, eval_files, yc2_files):
     """The user's entry point, ``python -m temporalalignnet_torch.train`` on the
-    card (defaults: E6D6, B = 64, bf16, fused MIL-NCE), then the eval CLI on
-    the .pth.tar it wrote."""
+    card (defaults: E6D6, B = 64, bf16, fused MIL-NCE), then at once the eval
+    CLI's two tasks on the .pth.tar it wrote: HTM-Align, checked here, and YC2
+    retrieval, whose metrics phase_retrieval_cli holds against the
+    in-process evaluator."""
     feats, captions, vocab = files
     prefix = os.path.join(REPO, "build", "chip_smoke_train", "exp")
     t0 = time.perf_counter()
@@ -1205,19 +1336,279 @@ def phase_train_cli(torch, files, eval_files):
     check(all(np.isfinite(l["loss"]) for l in lines[:-1]), "train CLI logged a non-finite loss")
 
     e_feats, anno, e_vocab = eval_files
+    y_feats, y_anno, y_vocab = yc2_files
+    eval_cli = [sys.executable, "-m", "temporalalignnet_torch.eval", "--ckpt", final["checkpoint"]]
     t0 = time.perf_counter()
-    run = subprocess.run(
-        [sys.executable, "-m", "temporalalignnet_torch.eval", "--task", "align",
-         "--ckpt", final["checkpoint"], "--features", e_feats, "--anno", anno,
-         "--vocab", e_vocab],
-        cwd=REPO, capture_output=True, text=True, timeout=600,
-    )
-    check(run.returncode == 0, f"eval CLI on the trained checkpoint failed:\n{run.stderr[-4000:]}")
-    metrics = json.loads(run.stdout.strip().splitlines()[-1])
-    emit({"phase": "train_cli_eval", "metrics": metrics, "seconds": time.perf_counter() - t0})
+    procs = {"align": start(eval_cli + ["--task", "align", "--features", e_feats,
+                                        "--anno", anno, "--vocab", e_vocab]),
+             "retrieval": start(eval_cli + ["--task", "retrieval", "--features", y_feats,
+                                            "--anno", y_anno, "--vocab", y_vocab])}
+    try:
+        outs = {task: json.loads(finish(proc, f"eval CLI {task} on the trained checkpoint",
+                                        timeout=600).strip().splitlines()[-1])
+                for task, proc in procs.items()}
+    finally:
+        stop(procs.values())
+    secs = time.perf_counter() - t0
+    metrics = outs["align"]
+    emit({"phase": "train_cli_eval", "metrics": metrics, "seconds_both_tasks": secs})
     check(0.0 <= metrics["Recall"] <= 1.0 and 0.0 <= metrics["AUC"] <= 1.0,
           f"eval of the trained checkpoint: {metrics}")
-    return final["checkpoint"]
+    return final["checkpoint"], {"metrics": outs["retrieval"], "seconds_both_tasks": secs}
+
+
+def make_yc2_files(root, seed):
+    """A YouCook2-format validation corpus: YC2["videos"] videos of 200-600 s
+    of 1 fps S3D-width features ({vid}.npy) with about 7 clip annotations
+    each, their segments drawn in turn from YC2_SEGMENTS so that every bucket
+    Lb = 32 ... 256 of the retrieval windows and both branches of
+    plan_clip_windows (lead: segment <= 256 s; lag: longer) are filled; the
+    vocab as in make_train_files."""
+    rng = np.random.RandomState(seed)
+    feats = os.path.join(root, "features")
+    os.makedirs(feats, exist_ok=True)
+    vocab = os.path.join(root, "vocab.npy")
+    np.save(vocab, np.array([f"w{i}" for i in range(66250)]))
+    db, turn = {}, 0
+    for i in range(YC2["videos"]):
+        vlen = int(rng.randint(200, 601))
+        np.save(os.path.join(feats, f"yc2vid{i:03d}.npy"), rng.randn(vlen, 1024).astype(np.float32))
+        annos = []
+        for _ in range(int(rng.randint(6, 9))):
+            lo, hi = YC2_SEGMENTS[turn % len(YC2_SEGMENTS)]
+            turn += 1
+            d = min(float(rng.randint(lo, hi + 1)) + float(rng.rand()), vlen - 1.0)
+            s = float(rng.rand() * (vlen - d))
+            words = " ".join(f"w{w}" for w in rng.randint(0, 66250, rng.randint(3, 12)))
+            annos.append({"segment": [s, s + d], "sentence": words})
+        db[f"yc2vid{i:03d}"] = {"subset": "validation", "duration": float(vlen),
+                                "annotations": annos}
+    anno = os.path.join(root, "youcookii_annotations_trainval.json")
+    with open(anno, "w") as f:
+        json.dump({"database": db}, f)
+    return feats, anno, vocab
+
+
+def load_eval_model(torch, ckpt, device, dtype):
+    """A reference-format .pth.tar as the eval CLI loads it (E6D6, head on)."""
+    from temporalalignnet_torch.checkpoint import load_reference_checkpoint
+    from temporalalignnet_torch.core.config import ModelConfig
+    from temporalalignnet_torch.models.net import TANWithText
+
+    model = TANWithText(ModelConfig(use_alignability_head=True, random_pos_start=False),
+                        vocab_size=66251)
+    load_reference_checkpoint(ckpt, model, verbose=False)
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def count_visual_calls(torch, model):
+    """Wraps model.visual_feature: per call its window bucket Lb and the
+    mha_fwd launches by route it made (counted with the launches it adds)."""
+    from temporalalignnet_torch.ops.mha_fwd import mha_fwd
+
+    calls, inner = [], model.visual_feature
+
+    def counted(video, *a, **kw):
+        before = dict(mha_fwd.launches_by_route)
+        out = inner(video, *a, **kw)
+        calls.append((int(video.shape[0]), int(video.shape[1]),
+                      {r: n - before[r] for r, n in mha_fwd.launches_by_route.items()}))
+        return out
+
+    model.visual_feature = counted
+    return calls
+
+
+def retrieval_ordered(metrics):
+    return all(metrics[f"{p}R1"] <= metrics[f"{p}R5"] <= metrics[f"{p}R10"]
+               for p in ("", "C-", "S-"))
+
+
+def phase_retrieval(torch, stage1_ckpt, yc2_files):
+    """This slice's eval path: RetrievalEvaluator (num_clips 10, bf16, E6D6)
+    on the Stage-1 checkpoint phase_train_cli wrote and the synthetic YC2
+    corpus; every forward call must launch mha_fwd 6 times on the route of
+    its bucket.  Then the same evaluation in f32 on the card and on the CPU
+    for 40 clips (four of each segment kind): pooled features within
+    RETRIEVAL_F32_TOL, metrics equal."""
+    from temporalalignnet_torch.core.config import EvalConfig
+    from temporalalignnet_torch.data import YC2RetrievalDataset
+    from temporalalignnet_torch.eval.retrieval import RetrievalEvaluator, retrieval_scores
+    from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
+    from temporalalignnet_torch.ops.mha_fwd import mha_fwd, route
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    feats, anno, vocab = yc2_files
+    items = list(YC2RetrievalDataset(feats, anno, "val", Word2VecTokenizer(vocab), 32))
+    model = load_eval_model(torch, stage1_ckpt, dev, torch.bfloat16)
+    calls = count_visual_calls(torch, model)
+    ev = RetrievalEvaluator(model, EvalConfig())
+    buckets = sorted({ev._prepare_item(it)[2] for it in items})
+    lags = sum(it["end"] - it["start"] >= 257 for it in items)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = ev.evaluate(items)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, by_route = mha_fwd.launches, dict(mha_fwd.launches_by_route)
+    calls = list(calls)
+    windows = sum(b for b, _, _ in calls)
+    routes_ok = all(r == {**dict.fromkeys(by_route, 0), route(torch.bfloat16, Lb): 6}
+                    for _, Lb, r in calls)
+
+    # (the device ms of a forward call: retrieval_forward_times, in a child)
+    emit({"phase": "retrieval", "model": "E6D6 width 512, bf16, Stage-1 checkpoint",
+          "clips": len(items), "videos": YC2["videos"], "num_clips": 10,
+          "buckets": buckets, "lag_clips": lags, "forward_calls": len(calls),
+          "windows": windows, "mha_fwd_launches": launches, "mha_fwd_routes": by_route,
+          "metrics": metrics, "seconds": secs, "clips_per_s": len(items) / secs,
+          "windows_per_s": windows / secs})
+    check(buckets == list(range(32, 257, 32)), f"retrieval buckets {buckets}")
+    check(lags > 0, "no clip took the lag branch")
+    check(launches == 6 * len(calls) and routes_ok,
+          f"{launches} mha_fwd launches for {len(calls)} forward calls, routes {by_route}")
+    check(len(metrics) == 12 and all(np.isfinite(v) for v in metrics.values()),
+          f"retrieval metrics {metrics}")
+    check(retrieval_ordered(metrics), f"retrieval R@1 <= R@5 <= R@10 fails: {metrics}")
+    retrieval_launches = {"launches": launches, "by_route": by_route, "forward_calls": len(calls)}
+    del model, ev, calls
+
+    # f32, card against the CPU, same weights, on 40 clips
+    kinds = [[] for _ in YC2_SEGMENTS]
+    for it in items:
+        d = it["end"] - it["start"]
+        kind = next(j for j, (lo, hi) in enumerate(YC2_SEGMENTS) if lo <= d < hi + 1)
+        kinds[kind].append(it)
+    small = [it for group in kinds for it in group[:4]]
+    out = {}
+    for d in ("cuda", "cpu"):
+        m = load_eval_model(torch, stage1_ckpt, torch.device(d), torch.float32)
+        e = RetrievalEvaluator(m, EvalConfig())
+        V, X = e.clip_features(small), e.text_features(np.stack([it["input_ids"] for it in small]))
+        out[d] = (V, X, retrieval_scores(V, X))
+    (vc, xc, mc), (vh, xh, mh) = out["cuda"], out["cpu"]
+    clip_err, text_err = float(np.abs(vc - vh).max()), float(np.abs(xc - xh).max())
+    emit({"phase": "retrieval_f32_card_vs_cpu", "clips": len(small),
+          "clip_feature_max_abs_err": clip_err, "text_feature_max_abs_err": text_err,
+          "tol": RETRIEVAL_F32_TOL, "card": mc, "cpu": mh,
+          "seconds": time.perf_counter() - t_phase})
+    check(clip_err <= RETRIEVAL_F32_TOL and text_err <= RETRIEVAL_F32_TOL,
+          f"f32 retrieval features card vs cpu: clip {clip_err}, text {text_err}")
+    check(mc == mh, f"f32 retrieval metrics card {mc} vs cpu {mh}")
+    return metrics, retrieval_launches
+
+
+def phase_retrieval_cli(cli, in_process):
+    """``python -m temporalalignnet_torch.eval --task retrieval`` (defaults:
+    E6D6, bf16, num_clips 10; run by phase_train_cli) on the same checkpoint
+    and corpus must print the in-process evaluator's metrics."""
+    emit({"phase": "retrieval_cli", "cli": cli["metrics"], "in_process": in_process,
+          "seconds_both_tasks": cli["seconds_both_tasks"]})
+    check(cli["metrics"] == in_process,
+          f"eval CLI retrieval {cli['metrics']} vs in process {in_process}")
+
+
+def train_cli_in_process(argv):
+    """The train CLI's main() in this process, its printing captured:
+    (final line, per-step losses)."""
+    import contextlib
+    import io
+
+    from temporalalignnet_torch.train.cli import main as train_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = train_main(argv)
+    return out, buf.getvalue()
+
+
+def logged_losses(text):
+    return [json.loads(l)["loss"] for l in text.splitlines() if l.startswith('{"step"')]
+
+
+def state_err(torch, a_path, b_path):
+    """Max |a - b| over every tensor of two checkpoints' state_dicts (with a
+    twin, both halves)."""
+    a, b = (torch.load(p, map_location="cpu", weights_only=True, mmap=True)["state_dict"]
+            for p in (a_path, b_path))
+    check(a.keys() == b.keys(), "checkpoints of different key sets")
+    return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+
+
+def phase_resume(torch, yc2_files):
+    """Kill-free rehearsal of a crash: a run stopped at step k (a runtime
+    checkpoint at k, and with it the downstream YC2 eval) and continued by
+    ``--resume auto`` in a new process, against the uninterrupted 2k-step
+    run done twice, whose difference is the card's own spread: per-step
+    losses and final params (and the twin's) must stay within it.  Stage 1
+    at E6D6, B = 64, bf16, fused; cotrain at E2D2 with backprop_freq 2,
+    stopped mid-accumulation.  The runs of both cases go in this process
+    one after the other (the stopped ones time their runtime save); then
+    both resumed runs at once."""
+    t_phase = time.perf_counter()
+    feats, captions, vocab = make_train_files(os.path.join(REPO, "build", "chip_smoke_resume"),
+                                              RESUME["videos"], SEED + 20)
+    y_feats, y_anno, _ = yc2_files
+    runs = {}
+    for case, k, extra in RESUME["cases"]:
+        root = os.path.join(REPO, "build", "chip_smoke_resume", case)
+        base = ["--feature_dir", feats, "--captions", captions, "--vocab", vocab,
+                "--log_every", "1", "--epochs", "4", "--warmup_iterations", "2", *extra]
+        t0 = time.perf_counter()
+        whole = [train_cli_in_process(base + ["--prefix", os.path.join(root, f"whole{i}"),
+                                              "--max_steps", str(2 * k),
+                                              "--runtime_save_iter", "0"])
+                 for i in range(2)]
+        t1 = time.perf_counter()
+        _, stopped_log = train_cli_in_process(base + [
+            "--prefix", os.path.join(root, "stopped"), "--max_steps", str(k),
+            "--runtime_save_iter", str(k), "--yc2_anno", y_anno, "--yc2_features", y_feats])
+        runs[case] = (k, root, base, whole, stopped_log,
+                      {"whole_two": t1 - t0, "stopped": time.perf_counter() - t1})
+    t0 = time.perf_counter()
+    procs = {case: start([sys.executable, "-m", "temporalalignnet_torch.train", *base,
+                          "--prefix", os.path.join(root, "stopped"), "--max_steps", str(2 * k),
+                          "--runtime_save_iter", "0", "--resume", "auto"])
+             for case, (k, root, base, *_) in runs.items()}
+    results = {}
+    try:
+        for case, (k, root, _, whole, stopped_log, run_seconds) in runs.items():
+            out = finish(procs[case], f"resumed {case} run", timeout=900)
+            run_seconds["resumed_both_at_once"] = time.perf_counter() - t0
+            resumed_out = json.loads(out.strip().splitlines()[-1])
+            evals = [json.loads(l) for l in stopped_log.splitlines()
+                     if l.startswith('{"eval_step"')]
+            saves = [json.loads(l) for l in stopped_log.splitlines()
+                     if l.startswith('{"runtime_checkpoint"')]
+            losses = [logged_losses(log) for _, log in whole]
+            joined = logged_losses(stopped_log) + logged_losses(out)
+            spread_loss = max(abs(a - b) for a, b in zip(*losses))
+            loss_err = max(abs(a - b) for a, b in zip(joined, losses[0]))
+            spread_param = state_err(torch, whole[0][0]["checkpoint"], whole[1][0]["checkpoint"])
+            param_err = state_err(torch, whole[0][0]["checkpoint"], resumed_out["checkpoint"])
+            row = {"phase": "resume", "case": case, "stop_at": k, "steps": 2 * k,
+                   "losses_uninterrupted": losses[0], "losses_stopped_then_resumed": joined,
+                   "spread_loss": spread_loss, "loss_max_abs_err": loss_err,
+                   "spread_param": spread_param, "param_max_abs_err": param_err,
+                   "resumed_line": [l for l in out.splitlines() if l.startswith("[resume]")],
+                   "runtime_save_seconds": [x["seconds"] for x in saves],
+                   "runtime_save_evals": evals, "run_seconds": run_seconds}
+            emit(row)
+            check(len(joined) == len(losses[0]) == 2 * k and all(np.isfinite(joined)),
+                  f"{case}: losses {joined}")
+            check(loss_err <= spread_loss and param_err <= spread_param,
+                  f"{case}: resumed run off the uninterrupted one beyond their spread: {row}")
+            check(evals and evals[0]["eval_step"] == k and retrieval_ordered(evals[0]),
+                  f"{case}: no retrieval metrics at the runtime save: {evals}")
+            results[case] = row
+            subprocess.run(["rm", "-rf", root], check=True)  # several GB of checkpoints
+    finally:
+        stop(procs.values())
+    emit({"phase": "resume_seconds", "seconds": time.perf_counter() - t_phase})
+    return results
 
 
 def timed_row(torch, fns, nbytes, flops, bw, peak, **info):
@@ -1226,7 +1617,8 @@ def timed_row(torch, fns, nbytes, flops, bw, peak, **info):
     (prefix "") also the device ms of each kernel it launched."""
     row = dict(info)
     for prefix, fn in fns.items():
-        row[prefix + "ms"], per_kernel, _, row[prefix + "timing"] = device_profile(torch, fn)
+        row[prefix + "ms"], per_kernel, _, row[prefix + "timing"] = device_profile(
+            torch, fn, confirm=True)
         if not prefix:
             row["kernels_ms"] = {k[:60]: v for k, v in per_kernel.items()}
         row[prefix + "wall_ms"] = cuda_ms(torch, fn)
@@ -1259,8 +1651,9 @@ def phase_train_times(torch, card):
                "v2_": lambda: mha_bwd_v2(q, k, v, pad, g),
                "plain_": lambda: torch.autograd.grad(plain_out, leaves, g, retain_graph=True),
                "library_": lambda: torch.autograd.grad(lib_out, lib, g, retain_graph=True)}
-        row = timed_row(torch, fns, 7 * q.numel() * q.element_size() + pad.numel(),
-                        10 * Bq * H * S * S * D, bw, peak, shape=list(shape), dtype="bfloat16")
+        # q, dout, dq, dk, dv; QK^T, dout V^T, P^T dout, dS K, dS^T Q
+        nbytes, flops = attention_work(q, pad, full=5, passes=5)
+        row = timed_row(torch, fns, nbytes, flops, bw, peak, shape=list(shape), dtype="bfloat16")
         emit({"phase": "times", "kernel": "mha_bwd", "card": card, **row})
         rows[("mha_bwd", S)] = row
 
@@ -1304,11 +1697,11 @@ def phase_train_times(torch, card):
     return rows
 
 
-def phase_step_times(torch, model, card):
-    """Eval-forward windows/s, the agreement self-labelling's device time, and
-    Stage-1 and cotrain steps/s with their device time.  Run after every
-    kernel's timing: on an H100, profiler sessions that followed the train
-    step's (thousands of kernels) lost device activity."""
+def phase_eval_forward_times(torch, model, card):
+    """Eval-forward windows/s with the forward's device time: the last
+    profile of this process, right after the kernel rows and the eval
+    phase (on an H100 its session lost device activity when it came after
+    the training phases)."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 2)
     B, T, C, N, W = (BENCH[k] for k in "BTCNW")
@@ -1330,15 +1723,21 @@ def phase_step_times(torch, model, card):
           "idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / fwd_ms),
           "top_kernels_ms_per_call": {k[:90]: v for k, v in top}})
 
-    # the agreement self-labelling's and each step's times in a process of
-    # its own: on an H100, profiler sessions after a train step's profile
-    # (thousands of kernels) lost device activity, and the agreement's
-    # after the eval forward's did
+
+def phase_step_times():
+    """The agreement self-labelling's and a retrieval forward call's device
+    time, and Stage-1 and cotrain steps/s with their device time, each
+    step in a process of its own: on an H100, profiler sessions that
+    followed one of thousands of kernels (a train step, an eval forward)
+    lost device activity."""
     for which in ("agreement", "init", "cotrain"):
+        t0 = time.perf_counter()
         run = subprocess.run([sys.executable, os.path.abspath(__file__), "--step-time", which],
                              cwd=REPO, capture_output=True, text=True, timeout=900)
         check(run.returncode == 0, f"step times of {which} failed:\n{run.stderr[-4000:]}")
-        emit(json.loads(run.stdout.strip().splitlines()[-1]))
+        for line in run.stdout.splitlines():
+            if line.startswith("{"):
+                emit(dict(json.loads(line), process_seconds=time.perf_counter() - t0))
 
 
 def by_name(per_kernel, n=90):
@@ -1415,6 +1814,7 @@ def step_time(torch, which, card):
               "host_self_ms_under_profiler": sum(host_ms.values()),
               "host_syncs": host_syncs(torch, run),
               "kernels_ms": by_name(per_kernel)})
+        retrieval_forward_times(torch, card)  # after the agreement's smaller sessions
         return
     cotrain = which == "cotrain"
     _, _, step, _ = train_setup(torch, dev, fused=True, cotrain=cotrain)
@@ -1435,6 +1835,31 @@ def step_time(torch, which, card):
           "top_host_ops_self_ms_per_step": {k[:90]: v for k, v in top_host}})
 
 
+def retrieval_forward_times(torch, card):
+    """Device ms of one retrieval forward call (25 clips of 10 windows through
+    the dual encoder, bf16, E6 with random weights from the seed: the time
+    does not depend on them) at a bucket of each mha_fwd route, with the
+    retrieval's key padding."""
+    dev = torch.device("cuda")
+    model = make_model(torch, dev, torch.bfloat16)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    device_ms = {}
+    for Lb in (96, 256):
+        wins = torch.randn(250, Lb, 1024, generator=gen).to(dev, torch.bfloat16)
+        pad = yc2_mask(torch, 250, Lb, dev)
+        eff = torch.full((250,), Lb - 31, device=dev)
+
+        def forward():
+            with torch.inference_mode():
+                model.visual_feature(wins, pad, 64, eff)
+
+        ms, _, _, timing = device_profile(torch, forward)
+        device_ms[f"[250, {Lb}]"] = {"ms": ms if timing == "profiler" else None,
+                                     "timing": timing, "wall_ms": cuda_ms(torch, forward)}
+    emit({"phase": "times", "metric": "retrieval_forward_device_ms", "card": card,
+          "model": "E6 dual encoder, width 512, bf16", "per_call": device_ms})
+
+
 def phase_times(torch, card):
     import torch.nn.functional as F
 
@@ -1445,10 +1870,12 @@ def phase_times(torch, card):
     gen = torch.Generator().manual_seed(SEED + 2)
     bw, bf16_peak = peaks(card)
     rows = []
-    for shape in KERNEL_SHAPES + MHA_BWD_SHAPES[:2]:  # the eval's, then the training's
+    # the eval's, the training's, then the retrieval's (its key padding)
+    for shape in KERNEL_SHAPES + MHA_BWD_SHAPES[:2] + YC2_TIMED_SHAPES:
         Bq, H, S, D = shape
         q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
-        pad = ragged_mask(torch, Bq, S, gen, dev)
+        pad = (yc2_mask(torch, Bq, S, dev) if shape in YC2_TIMED_SHAPES
+               else ragged_mask(torch, Bq, S, gen, dev))
         keep = ~pad[:, None, None, :]
         fns = {
             "": lambda: mha_fwd(q, k, v, pad),
@@ -1460,10 +1887,10 @@ def phase_times(torch, card):
         # wall_ms: CUDA events around back-to-back calls, host issue included
         row = {"shape": list(shape), "dtype": "bfloat16", "route": route(q.dtype, S)}
         for prefix, fn in fns.items():
-            row[prefix + "ms"], _, _, row[prefix + "timing"] = device_profile(torch, fn)
+            row[prefix + "ms"], _, _, row[prefix + "timing"] = device_profile(
+                torch, fn, confirm=True)
             row[prefix + "wall_ms"] = cuda_ms(torch, fn)
-        nbytes = 4 * q.numel() * q.element_size() + pad.numel()
-        flops = 4 * Bq * H * S * S * D
+        nbytes, flops = attention_work(q, pad, full=2, passes=2)  # q, out; QK^T, PV
         t_bytes, t_ops = nbytes / bw, flops / bf16_peak
         row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -1473,7 +1900,18 @@ def phase_times(torch, card):
     return rows
 
 
+def share_bytecode_cache() -> None:
+    """Keep Python's bytecode under build/pycache, for this process and the
+    ones it starts (the CLIs, the step-time runs).  Where the interpreter
+    keeps no bytecode of its packages (a read-only or empty cache), each new
+    process would compile torch's sources again before its first line."""
+    prefix = os.path.join(REPO, "build", "pycache")
+    sys.pycache_prefix = prefix
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+
+
 def main(argv) -> int:
+    share_bytecode_cache()
     import torch
 
     if not torch.cuda.is_available():
@@ -1490,20 +1928,37 @@ def main(argv) -> int:
     emit({"python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "card": card})
 
-    phase_build()
-    err_f32, err_bf16 = phase_kernel_check(torch)
-    bwd_err = phase_mha_bwd_check(torch)
-    milnce_err = phase_milnce_check(torch)
-    model, eval_launches = phase_eval(torch)
-    eval_files = phase_cli(torch, model)
-    files = make_train_files(os.path.join(REPO, "build", "chip_smoke_train"), 96, SEED)
-    launches, stage1_state = phase_train(torch, files)
-    stage1_ckpt = phase_train_cli(torch, files, eval_files)
-    cotrain_launches = phase_cotrain(torch, files, stage1_state)
-    phase_cotrain_cli(torch, files, stage1_ckpt, eval_files)
-    rows = phase_times(torch, card)
-    train_rows = phase_train_times(torch, card)
-    phase_step_times(torch, model, card)
+    seconds = {}
+
+    def timed(fn, *args):
+        """fn(*args), its wall seconds kept under its name."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[fn.__name__] = time.perf_counter() - t0
+        return out
+
+    t_start = time.perf_counter()
+    timed(phase_build)
+    err_f32, err_bf16 = timed(phase_kernel_check, torch)
+    bwd_err = timed(phase_mha_bwd_check, torch)
+    milnce_err = timed(phase_milnce_check, torch)
+    # the kernel rows' profiler sessions before any of thousands of kernels
+    rows = timed(phase_times, torch, card)
+    train_rows = timed(phase_train_times, torch, card)
+    model, eval_launches = timed(phase_eval, torch)
+    timed(phase_eval_forward_times, torch, model, card)
+    eval_files = timed(phase_cli, torch, model)
+    files = timed(make_train_files, os.path.join(REPO, "build", "chip_smoke_train"), 96, SEED)
+    launches, stage1_state = timed(phase_train, torch, files)
+    yc2_files = timed(make_yc2_files, os.path.join(REPO, "build", "chip_smoke_yc2"), SEED + 4)
+    stage1_ckpt, retrieval_cli = timed(phase_train_cli, torch, files, eval_files, yc2_files)
+    retrieval_metrics, retrieval_launches = timed(phase_retrieval, torch, stage1_ckpt, yc2_files)
+    timed(phase_retrieval_cli, retrieval_cli, retrieval_metrics)
+    cotrain_launches = timed(phase_cotrain, torch, files, stage1_state)
+    timed(phase_cotrain_cli, torch, files, stage1_ckpt, eval_files)
+    timed(phase_resume, torch, yc2_files)
+    timed(phase_step_times)
+    emit({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t_start})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1512,11 +1967,14 @@ def main(argv) -> int:
     print(smi, flush=True)
     fwd_rows = {tuple(r["shape"]): r for r in rows}
     timed, glob = fwd_rows[MHA_BWD_SHAPES[1]], fwd_rows[KERNEL_SHAPES[3]]
+    yc2_timed = [{"shape": list(sh), "route": fwd_rows[sh]["route"],
+                  **{k: fwd_rows[sh][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by")}} for sh in YC2_TIMED_SHAPES]
     fields = ("ms", "timing", "plain_ms", "bound_ms", "bound_by", "library_ms")
     pallas = "temporalalignnet_tpu/ops/pallas_milnce.py"
     # launches: slice 2's path (TRAIN_STEPS Stage-1 train steps); beside it
-    # this slice's (COTRAIN_STEPS cotrain steps) and mha_fwd's on slice 1's
-    # path (the eval phase)
+    # slice 3's (COTRAIN_STEPS cotrain steps), and mha_fwd's on slice 1's
+    # path (the eval phase) and on slice 4's (the retrieval phase)
     entries = [
         dict(name="mha_fwd", source="temporalalignnet_torch/csrc/mha_fwd.cu",
              replaces="temporalalignnet_tpu/ops/pallas_attention.py:31 (_mha_kernel)",
@@ -1526,6 +1984,10 @@ def main(argv) -> int:
              launches=launches["mha_fwd"], launches_eval_path=eval_launches,
              launches_cotrain_path=cotrain_launches["mha_fwd"],
              launches_by_route_cotrain=cotrain_launches["routes"]["mha_fwd"],
+             launches_retrieval_path=retrieval_launches["launches"],
+             launches_by_route_retrieval=retrieval_launches["by_route"],
+             retrieval_forward_calls=retrieval_launches["forward_calls"],
+             retrieval_shapes=yc2_timed,
              max_abs_err=err_bf16, max_err_f32=err_f32, max_err_bf16=err_bf16,
              shape=timed["shape"], **{k: timed[k] for k in fields},
              long_route={"shape": glob["shape"], "ms": glob["ms"], "earlier_ms": glob["v1_ms"],

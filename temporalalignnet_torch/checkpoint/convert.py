@@ -11,9 +11,10 @@
   (``{epoch, state_dict, best_acc, optimizer, iteration}``) read natively and
   loaded with ``strict=True``.
 - ``save_reference_checkpoint(path, model, optimizer, epoch, iteration,
-  target=None)``: writes that layout with ``torch.save`` (train/main.py's
-  save_checkpoint), the real optimizer state included, through a temporary
-  file and a rename; with the Stage-2 ``target`` it writes the
+  target=None)``: writes that layout (``reference_checkpoint``) with
+  ``torch.save`` (train/main.py's save_checkpoint), the real optimizer state
+  included, through a temporary file and a rename (``atomic_save``); with
+  the Stage-2 ``target`` it writes the
   TwinTemporalAligner key space (tan_model.py:315-323), as
   ``temporalalignnet_tpu/checkpoint/torch_convert.py::flax_to_torch_state``
   does with ``ema_params``.
@@ -144,25 +145,37 @@ def twin_state_dict(online: Dict[str, Any], target: Dict[str, Any]) -> Dict[str,
     return out
 
 
-def save_reference_checkpoint(path: str, model: torch.nn.Module, optimizer=None, epoch: int = 0,
-                              iteration: int = 0, best_acc: float = 0.0,
-                              target: Optional[torch.nn.Module] = None) -> None:
+def reference_checkpoint(model: torch.nn.Module, optimizer=None, epoch: int = 0,
+                         iteration: int = 0, best_acc: float = 0.0,
+                         target: Optional[torch.nn.Module] = None) -> Dict[str, Any]:
     """``{epoch, state_dict, best_acc, optimizer, iteration}`` in the reference
     layout; the weights on the CPU in their own dtype.  With ``target`` (the
     EMA twin's model) the state_dict is ``twin_state_dict``'s."""
     def cpu(m):
         return {k: v.detach().cpu() for k, v in m.state_dict().items()}
 
-    state = {
+    return {
         "epoch": epoch,
         "state_dict": cpu(model) if target is None else twin_state_dict(cpu(model), cpu(target)),
         "best_acc": best_acc,
         "optimizer": optimizer.state_dict() if optimizer is not None else {},
         "iteration": iteration,
     }
+
+
+def atomic_save(obj: Any, path: str) -> None:
+    """``torch.save`` to a temporary file beside ``path``, then a rename: a
+    reader (or a kill at any point) sees the old file or the new, never part."""
     tmp = f"{path}.tmp{os.getpid()}"
-    torch.save(state, tmp)
+    torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def save_reference_checkpoint(path: str, model: torch.nn.Module, optimizer=None, epoch: int = 0,
+                              iteration: int = 0, best_acc: float = 0.0,
+                              target: Optional[torch.nn.Module] = None) -> None:
+    """``reference_checkpoint``'s dict, written with ``atomic_save``."""
+    atomic_save(reference_checkpoint(model, optimizer, epoch, iteration, best_acc, target), path)
 
 
 def merge_state_dict(base: Dict[str, torch.Tensor], loaded: Dict[str, Any]

@@ -120,7 +120,9 @@ class EvalConfig:
     seq_len: int = 64
     method: str = "overlap-seq"  # 'overlap-seq' or 'global'
     alignability_layer: int = 2  # "3rd layer works the best" (eval_zeroshot_align.py:186)
-    # windows per forward call of the overlap-seq canvas; the global method
-    # batches videos up to the same token count (batch_windows * seq_len)
+    # windows per forward call of the overlap-seq canvas and of the retrieval
+    # (whole clips of num_clips windows); the global method batches videos up
+    # to the same token count (batch_windows * seq_len)
     batch_windows: int = 256
     global_buckets: int = 3  # method='global': videos split into <= this many length buckets
+    num_clips: int = 10  # YC2 retrieval: staggered windows per clip (eval_zeroshot_retrieval.py)

@@ -23,14 +23,16 @@ import torch
 from temporalalignnet_torch.data.padding import pad_tokens
 
 
+# feature files, in the order they are looked for: numpy arrays, then torch tensors
+FEATURE_SUFFIXES = (".npy", ".mp4.npy", ".webm.npy", ".pth.tar", ".pth")
+
+
 def _load_feature_any(feature_dir: str, vid: str) -> np.ndarray:
-    for suffix in (".npy", ".mp4.npy", ".webm.npy"):
+    for suffix in FEATURE_SUFFIXES:
         p = os.path.join(feature_dir, vid + suffix)
         if os.path.exists(p):
-            return np.load(p)
-    for suffix in (".pth.tar", ".pth"):
-        p = os.path.join(feature_dir, vid + suffix)
-        if os.path.exists(p):
+            if suffix.endswith(".npy"):
+                return np.load(p)
             return torch.load(p, map_location="cpu", weights_only=True).numpy()
     raise FileNotFoundError(f"no feature for {vid} in {feature_dir}")
 

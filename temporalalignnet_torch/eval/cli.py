@@ -1,8 +1,12 @@
-"""Zero-shot HTM-Align evaluation of a TAN checkpoint (the align task of
-temporalalignnet_tpu/eval/cli.py, reference eval/eval_zeroshot_align.py:255):
+"""Zero-shot evaluation of a TAN checkpoint (temporalalignnet_tpu/eval/cli.py;
+reference eval/eval_zeroshot_align.py:255 and eval_zeroshot_retrieval.py:259):
+HTM-Align alignment, or YouCook2 text->video retrieval on the validation split.
 
   python -m temporalalignnet_torch.eval --task align \\
       --ckpt model.pth.tar --features <dir> --anno htm_align.json --vocab s3d_dict.npy
+  python -m temporalalignnet_torch.eval --task retrieval \\
+      --ckpt model.pth.tar --features <yc2 dir> \\
+      --anno youcookii_annotations_trainval.json --vocab s3d_dict.npy
 
 Runs on ``--device cuda`` (the default) in bf16, or in f32 with ``--f32``;
 ``--device cpu`` runs the plain PyTorch path in f32.  On the card every
@@ -18,7 +22,7 @@ from typing import Optional
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("temporalalignnet_torch zero-shot eval")
-    p.add_argument("--task", required=True, choices=["align"])
+    p.add_argument("--task", required=True, choices=["align", "retrieval"])
     p.add_argument("--ckpt", required=True, help="reference-format .pth.tar")
     p.add_argument("--features", required=True)
     p.add_argument("--anno", required=True)
@@ -37,6 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_alignability_head", type=int, default=1)
     p.add_argument("--batch_windows", type=int, default=256,
                    help="windows per forward call (bounds device memory)")
+    p.add_argument("--num_clips", type=int, default=10,
+                   help="task=retrieval: staggered windows per clip")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--f32", action="store_true",
                    help="float32 compute on the card (the CPU always runs f32)")
@@ -50,8 +56,9 @@ def main(argv: Optional[list] = None) -> dict:
 
     from temporalalignnet_torch.checkpoint import load_reference_checkpoint
     from temporalalignnet_torch.core.config import EvalConfig, ModelConfig, Precision
-    from temporalalignnet_torch.data import HTMAlignDataset
+    from temporalalignnet_torch.data import HTMAlignDataset, YC2RetrievalDataset
     from temporalalignnet_torch.eval.align import AlignmentEvaluator
+    from temporalalignnet_torch.eval.retrieval import RetrievalEvaluator
     from temporalalignnet_torch.models.net import TANWithText
     from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
 
@@ -80,9 +87,14 @@ def main(argv: Optional[list] = None) -> dict:
         method=args.method,
         batch_windows=args.batch_windows,
         global_buckets=args.global_buckets,
+        num_clips=args.num_clips,
     )
-    ds = HTMAlignDataset(args.features, args.anno, tokenizer, args.max_words)
-    out = AlignmentEvaluator(model, cfg).evaluate(list(ds))
+    if args.task == "align":
+        ds = HTMAlignDataset(args.features, args.anno, tokenizer, args.max_words)
+        out = AlignmentEvaluator(model, cfg).evaluate(list(ds))
+    else:
+        ds = YC2RetrievalDataset(args.features, args.anno, "val", tokenizer, args.max_words)
+        out = RetrievalEvaluator(model, cfg).evaluate(list(ds))
     print(json.dumps(out))
     return out
 

@@ -58,3 +58,19 @@ class TANWithText(TemporalAligner):
             video, text_embed, video_padding_mask, lang_padding_mask,
             interpolate_from, effective_len=effective_len,
         )
+
+    def visual_feature(
+        self,
+        video: torch.Tensor,  # [B, T, Cv]
+        video_padding_mask: Optional[torch.Tensor] = None,
+        interpolate_from: Optional[int] = None,
+        effective_len: Optional[torch.Tensor] = None,  # scalar or [B]
+    ) -> torch.Tensor:
+        """Deterministic dual-encoder features, all layers [B, S, T, C]
+        (the retrieval evaluator's entry point)."""
+        return self.get_visual_feature(video, video_padding_mask, interpolate_from,
+                                       deterministic=True, effective_len=effective_len)
+
+    def textual_feature(self, text_embed: torch.Tensor) -> torch.Tensor:
+        """Pooled sentence embeddings [..., Ct] -> projected features [..., C]."""
+        return self.get_textual_feature(text_embed)

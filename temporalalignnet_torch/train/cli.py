@@ -5,6 +5,8 @@ temporalalignnet_tpu/train/cli.py; reference train/main.py):
       --feature_dir <dir> --captions sentencified_htm_370k.json --vocab s3d_dict.npy
   python -m temporalalignnet_torch.train --model cotrain --pretrain <stage1>/latest.pth.tar \\
       --feature_dir <dir> --captions sentencified_htm_370k.json --vocab s3d_dict.npy
+  ... --resume auto            # continue the newest checkpoint of this experiment
+  ... --test <ckpt.pth.tar>    # only the downstream evals of a checkpoint
 
 ``--model cotrain`` forces the agreement self-labelling and the alignability
 head (train/main.py:361-363) and trains with the EMA twin
@@ -17,15 +19,34 @@ target as a copy.  It reads no orbax directory of the JAX trainer.
 Runs on ``--device cuda`` (the default): f32 params, bf16 compute (``--f32``
 for f32 compute), every attention and, with ``--fused_milnce`` (auto: on for
 CUDA, off for the CPU), every MIL-NCE logsumexp in the Hopper kernels.
-``--device cpu`` runs the plain PyTorch path in f32.  At each epoch end and at
-the ``--max_steps`` stop it writes ``<prefix>/<experiment>/latest.pth.tar``
-in the reference layout (with cotrain the twin's ``online.*`` / ``target.*``
-keys), which ``python -m temporalalignnet_torch.eval`` loads.  Prints one
-JSON line per ``--log_every`` steps and a final one.
+``--device cpu`` runs the plain PyTorch path in f32.  Prints one JSON line
+per ``--log_every`` steps, one per downstream eval and a final one.
 
-Flags of the JAX trainer that later slices bring (BERT, resume and
-checkpoint rotation, multi-GPU, rematerialization, grouped dispatch,
-profiling, YC2) exit with a message naming that work.
+Checkpoints (``checkpoint/io.py``), under ``<prefix>/<experiment>/``:
+- ``runtime/``: every ``--runtime_save_iter`` steps (only the newest kept),
+  each followed by the downstream evals;
+- ``epoch/``: at each epoch end and at the ``--max_steps`` stop, the 5 with
+  the best HTM-Align ``Recall`` kept (0.0 for an epoch without an eval);
+- ``latest.pth.tar``: the same weights in the reference layout
+  ``{epoch, state_dict, best_acc, optimizer, iteration}`` (with cotrain the
+  twin's ``online.*`` / ``target.*`` keys), which the eval CLI and
+  ``--pretrain`` read.
+The runtime and epoch files add the resume state under ``resume``: the step
+counter, the pos-start generator's state and the twin's micro-step count,
+beside the full optimizer state (AdamW's moments, the counters and the
+``--backprop_freq`` accumulator).  ``--resume`` (``auto``: this experiment;
+or a directory, or one such file) restores all of it and continues at
+epoch = step // steps_per_epoch, batch = step % steps_per_epoch, so the
+resumed run equals the uninterrupted one.  A ``.pth.tar`` without that
+state, such as a reference checkpoint, is refused (use it with
+``--pretrain``).
+
+Downstream evals: HTM-Align (``--align_anno``) and, unless ``--optim_policy
+bce``, YouCook2 retrieval (``--yc2_anno``; train/main.py:165-212).
+
+Flags of the JAX trainer that later slices bring (BERT, multi-GPU,
+rematerialization, grouped dispatch, profiling, the MIL-NCE text tower)
+exit with a message naming that work.
 """
 
 from __future__ import annotations
@@ -39,7 +60,6 @@ from typing import Optional
 
 # flag -> (the value that means "not used", the work that brings it)
 _LATER = {
-    "resume": (None, "checkpoint resume and rotation (ROADMAP Queue A, next)"),
     "milnce_ckpt": (None, "the MIL-NCE S3D/word2vec converter (ROADMAP Queue A)"),
     "remat": (0, "activation rematerialization (a later slice)"),
     "steps_per_dispatch": (1, "grouped dispatch (a later slice; CUDA graphs)"),
@@ -47,8 +67,6 @@ _LATER = {
     "dp": (-1, "multi-GPU training (ROADMAP Queue A)"),
     "tp": (1, "multi-GPU training (ROADMAP Queue A)"),
     "multihost": (False, "multi-GPU training (ROADMAP Queue A)"),
-    "yc2_anno": (None, "YC2 retrieval (ROADMAP Queue A)"),
-    "yc2_features": (None, "YC2 retrieval (ROADMAP Queue A)"),
 }
 
 
@@ -105,9 +123,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="float32 compute on the card (the CPU always runs f32)")
     p.add_argument("--prefix", default="exp", help="experiment dir root")
     p.add_argument("--name_prefix", default="")
-    p.add_argument("--resume", default=None)
+    p.add_argument("--resume", default=None,
+                   help="auto (this experiment's newest checkpoint), an experiment "
+                        "directory, or a runtime/epoch checkpoint file of this trainer")
     p.add_argument("--pretrain", default=None,
                    help="a .pth.tar (reference layout, plain or twin) to start from")
+    p.add_argument("--test", default=None,
+                   help="a .pth.tar: run the downstream evals on it and exit")
+    p.add_argument("--runtime_save_iter", type=int, default=1000,
+                   help="runtime checkpoint + downstream evals every N steps (0: never)")
     p.add_argument("--eval_every_epochs", type=int, default=1)
     p.add_argument("--log_every", type=int, default=5)
     p.add_argument("--max_steps", type=int, default=0, help="stop after N steps")
@@ -163,6 +187,49 @@ def load_pretrain(path: str, model) -> dict:
     return merged
 
 
+def read_resume_state(spec: str, ckpt) -> dict:
+    """``--resume``: ``auto`` (the experiment's Checkpointer ``ckpt``), another
+    experiment directory (its newest runtime or epoch checkpoint, looked up
+    without changing it) or one checkpoint file.  Refuses a file without this
+    trainer's resume state."""
+    import torch
+
+    from temporalalignnet_torch.checkpoint import latest
+
+    path = spec
+    if spec == "auto" or os.path.isdir(spec):
+        found = ckpt.latest() if spec == "auto" else latest(spec)
+        if found is None:
+            raise SystemExit(f"--resume {spec}: no checkpoint found")
+        path = found[1]
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "resume" not in state or "adamw" not in state.get("optimizer", {}):
+        raise SystemExit(f"--resume {path}: the file holds no resume state of this trainer "
+                         "(its step, optimizer state and generator); a reference "
+                         "checkpoint can start a run with --pretrain, not continue one")
+    print(f"[resume] {path}", flush=True)
+    return state
+
+
+def restore_training(state: dict, model, optimizer, step_fn, twin) -> int:
+    """Weights, optimizer, pos-start generator and twin from a checkpoint the
+    trainer wrote; returns its step."""
+    sd = state["state_dict"]
+    halves = {p: {k[len(p):]: v for k, v in sd.items() if k.startswith(p)}
+              for p in ("online.", "target.")}
+    if (twin is not None) != bool(halves["target."]):
+        raise SystemExit("--resume: a cotrain checkpoint resumes --model cotrain, and only it")
+    if twin is not None:
+        model.load_state_dict(halves["online."], strict=True)
+        twin.model.load_state_dict(halves["target."], strict=True)
+        twin.load_state_dict(state["resume"]["twin"])
+    else:
+        model.load_state_dict(sd, strict=True)
+    optimizer.load_state_dict(state["optimizer"])
+    step_fn.generator.set_state(state["resume"]["generator"])
+    return int(state["resume"]["step"])
+
+
 def main(argv: Optional[list] = None) -> dict:
     args = build_parser().parse_args(argv)
     _refuse_later_flags(args)
@@ -172,11 +239,15 @@ def main(argv: Optional[list] = None) -> dict:
 
     import torch
 
-    from temporalalignnet_torch.checkpoint import save_reference_checkpoint
+    from temporalalignnet_torch.checkpoint import (Checkpointer, atomic_save,
+                                                   load_reference_checkpoint,
+                                                   reference_checkpoint)
     from temporalalignnet_torch.core.config import (
         DataConfig, EvalConfig, LossConfig, ModelConfig, Precision, TrainConfig)
-    from temporalalignnet_torch.data import HTMAlignDataset, HTMFeatureDataset, TrainLoader
+    from temporalalignnet_torch.data import (HTMAlignDataset, HTMFeatureDataset, TrainLoader,
+                                             YC2RetrievalDataset)
     from temporalalignnet_torch.eval.align import AlignmentEvaluator
+    from temporalalignnet_torch.eval.retrieval import RetrievalEvaluator
     from temporalalignnet_torch.models.net import TANWithText
     from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
     from temporalalignnet_torch.train.optimizer import Optimizer, lr_at
@@ -230,35 +301,76 @@ def main(argv: Optional[list] = None) -> dict:
     model.init_weights(torch.Generator().manual_seed(args.seed))
     if args.pretrain:
         model.load_state_dict(load_pretrain(args.pretrain, model), strict=True)
+    if args.test:
+        load_reference_checkpoint(args.test, model)
     model.to(device)
+
+    eval_cache: dict = {}
+    best_acc = 0.0  # the best HTM-Align Recall so far, the reference's best_acc
+
+    def evaluate_downstream(step: int) -> dict:
+        """HTM-Align and, unless --optim_policy bce, YC2 retrieval
+        (train/main.py:165-212), on the online model."""
+        nonlocal best_acc
+        sets = []
+        if args.align_anno:
+            sets.append(("align", lambda: list(HTMAlignDataset(
+                args.align_features or args.feature_dir, args.align_anno, tokenizer,
+                args.max_words)), AlignmentEvaluator))
+        if args.yc2_anno and args.optim_policy != "bce":  # bce skips YC2 (main.py:196-197)
+            sets.append(("yc2", lambda: list(YC2RetrievalDataset(
+                args.yc2_features or args.feature_dir, args.yc2_anno, "val", tokenizer,
+                args.max_words)), RetrievalEvaluator))
+        metrics = {}
+        for name, load, evaluator in sets:
+            if name not in eval_cache:
+                eval_cache[name] = load()
+            ev = evaluator(model, EvalConfig(seq_len=args.seq_len))
+            with torch.no_grad(), torch.autocast(device.type, dtype=compute,
+                                                 enabled=compute != torch.float32):
+                metrics.update(ev.evaluate(eval_cache[name]))
+        if metrics:
+            print(json.dumps({"eval_step": step, **metrics}), flush=True)
+        best_acc = max(best_acc, metrics.get("Recall", 0.0))
+        return metrics
+
+    if args.test:
+        return evaluate_downstream(0)
+
     # the target starts as a copy of the online weights (train/main.py:463-484)
     twin = EMATwin(model, tcfg) if args.model == "cotrain" else None
     optimizer = Optimizer(model, tcfg, policy=args.optim_policy)
     step_fn = make_train_step(model, optimizer, tcfg, loss_cfg, compute_dtype=compute, twin=twin)
     loader = TrainLoader(dataset, args.batch_size, seed=args.seed,
                          num_workers=args.num_workers, pin_memory=device.type == "cuda")
+    ckpt = Checkpointer(exp_dir)
+    global_step = 0
+    if args.resume:
+        state = read_resume_state(args.resume, ckpt)
+        global_step = restore_training(state, model, optimizer, step_fn, twin)
+        best_acc = float(state["best_acc"])
+    # a runtime checkpoint's step also gives the position within its epoch
+    start_epoch, start_batch = divmod(global_step, steps_per_epoch)
+    if args.resume:
+        print(f"[resume] at step {global_step} (epoch {start_epoch}, batch {start_batch})",
+              flush=True)
 
-    align_corpus = None
+    def training_state(epoch: int) -> dict:
+        """The reference layout, plus what an exact resume needs."""
+        state = reference_checkpoint(model, optimizer, epoch=epoch, iteration=global_step,
+                                     best_acc=best_acc,
+                                     target=twin.model if twin is not None else None)
+        state["resume"] = {"step": global_step, "generator": step_fn.generator.get_state(),
+                           "twin": twin.state_dict() if twin is not None else None}
+        return state
 
-    def evaluate_downstream() -> dict:
-        nonlocal align_corpus
-        if not args.align_anno:
-            return {}
-        if align_corpus is None:
-            align_corpus = list(HTMAlignDataset(args.align_features or args.feature_dir,
-                                                args.align_anno, tokenizer, args.max_words))
-        ev = AlignmentEvaluator(model, EvalConfig(seq_len=args.seq_len))
-        with torch.no_grad(), torch.autocast(device.type, dtype=compute,
-                                             enabled=compute != torch.float32):
-            metrics = ev.evaluate(align_corpus)
-        print(json.dumps({"eval_step": global_step, **metrics}), flush=True)
-        return metrics
-
-    global_step, last_loss, final_metrics = 0, float("nan"), {}
+    last_loss, final_metrics = float("nan"), {}
     t_log, steps_since = time.perf_counter(), 0
-    stop = False
-    for epoch in range(args.epochs):
-        loader.set_epoch(epoch)
+    stop = global_step >= args.max_steps > 0
+    for epoch in range(start_epoch, args.epochs):
+        if stop:
+            break
+        loader.set_epoch(epoch, start_batch if epoch == start_epoch else 0)
         for batch in loader:
             metrics = step_fn(batch)
             last_loss = float(metrics["loss"])  # fences the step
@@ -272,16 +384,22 @@ def main(argv: Optional[list] = None) -> dict:
                        "steps_per_s": steps_since / (now - t_log)}
                 print(json.dumps(row), flush=True)
                 t_log, steps_since = now, 0
+            if args.runtime_save_iter and global_step % args.runtime_save_iter == 0:
+                t_save = time.perf_counter()
+                path = ckpt.save_runtime(training_state(epoch), global_step)
+                print(json.dumps({"runtime_checkpoint": path, "at_step": global_step,
+                                  "seconds": time.perf_counter() - t_save}), flush=True)
+                evaluate_downstream(global_step)
             if args.max_steps and global_step >= args.max_steps:
                 stop = True
                 break
-        if (epoch + 1) % args.eval_every_epochs == 0 or stop:
-            final_metrics = evaluate_downstream()
-        save_reference_checkpoint(ckpt_path, model, optimizer, epoch=epoch,
-                                  iteration=global_step,
-                                  target=twin.model if twin is not None else None)
-        if stop:
-            break
+        epoch_metrics = (evaluate_downstream(global_step)
+                         if (epoch + 1) % args.eval_every_epochs == 0 or stop else {})
+        final_metrics = epoch_metrics or final_metrics
+        state = training_state(epoch)
+        ckpt.save_epoch(state, epoch, epoch_metrics)
+        del state["resume"]
+        atomic_save(state, ckpt_path)
     out = {"final_step": global_step, "loss": last_loss,
            "loss_finite": math.isfinite(last_loss), "checkpoint": ckpt_path, **final_metrics}
     print(json.dumps(out), flush=True)

@@ -80,8 +80,18 @@ class Optimizer:
             p.grad = None
 
     def state_dict(self) -> dict:
+        """Everything an exact resume needs: AdamW's moments, the counters,
+        and the accumulator of a part-done ``backprop_freq`` cycle."""
         return {"adamw": self.adamw.state_dict(), "updates": self.updates, "micro": self.micro,
-                "notfinite": self.notfinite}
+                "notfinite": self.notfinite, "acc": self._acc}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        self.updates, self.micro, self.notfinite = (
+            int(state["updates"]), int(state["micro"]), int(state["notfinite"]))
+        acc = state["acc"]
+        self._acc = None if acc is None else [
+            a.to(p.device, p.dtype, copy=True) for a, p in zip(acc, self.grad_params)]
 
     @torch.no_grad()
     def step(self) -> bool:

@@ -78,6 +78,14 @@ class EMATwin:
         for t, o in zip(self.model.buffers(), online.buffers()):
             t.copy_(o)
 
+    def state_dict(self) -> dict:
+        """The micro-step count; the weights go with the checkpoint's
+        ``target.*`` keys."""
+        return {"micro_steps": self.micro_steps}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.micro_steps = int(state["micro_steps"])
+
 
 def make_train_step(
     model: TANWithText,
@@ -88,7 +96,8 @@ def make_train_step(
     twin: Optional[EMATwin] = None,
 ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """``step(batch) -> metrics``; the random pos starts draw from a CPU
-    ``torch.Generator`` seeded with ``train_cfg.seed``.  ``twin`` (an
+    ``torch.Generator`` seeded with ``train_cfg.seed``, which the step keeps
+    as ``step.generator`` (a resume restores its state).  ``twin`` (an
     ``EMATwin`` of ``model``) is required for ``loss_cfg.model == 'cotrain'``
     and refused otherwise; the caller keeps it to save its weights."""
     if loss_cfg.use_fused_milnce != model.cfg.fused_milnce:
@@ -122,5 +131,6 @@ def make_train_step(
             twin.update(model)
         return metrics
 
+    step.generator = generator
     return step
 

@@ -367,9 +367,9 @@ def test_train_cli_writes_a_checkpoint_the_eval_cli_loads(feature_dir, tmp_path,
 
 
 @pytest.mark.parametrize("flag", [["--language_model", "bert"],
-                                  ["--resume", "x"], ["--remat", "1"], ["--dp", "2"],
+                                  ["--milnce_ckpt", "m"], ["--remat", "1"], ["--dp", "2"],
                                   ["--steps_per_dispatch", "4"], ["--profile_dir", "p"],
-                                  ["--yc2_anno", "y"], ["--multihost"]])
+                                  ["--tp", "2"], ["--multihost"]])
 def test_train_cli_refuses_flags_of_later_slices(flag):
     from temporalalignnet_torch.train.cli import main as train_main
 
