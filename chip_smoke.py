@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100): builds every
 kernel, holds each against its plain PyTorch version, drives the zero-shot
 HTM-Align evaluation, the Stage-1 training, the YouCook2 retrieval, the
-Stage-2 co-training and a stopped-and-resumed training run of the
-full-width E6D6 TAN through the kernels, and times them.
+Stage-2 co-training, a stopped-and-resumed training run, rematerialized
+training and training from a MIL-NCE text tower of the full-width E6D6 TAN
+through the kernels, and the raw-feature MIL-NCE baseline, and times them.
 
     python3 chip_smoke.py
 
@@ -35,10 +36,13 @@ Phases, each printing JSON lines:
              out of the column logsumexps); the routes of the three (bf16
              "wgmma", f32 "f32") are checked.
   3. eval    AlignmentEvaluator (overlap-seq and global) on a synthetic corpus,
-             random E6D6 weights from a seed, bf16; every encoder forward call
-             must launch the kernel 12 times, on the "short" route for
-             overlap-seq and the "long" one for global.  Then the same
-             evaluation in f32 on the card and on the CPU must agree.
+             random E6D6 weights from a seed, bf16; every overlap-seq
+             forward call must launch the kernel 12 times on the "short"
+             route, every global one 6 times on the "long" one (the joint
+             encoder alone), and the global canvases must equal, to the bit,
+             those of the path that also ran the dual encoder (ms of one
+             call both ways).  Then the same evaluation in f32 on the card
+             and on the CPU must agree.
      cli     python -m temporalalignnet_torch.eval on a .pth.tar of that model
              and a corpus written to build/chip_smoke_cli/, against the
              in-process evaluator.
@@ -87,6 +91,27 @@ Phases, each printing JSON lines:
              backprop_freq 2 (stopped mid-accumulation); per-step losses and
              final params (with the twin's) must stay within the two
              uninterrupted runs' spread.  Data: build/chip_smoke_resume/.
+     cache_videos  10 steps through the data pipeline with the per-video
+             host cache off and at 256: seconds_with_data, the same losses.
+     remat   E6D6 Stage-1 steps (B = 64, bf16, fused) with every encoder
+             block under torch.utils.checkpoint against plain ones from one
+             state on one batch: losses, gradients and params bit-equal (or
+             within the fused-vs-plain limits); every step launches mha_fwd
+             24 times (the backward recomputes each block), mha_bwd 12, each
+             MIL-NCE kernel 2; a cotrain step 36 mha_fwd; the peak memory of
+             a step at B = 64 and 256, remat on and off, which it must lower.
+     milnce_ckpt  the train CLI (3 steps, B = 32) from a synthetic
+             s3d_howto100m.pth, Stage 1 and cotrain: when the train step is
+             built the language model (and the twin's) holds the file's
+             tensors; finite losses; launches per run.
+     baseline  the eval CLI without --ckpt (the MIL-NCE baseline, that
+             file): --task align by both methods and --task retrieval, f32
+             on the card and on the CPU with equal metrics, and bf16.
+     profile_dir  the train CLI with --profile_dir and --remat in a child
+             (run beside remat, milnce_ckpt and baseline): its trace must
+             name the bf16 kernels of mha_fwd, mha_bwd and the MIL-NCE
+             forward and gradients; its train.metrics.jsonl must hold a
+             line per step.
   4. times   per shape mha_fwd's, the plain version's and PyTorch's SDPA
              time beside the card's bound (K and V counted at the valid keys
              only, ``attention_work``), and the same four times for each
@@ -97,8 +122,9 @@ Phases, each printing JSON lines:
              the kernel phase, before any larger profile, and eval-forward
              windows/s of the bench.py workload right after the eval phase.
              Last, in child processes, the device ms of a retrieval forward
-             call at Lb = 96 and 256, and train steps/s at B = 64, each with
-             its device time and top kernels.
+             call at Lb = 96 and 256, and train steps/s at B = 64 (Stage 1
+             plain and with --remat, cotrain), each with its device time and
+             top kernels.
              Device times come from torch.profiler (a kernel row's only
              when two sessions recorded the same launches); a time without
              such a session is taken with CUDA events and marked
@@ -199,6 +225,12 @@ COTRAIN_STEPS = 10
 # backward; the agreement targets change only the MIL-NCE kernels' pos mask
 COTRAIN_STEP_LAUNCHES = dict(STEP_LAUNCHES, mha_fwd=24)
 COTRAIN_STEP_ROUTES = dict(STEP_ROUTES, mha_fwd={"short": 24, "long": 0, "f32": 0})
+# --remat: the backward runs each block's forward again, so every block
+# launches mha_fwd twice; the EMA twin's no-grad forward runs plain
+REMAT_STEP_LAUNCHES = dict(STEP_LAUNCHES, mha_fwd=24)
+REMAT_STEP_ROUTES = dict(STEP_ROUTES, mha_fwd={"short": 24, "long": 0, "f32": 0})
+REMAT_COTRAIN_LAUNCHES = dict(STEP_LAUNCHES, mha_fwd=36)
+REMAT_MEMORY_BATCHES = (64, 256)  # peak memory of a step, remat on and off
 # the f32 cotrain steps (fused and plain): every kernel on its f32 route
 F32_COTRAIN_ROUTES = {"mha_fwd": "f32", "mha_bwd": "f32", "milnce_fwd": "f32",
                       "milnce_dv": "f32", "milnce_dt": "f32"}
@@ -774,15 +806,50 @@ def make_model(torch, device, dtype):
 
 
 def count_forward_calls(model):
-    calls = [0]
+    """Wraps model.text_visual_sims: counts its calls in calls[0] and keeps
+    the first call's arguments of each method (by ``dual``) in calls[1]."""
+    calls = [0, {}]
     inner = model.text_visual_sims
 
     def counted(*a, **kw):
         calls[0] += 1
+        calls[1].setdefault(kw.get("dual", True), (a, kw))
         return inner(*a, **kw)
 
     model.text_visual_sims = counted
+    model.text_visual_sims.inner = inner
     return calls
+
+
+def global_dual_check(torch, model, ev, corpus, per_video, calls):
+    """The global method as it ran before it dropped the dual encoder (every
+    call forced to dual=True): the same canvases and alignability to the
+    bit, and its mha_fwd launches per call; then the ms of one global call
+    both ways (CUDA events around back-to-back calls on the card)."""
+    from temporalalignnet_torch.ops.mha_fwd import mha_fwd
+
+    inner = model.text_visual_sims.inner
+    counted = model.text_visual_sims
+    model.text_visual_sims = lambda *a, **kw: counted(*a, **dict(kw, dual=True))
+    try:
+        torch.cuda.synchronize()
+        mha_fwd.launches, calls[0] = 0, 0
+        old = ev.evaluate_corpus(corpus)
+        torch.cuda.synchronize()
+        old_launches, old_calls = mha_fwd.launches, calls[0]
+    finally:
+        model.text_visual_sims = counted
+    same = all(np.array_equal(a["sim"], b["sim"]) and np.array_equal(a["align_score"],
+                                                                      b["align_score"])
+               for a, b in zip(per_video, old))
+    a, kw = calls[1][False]
+    with torch.inference_mode():
+        ms = {d: cuda_ms(torch, lambda: inner(*a, **dict(kw, dual=d)), reps=10)
+              for d in (False, True)}
+    return {"canvases_equal_to_dual_path": same, "dual_path_mha_fwd_per_call":
+            old_launches / max(old_calls, 1), "call_shape": list(a[0].shape),
+            "ms_per_call": ms[False], "dual_path_ms_per_call": ms[True],
+            "timing": "cuda_events"}
 
 
 def phase_eval(torch):
@@ -797,11 +864,10 @@ def phase_eval(torch):
     evaluators = {m: AlignmentEvaluator(model, EvalConfig(method=m))
                   for m in ("overlap-seq", "global")}
 
-    torch.cuda.synchronize()
-    mha_fwd.launches = 0
-    calls[0] = 0
-    results, routes = {}, {}
+    results, routes, launches, forward_calls = {}, {}, {}, {}
     for method, ev in evaluators.items():
+        torch.cuda.synchronize()
+        mha_fwd.launches, calls[0] = 0, 0
         mha_fwd.launches_by_route = dict.fromkeys(mha_fwd.launches_by_route, 0)
         t0 = time.perf_counter()
         per_video = ev.evaluate_corpus(corpus)
@@ -809,7 +875,7 @@ def phase_eval(torch):
         torch.cuda.synchronize()
         results[method] = (per_video, metrics, time.perf_counter() - t0)
         routes[method] = dict(mha_fwd.launches_by_route)
-    launches, forward_calls = mha_fwd.launches, calls[0]
+        launches[method], forward_calls[method] = mha_fwd.launches, calls[0]
 
     for method, (per_video, metrics, secs) in results.items():
         for item, res in zip(corpus, per_video):
@@ -822,10 +888,17 @@ def phase_eval(torch):
         emit({"phase": "eval", "method": method, "dtype": "bfloat16", "videos": len(corpus),
               "vlens": [int(i["video"].shape[0]) for i in corpus], **metrics,
               "seconds": secs})
+    glob = global_dual_check(torch, model, evaluators["global"], corpus,
+                             results["global"][0], calls)
     emit({"phase": "eval", "forward_calls": forward_calls, "mha_fwd_launches": launches,
-          "mha_fwd_routes": routes})
-    check(forward_calls > 0 and launches == 12 * forward_calls,
-          f"{launches} kernel launches for {forward_calls} forward calls, expected 12 each")
+          "mha_fwd_routes": routes, "global": glob})
+    # overlap-seq runs both encoders (12 blocks), global the joint one alone (6)
+    for method, per_call in (("overlap-seq", 12), ("global", 6)):
+        n, c = launches[method], forward_calls[method]
+        check(c > 0 and n == per_call * c,
+              f"{method}: {n} kernel launches for {c} forward calls, expected {per_call} each")
+    check(glob["canvases_equal_to_dual_path"] and glob["dual_path_mha_fwd_per_call"] == 12,
+          f"global method against its dual-encoder path: {glob}")
     # windows of 64 s (S = 64, 72) and whole videos of 150 s and more (S > 128)
     for method, only in (("overlap-seq", "short"), ("global", "long")):
         n = routes[method]
@@ -850,6 +923,7 @@ def phase_eval(torch):
               f"{method} Recall card {gpu_m['Recall']} vs cpu {cpu_m['Recall']}")
         check(abs(gpu_m["AUC"] - cpu_m["AUC"]) <= AUC_TOL,
               f"{method} AUC card {gpu_m['AUC']} vs cpu {cpu_m['AUC']}")
+    model.text_visual_sims = model.text_visual_sims.inner
     return model, launches
 
 
@@ -1724,20 +1798,324 @@ def phase_eval_forward_times(torch, model, card):
           "top_kernels_ms_per_call": {k[:90]: v for k, v in top}})
 
 
+def synthetic_train_batch(torch, B, seed):
+    """A train batch of TRAIN's shapes at batch size B, on the card."""
+    from temporalalignnet_torch.data.synthetic import synthetic_batch
+
+    T, N, W = (TRAIN[k] for k in "TNW")
+    return {k: torch.from_numpy(v).to(torch.device("cuda")) for k, v in synthetic_batch(
+        np.random.RandomState(seed), batch_size=B, seq_len=T, max_sentences=N,
+        feature_dim=1024, vocab_size=66250, max_words=W).items()}
+
+
+def counted_step(torch, step, batch):
+    """One train step with the launch counts set to 0 just before it and read
+    just after: (metrics, launches, routes)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    out = step(batch)
+    torch.cuda.synchronize()
+    return out, read_counts(), read_routes()
+
+
+def step_peak_bytes(torch, step, batch):
+    """torch.cuda.max_memory_allocated over one train step (after a warm-up
+    step), and the bytes allocated before it."""
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    step(batch)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(), before
+
+
+def phase_remat(torch):
+    """Slice 5's --remat path: the E6D6 Stage-1 step at B = 64, bf16, fused,
+    with every encoder block under torch.utils.checkpoint.  Two steps from
+    one state on one batch with remat on and off: losses, gradients and
+    params equal to the bit, or held to compare_steps' limits; launches per
+    step (REMAT_STEP_LAUNCHES: the backward recomputes each block's forward,
+    so mha_fwd twice per block); a cotrain step with remat (36 mha_fwd);
+    the peak memory of a step at B = 64 and 256 both ways.  The device ms
+    per step come from a child (--step-time remat, beside init)."""
+    dev = torch.device("cuda")
+    batch = synthetic_train_batch(torch, TRAIN["B"], SEED + 9)
+    big = {B: synthetic_train_batch(torch, B, SEED + 10) for B in REMAT_MEMORY_BATCHES}
+    runs, counts, memory = {}, {}, {}
+    for remat in (False, True):
+        model, _, step, _ = train_setup(torch, dev, fused=True, cfg_kw=dict(remat=remat))
+        losses, grads, per_step = [], [], []
+        for _ in range(2):
+            out, n, r = counted_step(torch, step, batch)
+            losses.append(out["loss"].item())
+            grads.append({k: p.grad.detach().float().cpu() for k, p in model.named_parameters()
+                          if p.grad is not None})
+            per_step.append((n, r))
+        params = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+        runs[remat], counts[remat] = (losses, grads, params), per_step
+        for B, b in big.items():
+            peak, before = step_peak_bytes(torch, step, b)
+            memory[f"B{B}_{'remat' if remat else 'plain'}"] = {
+                "max_memory_allocated": peak, "allocated_before_step": before}
+        del model, step
+        torch.cuda.empty_cache()
+    (l0, g0, p0), (l1, g1, p1) = runs[False], runs[True]
+    bit_equal = (l0 == l1 and all(torch.equal(a[k], b[k]) for a, b in zip(g0, g1) for k in a)
+                 and all(torch.equal(p0[k], p1[k]) for k in p0))
+    loss_err, grad_err, worst = compare_steps((l1, g1), (l0, g0))
+    param_err = max((p0[k] - p1[k]).abs().max().item() for k in p0)
+    # a cotrain step with remat: the twin's no-grad forward runs plain
+    _, _, cstep, _ = train_setup(torch, dev, fused=True, cotrain=True, cfg_kw=dict(remat=True))
+    _, cot_counts, cot_routes = counted_step(torch, cstep, batch)
+    del cstep
+    emit({"phase": "remat", "model": "E6D6 width 512, fused, bf16", "batch": TRAIN,
+          "losses_plain": l0, "losses_remat": l1, "bit_equal": bit_equal,
+          "loss_max_abs_err": loss_err, "grad_max_norm_err": grad_err, "worst_grad": worst,
+          "param_max_abs_err": param_err, "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL,
+          "launches_per_step": counts[True][0][0], "routes_per_step": counts[True][0][1],
+          "launches_per_step_plain": counts[False][0][0],
+          "cotrain_launches_per_step": cot_counts, "memory_bytes": memory})
+    check(bit_equal or (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL),
+          f"remat against plain steps: loss {loss_err}, grads {grad_err} ({worst})")
+    for (n, r), want, want_r in ((c, REMAT_STEP_LAUNCHES, REMAT_STEP_ROUTES)
+                                 for c in counts[True]):
+        check(n == want and r == want_r, f"remat step launched {n} {r}, expected {want}")
+    check(all(n == STEP_LAUNCHES for n, _ in counts[False]),
+          f"plain step launched {counts[False]}")
+    check(cot_counts == REMAT_COTRAIN_LAUNCHES and cot_routes["mha_fwd"]["short"] == 36,
+          f"cotrain step with remat launched {cot_counts} {cot_routes}")
+    largest = f"B{REMAT_MEMORY_BATCHES[-1]}_"
+    check(memory[largest + "remat"]["max_memory_allocated"]
+          < memory[largest + "plain"]["max_memory_allocated"], f"remat saved no memory: {memory}")
+    return {k: sum(c[0][k] for c in counts[True]) for k in REMAT_STEP_LAUNCHES}
+
+
+def phase_cache_videos(torch, files):
+    """--cache_videos: 10 Stage-1 steps through the data pipeline (the
+    train phase's loader, 8 threads) with the per-video host cache off and
+    at its default 256: seconds_with_data each, and the losses, which must
+    be equal (the same samples)."""
+    from temporalalignnet_torch.core.config import DataConfig
+    from temporalalignnet_torch.data import HTMFeatureDataset, TrainLoader
+    from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
+
+    dev = torch.device("cuda")
+    feats, captions, vocab = files
+    B, T, N, W = (TRAIN[k] for k in "BTNW")
+    out = {}
+    for cache in (0, 256):
+        ds = HTMFeatureDataset(feats, captions, DataConfig(seq_len=T, max_sentences=N,
+                                                           max_words=W),
+                               "train", Word2VecTokenizer(vocab, max_words=W),
+                               cache_videos=cache)
+        loader = TrainLoader(ds, B, seed=SEED, num_workers=8, pin_memory=True)
+        _, _, step, _ = train_setup(torch, dev, fused=True)
+        _, metrics, _, _, secs = run_steps(torch, loader, step, TRAIN_STEPS)
+        out[cache] = {"seconds_with_data": secs, "losses": [m["loss"] for m in metrics],
+                      "videos_cached": len(ds._cache._d)}
+    emit({"phase": "cache_videos", "steps": TRAIN_STEPS, "batch": TRAIN,
+          **{f"cache_videos_{k}": v for k, v in out.items()}})
+    check(out[0]["losses"] == out[256]["losses"],
+          f"cached and uncached samples trained differently: {out}")
+
+
+def write_milnce_file(torch, path):
+    """A synthetic s3d_howto100m.pth: the word2vec text tower (66251 x 300
+    table, fc1 300 -> 2048, fc2 2048 -> 512) and the 1024 -> 512 fc from the
+    seed, a few S3D conv and BN tensors, one key the converter does not
+    recognise, under "state_dict" with DataParallel's "module." prefix.
+    Returns the text tower's tensors."""
+    g = torch.Generator().manual_seed(SEED + 11)
+    rand = lambda *s: torch.randn(*s, generator=g) * 0.05
+    text = {"word_embd.weight": rand(66251, 300), "fc1.weight": rand(2048, 300),
+            "fc1.bias": rand(2048), "fc2.weight": rand(512, 2048), "fc2.bias": rand(512)}
+    sd = {f"module.text_module.{k}": v for k, v in text.items()}
+    sd.update({"module.fc.weight": rand(512, 1024), "module.fc.bias": rand(512),
+               "module.conv1.conv1.weight": rand(64, 3, 3, 7, 7),
+               "module.conv1.bn1.weight": rand(64), "module.conv1.bn1.bias": rand(64),
+               "module.conv1.bn1.running_mean": rand(64),
+               "module.conv1.bn1.running_var": rand(64).abs(),
+               "module.conv1.bn1.num_batches_tracked": torch.tensor(3),
+               "module.mixed_3b.gating.scale": rand(8)})
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"state_dict": sd}, path)
+    return text
+
+
+def phase_milnce_ckpt(torch, files):
+    """--milnce_ckpt: the train CLI (E6D6, B = 32, bf16, fused) runs 3 steps
+    (one epoch of the 96 videos) from a synthetic s3d_howto100m.pth, as
+    Stage 1 and as cotrain; when the
+    train step is built (after the merge, before any step) the language
+    model holds the file's tensors, and under cotrain so does the EMA twin's
+    copy; the losses are finite.  Launches are counted over each run."""
+    from temporalalignnet_torch.train import train_step
+
+    feats, captions, vocab = files
+    root = os.path.join(REPO, "build", "chip_smoke_milnce")
+    path = os.path.join(root, "s3d_howto100m.pth")
+    text = write_milnce_file(torch, path)
+    inner = train_step.make_train_step
+    built = {}
+
+    def capture(model, optimizer, *a, twin=None, **kw):
+        built["online"] = {k: v.detach().cpu().clone() for k, v in model.bert.state_dict().items()}
+        built["target"] = None if twin is None else {
+            k: v.detach().cpu().clone() for k, v in twin.model.bert.state_dict().items()}
+        return inner(model, optimizer, *a, twin=twin, **kw)
+
+    launches = {}
+    train_step.make_train_step = capture
+    try:
+        for model in ("init", "cotrain"):
+            built.clear()
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            reset_counts()
+            out, log = train_cli_in_process(
+                ["--model", model, "--milnce_ckpt", path, "--feature_dir", feats,
+                 "--captions", captions, "--vocab", vocab, "--batch_size", "32",
+                 "--max_steps", "3", "--log_every", "1", "--runtime_save_iter", "0",
+                 "--prefix", os.path.join(root, "exp")])
+            torch.cuda.synchronize()
+            launches[model] = read_counts()
+            halves = {h: sd for h, sd in built.items() if sd is not None}
+            equal = {h: sorted(sd) == sorted(text) and all(torch.equal(sd[k], text[k])
+                                                           for k in text)
+                     for h, sd in halves.items()}
+            report = [l for l in log.splitlines() if l.startswith(("[milnce]", "[s3d_convert]"))]
+            losses = logged_losses(log)
+            emit({"phase": "milnce_ckpt", "model": model, "losses": losses,
+                  "final_step": out["final_step"], "lang_model_equals_file": equal,
+                  "report": report, "launches": launches[model],
+                  "seconds": time.perf_counter() - t0})
+            check(out["final_step"] == 3 and out["loss_finite"] and len(losses) == 3
+                  and all(np.isfinite(losses)), f"--milnce_ckpt {model}: {out} {losses}")
+            check(all(equal.values()) and len(equal) == (2 if model == "cotrain" else 1),
+                  f"--milnce_ckpt {model}: the language model against the file: {equal}")
+            per_step = COTRAIN_STEP_LAUNCHES if model == "cotrain" else STEP_LAUNCHES
+            check(launches[model] == {k: 3 * n for k, n in per_step.items()},
+                  f"--milnce_ckpt {model} launched {launches[model]}")
+    finally:
+        train_step.make_train_step = inner
+    return path, launches
+
+
+def phase_baseline(torch, eval_files, yc2_files, milnce_path):
+    """The eval CLI's raw-feature baseline (no --ckpt, --milnce_ckpt of
+    phase_milnce_ckpt's file, dot product): --task align by both methods on
+    the cli phase's corpus and --task retrieval on the YC2 corpus, in f32 on
+    the card and on the CPU, whose metrics must be equal, and in bf16 on the
+    card (printed).  The baseline launches no kernel."""
+    from temporalalignnet_torch.eval.cli import main as eval_main
+
+    import contextlib
+    import io
+
+    e_feats, anno, e_vocab = eval_files
+    y_feats, y_anno, y_vocab = yc2_files
+    tasks = {"align_overlap-seq": ["--task", "align", "--method", "overlap-seq",
+                                   "--features", e_feats, "--anno", anno, "--vocab", e_vocab],
+             "align_global": ["--task", "align", "--method", "global", "--features", e_feats,
+                              "--anno", anno, "--vocab", e_vocab],
+             "retrieval": ["--task", "retrieval", "--features", y_feats, "--anno", y_anno,
+                           "--vocab", y_vocab]}
+    modes = {"card_f32": ["--f32"], "cpu": ["--device", "cpu"], "card_bf16": []}
+    for task, args in tasks.items():
+        out = {}
+        for mode, extra in modes.items():
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            reset_counts()
+            with contextlib.redirect_stdout(io.StringIO()):
+                metrics = eval_main(args + ["--milnce_ckpt", milnce_path] + extra)
+            out[mode] = {"metrics": metrics, "seconds": time.perf_counter() - t0,
+                         "launches": sum(read_counts().values())}
+        emit({"phase": "baseline", "task": task, "sim": "dot", **out})
+        check(out["card_f32"]["metrics"] == out["cpu"]["metrics"],
+              f"baseline {task}: f32 card {out['card_f32']['metrics']} vs cpu "
+              f"{out['cpu']['metrics']}")
+        check(all(np.isfinite(v) for o in out.values() for v in o["metrics"].values()),
+              f"baseline {task}: non-finite metrics")
+        check(all(o["launches"] == 0 for o in out.values()), f"baseline {task} launched a kernel")
+
+
+PROFILE_KERNELS = ("mha_fwd_wgmma", "mha_bwd_fused", "milnce_fwd_wgmma", "milnce_grad_wgmma")
+
+
+def start_profile_dir(files):
+    """--profile_dir: the train CLI (E6D6, B = 32, bf16, fused, --remat 1)
+    for 3 steps (one epoch of the 96 videos) in a child process, its torch.profiler trace written to
+    build/chip_smoke_profile/; read by phase_profile_dir."""
+    feats, captions, vocab = files
+    root = os.path.join(REPO, "build", "chip_smoke_profile")
+    return start([sys.executable, "-m", "temporalalignnet_torch.train", "--feature_dir", feats,
+                  "--captions", captions, "--vocab", vocab, "--batch_size", "32",
+                  "--max_steps", "3", "--log_every", "1", "--runtime_save_iter", "0", "--remat", "1",
+                  "--profile_dir", os.path.join(root, "trace"),
+                  "--prefix", os.path.join(root, "exp")]), root
+
+
+def phase_profile_dir(child):
+    """The trace the --profile_dir child wrote names the port's kernels
+    (PROFILE_KERNELS, the bf16 routes of mha_fwd, mha_bwd and the MIL-NCE
+    forward and gradients) among its device events; and the train CLI's
+    metrics log (train.metrics.jsonl) holds its train/* lines."""
+    proc, root = child
+    t0 = time.perf_counter()
+    out = finish(proc, "train CLI with --profile_dir", timeout=600)
+    final = json.loads(out.strip().splitlines()[-1])
+    traces = [os.path.join(root, "trace", f) for f in os.listdir(os.path.join(root, "trace"))
+              if f.startswith("trace_") and f.endswith(".json")]
+    check(len(traces) == 1, f"--profile_dir wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    named = {k: sum(k in e.get("name", "") for e in kernels) for k in PROFILE_KERNELS}
+    exp = [os.path.join(root, "exp", d) for d in os.listdir(os.path.join(root, "exp"))]
+    with open(os.path.join(exp[0], "train.metrics.jsonl")) as f:
+        logged = [json.loads(l) for l in f]
+    emit({"phase": "profile_dir", "final": final, "trace": os.path.relpath(traces[0], REPO),
+          "trace_bytes": os.path.getsize(traces[0]), "device_kernel_events": len(kernels),
+          "kernel_events_by_name": named, "metrics_log_lines": len(logged),
+          "metrics_log_keys": sorted(logged[-1]) if logged else [],
+          "wait_seconds": time.perf_counter() - t0})
+    check(final["final_step"] == 3 and final["loss_finite"], f"--profile_dir run {final}")
+    check(all(named.values()), f"the trace lacks kernels: {named}")
+    check(len(logged) == 3 and all("train/device/sps" in l for l in logged),
+          f"train.metrics.jsonl: {logged}")
+
+
+STEP_TIME_CHILDREN = ("agreement", "init", "remat", "cotrain")
+
+
 def phase_step_times():
     """The agreement self-labelling's and a retrieval forward call's device
-    time, and Stage-1 and cotrain steps/s with their device time, each
-    step in a process of its own: on an H100, profiler sessions that
-    followed one of thousands of kernels (a train step, an eval forward)
-    lost device activity."""
-    for which in ("agreement", "init", "cotrain"):
-        t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--step-time", which],
-                             cwd=REPO, capture_output=True, text=True, timeout=900)
-        check(run.returncode == 0, f"step times of {which} failed:\n{run.stderr[-4000:]}")
-        for line in run.stdout.splitlines():
-            if line.startswith("{"):
-                emit(dict(json.loads(line), process_seconds=time.perf_counter() - t0))
+    time, and Stage-1 (plain and remat) and cotrain steps/s with their
+    device time, each in a process of its own: on an H100, profiler sessions
+    that followed one of thousands of kernels (a train step, an eval
+    forward) lost device activity.  The children start at once; each waits,
+    with its CUDA context made, until its go file exists, and they are
+    released one after another, so that no two time at once.
+    ``process_seconds`` counts from a child's release."""
+    children = {}
+    try:
+        for which in STEP_TIME_CHILDREN:
+            go = os.path.join(REPO, "build", f"step_time_go_{which}")
+            if os.path.exists(go):
+                os.remove(go)
+            children[which] = (start([sys.executable, os.path.abspath(__file__), "--step-time",
+                                      which, go]), go)
+        for which, (proc, go) in children.items():
+            t0 = time.perf_counter()
+            open(go, "w").close()
+            out = finish(proc, f"step times of {which}", timeout=900)
+            for line in out.splitlines():
+                if line.startswith("{"):
+                    emit(dict(json.loads(line), process_seconds=time.perf_counter() - t0))
+    finally:
+        stop([proc for proc, _ in children.values()])
 
 
 def by_name(per_kernel, n=90):
@@ -1785,7 +2163,7 @@ def host_syncs(torch, fn):
 
 def step_time(torch, which, card):
     """One JSON line of times at B = 64: ``which`` 'init' (a Stage-1 train
-    step) or 'cotrain' (a Stage-2 one): steps/s with the device time, idle
+    step), 'remat' (the same with --remat) or 'cotrain' (a Stage-2 one): steps/s with the device time, idle
     share, every kernel's device ms and the top host ops; 'agreement': the
     agreement self-labelling alone at the cotrain step's shapes.  Each also
     counts the call's host-device synchronisations."""
@@ -1816,17 +2194,21 @@ def step_time(torch, which, card):
               "kernels_ms": by_name(per_kernel)})
         retrieval_forward_times(torch, card)  # after the agreement's smaller sessions
         return
-    cotrain = which == "cotrain"
-    _, _, step, _ = train_setup(torch, dev, fused=True, cotrain=cotrain)
+    cotrain, remat = which == "cotrain", which == "remat"
+    _, _, step, _ = train_setup(torch, dev, fused=True, cotrain=cotrain,
+                                cfg_kw=dict(remat=True) if remat else None)
     run = lambda: step(batch)
     step_ms = cuda_ms(torch, run, reps=10, warmup=3)
     busy_ms, per_kernel, host_ms, timing = device_profile(torch, run, reps=5, warmup=1)
     busy_ms = busy_ms if timing == "profiler" else None
     top_host = sorted(host_ms.items(), key=lambda kv: -kv[1])[:15]
     model = "E6D6 width 512, word2vec, fused MIL-NCE, bf16 compute, f32 params"
-    emit({"phase": "times", "metric": "cotrain_steps_per_s" if cotrain else "train_steps_per_s",
+    metric = {"init": "train_steps_per_s", "remat": "train_remat_steps_per_s",
+              "cotrain": "cotrain_steps_per_s"}[which]
+    emit({"phase": "times", "metric": metric,
           "card": card, "value": 1e3 / step_ms, "ms_per_step": step_ms, "batch": TRAIN,
-          "model": model + (", EMA twin, agreement keep, head on" if cotrain else ""),
+          "model": model + {"init": "", "remat": ", --remat 1",
+                            "cotrain": ", EMA twin, agreement keep, head on"}[which],
           "device_busy_ms_per_step": busy_ms, "timing": timing,
           "idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / step_ms),
           "host_syncs_per_step": host_syncs(torch, run),
@@ -1923,6 +2305,8 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = torch.cuda.get_device_name(0)
     if argv[:1] == ["--step-time"]:  # a child of phase_step_times
+        while not os.path.exists(argv[2]):  # released by the parent
+            time.sleep(0.05)
         step_time(torch, argv[1], card)
         return 0
     emit({"python": sys.version.split()[0], "torch": torch.__version__,
@@ -1956,6 +2340,16 @@ def main(argv) -> int:
     timed(phase_retrieval_cli, retrieval_cli, retrieval_metrics)
     cotrain_launches = timed(phase_cotrain, torch, files, stage1_state)
     timed(phase_cotrain_cli, torch, files, stage1_ckpt, eval_files)
+    timed(phase_cache_videos, torch, files)
+    # the --profile_dir child (untimed work) runs beside the next three phases
+    profile_child = start_profile_dir(files)
+    try:
+        remat_launches = timed(phase_remat, torch)
+        milnce_path, milnce_launches = timed(phase_milnce_ckpt, torch, files)
+        timed(phase_baseline, torch, eval_files, yc2_files, milnce_path)
+        timed(phase_profile_dir, profile_child)
+    finally:
+        stop([profile_child[0]])
     timed(phase_resume, torch, yc2_files)
     timed(phase_step_times)
     emit({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t_start})
@@ -2028,6 +2422,11 @@ def main(argv) -> int:
             shape=[row["S"], row["R"], row["K"], row["C"]],
             library_note="no single PyTorch call computes the masked MIL-NCE logsumexps",
             **{k: row[k] for k in fields}))
+    # slice 5's paths: the 2 remat steps of phase_remat, the two 3-step
+    # --milnce_ckpt train CLI runs (init, cotrain)
+    for e in entries:
+        e["launches_remat_path"] = remat_launches[e["name"]]
+        e["launches_milnce_ckpt_path"] = {m: n[e["name"]] for m, n in milnce_launches.items()}
     emit({"kernels": [dict(route="cuda", **e) for e in entries]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

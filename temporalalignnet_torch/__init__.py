@@ -17,7 +17,9 @@ Stage-1 training of a word2vec TAN:
                reference state_dict key space, and back to .pth.tar.
 - data/        HowTo100M feature dataset and loader, HTM-Align dataset,
                padding helpers, synthetic batches and corpora (numpy).
-- eval/        AlignmentEvaluator (overlap-seq and global), metrics, CLI.
+- eval/        AlignmentEvaluator (overlap-seq and global), RetrievalEvaluator,
+               metrics, CLI (also the raw-feature MIL-NCE baseline).
+- utils/       Meters, step timing, the torch.profiler trace, the metrics log.
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``.  On a CPU
 tensor every kernel wrapper takes its plain PyTorch version; on a CUDA tensor

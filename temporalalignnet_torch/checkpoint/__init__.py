@@ -1,6 +1,7 @@
 from temporalalignnet_torch.checkpoint.convert import (
     atomic_save,
     load_reference_checkpoint,
+    merge_into,
     merge_state_dict,
     reference_checkpoint,
     reference_state_dict,
@@ -9,7 +10,8 @@ from temporalalignnet_torch.checkpoint.convert import (
     twin_state_dict,
 )
 from temporalalignnet_torch.checkpoint.io import Checkpointer, latest
+from temporalalignnet_torch.checkpoint.milnce import load_milnce_checkpoint
 
-__all__ = ["Checkpointer", "atomic_save", "load_reference_checkpoint", "merge_state_dict",
-           "reference_checkpoint", "reference_state_dict", "save_reference_checkpoint",
-           "latest", "state_dict_from_jax", "twin_state_dict"]
+__all__ = ["Checkpointer", "atomic_save", "load_milnce_checkpoint", "load_reference_checkpoint",
+           "merge_into", "merge_state_dict", "reference_checkpoint", "reference_state_dict",
+           "save_reference_checkpoint", "latest", "state_dict_from_jax", "twin_state_dict"]

@@ -202,3 +202,12 @@ def merge_state_dict(base: Dict[str, torch.Tensor], loaded: Dict[str, Any]
     return merged, report
 
     return state_dict, {k: v.detach().clone() for k, v in state_dict.items()}
+
+
+def merge_into(module: torch.nn.Module, part: Dict[str, Any], name: str) -> List[str]:
+    """``part`` (a state_dict of ``module``'s own keys) merged non-strictly
+    into ``module`` by ``merge_state_dict`` and loaded; returns the report,
+    each key under ``name.``."""
+    merged, report = merge_state_dict(module.state_dict(), part)
+    module.load_state_dict(merged, strict=True)
+    return [line.replace(": ", f": {name}.", 1) for line in report]

@@ -49,6 +49,7 @@ class ModelConfig:
     num_joint_layers: int = 6  # the reference calls this "decoder"; it is an encoder
     video_embed_dim: int = 1024
     language_model: str = "word2vec"
+    sim: str = "cos"  # 'cos' or 'dot' (tan_model.py:116-119; the raw-feature baseline reads it)
     pos_enc: str = "learned"  # 'learned' or 'sine'
     num_pos_embeds: int = 1024
     use_text_pos_enc: bool = False
@@ -60,6 +61,10 @@ class ModelConfig:
     # the [B,S,T,B,N] cross-batch logits, for the fused MIL-NCE kernels
     # (ops/milnce.py); pair with LossConfig.use_fused_milnce
     fused_milnce: bool = False
+    # recompute each encoder block in the backward (torch.utils.checkpoint):
+    # its activations are not kept between forward and backward; the param
+    # tree and the numerics are unchanged (JAX: TANWithText(remat=True))
+    remat: bool = False
 
     @property
     def text_embed_dim(self) -> int:

@@ -10,9 +10,12 @@ data/loader_htm.py:62-258).
   [N_max, W] tokens, [N_max] start/end and masks), so a batch is a plain
   np.stack;
 - the vlen table the reference reads from a pre-built CSV is derived from the
-  feature files when absent (``build_vlen_table``).
-The JAX package's per-video host cache (memmaps, parsed captions, token ids)
-is not ported: its own tests show it changes no sample.
+  feature files when absent (``build_vlen_table``);
+- a bounded, thread-safe LRU of per-video host artifacts (the feature memmap,
+  the parsed caption record, the caption token ids; ``cache_videos``, the
+  train CLI's ``--cache_videos``, default 256, 0 disables) saves reopening
+  and re-tokenizing on every sample; all three are static per video, so the
+  samples are byte-equal with and without it (JAX data/htm.py:176-234).
 
 File-system contract (the reference's layout):
   feature_dir/{vid}.mp4.npy  (fallback {vid}.webm.npy, loader_htm.py:137-144)
@@ -175,6 +178,36 @@ def load_holdout(path_or_set) -> Set[str]:
 # --------------------------------------------------------------------- dataset
 
 
+class _VideoHostCache:
+    """Thread-safe LRU of per-video host artifacts: {"feature": np.memmap,
+    "caps": parsed caption record, "tokens": {caption index: token ids}}.
+    The reference reloads the feature file and re-tokenizes every sentence on
+    every sample (loader_htm.py:137-144, 204-226).  Bounded so that corpora of
+    hundreds of thousands of videos do not exhaust file descriptors; size 0
+    disables it."""
+
+    def __init__(self, maxsize: int):
+        import collections
+        import threading
+
+        self.maxsize = maxsize
+        self._d: "collections.OrderedDict[str, dict]" = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, vid: str) -> Optional[dict]:
+        """The video's entry (a new, empty one on a miss), or None when off."""
+        if self.maxsize <= 0:
+            return None
+        with self._lock:
+            entry = self._d.get(vid)
+            if entry is None:
+                entry = self._d[vid] = {"tokens": {}}
+            self._d.move_to_end(vid)
+            while len(self._d) > self.maxsize:
+                self._d.popitem(last=False)
+            return entry
+
+
 class HTMFeatureDataset:
     """Training/val dataset over pre-extracted features + sentencified ASR."""
 
@@ -189,6 +222,7 @@ class HTMFeatureDataset:
         vlen_table: Optional[Dict[str, int]] = None,
         min_vlen: int = 64,
         max_vlen: int = 1000,
+        cache_videos: int = 256,
     ):
         assert mode in ("train", "val", "test")
         self.feature_dir = feature_dir
@@ -196,6 +230,7 @@ class HTMFeatureDataset:
         self.mode = mode
         self.tokenizer = tokenizer
         self.captions = load_captions(captions)
+        self._cache = _VideoHostCache(cache_videos)
 
         holdout_set = load_holdout(holdout)
         vids = [v for v in self.captions if v not in holdout_set]
@@ -229,9 +264,11 @@ class HTMFeatureDataset:
             : self.cfg.max_words
         ]
 
-    def _captions_for(self, vid: str) -> Dict[str, list]:
+    def _captions_for(self, vid: str, entry: Optional[dict] = None) -> Dict[str, list]:
         """Caption record; the htm-fe layout maps vid -> a per-video CSV path
         (loader_htm.py:81-84,196-199) while htm-370k/1200k inline the record."""
+        if entry is not None and "caps" in entry:
+            return entry["caps"]
         caps = self.captions[vid]
         if isinstance(caps, str):
             with open(caps, newline="") as f:
@@ -241,7 +278,27 @@ class HTMFeatureDataset:
                 "start": [float(r["start"]) for r in rows],
                 "end": [float(r["end"]) for r in rows],
             }
+        if entry is not None:
+            entry["caps"] = caps
         return caps
+
+    def _feature_for(self, vid: str, entry: Optional[dict] = None) -> np.ndarray:
+        """The memmapped features: a window reads only its T rows, the same
+        bytes a full load holds."""
+        if entry is None:
+            return load_feature(self.feature_dir, vid, mmap=True)
+        if "feature" not in entry:
+            entry["feature"] = load_feature(self.feature_dir, vid, mmap=True)
+        return entry["feature"]
+
+    def _tokens_for(self, idx: int, text: str, entry: Optional[dict] = None) -> np.ndarray:
+        """Token ids of caption ``idx``, a pure function of its static text."""
+        if entry is None:
+            return self._tokenize(text)
+        token = entry["tokens"].get(idx)
+        if token is None:
+            token = entry["tokens"][idx] = self._tokenize(text)
+        return token
 
     def sample(self, index: int, rng: np.random.RandomState) -> Dict[str, np.ndarray]:
         """One fixed-shape training window (reference __getitem__ + _get_text,
@@ -249,11 +306,11 @@ class HTMFeatureDataset:
         cfg = self.cfg
         T, N, W = cfg.seq_len, cfg.max_sentences, cfg.max_words
         vid = self.video_ids[index]
-        # memmapped: the window reads only its T rows, the same bytes a full load holds
-        feature = load_feature(self.feature_dir, vid, mmap=True)
+        entry = self._cache.get(vid)
+        feature = self._feature_for(vid, entry)
         vlen = feature.shape[0]
 
-        caps = self._captions_for(vid)
+        caps = self._captions_for(vid, entry)
         starts = np.asarray(caps["start"], np.float64)
         ends = np.asarray(caps["end"], np.float64)
         texts = caps["text"]
@@ -283,7 +340,7 @@ class HTMFeatureDataset:
                 if s > end_ts or e - s < 1:  # (:214-215)
                     break
                 e = min(e, end_ts)
-                token = self._tokenize(text)
+                token = self._tokens_for(idx, text, entry)
                 trim_s = max(s - start_ts, 0)
                 trim_e = min(e - start_ts, T)
                 if trim_e == trim_s:  # (:222-223)

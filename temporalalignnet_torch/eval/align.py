@@ -24,7 +24,6 @@ import torch
 from temporalalignnet_torch.core.config import EvalConfig
 from temporalalignnet_torch.eval.metrics import roc_auc_score
 from temporalalignnet_torch.eval.pack import _round_up, pack_video_table
-from temporalalignnet_torch.models.net import TANWithText
 
 MASK_VALUE = -6.0e4
 TEMPERATURE = 0.07  # sims are read as logits / 0.07 (train/main.py:183-184)
@@ -32,17 +31,19 @@ EPS = 1e-5
 
 
 class AlignmentEvaluator:
-    """Batched overlap-seq / global aligner on the model's device.
+    """Batched overlap-seq / global aligner on the device of the model's
+    parameters.  ``model``: a TANWithText or a RawFeatureBaseline (its
+    ``encode_text``, ``text_visual_sims``, ``dtype`` and ``cfg``).
 
     ``corpus`` items: {'video': np [vlen, C], 'sentences': list of
     {'aligned': 0/1, 'start': float, 'end': float, 'input_ids': np [W] int}},
     optionally 'vid' (items with the same 'vid' share one copy of the video).
     """
 
-    def __init__(self, model: TANWithText, cfg: EvalConfig):
+    def __init__(self, model: torch.nn.Module, cfg: EvalConfig):
         self.model = model.eval()
         self.cfg = cfg
-        self.device = model.video_pre_proj.weight.device
+        self.device = next(model.parameters()).device
         # overlap-seq reads the head on joint layer 2, global on the last
         # (eval_zeroshot_align.py:186 vs :213)
         self.a_layer = min(cfg.alignability_layer, model.cfg.num_joint_layers - 1)
@@ -244,9 +245,10 @@ class AlignmentEvaluator:
                 vlens = torch.tensor([preps[i]["vlen"] for i in take], device=dev)
                 in_range = len_iota[None] < vlens[:, None]  # [V, Tb]
                 rows = row_off[take][:, None] + torch.minimum(len_iota[None], vlens[:, None] - 1)
+                # the joint encoder only: the global method reads no dual sim
                 sims = self.model.text_visual_sims(
                     table[rows], text, ~in_range, torch.as_tensor(tpad, device=dev),
-                    interpolate_from=cfg.seq_len, effective_len=vlens)
+                    interpolate_from=cfg.seq_len, effective_len=vlens, dual=False)
                 joint = sims["sim"][:, -1] / TEMPERATURE  # [V, Tb, Nb]
                 if self.use_head:
                     a_joint = sims["alignability-joint"][:, -1, :, 0].float()

@@ -61,15 +61,16 @@ def sample_clip_windows(feature: np.ndarray, start: float, end: float, num_clips
 
 
 class RetrievalEvaluator:
-    """Clip and text features and the retrieval metrics, on the model's
-    device.  ``items``: {'video': np [vlen, C], 'start', 'end', 'input_ids':
-    np [W] int}, optionally 'vid' (items with the same 'vid' share one copy
-    of the video)."""
+    """Clip and text features and the retrieval metrics, on the device of
+    the model's parameters (a TANWithText or a RawFeatureBaseline).
+    ``items``: {'video': np [vlen, C], 'start', 'end', 'input_ids': np [W]
+    int}, optionally 'vid' (items with the same 'vid' share one copy of the
+    video)."""
 
-    def __init__(self, model: TANWithText, cfg: EvalConfig):
+    def __init__(self, model: torch.nn.Module, cfg: EvalConfig):
         self.model = model.eval()
         self.cfg = cfg
-        self.device = model.video_pre_proj.weight.device
+        self.device = next(model.parameters()).device
 
     def _prepare_item(self, it: Dict) -> Tuple[np.ndarray, int, int, np.ndarray, np.ndarray, bool]:
         """(window starts [K], L, Lb, key padding [K, Lb], segment mask [K, Lb],

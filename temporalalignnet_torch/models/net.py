@@ -53,10 +53,12 @@ class TANWithText(TemporalAligner):
         lang_padding_mask: Optional[torch.Tensor] = None,
         interpolate_from: Optional[int] = None,
         effective_len: Optional[torch.Tensor] = None,
+        dual: bool = True,
     ) -> Dict[str, torch.Tensor]:
+        """``get_text_visual_sims``; ``dual=False`` runs the joint encoder only."""
         return self.get_text_visual_sims(
             video, text_embed, video_padding_mask, lang_padding_mask,
-            interpolate_from, effective_len=effective_len,
+            interpolate_from, effective_len=effective_len, dual=dual,
         )
 
     def visual_feature(

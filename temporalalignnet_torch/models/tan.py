@@ -64,9 +64,9 @@ class TemporalAligner(nn.Module):
         self.cfg = cfg
         width = cfg.width
         self.video_temporal_encoder = TemporalEncoder(
-            width, cfg.num_encoder_layers, cfg.heads, cfg.mlp_ratio)
+            width, cfg.num_encoder_layers, cfg.heads, cfg.mlp_ratio, cfg.remat)
         self.joint_temporal_encoder = TemporalEncoder(
-            width, cfg.num_joint_layers, cfg.heads, cfg.mlp_ratio)
+            width, cfg.num_joint_layers, cfg.heads, cfg.mlp_ratio, cfg.remat)
         self.video_pre_proj = nn.Linear(cfg.video_embed_dim, width, bias=False)
         self.text_pre_proj = nn.Linear(cfg.text_embed_dim, width, bias=False)
         for name in ("ln_text_init", "ln_video_init", "ln_position_init",
@@ -281,28 +281,32 @@ class TemporalAligner(nn.Module):
         lang_padding_mask: Optional[torch.Tensor] = None,
         interpolate_from: Optional[int] = None,
         effective_len: Optional[torch.Tensor] = None,
+        dual: bool = True,
     ) -> Dict[str, torch.Tensor]:
         """Joint sim, dual sim and alignability logits in one pass.
 
         Returns per-layer f32 sims [B, S, T, N] ('sim' joint, 'dual-sim') and,
         with the head, 'alignability-dual' [B, N, 1] and
-        'alignability-joint' [B, S, N, 1] (tan_model.py:237-312).
+        'alignability-joint' [B, S, N, 1] (tan_model.py:237-312).  With
+        ``dual=False`` only the joint encoder runs and only 'sim' (and
+        'alignability-joint') come back: the joint encoder reads the raw
+        features, not the dual encoder's output.
         """
         lang_raw = self.get_textual_feature(lang_embed)
         lang_with_time = (
             self.get_textual_feature_with_time(lang_embed)
             if self.cfg.use_text_pos_enc else lang_raw
         )
-        video_out = self.get_visual_feature(
-            video_embed, video_padding_mask, interpolate_from, effective_len=effective_len)
         joint_video, joint_text = self.get_joint_feature(
             video_embed, video_padding_mask, lang_with_time, lang_padding_mask,
             interpolate_from, effective_len=effective_len)
-        out = {
-            "sim": _cos_sims(joint_video, joint_text, "bstc,bskc->bstk"),
-            "dual-sim": _cos_sims(video_out, lang_raw, "bstc,bkc->bstk"),
-        }
+        out = {"sim": _cos_sims(joint_video, joint_text, "bstc,bskc->bstk")}
+        if dual:
+            video_out = self.get_visual_feature(
+                video_embed, video_padding_mask, interpolate_from, effective_len=effective_len)
+            out["dual-sim"] = _cos_sims(video_out, lang_raw, "bstc,bkc->bstk")
         if self.cfg.use_alignability_head:
-            out["alignability-dual"] = self.binary_head(lang_raw)
+            if dual:
+                out["alignability-dual"] = self.binary_head(lang_raw)
             out["alignability-joint"] = self.binary_head(joint_text)
         return out

@@ -14,6 +14,7 @@ from typing import List, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from temporalalignnet_torch.ops.attention import multihead_attention
 
@@ -73,8 +74,10 @@ class TemporalEncoder(nn.Module):
     — each non-final output normalized by the next block's ln_1
     (tfm_model.py:48-55).  The caller applies its own post-LN to the last."""
 
-    def __init__(self, width: int, layers: int, heads: int, mlp_ratio: int = 4):
+    def __init__(self, width: int, layers: int, heads: int, mlp_ratio: int = 4,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, mlp_ratio) for _ in range(layers)
         )
@@ -83,8 +86,12 @@ class TemporalEncoder(nn.Module):
         self, x: torch.Tensor, key_padding_mask: Optional[torch.Tensor] = None
     ) -> List[torch.Tensor]:
         taps = []
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.resblocks:
-            x, x_norm = block(x, key_padding_mask)
+            if remat:
+                x, x_norm = checkpoint(block, x, key_padding_mask, use_reentrant=False)
+            else:
+                x, x_norm = block(x, key_padding_mask)
             taps.append(x_norm)
         taps.pop(0)
         taps.append(x)

@@ -44,9 +44,22 @@ state, such as a reference checkpoint, is refused (use it with
 Downstream evals: HTM-Align (``--align_anno``) and, unless ``--optim_policy
 bce``, YouCook2 retrieval (``--yc2_anno``; train/main.py:165-212).
 
-Flags of the JAX trainer that later slices bring (BERT, multi-GPU,
-rematerialization, grouped dispatch, profiling, the MIL-NCE text tower)
-exit with a message naming that work.
+``--milnce_ckpt s3d_howto100m.pth`` starts the word2vec tower from the
+MIL-NCE weights, as the reference always does (word2vec_model.py:10-23),
+before ``--pretrain``, the optimizer and the EMA twin's copy; its merge is
+printed as ``[milnce]`` lines.  ``--remat 1`` recomputes every encoder block
+in the backward (less activation memory, the same numbers).
+``--cache_videos N`` keeps N videos' memmaps, captions and token ids on the
+host (0: none).  ``--profile_dir`` writes a torch.profiler trace of the
+training loop there.  Besides the JSON lines on stdout, the trainer writes
+``train/*`` scalars (the step's metrics, ``device/sps``, the loop's
+data / dispatch / fence shares and the card's memory) every ``--log_every``
+steps and ``eval/*`` at each downstream eval to
+``<experiment>/train.metrics.jsonl`` (and TensorBoard where tensorboardX is
+installed), and a progress line to stderr.
+
+Flags of the JAX trainer that later work brings (BERT, multi-GPU, grouped
+dispatch) exit with a message naming that work.
 """
 
 from __future__ import annotations
@@ -60,10 +73,7 @@ from typing import Optional
 
 # flag -> (the value that means "not used", the work that brings it)
 _LATER = {
-    "milnce_ckpt": (None, "the MIL-NCE S3D/word2vec converter (ROADMAP Queue A)"),
-    "remat": (0, "activation rematerialization (a later slice)"),
     "steps_per_dispatch": (1, "grouped dispatch (a later slice; CUDA graphs)"),
-    "profile_dir": (None, "the port's profiling tools (ROADMAP Queue A)"),
     "dp": (-1, "multi-GPU training (ROADMAP Queue A)"),
     "tp": (1, "multi-GPU training (ROADMAP Queue A)"),
     "multihost": (False, "multi-GPU training (ROADMAP Queue A)"),
@@ -84,7 +94,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_text_pos_enc", type=int, default=0)
     p.add_argument("--use_alignability_head", type=int, default=0)
     p.add_argument("--video_embed_dim", type=int, default=1024)
-    p.add_argument("--remat", type=int, default=0)
+    p.add_argument("--remat", type=int, default=0,
+                   help="recompute each encoder block in the backward (activation memory)")
     # loss (train/config.py:21-30)
     p.add_argument("--fused_milnce", default="auto", choices=["auto", "0", "1"],
                    help="MIL-NCE logsumexps in the fused kernels (ops/milnce.py) from the "
@@ -100,12 +111,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--captions", required=True)
     p.add_argument("--holdout", default=None)
     p.add_argument("--vocab", required=True, help="word list .npy (s3d_dict format)")
-    p.add_argument("--milnce_ckpt", default=None)
+    p.add_argument("--milnce_ckpt", default=None,
+                   help="s3d_howto100m.pth: start the word2vec tower from the MIL-NCE weights")
     p.add_argument("--seq_len", type=int, default=64)
     p.add_argument("--max_sentences", type=int, default=16)
     p.add_argument("--max_words", type=int, default=32)
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--num_workers", type=int, default=8)
+    p.add_argument("--cache_videos", type=int, default=256,
+                   help="per-video host cache (feature memmaps, captions, token ids; the "
+                        "same samples); 0 disables")
     # optim (train/config.py:31-40)
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--wd", type=float, default=1e-5)
@@ -139,7 +154,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--align_features", default=None)
     p.add_argument("--yc2_anno", default=None)
     p.add_argument("--yc2_features", default=None)
-    p.add_argument("--profile_dir", default=None)
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of the training loop here")
     p.add_argument("--steps_per_dispatch", type=int, default=1)
     p.add_argument("--dp", type=int, default=-1)
     p.add_argument("--tp", type=int, default=1)
@@ -171,6 +187,18 @@ def _refuse_later_flags(args) -> None:
         raise SystemExit(f"--pretrain {args.pretrain}: the port reads a .pth.tar in the "
                          "reference layout, not an orbax directory of the JAX trainer "
                          "(export one with python -m temporalalignnet_tpu.tools.export_torch)")
+
+
+def load_milnce_text(path: str, model) -> None:
+    """``--milnce_ckpt``: the MIL-NCE word2vec tower of an s3d_howto100m.pth
+    merged non-strictly into the language model (``bert``), the merge
+    printed as ``[milnce]`` lines (JAX train/cli.py:469-490)."""
+    from temporalalignnet_torch.checkpoint import load_milnce_checkpoint, merge_into
+
+    text = load_milnce_checkpoint(path)["text"]
+    if text:
+        for line in merge_into(model.bert, text, "bert"):
+            print(f"[milnce] {line}", flush=True)
 
 
 def load_pretrain(path: str, model) -> dict:
@@ -252,6 +280,9 @@ def main(argv: Optional[list] = None) -> dict:
     from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
     from temporalalignnet_torch.train.optimizer import Optimizer, lr_at
     from temporalalignnet_torch.train.train_step import EMATwin, make_train_step
+    from temporalalignnet_torch.utils import (AverageMeter, MetricsWriter, ProgressMeter,
+                                              StepBreakdown, StepTimer, device_memory_stats,
+                                              trace)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -266,7 +297,8 @@ def main(argv: Optional[list] = None) -> dict:
         num_joint_layers=args.num_joint_layers, video_embed_dim=args.video_embed_dim,
         language_model=args.language_model, pos_enc=args.pos_enc,
         use_text_pos_enc=bool(args.use_text_pos_enc),
-        use_alignability_head=bool(args.use_alignability_head), fused_milnce=fused)
+        use_alignability_head=bool(args.use_alignability_head), fused_milnce=fused,
+        remat=bool(args.remat))
     loss_cfg = LossConfig(
         model=args.model, sim=args.sim, learn_agreement=bool(args.learn_agreement),
         temporal_agreement_type=args.temporal_agreement_type, loss_threshold=args.loss_threshold,
@@ -276,7 +308,7 @@ def main(argv: Optional[list] = None) -> dict:
     dcfg = DataConfig(seq_len=args.seq_len, max_sentences=args.max_sentences,
                       max_words=args.max_words)
     dataset = HTMFeatureDataset(args.feature_dir, args.captions, dcfg, "train", tokenizer,
-                                holdout=args.holdout)
+                                holdout=args.holdout, cache_videos=args.cache_videos)
     if len(dataset) == 0:
         raise SystemExit("no training videos after filtering")
     if len(dataset) < args.batch_size:
@@ -299,6 +331,8 @@ def main(argv: Optional[list] = None) -> dict:
 
     model = TANWithText(mcfg, vocab_size=tokenizer.vocab_size)
     model.init_weights(torch.Generator().manual_seed(args.seed))
+    if args.milnce_ckpt:
+        load_milnce_text(args.milnce_ckpt, model)
     if args.pretrain:
         model.load_state_dict(load_pretrain(args.pretrain, model), strict=True)
     if args.test:
@@ -307,6 +341,7 @@ def main(argv: Optional[list] = None) -> dict:
 
     eval_cache: dict = {}
     best_acc = 0.0  # the best HTM-Align Recall so far, the reference's best_acc
+    writer = None  # the MetricsWriter of the training loop
 
     def evaluate_downstream(step: int) -> dict:
         """HTM-Align and, unless --optim_policy bce, YC2 retrieval
@@ -331,6 +366,8 @@ def main(argv: Optional[list] = None) -> dict:
                 metrics.update(ev.evaluate(eval_cache[name]))
         if metrics:
             print(json.dumps({"eval_step": step, **metrics}), flush=True)
+            if writer is not None:
+                writer.add_scalars(step, metrics, prefix="eval/")
         best_acc = max(best_acc, metrics.get("Recall", 0.0))
         return metrics
 
@@ -367,39 +404,61 @@ def main(argv: Optional[list] = None) -> dict:
     last_loss, final_metrics = float("nan"), {}
     t_log, steps_since = time.perf_counter(), 0
     stop = global_step >= args.max_steps > 0
-    for epoch in range(start_epoch, args.epochs):
-        if stop:
-            break
-        loader.set_epoch(epoch, start_batch if epoch == start_epoch else 0)
-        for batch in loader:
-            metrics = step_fn(batch)
-            last_loss = float(metrics["loss"])  # fences the step
-            global_step += 1
-            steps_since += 1
-            if global_step % args.log_every == 0:
-                now = time.perf_counter()
-                row = {"step": global_step, "epoch": epoch,
-                       **{k: float(v) for k, v in metrics.items()},
-                       "lr": lr_at(tcfg, max(optimizer.updates - 1, 0)),
-                       "steps_per_s": steps_since / (now - t_log)}
-                print(json.dumps(row), flush=True)
-                t_log, steps_since = now, 0
-            if args.runtime_save_iter and global_step % args.runtime_save_iter == 0:
-                t_save = time.perf_counter()
-                path = ckpt.save_runtime(training_state(epoch), global_step)
-                print(json.dumps({"runtime_checkpoint": path, "at_step": global_step,
-                                  "seconds": time.perf_counter() - t_save}), flush=True)
-                evaluate_downstream(global_step)
-            if args.max_steps and global_step >= args.max_steps:
-                stop = True
+    writer = MetricsWriter(exp_dir)
+    timer, breakdown = StepTimer(), StepBreakdown()
+    loss_meter, data_meter = AverageMeter("loss", ":.4f"), AverageMeter("data", ":.3f")
+    with trace(args.profile_dir):
+        for epoch in range(start_epoch, args.epochs):
+            if stop:
                 break
-        epoch_metrics = (evaluate_downstream(global_step)
-                         if (epoch + 1) % args.eval_every_epochs == 0 or stop else {})
-        final_metrics = epoch_metrics or final_metrics
-        state = training_state(epoch)
-        ckpt.save_epoch(state, epoch, epoch_metrics)
-        del state["resume"]
-        atomic_save(state, ckpt_path)
+            loader.set_epoch(epoch, start_batch if epoch == start_epoch else 0)
+            progress = ProgressMeter(len(loader), [loss_meter, data_meter],
+                                     prefix=f"Epoch {epoch} ")
+            t_data = time.perf_counter()
+            for it, batch in enumerate(loader):
+                dt_data = time.perf_counter() - t_data
+                breakdown.add("data", dt_data)
+                data_meter.update(dt_data)
+                with breakdown.measure("dispatch"):
+                    metrics = step_fn(batch)
+                with breakdown.measure("fence"):
+                    last_loss = float(metrics["loss"])  # fences the step
+                global_step += 1
+                steps_since += 1
+                if math.isfinite(last_loss):  # NaN kept out of the meter (main.py:108-109)
+                    loss_meter.update(last_loss)
+                sps = timer.tick()
+                if global_step % args.log_every == 0:
+                    now = time.perf_counter()
+                    scalars = {k: float(v) for k, v in metrics.items()}
+                    row = {"step": global_step, "epoch": epoch, **scalars,
+                           "lr": lr_at(tcfg, max(optimizer.updates - 1, 0)),
+                           "steps_per_s": steps_since / (now - t_log)}
+                    print(json.dumps(row), flush=True)
+                    t_log, steps_since = now, 0
+                    scalars["device/sps"] = sps
+                    scalars.update({f"device/{k}": v for k, v in breakdown.snapshot().items()})
+                    scalars.update({f"device/{k}": v for k, v in device_memory_stats().items()})
+                    writer.add_scalars(global_step, scalars, prefix="train/")
+                    progress.display(it)
+                if args.runtime_save_iter and global_step % args.runtime_save_iter == 0:
+                    t_save = time.perf_counter()
+                    path = ckpt.save_runtime(training_state(epoch), global_step)
+                    print(json.dumps({"runtime_checkpoint": path, "at_step": global_step,
+                                      "seconds": time.perf_counter() - t_save}), flush=True)
+                    evaluate_downstream(global_step)
+                if args.max_steps and global_step >= args.max_steps:
+                    stop = True
+                    break
+                t_data = time.perf_counter()
+            epoch_metrics = (evaluate_downstream(global_step)
+                             if (epoch + 1) % args.eval_every_epochs == 0 or stop else {})
+            final_metrics = epoch_metrics or final_metrics
+            state = training_state(epoch)
+            ckpt.save_epoch(state, epoch, epoch_metrics)
+            del state["resume"]
+            atomic_save(state, ckpt_path)
+    writer.close()
     out = {"final_step": global_step, "loss": last_loss,
            "loss_finite": math.isfinite(last_loss), "checkpoint": ckpt_path, **final_metrics}
     print(json.dumps(out), flush=True)

@@ -1,0 +1,67 @@
+"""Non-blocking metrics logging (counterpart of
+temporalalignnet_tpu/utils/logging.py; reference
+utils/tensorboard_utils.py:76-110, the tensorboardX PlotterThread).
+
+``MetricsWriter`` queues scalar writes for a daemon thread, so logging never
+blocks the train step: one JSON line per ``add_scalars`` call in
+``<logdir>/train.metrics.jsonl`` always, and TensorBoard events under
+``<logdir>/train/`` when ``tensorboardX`` imports (an optional extra, not a
+dependency; ``torch.utils.tensorboard`` is not used, since it imports
+TensorFlow where that is installed).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import queue
+import threading
+import time
+from typing import Dict
+
+
+class MetricsWriter:
+    """Queue-backed scalar writer; one JSONL line per add_scalars call."""
+
+    def __init__(self, logdir: str):
+        os.makedirs(logdir, exist_ok=True)
+        self.path = os.path.join(logdir, "train.metrics.jsonl")
+        self._file = open(self.path, "a", buffering=1)
+        try:
+            from tensorboardX import SummaryWriter  # optional
+
+            self._tb = SummaryWriter(logdir=os.path.join(logdir, "train"), flush_secs=60)
+        except Exception:
+            self._tb = None
+        self._q: queue.Queue = queue.Queue(maxsize=128)
+        self._running = True
+        self._thread = threading.Thread(target=self._drain, daemon=True)
+        self._thread.start()
+
+    def add_scalars(self, step: int, scalars: Dict[str, float], prefix: str = "") -> None:
+        payload = {"step": int(step), "time": time.time(),
+                   **{f"{prefix}{k}": float(v) for k, v in scalars.items()}}
+        try:
+            self._q.put_nowait(payload)
+        except queue.Full:
+            pass  # drop rather than block the step (the PlotterThread contract)
+
+    def _drain(self) -> None:
+        while self._running or not self._q.empty():
+            try:
+                payload = self._q.get(timeout=0.25)
+            except queue.Empty:
+                continue
+            self._file.write(json.dumps(payload) + "\n")
+            if self._tb is not None:
+                for k, v in payload.items():
+                    if k not in ("step", "time"):
+                        self._tb.add_scalar(k, v, payload["step"])
+
+    def close(self) -> None:
+        """Writes what is queued, then closes the sinks."""
+        self._running = False
+        self._thread.join(timeout=5)
+        self._file.close()
+        if self._tb is not None:
+            self._tb.close()

@@ -95,3 +95,30 @@ CLI_SHAPE = ["--video_embed_dim", str(TINY["video_embed_dim"]), "--width", str(T
              "--heads", str(TINY["heads"]),
              "--num_encoder_layers", str(TINY["num_encoder_layers"]),
              "--num_joint_layers", str(TINY["num_joint_layers"]), "--max_words", str(WORDS)]
+
+
+def write_milnce_checkpoint(path, vocab_rows, video_dim, seed=0, drop=()):
+    """An s3d_howto100m.pth-format file of random tensors from ``seed``: the
+    word2vec text tower (vocab_rows x 300 table, fc1 300 -> 2048, fc2 2048 ->
+    512), the 1024 -> 512 ``fc`` (here video_dim -> 512), a few S3D conv and
+    BN keys, and keys the converter does not recognise, under ``module.``
+    and ``"state_dict"`` as a DataParallel save holds them; the text keys in
+    ``drop`` are left out.  Returns the text tower's tensors under the port's
+    Word2VecEncoder keys."""
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, generator=g) * 0.05
+    text = {"word_embd.weight": rand(vocab_rows, 300), "fc1.weight": rand(2048, 300),
+            "fc1.bias": rand(2048), "fc2.weight": rand(512, 2048), "fc2.bias": rand(512)}
+    text = {k: v for k, v in text.items() if k not in drop}
+    sd = {f"module.text_module.{k}": v for k, v in text.items()}
+    sd.update({"module.fc.weight": rand(512, video_dim), "module.fc.bias": rand(512),
+               "module.conv1.conv1.weight": rand(64, 3, 3, 7, 7),
+               "module.conv1.bn1.weight": rand(64), "module.conv1.bn1.bias": rand(64),
+               "module.conv1.bn1.running_mean": rand(64),
+               "module.conv1.bn1.running_var": rand(64).abs(),
+               "module.conv1.bn1.num_batches_tracked": torch.tensor(7),
+               "module.conv1.bn1.momentum_extra": rand(64),
+               "module.mixed_3b.gating.scale": rand(8),
+               "module.text_module.word_embd_extra.weight": rand(4)})
+    torch.save({"state_dict": sd}, path)
+    return text

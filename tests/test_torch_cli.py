@@ -74,3 +74,15 @@ def test_cli_refuses_cuda_without_a_card(files):
 
     with pytest.raises(SystemExit, match="no CUDA device"):
         main(files)
+
+
+@pytest.mark.parametrize("flag", [["--clip_text_ckpt", "c"], ["--clip_vocab", "v"],
+                                  ["--clip_bpe", "b"], ["--language_model", "bert"],
+                                  ["--bert_dir", "d"], ["--shard_eval"], ["--multihost"]])
+def test_eval_cli_refuses_flags_of_later_slices(files, flag):
+    """The JAX eval CLI's flags the port does not bring yet exit naming the
+    work that brings them, before any file is read."""
+    from temporalalignnet_torch.eval.cli import main
+
+    with pytest.raises(SystemExit, match="Queue A [68]"):
+        main(files + flag)

@@ -59,6 +59,28 @@ def test_evaluator_matches_jax(rng, method, use_head):
     np.testing.assert_allclose(one["sim"], ours[1]["sim"], atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("use_head", [True, False])
+def test_global_method_runs_no_dual_encoder(rng, use_head):
+    """The global method reads only the joint sim and the joint head, so it
+    runs the joint encoder alone: no call reaches the dual encoder, while
+    overlap-seq still calls it; the metrics equal JAX's, whose jit drops the
+    dual encoder the same way."""
+    jm, params, tm = model_pair(use_alignability_head=use_head)
+    corpus = make_corpus(rng, num_videos=3, min_len=60, max_len=150)
+    calls = {"video": 0, "joint": 0}
+    for name in calls:
+        enc = getattr(tm, f"{name}_temporal_encoder")
+        enc.register_forward_hook(lambda *_, n=name: calls.__setitem__(n, calls[n] + 1))
+    cfg = dict(seq_len=32, method="global", global_buckets=2)
+    ours = AlignmentEvaluator(tm, EvalConfig(**cfg)).evaluate(corpus)
+    assert calls["video"] == 0 and calls["joint"] > 0
+    ref = JaxAlignmentEvaluator(jm, params, JaxEvalConfig(**cfg)).evaluate(corpus)
+    assert ours["Recall"] == ref["Recall"]
+    assert ours["AUC"] == pytest.approx(ref["AUC"], abs=1e-12)
+    AlignmentEvaluator(tm, EvalConfig(seq_len=32)).evaluate(corpus[:1])
+    assert calls["video"] > 0
+
+
 def test_global_pad_invariance_across_bucket_sizes(rng, monkeypatch):
     """The same video at two video-axis buckets (Tb and Tb + 64) gives the
     same canvases: pad rows gather the last real row and are key-masked, so

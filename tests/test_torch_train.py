@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from port_fixtures import (CLI_SHAPE, TINY, VOCAB, WORDS, jax_model, port_model, to_torch,
-                           write_feature_dir)
+                           write_feature_dir, write_milnce_checkpoint)
 from temporalalignnet_torch.checkpoint import state_dict_from_jax
 from temporalalignnet_torch.core.config import DataConfig, LossConfig, ModelConfig, TrainConfig
 from temporalalignnet_torch.data import HTMFeatureDataset, TrainLoader
@@ -228,6 +228,8 @@ STEP_CASES = {
                    dict(use_alignability_head=True, loss_threshold=0.5, optim_policy="bce"),
                    {}, 2),
     "text_pos_enc": (dict(fused=True, use_text_pos_enc=True), {}, {}, 2),
+    # the port's torch.utils.checkpoint blocks against JAX's nn.remat ones
+    "remat": (dict(fused=True, remat=True), {}, {}, 2),
 }
 
 
@@ -238,6 +240,7 @@ def test_train_steps_match_jax(case):
     flags, loss_kw, train_kw, steps = STEP_CASES[case]
     model_extra = dict(flags)
     fused = model_extra.pop("fused")
+    remat = model_extra.pop("remat", False)
     loss_kw = dict(loss_kw, use_fused_milnce=fused)
     model_kw = dict(TINY, fused_milnce=fused, random_pos_start=False,
                     use_alignability_head=loss_kw.get("use_alignability_head", False),
@@ -245,13 +248,13 @@ def test_train_steps_match_jax(case):
     train_kw = dict(dict(lr=1e-3, warmup_iterations=2, total_iterations=100), **train_kw)
     batch = _batch()
 
-    jm = JaxTANWithText(jcfg.ModelConfig(**model_kw), vocab_size=VOCAB + 1)
+    jm = JaxTANWithText(jcfg.ModelConfig(**model_kw), vocab_size=VOCAB + 1, remat=remat)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jtrain, jloss = jcfg.TrainConfig(**train_kw), jcfg.LossConfig(**loss_kw)
     state, tx = create_train_state(jm, jtrain, jloss, jbatch, seed=0)
     jstep = jax_make_train_step(jm, tx, jtrain, jloss)
 
-    tm = TANWithText(ModelConfig(**model_kw), vocab_size=VOCAB + 1)
+    tm = TANWithText(ModelConfig(**model_kw, remat=remat), vocab_size=VOCAB + 1)
     tm.load_state_dict(state_dict_from_jax(jax.device_get(state.params)), strict=True)
     tcfg = TrainConfig(**train_kw)
     opt = Optimizer(tm, tcfg, policy=loss_kw.get("optim_policy", "default"))
@@ -366,12 +369,206 @@ def test_train_cli_writes_a_checkpoint_the_eval_cli_loads(feature_dir, tmp_path,
     assert 0.0 <= metrics["Recall"] <= 1.0 and 0.0 <= metrics["AUC"] <= 1.0
 
 
-@pytest.mark.parametrize("flag", [["--language_model", "bert"],
-                                  ["--milnce_ckpt", "m"], ["--remat", "1"], ["--dp", "2"],
-                                  ["--steps_per_dispatch", "4"], ["--profile_dir", "p"],
-                                  ["--tp", "2"], ["--multihost"]])
+@pytest.mark.parametrize("flag", [["--language_model", "bert"], ["--dp", "2"],
+                                  ["--steps_per_dispatch", "4"], ["--tp", "2"], ["--multihost"]])
 def test_train_cli_refuses_flags_of_later_slices(flag):
     from temporalalignnet_torch.train.cli import main as train_main
 
     with pytest.raises(SystemExit, match="slice|Queue A"):
         train_main(["--feature_dir", "f", "--captions", "c", "--vocab", "v", *flag])
+
+
+# ------------------------------------------------------------------ remat
+
+
+def _remat_run(remat, cotrain, compute=torch.float32, steps=2):
+    """``steps`` train steps of the tiny model (random pos starts on) from
+    one init; returns (losses, params, target params or None, the
+    pos-start generator's state)."""
+    from temporalalignnet_torch.train import EMATwin
+
+    head = dict(use_alignability_head=True) if cotrain else {}
+    model = TANWithText(ModelConfig(**TINY, remat=remat, **head), vocab_size=VOCAB + 1)
+    model.init_weights(torch.Generator().manual_seed(0))
+    tcfg = TrainConfig(lr=1e-3, warmup_iterations=0, total_iterations=100)
+    twin = EMATwin(model, tcfg) if cotrain else None
+    loss_kw = dict(model="cotrain", learn_agreement=True, **head) if cotrain else {}
+    step = make_train_step(model, Optimizer(model, tcfg), tcfg, LossConfig(**loss_kw),
+                           compute_dtype=compute, twin=twin)
+    losses = [step(_torch_batch(_batch(seed=i)))["loss"].item() for i in range(steps)]
+    grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    target = None if twin is None else {k: v.clone() for k, v in twin.model.state_dict().items()}
+    return losses, model.state_dict(), grads, target, step.generator.get_state()
+
+
+@pytest.mark.parametrize("cotrain", [False, True], ids=["init", "cotrain"])
+def test_remat_steps_bit_equal_plain(cotrain):
+    """torch.utils.checkpoint per block changes memory only: the same losses,
+    gradients, params and twin to the bit, and the pos-start generator drew
+    the same numbers (no block draws from it, so the recompute cannot)."""
+    plain, remat = _remat_run(False, cotrain), _remat_run(True, cotrain)
+    assert plain[0] == remat[0]
+    for a, b in zip(plain[1:4], remat[1:4]):
+        if a is not None:
+            assert a.keys() == b.keys()
+            for k in a:
+                assert torch.equal(a[k], b[k]), k
+    assert torch.equal(plain[4], remat[4])
+
+
+def test_remat_recomputes_under_the_forward_autocast(monkeypatch):
+    """Under autocast (bf16 on the CPU here, as on the card) the backward's
+    recompute of each block runs under the forward's autocast state: every
+    attention call, the 4 of the forward and the 4 recomputed, sees bf16 q
+    with autocast on, and the step equals the plain bf16 step to the bit."""
+    from temporalalignnet_torch.models import transformer
+
+    seen = []
+    inner = transformer.multihead_attention
+
+    def recorded(q, k, v, mask=None):
+        seen.append((q.dtype, torch.is_autocast_enabled("cpu"), torch.is_grad_enabled()))
+        return inner(q, k, v, mask)
+
+    monkeypatch.setattr(transformer, "multihead_attention", recorded)
+    plain = _remat_run(False, False, compute=torch.bfloat16, steps=1)
+    n_plain, seen[:] = len(seen), []
+    remat = _remat_run(True, False, compute=torch.bfloat16, steps=1)
+    blocks = TINY["num_encoder_layers"] + TINY["num_joint_layers"]
+    assert n_plain == blocks and len(seen) == 2 * blocks
+    assert all(s == (torch.bfloat16, True, True) for s in seen), seen
+    assert plain[0] == remat[0]
+    for k in plain[2]:
+        assert torch.equal(plain[2][k], remat[2][k]), k
+
+
+# --------------------------------------------------------- train CLI flags
+
+
+@pytest.mark.parametrize("model", ["init", "cotrain"])
+def test_train_cli_milnce_ckpt_merges_the_text_tower(feature_dir, tmp_path, capsys, monkeypatch,
+                                                     model):
+    """--milnce_ckpt: the language model holds the file's tensors when the
+    train step is built (after the merge, before any step), and so does the
+    EMA twin's copy; a tensor the file lacks keeps its init and is reported."""
+    from temporalalignnet_torch.train import train_step
+    from temporalalignnet_torch.train.cli import main as train_main
+
+    drop = ("fc2.bias",) if model == "init" else ()
+    path = str(tmp_path / "s3d_howto100m.pth")
+    text = write_milnce_checkpoint(path, VOCAB + 1, TINY["video_embed_dim"], drop=drop)
+    built = {}
+    inner = train_step.make_train_step
+
+    def capture(model_, optimizer, *a, twin=None, **kw):
+        built["online"] = {k: v.clone() for k, v in model_.bert.state_dict().items()}
+        built["target"] = None if twin is None else {
+            k: v.clone() for k, v in twin.model.bert.state_dict().items()}
+        return inner(model_, optimizer, *a, twin=twin, **kw)
+
+    monkeypatch.setattr(train_step, "make_train_step", capture)
+    out = train_main(["--feature_dir", str(feature_dir / "features"),
+                      "--captions", str(feature_dir / "captions.json"),
+                      "--vocab", str(feature_dir / "vocab.npy"), "--device", "cpu",
+                      "--batch_size", "2", "--seq_len", "32", "--max_sentences", "4",
+                      "--max_steps", "3", "--log_every", "1", "--num_workers", "2",
+                      "--model", model, "--milnce_ckpt", path, "--prefix", str(tmp_path),
+                      *CLI_SHAPE])
+    printed = capsys.readouterr().out.splitlines()
+    assert out["final_step"] == 3 and out["loss_finite"]
+    assert [l for l in printed if l.startswith("[milnce]")] == (
+        ["[milnce] missing in checkpoint (kept init): bert.fc2.bias"] if drop else [])
+    assert sum(l.startswith("[s3d_convert]") for l in printed) == 3
+    halves = [built["online"]] + ([built["target"]] if model == "cotrain" else [])
+    for sd in halves:
+        assert set(text) == set(sd) - set(drop)
+        for k in text:
+            assert torch.equal(sd[k], text[k]), k
+
+
+def test_cached_loader_bit_equal_uncached_and_jax(feature_dir):
+    """--cache_videos 3 (an LRU smaller than the six videos, so entries are
+    evicted and refilled, and read by two loader threads) against 0 and
+    against the JAX package's uncached dataset, over two epochs."""
+    from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
+    from temporalalignnet_tpu.models.word2vec import Word2VecTokenizer as JaxTokenizer
+
+    kw = dict(seq_len=32, max_sentences=4, max_words=WORDS)
+    root = feature_dir
+    ours = {n: HTMFeatureDataset(str(root / "features"), str(root / "captions.json"),
+                                 DataConfig(**kw), "train",
+                                 Word2VecTokenizer(str(root / "vocab.npy"), WORDS),
+                                 holdout=str(root / "holdout.txt"), cache_videos=n)
+            for n in (3, 0)}
+    ref = jax_htm.HTMFeatureDataset(str(root / "features"), str(root / "captions.json"),
+                                    jcfg.DataConfig(**kw, feature_dim=TINY["video_embed_dim"]),
+                                    "train", JaxTokenizer(str(root / "vocab.npy"), WORDS),
+                                    holdout=str(root / "holdout.txt"), cache_videos=0)
+    loaders = [TrainLoader(ours[3], 2, seed=3, num_workers=2),
+               TrainLoader(ours[0], 2, seed=3, num_workers=2)]
+    jl = JaxTrainLoader(ref, 2, seed=3, num_workers=2)
+    for epoch in range(2):
+        for ld in loaders + [jl]:
+            ld.set_epoch(epoch)
+        got = [list(ld) for ld in loaders]
+        want = list(jl)
+        assert len(got[0]) == len(got[1]) == len(want) == len(ours[3]) // 2
+        for a, b, c in zip(*got, want):
+            for k in c:
+                np.testing.assert_array_equal(a[k].numpy(), c[k], err_msg=k)
+                np.testing.assert_array_equal(b[k].numpy(), c[k], err_msg=k)
+    assert len(ours[3]._cache._d) == 3 and ours[0]._cache.get("vid0") is None
+
+
+@pytest.fixture(scope="module")
+def profiled_cli_run(feature_dir, tmp_path_factory):
+    """One train CLI run on the CPU with --profile_dir, 2 steps logged each,
+    an HTM-Align eval at the end; returns (its experiment dir, the profile
+    dir)."""
+    from temporalalignnet_torch.train.cli import experiment_name, build_parser
+    from temporalalignnet_torch.train.cli import main as train_main
+
+    tmp = tmp_path_factory.mktemp("profiled")
+    anno = {f"vid{v}": [[1, 3.0, 9.0, "w1 w2"], [0, 12.0, 20.0, "w3"], [1, 30.0, 41.0, "w4"]]
+            for v in (0, 2)}
+    (tmp / "anno.json").write_text(json.dumps(anno))
+    argv = ["--feature_dir", str(feature_dir / "features"),
+            "--captions", str(feature_dir / "captions.json"),
+            "--vocab", str(feature_dir / "vocab.npy"), "--device", "cpu",
+            "--batch_size", "2", "--seq_len", "32", "--max_sentences", "4",
+            "--max_steps", "2", "--log_every", "1", "--num_workers", "2",
+            "--use_alignability_head", "1", "--prefix", str(tmp / "exp"),
+            "--align_anno", str(tmp / "anno.json"), "--cache_videos", "3",
+            "--profile_dir", str(tmp / "profile"), *CLI_SHAPE]
+    train_main(argv)
+    return tmp / "exp" / experiment_name(build_parser().parse_args(argv)), tmp / "profile"
+
+
+def test_train_cli_profile_dir_writes_a_trace(profiled_cli_run):
+    _, profile = profiled_cli_run
+    traces = list(profile.glob("trace_*.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any(n.startswith("aten::") for n in names)  # the steps' ops were recorded
+
+
+def test_metrics_writer_lines_carry_jax_keys(profiled_cli_run, rng):
+    """train.metrics.jsonl: per logged step the keys JAX's trainer writes
+    (train/cli.py:605-614: the step's metrics, device/sps, the loop's
+    breakdown shares and the device memory), per eval JAX's eval keys."""
+    from temporalalignnet_tpu.utils.logging import device_memory_stats as jax_memory_stats
+    from temporalalignnet_tpu.utils.profiling import StepBreakdown as JaxStepBreakdown
+
+    exp, _ = profiled_cli_run
+    lines = [json.loads(l) for l in (exp / "train.metrics.jsonl").read_text().splitlines()]
+    _, ref_m = jax_get_loss({k: jnp.asarray(v) for k, v in _loss_outputs(rng).items()},
+                            {k: jnp.asarray(v) for k, v in _batch(T=32).items()},
+                            jcfg.LossConfig(use_alignability_head=True))
+    device = ["sps", *JaxStepBreakdown().snapshot(), *jax_memory_stats()]
+    train_keys = {"step", "time", *(f"train/{k}" for k in [*ref_m, "grad_norm"]),
+                  *(f"train/device/{k}" for k in device)}
+    assert [l["step"] for l in lines] == [1, 2, 2]
+    assert set(lines[0]) == set(lines[1]) == train_keys
+    assert set(lines[2]) == {"step", "time", "eval/Recall", "eval/AUC"}
+    assert all(np.isfinite(v) for l in lines for v in l.values())
