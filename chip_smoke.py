@@ -4,7 +4,9 @@ kernel, holds each against its plain PyTorch version, drives the zero-shot
 HTM-Align evaluation, the Stage-1 training, the YouCook2 retrieval, the
 Stage-2 co-training, a stopped-and-resumed training run, rematerialized
 training and training from a MIL-NCE text tower of the full-width E6D6 TAN
-through the kernels, and the raw-feature MIL-NCE baseline, and times them.
+through the kernels, the raw-feature MIL-NCE baseline, and the HTM-AA
+product path (S3D features, HTM-AA generation, the end-to-end S3D
+fine-tune, a linear probe), and times them.
 
     python3 chip_smoke.py
 
@@ -112,6 +114,27 @@ Phases, each printing JSON lines:
              name the bf16 kernels of mha_fwd, mha_bwd and the MIL-NCE
              forward and gradients; its train.metrics.jsonl must hold a
              line per step.
+     s3d     S3D-G (random weights from the seed, random BN statistics) on
+             one 16 x 224² clip: f32 on the card against the CPU, the folded
+             conv1 against space_to_depth + conv1, bf16 against f32
+             (S3D_F32_REL, S3D_BF16_REL on the embedding's relative norm),
+             and every block's and BN's output bf16 under autocast.
+     e2e_step  the end-to-end train step at full width (32 clips of 16 x
+             224², bf16): frozen BN (no port kernel launched), with
+             train_bn_stats (the running statistics move) and freeze_early
+             (conv1 ... mixed_3c move by the decay alone); two f32 steps of 4
+             clips of 8 x 64² on the card against the CPU from one state
+             (E2E_* bars), which must move the params.
+     htm_aa_pipeline  tools/extract_features.py writes bf16 S3D features of
+             16 synthetic videos (build/chip_smoke_htm_aa/);
+             tools/generate_htm_aa.py aligns their captions with a random
+             E6D6 TAN: bf16 (12 mha_fwd launches per video, short route),
+             and f32 on the card against the CPU (the same rows); its csv
+             feeds python -m temporalalignnet_torch.train.end2end_cli at its
+             default widths (--decoder synthetic, 6 steps, runtime and
+             epoch checkpoints, params_latest.pth), which a second 2-step
+             run loads with --pretrain; linear_probe on the features, card
+             against CPU (the same top-1 and top-5).
   4. times   per shape mha_fwd's, the plain version's and PyTorch's SDPA
              time beside the card's bound (K and V counted at the valid keys
              only, ``attention_work``), and the same four times for each
@@ -124,7 +147,9 @@ Phases, each printing JSON lines:
              Last, in child processes, the device ms of a retrieval forward
              call at Lb = 96 and 256, and train steps/s at B = 64 (Stage 1
              plain and with --remat, cotrain), each with its device time and
-             top kernels.
+             top kernels; and e2e steps/s and clips/s at E2E with the device
+             time, idle share, peak memory and the bound from S3D's
+             multiply-adds.
              Device times come from torch.profiler (a kernel row's only
              when two sessions recorded the same launches); a time without
              such a session is taken with CUDA events and marked
@@ -144,6 +169,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -267,6 +293,38 @@ RESUME = dict(videos=384, cases=[
     ("cotrain_e2d2_backprop_freq2", 3, ["--model", "cotrain", "--num_encoder_layers", "2",
                                         "--num_joint_layers", "2", "--backprop_freq", "2"]),
 ])
+# Slice 6, the end-to-end S3D path at the JAX CLI's defaults: 16 videos x 2
+# clips of 16 x 224² per step (W words), joint dim 512, vocab 66,251.
+E2E = dict(B=16, n=2, T=16, S=224, W=32)
+# S3D, ‖a − b‖ / ‖b‖ of the embedding (and logits) of one clip: f32 on the
+# card against the CPU and the folded against the explicit conv1 differ only
+# in the order of f32 sums; bf16 against f32 rounds every layer's inputs.
+S3D_F32_REL = 1e-4
+S3D_BF16_REL = 5e-2
+# two f32 e2e steps, card against CPU: the CPU tests' bars against JAX
+# (tests/test_torch_end2end.py), at their lr and wd (lr · wd = 1e-3).  As an
+# Adam step moves an element by about lr, the params after two steps cannot
+# see the backward pass or the update; these are held apart on the same two
+# steps in f64 (in f32 a ReLU output just above 0 may round to 0 on the card
+# and not on the CPU, and then a max-pool window sends its gradient to
+# another element, which moves a whole branch's gradients: the f32 first
+# step's per-leaf errors are printed, not checked): each leaf's gradient,
+# ‖Δg‖ ≤ E2E_GRAD_RTOL · ‖g‖ + E2E_GRAD_ATOL · the whole gradient's norm (the
+# InfoNCE head runs in f32, as in JAX, and its rounding reaches the text
+# tower's biases, whose gradients nearly cancel: a third of this bar on an
+# H100);
+# then both optimizers are fed the CPU's gradients, and the update with the
+# decay taken out, u = (Δw + lr·wd·w)/lr (about ±1 where Adam moves an
+# element, and 0 for the decay alone), agrees within E2E_UPDATE_ATOL.
+E2E_LOSS_TOL, E2E_PARAM_ATOL, E2E_PARAM_RTOL = 2e-4, 2e-4, 1e-3
+E2E_GRAD_NORM_RTOL, E2E_GRAD_RTOL, E2E_GRAD_ATOL = 1e-3, 1e-4, 1e-6
+E2E_UPDATE_ATOL = 1e-6
+E2E_LR, E2E_WD = 2.5e-5, 40.0
+# the HTM-AA pipeline: synthetic videos of `seconds` s (> the 32 s an
+# overlap-seq window needs), `sentences` ASR sentences each, features of 16
+# frames at 16 fps and `size`², `batch` clips per encoder call
+HTM_AA = dict(videos=16, seconds=34, sentences=8, size=224, batch=8)
+HTM_AA_SCORE_TOL = 1e-4  # alignability scores, f32 card against CPU
 # published dense peaks (NVIDIA data sheets): bytes/s, bf16 FLOP/s
 CARD_PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
               "H100": (3.35e12, 989e12)}
@@ -2087,7 +2145,530 @@ def phase_profile_dir(child):
           f"train.metrics.jsonl: {logged}")
 
 
-STEP_TIME_CHILDREN = ("agreement", "init", "remat", "cotrain")
+# ------------------------------------------------------------- slice 6: S3D
+
+
+def randomize_bn_stats(torch, model, seed):
+    """BN running statistics drawn as tests/test_end2end.py:150-155 draws them
+    (means U(-0.2, 0.2), variances U(0.5, 1.5)), so a stats mix-up shows."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, b in model.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(torch.rand(b.shape, generator=g) * 0.4 - 0.2)
+            elif name.endswith("running_var"):
+                b.copy_(torch.rand(b.shape, generator=g) + 0.5)
+    return model
+
+
+def s3d_weights(torch, seed, text=False, **kw):
+    """An S3D (``text``: S3DWithText, vocab 66,251) of random weights from
+    ``seed``, BN statistics randomised, f32 on the CPU."""
+    from temporalalignnet_torch.models.s3d import S3D
+    from temporalalignnet_torch.train.end2end import S3DWithText
+
+    model = (S3DWithText if text else S3D)(**kw)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    return randomize_bn_stats(torch, model, seed + 1)
+
+
+def e2e_clips(torch, seed, B, T, S):
+    """[B, 3, T, S, S] clips in [0, 1]: the permute of the pipeline's
+    [B, T, S, S, 3], so channels_last_3d."""
+    x = np.random.RandomState(seed).rand(B, T, S, S, 3).astype(np.float32)
+    return torch.from_numpy(x).permute(0, 4, 1, 2, 3)
+
+
+def s3d_macs(torch, model, x, stem=False):
+    """Multiply-adds per clip of one S3D forward on ``x``, from the output
+    shapes: every Conv3d and Linear, and conv1 at its 3 x 4 x 8 x 8 raw-pixel
+    window (folded or not, 768 terms per output); ``stem``: (all, conv1's)."""
+    total, hooks = [0, 0], []
+
+    def add(n, first=False):
+        total[0] += n
+        total[1] += n if first else 0
+
+    for name, m in model.named_modules():
+        if name == "conv1":
+            hooks.append(m.register_forward_hook(
+                lambda m, i, o: add(o.numel() * 768, first=True)))
+        elif isinstance(m, torch.nn.Conv3d) and name != "conv1.conv1":
+            hooks.append(m.register_forward_hook(lambda m, i, o: add(
+                o.numel() * m.in_channels * int(np.prod(m.kernel_size)))))
+        elif isinstance(m, torch.nn.Linear) and not name.startswith("text_module"):
+            hooks.append(m.register_forward_hook(lambda m, i, o: add(o.numel() * m.in_features)))
+    try:
+        with torch.no_grad():
+            model(x, return_embedding=False)
+    finally:
+        for h in hooks:
+            h.remove()
+    per_clip = (total[0] // x.shape[0], total[1] // x.shape[0])
+    return per_clip if stem else per_clip[0]
+
+
+def phase_s3d(torch, card):
+    """S3D-G at the e2e width on one 16 x 224² clip, random weights from the
+    seed with random BN statistics: f32 on the card against the CPU, the
+    folded conv1 against space_to_depth + conv1 (f32, card), bf16 against
+    f32 on the card, and every block's and BN's output dtype under bf16
+    autocast.  Returns the forward's multiply-adds per clip."""
+    from temporalalignnet_torch.models.s3d import S3D, BatchNorm
+
+    dev = torch.device("cuda")
+    cpu = s3d_weights(torch, SEED + 20).eval()
+    x = e2e_clips(torch, SEED + 21, 1, E2E["T"], E2E["S"])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = cpu(x, return_embedding=True)
+        want_logits = cpu.fc(want)
+    cpu_seconds = time.perf_counter() - t0
+    macs = s3d_macs(torch, cpu, x)
+    card_model = S3D()
+    card_model.load_state_dict(cpu.state_dict())
+    card_model = card_model.to(dev, memory_format=torch.channels_last_3d).eval()
+    explicit = S3D(fold_s2d=False)
+    explicit.load_state_dict(cpu.state_dict())
+    explicit = explicit.to(dev, memory_format=torch.channels_last_3d).eval()
+    xc = x.to(dev)
+    dtypes, hooks = {}, []  # every block and every BN
+    for name, m in card_model.named_modules():
+        if name and (name.count(".") == 0 or isinstance(m, BatchNorm)) and name != "fc":
+            hooks.append(m.register_forward_hook(
+                lambda m, i, o, name=name: dtypes.__setitem__(name, str(o.dtype))))
+    with torch.no_grad():
+        emb32 = card_model(xc, return_embedding=True)
+        logits32 = card_model.fc(emb32)
+        emb_explicit = explicit(xc, return_embedding=True)
+        dtypes.clear()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            emb16 = card_model(xc, return_embedding=True)
+    for h in hooks:
+        h.remove()
+    torch.cuda.synchronize()
+    errs = {"f32_card_vs_cpu": norm_err(emb32.cpu(), want),
+            "f32_logits_card_vs_cpu": norm_err(logits32.cpu(), want_logits),
+            "folded_vs_explicit_conv1": norm_err(emb32, emb_explicit),
+            "bf16_vs_f32": norm_err(emb16, emb32)}
+    not_bf16 = {n: d for n, d in dtypes.items() if d != "torch.bfloat16"}
+    emit({"phase": "s3d", "card": card, "clip": [1, 3, E2E["T"], E2E["S"], E2E["S"]],
+          "rel_norm_err": errs, "tol": {"f32": S3D_F32_REL, "bf16": S3D_BF16_REL},
+          "emb_rms": rms(want), "blocks_checked_bf16": len(dtypes), "not_bf16": not_bf16,
+          "macs_per_clip": macs, "cpu_forward_seconds": cpu_seconds})
+    for what in ("f32_card_vs_cpu", "f32_logits_card_vs_cpu", "folded_vs_explicit_conv1"):
+        check(errs[what] <= S3D_F32_REL, f"S3D {what} {errs[what]} > {S3D_F32_REL}")
+    check(errs["bf16_vs_f32"] <= S3D_BF16_REL,
+          f"S3D bf16 against f32 {errs['bf16_vs_f32']} > {S3D_BF16_REL}")
+    check(len(dtypes) == len(hooks) and not not_bf16,
+          f"S3D outputs not bf16 under autocast: {not_bf16} ({len(dtypes)} of {len(hooks)})")
+    return macs
+
+
+def e2e_setup(torch, device, compute, grads=None, feed=None, dtype=None, **flags):
+    """S3DWithText (vocab 66,251, dim 512) of random weights from the seed on
+    ``device`` (channels_last_3d on the card), in ``dtype`` (f32 unless
+    given), its e2e optimizer (lr E2E_LR, wd E2E_WD, no warm-up: the first
+    step moves the params) and train step; ``grads``, when given a list,
+    gets each micro-step's gradients (name -> a CPU f64 copy) as backward
+    left them; ``feed`` (such a list) then replaces them, step by step, with
+    the given ones before the optimizer reads them."""
+    from temporalalignnet_torch.core.config import TrainConfig
+    from temporalalignnet_torch.train.end2end import make_e2e_optimizer, make_e2e_train_step
+
+    model = s3d_weights(torch, SEED + 22, text=True, **flags).to(dtype or torch.float32)
+    layout = torch.channels_last_3d if device.type == "cuda" else torch.contiguous_format
+    model = model.to(device, memory_format=layout)
+    cfg = TrainConfig(lr=E2E_LR, wd=E2E_WD, warmup_iterations=0, total_iterations=100)
+    opt = make_e2e_optimizer(model, cfg)
+    if grads is not None:
+        named, apply = dict(model.named_parameters()), opt.step
+
+        def spy():
+            grads.append({n: (p.grad.detach().double().cpu() if p.grad is not None
+                              else torch.zeros(p.shape, dtype=torch.float64))
+                          for n, p in named.items()})
+            for n, p in named.items() if feed else ():
+                p.grad = feed[len(grads) - 1][n].to(p.device, p.dtype)
+            return apply()
+
+        opt.step = spy
+    return model, make_e2e_train_step(model, opt, compute_dtype=compute)
+
+
+def e2e_batch(torch, seed, B, n, T, S, W=32):
+    """{'clips' [B, n, T, S, S, 3] in [0, 1], 'input_ids' [B, n, W]} on the host."""
+    rng = np.random.RandomState(seed)
+    return {"clips": torch.from_numpy(rng.rand(B, n, T, S, S, 3).astype(np.float32)),
+            "input_ids": torch.from_numpy(rng.randint(0, 66251, (B, n, W)).astype(np.int32))}
+
+
+def snapshot(model, f64=False):
+    return {k: (v.detach().double() if f64 else v.detach().float()).cpu().clone()
+            for k, v in model.state_dict().items()}
+
+
+def phase_e2e_step(torch):
+    """The e2e train step at full width (32 clips of 16 x 224², bf16) with
+    train_bn_stats (the running statistics move) and freeze_early (conv1 ...
+    mixed_3c move by the decay alone) and the frozen-BN default, whose
+    launches of the five port kernels are counted (none: S3D's convolutions
+    and the InfoNCE are PyTorch's); then two f32 steps of 4 clips of 8 x 64²
+    on the card against the CPU, from one state on the same batches: losses,
+    grad_norms and every param within the CPU tests' bars, and the first
+    step's gradients and its update, decay taken out, held apart (see
+    E2E_GRAD_RTOL)."""
+    dev = torch.device("cuda")
+    batch = {k: v.to(dev) for k, v in e2e_batch(torch, SEED + 23, E2E["B"], E2E["n"],
+                                                   E2E["T"], E2E["S"]).items()}
+    out = {}
+    for name, flags in (("frozen_bn", {}), ("train_bn_stats", {"train_bn_stats": True}),
+                        ("freeze_early", {"freeze_early": True})):
+        model, step = e2e_setup(torch, dev, torch.bfloat16, **flags)
+        before = snapshot(model)
+        metrics, launches, _ = counted_step(torch, step, batch)
+        after = snapshot(model)
+        loss = metrics["loss"].item()
+        stats_moved = sum(not torch.equal(after[k], before[k]) for k in after if "running" in k)
+        shrink = 1.0 - E2E_LR * E2E_WD
+        early_err = max(norm_err(after[k], before[k] * shrink) for k in after
+                        if k.split(".")[0] in ("conv1", "conv_2b", "mixed_3c")
+                        and "running" not in k and not k.endswith("bias")
+                        and ".bn" not in k)
+        out[name] = {"loss": loss, "grad_norm": metrics["grad_norm"].item(),
+                     "launches": launches, "stats_moved": stats_moved,
+                     "early_err_vs_decay_only": early_err}
+        check(np.isfinite(loss), f"e2e {name} step loss {loss}")
+        check(sum(launches.values()) == 0, f"e2e {name} step launched port kernels {launches}")
+        check((stats_moved > 0) == (name == "train_bn_stats"),
+              f"e2e {name}: {stats_moved} BN statistics moved")
+        if name == "freeze_early":
+            check(early_err <= 1e-6, f"freeze_early: early params moved beyond the decay "
+                                     f"({early_err})")
+        del model, step
+    del batch
+    torch.cuda.empty_cache()
+    emit({"phase": "e2e_step", "clips": [E2E["B"] * E2E["n"], E2E["T"], E2E["S"], E2E["S"]],
+          **out})
+    e2e_card_vs_cpu(torch)
+    return out["frozen_bn"]["launches"]
+
+
+def e2e_card_vs_cpu(torch, device="cuda"):
+    """The e2e step on ``device`` against the CPU, from one state on the same
+    two batches of 4 clips of 8 x 64²: two f32 steps (losses, grad_norms,
+    then every param) and two f64 steps (each step's gradients leaf by leaf;
+    then, the card's optimizer fed the CPU's gradients, its update with the
+    decay taken out, with a sign-flipped update planted against it); the
+    bars: see E2E_GRAD_RTOL."""
+    from temporalalignnet_torch.core.config import TrainConfig
+    from temporalalignnet_torch.train.optimizer import lr_at, no_decay
+
+    small = [e2e_batch(torch, SEED + 24 + i, 2, 2, 8, 64) for i in range(2)]
+    runs = {}
+    for d in ("cpu", device):
+        f32_grads = []
+        model, step = e2e_setup(torch, torch.device(d), torch.float32, grads=f32_grads)
+        metrics = [{k: v.item() for k, v in step(b).items() if k in ("loss", "grad_norm")}
+                   for b in small]
+        f32_params, grads = snapshot(model), []
+        model, step = e2e_setup(torch, torch.device(d), torch.float32, grads=grads,
+                                feed=runs["cpu"][3] if d != "cpu" else None,
+                                dtype=torch.float64)
+        params = [snapshot(model, f64=True)]
+        for b in small:
+            step({"clips": b["clips"].double(), "input_ids": b["input_ids"]})
+            params.append(snapshot(model, f64=True))
+        runs[d] = (metrics, f32_params, params, grads, f32_grads[0])
+        del model, step
+    (g_met, g_par, g_f64, g_grads, g_f32), (c_met, c_par, c_f64, c_grads, c_f32) = (
+        runs[device], runs["cpu"])
+    loss_err = max(abs(a["loss"] - b["loss"]) for a, b in zip(g_met, c_met))
+    gnorm_err = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                    for a, b in zip(g_met, c_met))
+    excess = {k: float(((g_par[k] - c_par[k]).abs() - E2E_PARAM_RTOL * c_par[k].abs()).max())
+              for k in c_par}
+    worst = sorted(excess.items(), key=lambda kv: -kv[1])[:3]
+    f32_grad_err = sorted(((k, norm_err(g_f32[k], c_f32[k])) for k in c_f32
+                           if c_f32[k].norm() > 0), key=lambda kv: -kv[1])[:6]
+    # each f64 step: the card's gradients against the CPU's, leaf by leaf
+    # (the error over its bar); then, both optimizers fed the CPU's, the
+    # update with the decay taken out; a sign-flipped update is planted
+    # against it
+    cfg = TrainConfig(lr=E2E_LR, wd=E2E_WD, warmup_iterations=0, total_iterations=100)
+    f64 = []
+    for i, (g_grad, c_grad) in enumerate(zip(g_grads, c_grads)):
+        whole = sum(g.pow(2).sum().item() for g in c_grad.values()) ** 0.5
+        grad_excess = {k: ((g_grad[k] - c_grad[k]).norm().item()
+                           / (E2E_GRAD_RTOL * c_grad[k].norm().item() + E2E_GRAD_ATOL * whole))
+                       for k in c_grad}
+        lr = lr_at(cfg, i)
+        upd = {"step": i, "grad_norm": whole,
+               "grad_err_over_bar": sorted(grad_excess.items(), key=lambda kv: -kv[1])[:3],
+               "lr": lr, "max_err": 0.0, "planted_sign_flip_err": 0.0, "adam_moved": 0,
+               "of": sum(g.numel() for g in c_grad.values()), "max_abs_u": 0.0}
+        for k in c_grad:
+            keep = 1 - lr * (0.0 if no_decay(k, "e2e") else E2E_WD)
+            u_card = (g_f64[i + 1][k] - g_f64[i][k] * keep) / lr
+            u_cpu = (c_f64[i + 1][k] - c_f64[i][k] * keep) / lr
+            upd["max_err"] = max(upd["max_err"], (u_card - u_cpu).abs().max().item())
+            upd["planted_sign_flip_err"] = max(upd["planted_sign_flip_err"],
+                                               (u_card + u_cpu).abs().max().item())
+            upd["adam_moved"] += int((u_cpu.abs() > 0.5).sum())
+            upd["max_abs_u"] = max(upd["max_abs_u"], u_cpu.abs().max().item())
+        f64.append(upd)
+    res = {
+        "f32_losses_card": [m["loss"] for m in g_met],
+        "f32_losses_cpu": [m["loss"] for m in c_met],
+        "f32_loss_max_abs_err": loss_err, "f32_grad_norm_max_rel_err": gnorm_err,
+        "f32_worst_param_excess": worst, "f32_first_step_grad_rel_err": f32_grad_err,
+        "f64_steps": f64,
+        "tol": {"loss": E2E_LOSS_TOL, "params": [E2E_PARAM_ATOL, E2E_PARAM_RTOL],
+                "grad_norm": E2E_GRAD_NORM_RTOL, "grad": [E2E_GRAD_RTOL, E2E_GRAD_ATOL],
+                "update": E2E_UPDATE_ATOL}}
+    emit({"phase": "e2e_step_card_vs_cpu", **res})
+    check(loss_err <= E2E_LOSS_TOL, f"e2e f32 card vs cpu loss {loss_err}")
+    check(gnorm_err <= E2E_GRAD_NORM_RTOL, f"e2e f32 card vs cpu grad_norm {gnorm_err}")
+    check(worst[0][1] <= E2E_PARAM_ATOL, f"e2e f32 card vs cpu params {worst}")
+    for upd in f64:
+        check(upd["grad_err_over_bar"][0][1] <= 1.0, f"e2e f64 card vs cpu gradients {upd}")
+        check(upd["adam_moved"] > 0,
+              f"the f64 step's update is the decay alone: {upd}")
+        check(upd["max_err"] <= E2E_UPDATE_ATOL, f"e2e f64 card vs cpu update {upd}")
+        check(upd["planted_sign_flip_err"] > E2E_UPDATE_ATOL,
+              f"a sign-flipped update would pass the update check: {upd}")
+    return res
+
+
+class SyntheticVideos:
+    """Whole synthetic videos for the extractor (``data/clips.py::
+    synthetic_decode`` of ``seconds`` x fps frames around the middle),
+    decoded up to ``ahead`` videos in advance in threads, in the sorted
+    order the extractor asks for them."""
+
+    def __init__(self, durations, ahead=4):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.durations = durations  # path -> seconds
+        self.order = sorted(durations)
+        self.ahead = ahead
+        self.pool = ThreadPoolExecutor(ahead)
+        self.futures = {}
+
+    def _decode(self, path, fps, size):
+        from temporalalignnet_torch.data.clips import synthetic_decode
+
+        secs = self.durations[path]
+        return synthetic_decode(path, secs / 2.0, secs * fps, fps, size)
+
+    def __call__(self, path, fps, size):
+        i = self.order.index(path)
+        for p in self.order[i:i + self.ahead]:
+            if p not in self.futures:
+                self.futures[p] = self.pool.submit(self._decode, p, fps, size)
+        return self.futures.pop(path).result()
+
+    def close(self):
+        self.pool.shutdown(cancel_futures=True)
+
+
+def timed_encoder(torch, encode, seconds):
+    """``encode`` with its wall time (the card synchronised) added to seconds[0]
+    and its clips to seconds[1]."""
+    def run(clips):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode(clips)  # a host array: the card is done
+        seconds[0] += time.perf_counter() - t0
+        seconds[1] += len(clips)
+        return out
+    return run
+
+
+def phase_htm_aa_pipeline(torch, card):
+    """The product path on the card, in order: (1) tools/extract_features.py
+    writes 1 fps S3D features (bf16, 16 frames of 224² a feature) of
+    HTM_AA["videos"] synthetic videos from an s3d_howto100m.pth-format file
+    of random weights; (2) tools/generate_htm_aa.py on them with a random
+    E6D6 TAN: bf16 (its mha_fwd launches counted: 12 per video, short
+    route), and f32 on the card against the CPU (the same rows, scores
+    within HTM_AA_SCORE_TOL); (3) the csv feeds the e2e CLI at its default
+    widths (--decoder synthetic, 6 steps, runtime and epoch checkpoints,
+    params_latest.pth), and a second 2-step run starts from that file with
+    --pretrain; (4) linear_probe on the card equals the CPU's on the
+    extracted features."""
+    from temporalalignnet_torch.eval.linear_probe import linear_probe
+    from temporalalignnet_torch.tools import extract_features, generate_htm_aa
+
+    root = os.path.join(REPO, "build", "chip_smoke_htm_aa")
+    shutil.rmtree(root, ignore_errors=True)  # a run before this one left its files
+    dirs = {k: os.path.join(root, k) for k in ("videos", "features", "e2e", "e2e_again")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    rng = np.random.RandomState(SEED + 30)
+    vocab = os.path.join(root, "vocab.npy")
+    np.save(vocab, np.array([f"w{i}" for i in range(66250)]))
+    s3d_path = os.path.join(root, "s3d_howto100m.pth")
+    torch.save({f"module.{k}": v for k, v in s3d_weights(torch, SEED + 31, text=True)
+                .state_dict().items()}, s3d_path)
+    V, secs = HTM_AA["videos"], HTM_AA["seconds"]
+    videos = {f"vid{i:02d}": os.path.join(dirs["videos"], f"vid{i:02d}.mp4") for i in range(V)}
+    for path in videos.values():
+        open(path, "w").close()  # the synthetic decoder reads only the name
+    out = {}
+
+    # (1) features
+    decoder = SyntheticVideos({p: secs for p in videos.values()})
+    encode_s = [0.0, 0]
+    encode = timed_encoder(torch, extract_features.make_s3d_encoder(
+        s3d_path, device="cuda", dtype=torch.bfloat16), encode_s)
+    t0 = time.perf_counter()
+    try:
+        written = extract_features.FeatureExtractor(
+            encode, size=HTM_AA["size"], batch_size=HTM_AA["batch"], decoder=decoder).run(
+                videos, dirs["features"])
+    finally:
+        decoder.close()
+    feats = {v: np.load(os.path.join(dirs["features"], f"{v}.npy")) for v in videos}
+    out["extract"] = {"videos": len(written), "features": encode_s[1],
+                      "run_seconds": time.perf_counter() - t0, "encode_seconds": encode_s[0],
+                      "clips_per_s": encode_s[1] / encode_s[0],
+                      "feature_rms": float(np.sqrt(np.mean(np.concatenate(
+                          list(feats.values())).astype(np.float32) ** 2)))}
+    check(len(written) == V and all(f.shape == (secs, 1024) and np.isfinite(f).all()
+                                    for f in feats.values()),
+          f"extract_features wrote {len(written)} of {V}: "
+          f"{[f.shape for f in feats.values()]}")
+
+    # (2) HTM-AA from a random E6D6 TAN
+    captions = {}
+    for vid in videos:
+        starts = np.sort(rng.uniform(0, secs - 4, HTM_AA["sentences"]))
+        captions[vid] = {"text": [" ".join(f"w{w}" for w in rng.randint(0, 66250, 6))
+                                  for _ in starts],
+                         "start": starts.tolist(), "end": (starts + 3.0).tolist()}
+    cap_path = os.path.join(root, "captions.json")
+    with open(cap_path, "w") as f:
+        json.dump(captions, f)
+    ckpt = os.path.join(root, "tan.pth.tar")
+    torch.save({"epoch": 0, "state_dict": make_model(torch, torch.device("cpu"), torch.float32)
+                .state_dict(), "iteration": 0}, ckpt)
+    args = ["--ckpt", ckpt, "--features", dirs["features"], "--captions", cap_path,
+            "--vocab", vocab]
+    csv_path = os.path.join(root, "htm_aa.csv")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = generate_htm_aa.main(args + ["--out", csv_path])
+    torch.cuda.synchronize()
+    gen_seconds = time.perf_counter() - t0
+    launches, routes = read_counts(), read_routes()
+    f32 = {d: generate_htm_aa.main(args + ["--out", os.path.join(root, f"htm_aa_{d}.csv"),
+                                           "--device", d, "--f32"])
+           for d in ("cuda", "cpu")}
+    key = lambda r: (r["vid"], r["text"], r["timestamp"])
+    score_err = max([abs(a["score"] - b["score"]) for a, b in zip(f32["cuda"], f32["cpu"])]
+                    or [0.0])
+    out["generate"] = {"pairs": len(rows), "sentences": V * HTM_AA["sentences"],
+                       "seconds_bf16": gen_seconds, "launches": launches,
+                       "mha_fwd_routes": routes["mha_fwd"],
+                       "f32_rows_equal": [key(r) for r in f32["cuda"]] == [key(r) for r in
+                                                                           f32["cpu"]],
+                       "f32_pairs": len(f32["cpu"]), "f32_score_max_abs_err": score_err,
+                       "bf16_rows_equal_f32": [key(r) for r in rows] == [key(r) for r in
+                                                                         f32["cpu"]]}
+    check(len(rows) > 0, "generate_htm_aa wrote no pair")
+    check(launches["mha_fwd"] == 12 * V and routes["mha_fwd"]["short"] == 12 * V
+          and sum(launches.values()) == launches["mha_fwd"],
+          f"generate_htm_aa launches {launches}, routes {routes['mha_fwd']}")
+    check(out["generate"]["f32_rows_equal"] and score_err <= HTM_AA_SCORE_TOL,
+          f"generate_htm_aa f32 card vs cpu: {out['generate']}")
+
+    # (3) the e2e CLI on that csv, then again from its export
+    cli = [sys.executable, "-m", "temporalalignnet_torch.train.end2end_cli",
+           "--htm_aa_csv", csv_path, "--video_root", dirs["videos"], "--vocab", vocab,
+           "--decoder", "synthetic"]
+    t0 = time.perf_counter()
+    first = finish(start(cli + ["--pretrain", s3d_path, "--max_steps", "6", "--epochs", "6",
+                                "--runtime_save_iter", "3", "--log_every", "1",
+                                "--prefix", dirs["e2e"]]), "e2e CLI", timeout=900)
+    first_seconds = time.perf_counter() - t0
+    exp = os.path.join(dirs["e2e"], os.listdir(dirs["e2e"])[0])  # e2e_bs16_lr1e-05_f16
+    final = json.loads(first.strip().splitlines()[-1])
+    export = os.path.join(exp, "params_latest.pth")
+    again = finish(start(cli + ["--pretrain", export, "--max_steps", "2", "--epochs", "2",
+                                "--prefix", dirs["e2e_again"]]), "e2e CLI --pretrain", 900)
+    final_again = json.loads(again.strip().splitlines()[-1])
+    listing = {d: sorted(os.listdir(os.path.join(exp, d))) for d in ("runtime", "epoch")}
+    out["e2e_cli"] = {"final": final, "seconds": first_seconds, "checkpoints": listing,
+                      "losses": [l for l in first.splitlines() if l.startswith("Epoch")],
+                      "again_final": final_again,
+                      "again_pretrain_lines": [l for l in again.splitlines()
+                                               if l.startswith("[pretrain]")]}
+    check(final["final_step"] == 6 and np.isfinite(final["loss"]), f"e2e CLI {final}")
+    check(listing["runtime"] == ["step_000000006.pth.tar"] and len(listing["epoch"]) == 5
+          and os.path.exists(export), f"e2e CLI checkpoints {listing}")
+    check(final_again["final_step"] == 2 and np.isfinite(final_again["loss"])
+          and not out["e2e_cli"]["again_pretrain_lines"],
+          f"e2e CLI from its params_latest.pth: {final_again}")
+
+    # (4) the probe: each video a class, its first 24 s to train, the rest to test
+    X = np.stack([feats[v].astype(np.float32) for v in sorted(feats)])  # [V, secs, 1024]
+    y = np.repeat(np.arange(V), secs).reshape(V, secs)
+    split = (X[:, :24].reshape(-1, 1024), y[:, :24].reshape(-1),
+             X[:, 24:].reshape(-1, 1024), y[:, 24:].reshape(-1))
+    probe = {d: linear_probe(*split, num_classes=V, device=d) for d in ("cuda", "cpu")}
+    out["probe"] = probe
+    emit({"phase": "htm_aa_pipeline", "card": card, "videos": V, "seconds_per_video": secs,
+          **out})
+    check((probe["cuda"]["top1"], probe["cuda"]["top5"]) == (probe["cpu"]["top1"],
+                                                             probe["cpu"]["top5"]),
+          f"linear_probe card vs cpu {probe}")
+    return launches, routes["mha_fwd"]
+
+
+def e2e_step_time(torch, card):
+    """The e2e train step at full width (E2E: 32 clips of 16 x 224², bf16,
+    frozen BN): steps/s and clips/s from CUDA events around back-to-back
+    steps on one batch, the device time and idle share (torch.profiler),
+    every kernel's device ms, the peak memory of a step, and the bound from
+    the S3D forward's multiply-adds (a step: 3x the forward, conv1 2x as the
+    clips take no gradient; 2 FLOPs each)."""
+    dev = torch.device("cuda")
+    model, step = e2e_setup(torch, dev, torch.bfloat16)
+    macs, stem_macs = s3d_macs(torch, model, e2e_clips(torch, SEED, 1, E2E["T"],
+                                                      E2E["S"]).to(dev), stem=True)
+    batch = {k: v.to(dev) for k, v in e2e_batch(torch, SEED + 25, E2E["B"], E2E["n"],
+                                                   E2E["T"], E2E["S"]).items()}
+    run = lambda: step(batch)
+    step_ms = cuda_ms(torch, run, reps=10, warmup=3)
+    busy_ms, per_kernel, host_ms, timing = device_profile(torch, run, reps=5, warmup=1)
+    busy_ms = busy_ms if timing == "profiler" else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    clips = E2E["B"] * E2E["n"]
+    # forward, data gradient and weight gradient: 3x the forward, but the
+    # clips need no gradient, so conv1 does 2x
+    flops = 2 * (3 * macs - stem_macs) * clips
+    _, bf16_peak = peaks(card)
+    top_host = sorted(host_ms.items(), key=lambda kv: -kv[1])[:15]
+    emit({"phase": "times", "metric": "e2e_steps_per_s", "card": card, "value": 1e3 / step_ms,
+          "ms_per_step": step_ms, "clips_per_s": clips * 1e3 / step_ms, "batch": E2E,
+          "model": "S3D-G + word2vec text tower, dim 512, vocab 66,251, bf16 compute, "
+                   "frozen BN, channels_last_3d",
+          "device_busy_ms_per_step": busy_ms, "timing": timing,
+          "idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / step_ms),
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "s3d_forward_macs_per_clip": macs, "conv1_macs_per_clip": stem_macs,
+          "step_flops": flops,
+          "bound_ms_bf16_peak": flops / bf16_peak * 1e3,
+          "kernels_ms_per_step": by_name(per_kernel),
+          "top_host_ops_self_ms_per_step": {k[:90]: v for k, v in top_host}})
+
+
+STEP_TIME_CHILDREN = ("agreement", "init", "remat", "cotrain", "e2e")
 
 
 def phase_step_times():
@@ -2166,7 +2747,11 @@ def step_time(torch, which, card):
     step), 'remat' (the same with --remat) or 'cotrain' (a Stage-2 one): steps/s with the device time, idle
     share, every kernel's device ms and the top host ops; 'agreement': the
     agreement self-labelling alone at the cotrain step's shapes.  Each also
-    counts the call's host-device synchronisations."""
+    counts the call's host-device synchronisations.  'e2e': the end-to-end
+    S3D step at E2E (``e2e_step_time``)."""
+    if which == "e2e":
+        e2e_step_time(torch, card)
+        return
     from temporalalignnet_torch.core.config import LossConfig
     from temporalalignnet_torch.data.synthetic import synthetic_batch
     from temporalalignnet_torch.losses.agreement import agreement_self_labelling
@@ -2351,6 +2936,9 @@ def main(argv) -> int:
     finally:
         stop([profile_child[0]])
     timed(phase_resume, torch, yc2_files)
+    timed(phase_s3d, torch, card)
+    e2e_launches = timed(phase_e2e_step, torch)
+    htm_aa_launches, htm_aa_routes = timed(phase_htm_aa_pipeline, torch, card)
     timed(phase_step_times)
     emit({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t_start})
 
@@ -2427,6 +3015,10 @@ def main(argv) -> int:
     for e in entries:
         e["launches_remat_path"] = remat_launches[e["name"]]
         e["launches_milnce_ckpt_path"] = {m: n[e["name"]] for m, n in milnce_launches.items()}
+        # slice 6: one full-width e2e step; generate_htm_aa over HTM_AA's videos
+        e["launches_e2e_path"] = e2e_launches[e["name"]]
+        e["launches_htm_aa_path"] = htm_aa_launches[e["name"]]
+    entries[0]["launches_by_route_htm_aa"] = htm_aa_routes
     emit({"kernels": [dict(route="cuda", **e) for e in entries]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

@@ -7,6 +7,13 @@
   ``scale`` becomes ``weight``, and the separate q/k/v projections pack into
   ``attn.in_proj_weight [3D, D]`` rows [q; k; v] as nn.MultiheadAttention
   stores them.
+- ``s3d_state_dict_from_jax(variables)``: JAX S3D variables (the output of
+  ``temporalalignnet_tpu/checkpoint/s3d_convert.py::s3d_torch_to_variables``)
+  -> the ``models/s3d.py`` / ``s3d_howto100m.pth`` key space, its inverse:
+  conv kernels [kT, kH, kW, I, O] -> ``weight [O, I, kT, kH, kW]``, BN
+  ``scale``/``bias`` and ``mean``/``var`` -> ``weight``/``bias`` and
+  ``running_mean``/``running_var``, Dense kernels transposed, the text tower
+  under ``text_module.``.
 - ``load_reference_checkpoint(path, model)``: a reference ``.pth.tar``
   (``{epoch, state_dict, best_acc, optimizer, iteration}``) read natively and
   loaded with ``strict=True``.
@@ -88,6 +95,42 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             for fc in ("c_fc", "c_proj"):
                 out[f"{pre}.mlp.{fc}.weight"] = _t(blk["mlp"][fc]["kernel"]).T.contiguous()
                 out[f"{pre}.mlp.{fc}.bias"] = _t(blk["mlp"][fc]["bias"])
+    return out
+
+
+def _leaves(tree: Dict[str, Any], path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def s3d_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """{'params', 'batch_stats'[, 'text_params']} of a JAX S3D (numpy leaves)
+    -> f32 tensors under the reference S3D keys; raises on a leaf it does not
+    know."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, v in _leaves(variables["params"]):
+        pre, mod, leaf = ".".join(path[:-1]), path[-2], path[-1]
+        if mod.startswith("conv") and leaf == "kernel":
+            out[f"{pre}.weight"] = _t(v).permute(4, 3, 0, 1, 2).contiguous()
+        elif mod.startswith("bn") and leaf in ("scale", "bias"):
+            out[f"{pre}.{'weight' if leaf == 'scale' else 'bias'}"] = _t(v)
+        elif mod == "fc" and leaf in ("kernel", "bias"):
+            out[f"{pre}.{'weight' if leaf == 'kernel' else 'bias'}"] = (
+                _t(v).T.contiguous() if leaf == "kernel" else _t(v))
+        else:
+            raise KeyError(f"unknown S3D param {'/'.join(path)}")
+    stat = {"mean": "running_mean", "var": "running_var"}
+    for path, v in _leaves(variables.get("batch_stats") or {}):
+        out[".".join(path[:-1]) + "." + stat[path[-1]]] = _t(v)
+    text = variables.get("text_params") or {}
+    if text:
+        out["text_module.word_embd.weight"] = _t(text["word_embd"]["embedding"])
+        for fc in ("fc1", "fc2"):
+            out[f"text_module.{fc}.weight"] = _t(text[fc]["kernel"]).T.contiguous()
+            out[f"text_module.{fc}.bias"] = _t(text[fc]["bias"])
     return out
 
 
@@ -200,8 +243,6 @@ def merge_state_dict(base: Dict[str, torch.Tensor], loaded: Dict[str, Any]
         merged[k] = new.to(v.dtype)
     report += [f"unexpected in checkpoint (dropped): {k}" for k in loaded if k not in base]
     return merged, report
-
-    return state_dict, {k: v.detach().clone() for k, v in state_dict.items()}
 
 
 def merge_into(module: torch.nn.Module, part: Dict[str, Any], name: str) -> List[str]:

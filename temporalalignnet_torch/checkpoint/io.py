@@ -5,7 +5,9 @@ utils/utils.py:23-57):
 - ``save_runtime``: every ``--runtime_save_iter`` steps, ``runtime/`` keeps
   only the newest (utils.py:23-36; orbax ``max_to_keep=1``);
 - ``save_epoch``: one file per epoch under ``epoch/``, the ``MAX_BEST`` with
-  the best ``BEST_METRIC`` kept (utils.py:39-57; orbax ``best_fn`` with
+  the highest ``best_metric`` kept (``Recall`` for the TAN trainer; the
+  end-to-end trainer ranks by ``loss``, saved as minus the epoch's mean
+  loss; utils.py:39-57; orbax ``best_fn`` with
   ``best_mode='max'``): a stable sort by the metric in epoch order, the last
   ``MAX_BEST`` survive, so the newer of two equal epochs wins, and the epoch
   just saved goes at once when it ranks below all the others.  A metric the
@@ -39,7 +41,6 @@ import torch
 from temporalalignnet_torch.checkpoint.convert import atomic_save
 
 MAX_BEST = 5
-BEST_METRIC = "Recall"  # HTM-Align recall (train/main.py:165-212)
 _RUNTIME = re.compile(r"^step_(\d+)\.pth\.tar$")
 _EPOCH = re.compile(r"^epoch_(\d+)\.pth\.tar$")
 
@@ -83,7 +84,10 @@ def latest(directory: str) -> Optional[Tuple[int, str]]:
 class Checkpointer:
     """Runtime and epoch checkpoints of one experiment directory."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, best_metric: str = "Recall"):
+        """``best_metric``: the key of ``save_epoch``'s metrics that ranks the
+        epochs (default the HTM-Align recall, train/main.py:165-212)."""
+        self.best_metric = best_metric
         self.runtime_dir = os.path.join(directory, "runtime")
         self.epoch_dir = os.path.join(directory, "epoch")
         for d in (self.runtime_dir, self.epoch_dir):
@@ -97,7 +101,7 @@ class Checkpointer:
             self._epochs[epoch] = (self._metric(head.get("metrics")), int(head["iteration"]))
 
     def _metric(self, metrics: Optional[dict]) -> float:
-        return float((metrics or {}).get(BEST_METRIC, 0.0))
+        return float((metrics or {}).get(self.best_metric, 0.0))
 
     # ------------------------------------------------------------------ save
 

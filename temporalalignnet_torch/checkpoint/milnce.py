@@ -1,5 +1,5 @@
 """The MIL-NCE checkpoint (``s3d_howto100m.pth``) -> the port's word2vec text
-tower and the S3D ``fc`` (the text and ``fc`` half of
+tower, the S3D ``fc`` and the S3D backbone (counterpart of
 temporalalignnet_tpu/checkpoint/s3d_convert.py:39-108).
 
 - ``text_module.{word_embd,fc1,fc2}`` (Sentence_Embedding, reference
@@ -8,10 +8,13 @@ temporalalignnet_tpu/checkpoint/s3d_convert.py:39-108).
   transpose;
 - ``fc.{weight,bias}`` (the 1024 -> 512 video projection) -> the state_dict
   of ``RawFeatureBaseline.visual_proj``;
-- the S3D conv and BatchNorm keys are read, classified as the JAX converter
-  classifies them (its report lines for keys it does not recognise are
-  returned word for word) and left aside under ``"s3d"``: the S3D backbone
-  comes with the end-to-end model.
+- the S3D conv, BatchNorm and gating keys are read, classified as the JAX
+  converter classifies them (its report lines for keys it does not
+  recognise are returned word for word) and kept under ``"s3d"``;
+  ``s3d_state_dict`` joins them, ``fc`` and the text tower into the
+  ``models/s3d.py`` key space (the reference's, so no transpose), which
+  ``S3D`` and ``S3DWithText`` load with ``strict=True``.  The end-to-end
+  trainer's ``params_latest.pth`` is in the same key space.
 The ``module.``, ``backbone.`` and ``s3d.`` prefixes of wrapped checkpoints
 are stripped; ``num_batches_tracked`` is dropped.
 """
@@ -77,4 +80,21 @@ def load_milnce_checkpoint(path: str, verbose: bool = True) -> Dict[str, Any]:
     if verbose and report:
         print("[s3d_convert] " + "\n[s3d_convert] ".join(report))
     out["report"] = report
+    return out
+
+
+def s3d_state_dict(loaded: Dict[str, Any], text: bool = True) -> Dict[str, torch.Tensor]:
+    """``load_milnce_checkpoint``'s parts -> one state_dict of ``S3D`` (with
+    ``text``, of ``S3DWithText``): the backbone's keys (a FrozenBN
+    checkpoint's ``.scale`` read as ``.weight``, as the JAX converter reads
+    it), ``fc.*`` and ``text_module.*``."""
+    out = {}
+    for key, v in loaded["s3d"].items():
+        parts = key.split(".")
+        if parts[-2].startswith("bn") and parts[-1] == "scale":
+            parts[-1] = "weight"
+        out[".".join(parts)] = v
+    out.update({f"fc.{k}": v for k, v in (loaded["fc"] or {}).items()})
+    if text:
+        out.update({f"text_module.{k}": v for k, v in (loaded["text"] or {}).items()})
     return out

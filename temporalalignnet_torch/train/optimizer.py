@@ -5,7 +5,12 @@ temporalalignnet_tpu/train/optimizer.py, whose optax chain is
 
 - No weight decay for biases and the ``ln_*`` LayerNorm params
   (train/main.py:330-356); the frozen word2vec ``word_embd`` gets no update;
-  the ``bce`` policy trains only ``binary_head`` (main.py:345-352).
+  the ``bce`` policy trains only ``binary_head`` (main.py:345-352).  The
+  ``e2e`` policy is the end-to-end S3D fine-tune's (JAX
+  train/end2end.py:168-185): no decay for biases and ``bn*`` params, and
+  every param in the update, frozen ones too (the word embedding, the
+  ``freeze_early`` stages): they get a zero gradient, so AdamW's decoupled
+  decay still shrinks them, as optax's ``adamw`` does.
 - lr: linear warmup from 0, then cosine decay to 0 (main.py:486-499).  It
   counts optimizer updates, not micro-steps, so the first update has lr 0,
   as optax evaluates the schedule at its update count.
@@ -31,14 +36,19 @@ from temporalalignnet_torch.core.config import TrainConfig
 MAX_CONSECUTIVE_ERRORS = 100
 
 
-def no_decay(name: str) -> bool:
-    """Biases and LayerNorm params skip weight decay (main.py:332)."""
+def no_decay(name: str, policy: str = "default") -> bool:
+    """Biases and LayerNorm params skip weight decay (main.py:332); under
+    ``e2e`` biases and BN params (main_nce.py:252-272)."""
     parts = name.split(".")
+    if policy == "e2e":
+        return parts[-1] == "bias" or any(p.startswith("bn") for p in parts)
     return (parts[-1].endswith("bias") or any(p.startswith("ln_") for p in parts)
             or "logit_scale" in parts or "entropy_scale" in parts)
 
 
 def trainable(name: str, policy: str) -> bool:
+    if policy == "e2e":
+        return True
     if "word_embd" in name:  # frozen word2vec embedding
         return False
     return "binary_head" in name if policy == "bce" else True
@@ -62,11 +72,12 @@ class Optimizer:
 
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig, policy: str = "default"):
         self.cfg = cfg
-        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad or policy == "e2e"]
         self.grad_params: List[torch.nn.Parameter] = [p for _, p in named]
         self.params = [p for n, p in named if trainable(n, policy)]
-        decay = [p for n, p in named if trainable(n, policy) and not no_decay(n)]
-        rest = [p for n, p in named if trainable(n, policy) and no_decay(n)]
+        decay = [p for n, p in named if trainable(n, policy) and not no_decay(n, policy)]
+        rest = [p for n, p in named if trainable(n, policy) and no_decay(n, policy)]
         groups = [g for g in ({"params": decay, "weight_decay": cfg.wd},
                               {"params": rest, "weight_decay": 0.0}) if g["params"]]
         self.adamw = torch.optim.AdamW(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8)

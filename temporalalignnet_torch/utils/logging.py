@@ -4,8 +4,9 @@ utils/tensorboard_utils.py:76-110, the tensorboardX PlotterThread).
 
 ``MetricsWriter`` queues scalar writes for a daemon thread, so logging never
 blocks the train step: one JSON line per ``add_scalars`` call in
-``<logdir>/train.metrics.jsonl`` always, and TensorBoard events under
-``<logdir>/train/`` when ``tensorboardX`` imports (an optional extra, not a
+``<logdir>/<name>.metrics.jsonl`` always (``name``: ``train``, or ``e2e``
+for the end-to-end trainer), and TensorBoard events under
+``<logdir>/<name>/`` when ``tensorboardX`` imports (an optional extra, not a
 dependency; ``torch.utils.tensorboard`` is not used, since it imports
 TensorFlow where that is installed).
 """
@@ -23,14 +24,14 @@ from typing import Dict
 class MetricsWriter:
     """Queue-backed scalar writer; one JSONL line per add_scalars call."""
 
-    def __init__(self, logdir: str):
+    def __init__(self, logdir: str, name: str = "train"):
         os.makedirs(logdir, exist_ok=True)
-        self.path = os.path.join(logdir, "train.metrics.jsonl")
+        self.path = os.path.join(logdir, f"{name}.metrics.jsonl")
         self._file = open(self.path, "a", buffering=1)
         try:
             from tensorboardX import SummaryWriter  # optional
 
-            self._tb = SummaryWriter(logdir=os.path.join(logdir, "train"), flush_secs=60)
+            self._tb = SummaryWriter(logdir=os.path.join(logdir, name), flush_secs=60)
         except Exception:
             self._tb = None
         self._q: queue.Queue = queue.Queue(maxsize=128)

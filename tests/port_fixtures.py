@@ -122,3 +122,32 @@ def write_milnce_checkpoint(path, vocab_rows, video_dim, seed=0, drop=()):
                "module.text_module.word_embd_extra.weight": rand(4)})
     torch.save({"state_dict": sd}, path)
     return text
+
+
+def jax_s3d_variables(model, *inputs, seed=0):
+    """Variables of a JAX S3D or S3DWithText, made from a numpy seed in the
+    shapes of its init (``jax.eval_shape``: no init compile): convs He
+    normal, Dense LeCun normal, biases small, BN scale near 1 and its running
+    statistics randomised, so a swapped stat or transpose shows.  An
+    S3DWithText's come as {'params': {'video', 'text'}, 'batch_stats'}."""
+    rng = np.random.RandomState(seed)
+    key = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(model.init, key, *inputs)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        shape = leaf.shape
+        if name == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            return (rng.randn(*shape) * np.sqrt(2.0 / fan_in)).astype(np.float32)
+        if name == "embedding":
+            return rng.randn(*shape).astype(np.float32) * 0.3
+        if name == "scale":
+            return rng.uniform(0.8, 1.2, shape).astype(np.float32)
+        if name == "mean":
+            return rng.uniform(-0.2, 0.2, shape).astype(np.float32)
+        if name == "var":
+            return rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        return (rng.randn(*shape) * 0.02).astype(np.float32)  # biases
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
