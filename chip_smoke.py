@@ -4,16 +4,21 @@ kernel, holds each against its plain PyTorch version, drives the zero-shot
 HTM-Align evaluation, the Stage-1 training, the YouCook2 retrieval, the
 Stage-2 co-training, a stopped-and-resumed training run, rematerialized
 training and training from a MIL-NCE text tower of the full-width E6D6 TAN
-through the kernels, the raw-feature MIL-NCE baseline, and the HTM-AA
-product path (S3D features, HTM-AA generation, the end-to-end S3D
-fine-tune, a linear probe), and times them.
+through the kernels, the raw-feature MIL-NCE baseline, the HTM-AA product
+path (S3D features, HTM-AA generation, the end-to-end S3D fine-tune, a
+linear probe), the BERT TAN at bert-base-uncased's widths (training, both
+CLIs), the CLIP baseline and the CLIP and TimeSformer feature extractors,
+and times them.
 
     python3 chip_smoke.py
 
 Phases, each printing JSON lines:
   1. build   nvcc builds temporalalignnet_torch/csrc/*.cu into build/torch_kernels/.
   2. kernel  mha_fwd against attention_reference on the card at the shapes the
-             eval and train paths give it, ragged key masks, on each route:
+             eval, train and tower paths give it (TOWER_SHAPES: BERT's
+             [1024, 12, 32, 64] with every fourth row fully padded, CLIP's
+             [256, 12, 50, 64], TimeSformer's [784, 12, 8, 64] and
+             [32, 12, 197, 64]), ragged key masks, on each route:
              bf16 "short" (S = 64, 72, 80, 37), bf16 "long" (S = 200 and the
              global method's [1, 8, 1088, 64], with key splits), "f32" at all
              of them; then at the retrieval buckets S = 32, 96, 128 (short),
@@ -25,7 +30,7 @@ Phases, each printing JSON lines:
      kernel_bwd  mha_bwd (dq, dk, dv) against mha_bwd_reference, the plain
              version with the kernel's bf16 roundings, per element
              (GRAD_TOL); planted faults must exceed the limit.  Each route:
-             bf16 "fused" at the training shapes and an odd S, bf16 "v2" at
+             bf16 "fused" at the training shapes, BERT's and an odd S, bf16 "v2" at
              S = 200, "f32" at all four; the route each call took is checked.
      kernel_milnce  milnce_fwd against milnce_reference (the loss's
              elements) and its four logsumexps against milnce_lse_reference,
@@ -135,6 +140,26 @@ Phases, each printing JSON lines:
              epoch checkpoints, params_latest.pth), which a second 2-step
              run loads with --pretrain; linear_probe on the features, card
              against CPU (the same top-1 and top-5).
+     bert    slice 7: build/chip_smoke_bert/ gets an HF BERT directory at
+             bert-base-uncased's widths (config.json, a synthetic 30,522-line
+             vocab.txt, random pytorch_model.bin weights in HF's key space);
+             the E6D6 BERT TAN's f32 forward on the card against the CPU
+             (B = 2, N = 4); BERT_STEPS Stage-1 and then cotrain steps at
+             B = 64, N = 16, W = 32, bf16, fused, BERT from that file, each
+             step launching mha_fwd 24 times (48 in cotrain) and mha_bwd 24
+             times (short and fused routes) and each MIL-NCE kernel twice.
+     bert_cli  the train CLI with --language_model bert --bert_dir (3 steps
+             at B = 16), --model cotrain --pretrain on its checkpoint, then
+             the eval CLI's two tasks on the twin checkpoint at once.
+     clip_baseline  the eval CLI's CLIP baseline (--clip_text_ckpt of random
+             HF-key-space ViT-B/32 text weights, byte-BPE files, cos) on a
+             corpus of 512-d features: f32 card and CPU agree, bf16 runs; the
+             causal attention is plain (no launches, counted).
+     tower_extract  make_clip_encoder (ViT-B/32, 256 frames a call) and
+             make_timesformer_encoder (base, 4 clips of 8 x 224²) from
+             random HF-key-space weights: clips/s in bf16 with their
+             launches (12 short; 12 short + 12 long), bf16 against f32, f32
+             card against CPU (TOWER_BF16_REL, TOWER_F32_REL).
   4. times   per shape mha_fwd's, the plain version's and PyTorch's SDPA
              time beside the card's bound (K and V counted at the valid keys
              only, ``attention_work``), and the same four times for each
@@ -146,8 +171,9 @@ Phases, each printing JSON lines:
              windows/s of the bench.py workload right after the eval phase.
              Last, in child processes, the device ms of a retrieval forward
              call at Lb = 96 and 256, and train steps/s at B = 64 (Stage 1
-             plain and with --remat, cotrain), each with its device time and
-             top kernels; and e2e steps/s and clips/s at E2E with the device
+             plain and with --remat, cotrain, and the BERT TAN's Stage 1 and
+             cotrain), each with its device time, peak memory and top
+             kernels; and e2e steps/s and clips/s at E2E with the device
              time, idle share, peak memory and the bound from S3D's
              multiply-adds.
              Device times come from torch.profiler (a kernel row's only
@@ -325,6 +351,39 @@ E2E_LR, E2E_WD = 2.5e-5, 40.0
 # frames at 16 fps and `size`², `batch` clips per encoder call
 HTM_AA = dict(videos=16, seconds=34, sentences=8, size=224, batch=8)
 HTM_AA_SCORE_TOL = 1e-4  # alignability scores, f32 card against CPU
+# Slice 7: the BERT TAN at bert-base-uncased's published widths (its config.json) and the
+# trainer's default batch (B = 64, N = 16, W = 32: 1,024 sentences a step)
+BERT_CFG = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                intermediate_size=3072, max_position_embeddings=512, type_vocab_size=2,
+                layer_norm_eps=1e-12, hidden_act="gelu")
+BERT_STEPS = 6
+# a BERT TAN step runs BERT's 12 layers forward and backward besides the aligner's 12
+# blocks; the cotrain step's twin adds 24 forward launches (its BERT and its aligner)
+BERT_STEP_LAUNCHES = dict(STEP_LAUNCHES, mha_fwd=24, mha_bwd=24)
+BERT_STEP_ROUTES = dict(STEP_ROUTES, mha_fwd={"short": 24, "long": 0, "f32": 0},
+                        mha_bwd={"fused": 24, "v2": 0, "f32": 0})
+BERT_COTRAIN_LAUNCHES = dict(BERT_STEP_LAUNCHES, mha_fwd=48)
+BERT_COTRAIN_ROUTES = dict(BERT_STEP_ROUTES, mha_fwd={"short": 48, "long": 0, "f32": 0})
+# openai/clip-vit-base-patch32's config: text 512 wide, 12 layers of 8 heads, 77 tokens,
+# vocab 49408; vision 768 wide, 12 layers of 12 heads, patch 32 of 224²; projections 512.
+# facebook/timesformer-base-finetuned-k400's: 768 wide, 12 layers of 12 heads, MLP 3072,
+# patch 16, 8 frames of 224² (196 patches)
+CLIP_TEXT = dict(vocab_size=49408, context_length=77, width=512, layers=12, heads=8,
+                 embed_dim=512)
+CLIP_VISION = dict(width=768, layers=12, heads=12, patch_size=32, image_size=224, embed_dim=512)
+TIMESFORMER = dict(width=768, layers=12, heads=12, patch_size=16, frames=8, image_size=224,
+                   mlp_width=3072)
+CLIP_FRAMES, TIMESFORMER_CLIPS = 256, 4  # per encoder call
+# mha_fwd at the towers' shapes: BERT's [B N, 12, W, 64] (padded sentence slots fully
+# masked), ViT-B/32 over 256 frames (S = 50), TimeSformer's temporal [4 · 196, 12, 8, 64]
+# and spatial [4 · 8, 12, 197, 64] attention, the last three unmasked; mha_bwd at BERT's
+BERT_SHAPE = (TRAIN["B"] * TRAIN["N"], 12, TRAIN["W"], 64)
+TOWER_SHAPES = [BERT_SHAPE, (CLIP_FRAMES, 12, 50, 64), (TIMESFORMER_CLIPS * 196, 12, 8, 64),
+                (TIMESFORMER_CLIPS * 8, 12, 197, 64)]
+# the towers' outputs, ‖a − b‖ / ‖b‖: f32 on the card against the CPU differs by the order
+# of f32 sums through 12 layers; bf16 against f32 rounds every layer's inputs (as S3D's)
+TOWER_F32_REL = 1e-4
+TOWER_BF16_REL = 5e-2
 # published dense peaks (NVIDIA data sheets): bytes/s, bf16 FLOP/s
 CARD_PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
               "H100": (3.35e12, 989e12)}
@@ -381,6 +440,23 @@ def ragged_mask(torch, B, S, gen, device):
     if B > 1:
         mask[-1] = True
     return mask.to(device)
+
+
+def bert_mask(torch, B, S, gen, device):
+    """Key padding of BERT's sentences [B, S]: random lengths of 3 or more
+    tokens ([CLS] w [SEP]), and every fourth row fully padded (a padded
+    sentence slot)."""
+    lengths = torch.randint(3, S + 1, (B,), generator=gen)
+    mask = torch.arange(S)[None] >= lengths[:, None]
+    mask[::4] = True
+    return mask.to(device)
+
+
+def tower_mask(torch, shape, gen, device):
+    """The key padding a check of ``shape`` uses: BERT's at its shape, else ragged."""
+    if tuple(shape) == BERT_SHAPE:
+        return bert_mask(torch, shape[0], shape[2], gen, device)
+    return ragged_mask(torch, shape[0], shape[2], gen, device)
 
 
 def yc2_mask(torch, B, S, device):
@@ -530,11 +606,10 @@ def phase_kernel_check(torch):
             check(ferr > tol, f"limit {tol} misses the planted fault {f}: {ferr}")
 
     dtypes = ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL))
-    for shape in MHA_FWD_CHECK_SHAPES:
+    for shape in MHA_FWD_CHECK_SHAPES + TOWER_SHAPES:
         for dtype, tol in dtypes:
             for masked in (False, True):
-                check_one(shape, dtype, tol, masked,
-                          lambda: ragged_mask(torch, shape[0], shape[2], gen, dev))
+                check_one(shape, dtype, tol, masked, lambda: tower_mask(torch, shape, gen, dev))
     # the retrieval path's buckets, with its key padding
     for shape in YC2_SHAPES:
         for dtype, tol in dtypes:
@@ -628,14 +703,14 @@ def phase_mha_bwd_check(torch):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 4)
     worst = {}
-    for shape in MHA_BWD_SHAPES + [MHA_BWD_V2_SHAPE]:
+    for shape in MHA_BWD_SHAPES + [MHA_BWD_V2_SHAPE, BERT_SHAPE]:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             tol = GRAD_TOL[name]
             expected = "f32" if dtype == torch.float32 else "fused" if shape[2] <= 128 else "v2"
             for masked in (False, True):
                 q, k, v, g = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(4))
-                mask = ragged_mask(torch, shape[0], shape[2], gen, dev) if masked else None
+                mask = tower_mask(torch, shape, gen, dev) if masked else None
                 leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
                 before = dict(mha_bwd.launches_by_route)
                 multihead_attention(*leaves, mask).backward(g)
@@ -840,11 +915,11 @@ def make_train_files(root, num_videos, seed):
     return feats, cap_path, vocab
 
 
-def make_corpus(num_videos, min_len, max_len, seed):
+def make_corpus(num_videos, min_len, max_len, seed, dim=1024):
     from temporalalignnet_torch.data.synthetic import synthetic_video_corpus
 
     corpus = synthetic_video_corpus(np.random.RandomState(seed), num_videos=num_videos,
-                                    min_len=min_len, max_len=max_len, feature_dim=1024,
+                                    min_len=min_len, max_len=max_len, feature_dim=dim,
                                     vocab_size=5000)
     for item in corpus:
         for s in item["sentences"]:
@@ -1039,19 +1114,23 @@ def phase_cli(torch, model):
 
 
 def train_setup(torch, device, fused, cfg_kw=None, state=None, compute=None, cotrain=False,
-                train_kw=None):
+                train_kw=None, bert=False):
     """A TANWithText with its optimizer, train step and, for ``cotrain`` (head
     on, agreement targets), its EMA twin; params f32 from the seed (or
     ``state``; for cotrain merged as ``--pretrain`` does, so a Stage-1 state
     without the head loads), compute bf16 on the card unless ``compute``
-    says.  Returns (model, optimizer, step, twin or None)."""
+    says; with ``bert`` the text tower is BERT at BERT_CFG's widths.
+    Returns (model, optimizer, step, twin or None)."""
     from temporalalignnet_torch.checkpoint import merge_state_dict
     from temporalalignnet_torch.core.config import LossConfig, ModelConfig, TrainConfig
+    from temporalalignnet_torch.models.bert import BertConfig
     from temporalalignnet_torch.models.net import TANWithText
     from temporalalignnet_torch.train import EMATwin, Optimizer, make_train_step
 
+    cfg_kw = dict(cfg_kw or {}, language_model="bert") if bert else cfg_kw
     cfg = ModelConfig(fused_milnce=fused, use_alignability_head=cotrain, **(cfg_kw or {}))
-    model = TANWithText(cfg, vocab_size=66251)
+    model = TANWithText(cfg, vocab_size=66251,
+                        bert_config=BertConfig(**BERT_CFG) if bert else None)
     model.init_weights(torch.Generator().manual_seed(SEED))
     if state is not None and cotrain:
         model.load_state_dict(merge_state_dict(model.state_dict(), state)[0])
@@ -1771,10 +1850,10 @@ def phase_train_times(torch, card):
     bw, peak = peaks(card)
     gen = torch.Generator().manual_seed(SEED + 7)
     rows = {}
-    for shape in MHA_BWD_SHAPES[:2]:
+    for shape in MHA_BWD_SHAPES[:2] + [BERT_SHAPE]:
         Bq, H, S, D = shape
         q, k, v, g = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16) for _ in range(4))
-        pad = ragged_mask(torch, Bq, S, gen, dev)
+        pad = tower_mask(torch, shape, gen, dev)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         plain_out = attention_reference(*leaves, pad)
         lib = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -2627,6 +2706,386 @@ def phase_htm_aa_pipeline(torch, card):
     return launches, routes["mha_fwd"]
 
 
+# ------------------------------------------------------------------ slice 7
+
+
+def bert_vocab():
+    """A synthetic 30,522-token WordPiece vocab in bert-base-uncased's layout
+    ([PAD] 0, [unused*], [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103): 'w'
+    and the pieces '##0' ... '##9' first, so that every caption word 'w<n>'
+    of the synthetic corpora splits, then whole words 'w0', 'w1', ... up to
+    the size."""
+    vocab = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]",
+                                                                "[MASK]", "w", ",", ".", "!"]
+    vocab += [f"##{d}" for d in range(10)]
+    return vocab + [f"w{i}" for i in range(BERT_CFG["vocab_size"] - len(vocab))]
+
+
+def make_bert_dir(torch, root):
+    """An HF BERT directory at BERT_CFG's widths: config.json, the synthetic
+    vocab.txt, tokenizer_config.json and random pytorch_model.bin weights
+    from the seed in BertForPreTraining's key space (``bert.*`` and two
+    ``cls.*`` head tensors)."""
+    from temporalalignnet_torch.models.bert import BertConfig, BertEncoder, write_bert_dir
+
+    cfg = BertConfig(**BERT_CFG)
+    encoder = BertEncoder(cfg).init_weights(torch.Generator().manual_seed(SEED + 20))
+    weights = {f"bert.{k}": v for k, v in encoder.state_dict().items()}
+    weights["cls.predictions.bias"] = torch.zeros(cfg.vocab_size)
+    weights["cls.seq_relationship.weight"] = torch.zeros(2, cfg.hidden_size)
+    shutil.rmtree(root, ignore_errors=True)
+    path = os.path.join(root, "bert-base-uncased")
+    write_bert_dir(path, cfg, bert_vocab(), weights)
+    emit({"phase": "bert_dir", "path": os.path.relpath(path, REPO), "config": BERT_CFG,
+          "params": sum(v.numel() for v in encoder.state_dict().values()),
+          "weight_file_bytes": os.path.getsize(os.path.join(path, "pytorch_model.bin"))})
+    return path
+
+
+def bert_tan(torch, device, bert_dir):
+    """The E6D6 BERT TAN (head on) from the seed, BERT from ``bert_dir``'s
+    weights, f32, in eval mode."""
+    from temporalalignnet_torch.checkpoint import merge_into
+    from temporalalignnet_torch.core.config import ModelConfig
+    from temporalalignnet_torch.models.net import TANWithText
+
+    model = TANWithText(ModelConfig(language_model="bert", use_alignability_head=True,
+                                    random_pos_start=False), bert_config=bert_dir.config)
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    merge_into(model.bert, bert_dir.weights, "bert")
+    return model.to(device).eval()
+
+
+def phase_bert(torch, files, bert_path):
+    """Slice 7's main path, the BERT TAN at bert-base-uncased's widths: its
+    f32 forward on the card against the CPU (B = 2, N = 4); then BERT_STEPS
+    Stage-1 steps through the data pipeline (the synthetic captions through
+    the WordPiece tokenizer) and BERT_STEPS cotrain steps from their state,
+    at B = 64, N = 16, W = 32, E6D6, bf16, fused, BERT from the directory's
+    weights: finite losses, and each step's launches and routes."""
+    from temporalalignnet_torch.checkpoint import merge_into
+    from temporalalignnet_torch.core.config import DataConfig
+    from temporalalignnet_torch.data import HTMFeatureDataset, TrainLoader
+    from temporalalignnet_torch.data.synthetic import synthetic_batch
+    from temporalalignnet_torch.models.bert import load_bert_dir
+
+    dev = torch.device("cuda")
+    bert_dir = load_bert_dir(bert_path)
+    check(bert_dir.weights is not None and len(bert_dir.report) == 2,
+          f"BERT directory read: {bert_dir.report}")
+    B, T, N, W = (TRAIN[k] for k in "BTNW")
+
+    # f32, full width, the card's f32 kernels against the CPU
+    b = {k: torch.from_numpy(v) for k, v in synthetic_batch(
+        np.random.RandomState(SEED + 21), batch_size=2, seq_len=T, max_sentences=4,
+        feature_dim=1024, vocab_size=BERT_CFG["vocab_size"] - 1, max_words=W).items()}
+    outs, launches = {}, None
+    for d in ("cuda", "cpu"):
+        model = bert_tan(torch, torch.device(d), bert_dir)
+        x = {k: v.to(torch.device(d)) for k, v in b.items()}
+        torch.cuda.synchronize()
+        reset_counts()
+        with torch.no_grad():
+            outs[d] = model(x["video"], x["input_ids"].long(), x["video_padding_mask"],
+                            x["text_padding_mask"], deterministic=True)
+        torch.cuda.synchronize()
+        launches = launches or read_routes()["mha_fwd"]
+        del model
+    errs = {k: norm_err(outs["cuda"][k].cpu(), outs["cpu"][k]) for k in outs["cpu"]}
+    emit({"phase": "bert_f32_card_vs_cpu", "model": "E6D6 width 512, BERT 12 x 768, f32",
+          "batch": dict(B=2, N=4, W=W), "rel_norm_err": errs, "tol": TOWER_F32_REL,
+          "mha_fwd_routes": launches})
+    check(max(errs.values()) <= TOWER_F32_REL, f"BERT TAN f32 card vs cpu {errs}")
+    expected = {"short": 0, "long": 0, "f32": 12 + BERT_CFG["num_hidden_layers"]}
+    check(launches == expected, f"BERT TAN f32 forward launches {launches}, expected {expected}")
+
+    ds = HTMFeatureDataset(files[0], files[1], DataConfig(seq_len=T, max_sentences=N,
+                                                          max_words=W), "train", bert_dir.tokenizer)
+    loader = TrainLoader(ds, B, seed=SEED, num_workers=8, pin_memory=True)
+    totals, state = {}, None
+    for name, cotrain, per_step, by_route in (
+            ("init", False, BERT_STEP_LAUNCHES, BERT_STEP_ROUTES),
+            ("cotrain", True, BERT_COTRAIN_LAUNCHES, BERT_COTRAIN_ROUTES)):
+        model, _, step, _ = train_setup(torch, dev, fused=True, state=state, cotrain=cotrain,
+                                        bert=True)
+        if state is None:
+            merge_into(model.bert, bert_dir.weights, "bert")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, metrics, counts, routes, secs = run_steps(torch, loader, step, BERT_STEPS)
+        losses = [m["loss"] for m in metrics]
+        emit({"phase": f"bert_{name}", "model": "E6D6 width 512, BERT 12 x 768, fused, bf16",
+              "batch": TRAIN, "steps": len(metrics), "losses": losses,
+              "confidence_ratio": [m.get("confidence-ratio") for m in metrics],
+              "launches_per_step": counts[0], "routes_per_step": routes[0],
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "seconds_with_data": secs})
+        check(all(np.isfinite(losses)), f"BERT {name}: non-finite loss {losses}")
+        check(all(0.0 <= m.get("confidence-ratio", 0.0) <= 1.0 for m in metrics),
+              f"BERT {name}: confidence ratio out of [0, 1]")
+        totals[name] = check_launches(counts, routes, per_step, by_route, f"BERT {name}")
+        state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        del model, step
+    return totals
+
+
+def phase_bert_cli(torch, files, bert_path, eval_files, yc2_files):
+    """The user's entry points with --language_model bert on the card: the
+    train CLI (3 steps at B = 16) from the directory's weights, --model
+    cotrain --pretrain on its checkpoint (3 steps), then at once the eval
+    CLI's two tasks on the twin checkpoint."""
+    feats, captions, _ = files
+    prefix = os.path.join(REPO, "build", "chip_smoke_bert", "exp")
+    train = [sys.executable, "-m", "temporalalignnet_torch.train", "--feature_dir", feats,
+             "--captions", captions, "--language_model", "bert", "--bert_dir", bert_path,
+             "--batch_size", "16", "--max_steps", "3", "--epochs", "1", "--log_every", "1",
+             "--runtime_save_iter", "0", "--prefix", prefix]
+    ckpt = None
+    for name, extra in (("bert_train_cli", ["--use_alignability_head", "1"]),
+                        ("bert_cotrain_cli", ["--model", "cotrain", "--pretrain", "{ckpt}"])):
+        t0 = time.perf_counter()
+        run = subprocess.run(train + [a.format(ckpt=ckpt) for a in extra], cwd=REPO,
+                             capture_output=True, text=True, timeout=900)
+        check(run.returncode == 0, f"{name} failed:\n{run.stderr[-4000:]}")
+        lines = [json.loads(l) for l in run.stdout.splitlines() if l.startswith("{")]
+        report = [l for l in run.stdout.splitlines() if l.startswith(("[bert]", "[pretrain]"))]
+        final = lines[-1]
+        emit({"phase": name, "log": lines[:-1], "final": final, "report": report,
+              "seconds": time.perf_counter() - t0})
+        check(final["final_step"] == 3 and final["loss_finite"], f"{name} final line {final}")
+        check(not [l for l in report if l.startswith("[bert] missing")],
+              f"{name}: BERT keys missing from the weight file: {report}")
+        ckpt = final["checkpoint"]
+
+    e_feats, anno, _ = eval_files
+    y_feats, y_anno, _ = yc2_files
+    ev = [sys.executable, "-m", "temporalalignnet_torch.eval", "--ckpt", ckpt,
+          "--language_model", "bert", "--bert_dir", bert_path]
+    t0 = time.perf_counter()
+    procs = {"align": start(ev + ["--task", "align", "--features", e_feats, "--anno", anno]),
+             "retrieval": start(ev + ["--task", "retrieval", "--features", y_feats,
+                                      "--anno", y_anno])}
+    try:
+        outs = {task: json.loads(finish(proc, f"BERT eval CLI {task}", timeout=600)
+                                 .strip().splitlines()[-1]) for task, proc in procs.items()}
+    finally:
+        stop(procs.values())
+    emit({"phase": "bert_eval_cli", "metrics": outs, "seconds_both_tasks":
+          time.perf_counter() - t0})
+    check(0.0 <= outs["align"]["Recall"] <= 1.0 and 0.0 <= outs["align"]["AUC"] <= 1.0,
+          f"BERT eval CLI align: {outs['align']}")
+    check(len(outs["retrieval"]) == 12 and all(np.isfinite(v) for v in outs["retrieval"].values()),
+          f"BERT eval CLI retrieval: {outs['retrieval']}")
+
+
+def hf_shapes(tower):
+    """{key: shape} of an HF state_dict of ``tower`` at its published widths:
+    'clip_text' (CLIPTextModelWithProjection), 'clip_vision'
+    (CLIPVisionModelWithProjection) or 'timesformer' (TimesformerModel)."""
+    shapes = {}
+
+    def add(prefix, **named):
+        shapes.update({f"{prefix}{k}": v for k, v in named.items()})
+
+    def ln(prefix, w):
+        add(prefix, weight=(w,), bias=(w,))
+
+    def linear(prefix, d_out, d_in):
+        add(prefix, weight=(d_out, d_in), bias=(d_out,))
+
+    if tower.startswith("clip"):
+        c = CLIP_TEXT if tower == "clip_text" else CLIP_VISION
+        pre, w = f"{tower[5:]}_model.", c["width"]
+        for i in range(c["layers"]):
+            p = f"{pre}encoder.layers.{i}."
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                linear(f"{p}self_attn.{proj}.", w, w)
+            ln(f"{p}layer_norm1.", w)
+            ln(f"{p}layer_norm2.", w)
+            linear(f"{p}mlp.fc1.", 4 * w, w)
+            linear(f"{p}mlp.fc2.", w, 4 * w)
+        if tower == "clip_text":
+            add(pre + "embeddings.", **{"token_embedding.weight": (c["vocab_size"], w),
+                                        "position_embedding.weight": (c["context_length"], w)})
+            ln(pre + "final_layer_norm.", w)
+            shapes["text_projection.weight"] = (c["embed_dim"], w)
+        else:
+            p = c["patch_size"]
+            add(pre + "embeddings.", **{"patch_embedding.weight": (w, 3, p, p),
+                                        "class_embedding": (w,), "position_embedding.weight":
+                                        ((c["image_size"] // p) ** 2 + 1, w)})
+            ln(pre + "pre_layrnorm.", w)
+            ln(pre + "post_layernorm.", w)
+            shapes["visual_projection.weight"] = (c["embed_dim"], w)
+        return shapes
+    c = TIMESFORMER
+    w, p, m = c["width"], c["patch_size"], c["mlp_width"]
+    linear("embeddings.patch_embeddings.projection.", w, 1)
+    shapes["embeddings.patch_embeddings.projection.weight"] = (w, 3, p, p)
+    add("embeddings.", cls_token=(1, 1, w), time_embeddings=(1, c["frames"], w),
+        position_embeddings=(1, (c["image_size"] // p) ** 2 + 1, w))
+    ln("layernorm.", w)
+    for i in range(c["layers"]):
+        q = f"encoder.layer.{i}."
+        for name in ("temporal_layernorm", "layernorm_before", "layernorm_after"):
+            ln(f"{q}{name}.", w)
+        for att in ("temporal_attention", "attention"):
+            linear(f"{q}{att}.attention.qkv.", 3 * w, w)
+            linear(f"{q}{att}.output.dense.", w, w)
+        linear(f"{q}temporal_dense.", w, w)
+        linear(f"{q}intermediate.dense.", m, w)
+        linear(f"{q}output.dense.", w, m)
+    return shapes
+
+
+def random_hf_state(torch, tower, seed):
+    """Random tensors of ``hf_shapes(tower)`` from ``seed``: LayerNorm weights
+    1 + N(0, 0.02²), embedding tables, biases and tokens N(0, 0.02²), the
+    other weights N(0, 1/fan_in), so that 12 residual layers keep their
+    activations in range."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for key, shape in hf_shapes(tower).items():
+        x = torch.randn(shape, generator=gen)
+        if "norm" in key and key.endswith("weight"):
+            out[key] = 1.0 + 0.02 * x
+        elif key.endswith("weight") and x.dim() >= 2 and not (
+                x.dim() == 2 and key.endswith(("embedding.weight", "embeddings.weight"))):
+            out[key] = x * float(np.prod(shape[1:])) ** -0.5
+        else:
+            out[key] = 0.02 * x
+    return out
+
+
+def write_clip_bpe(root):
+    """HF-style vocab.json and merges.txt of the CLIP byte-BPE: every byte and
+    byte</w>, a few merges of the caption words' characters, then
+    <|startoftext|> and <|endoftext|> (the highest id, as in CLIP's)."""
+    from temporalalignnet_torch.models.clip_text import EOT, SOT, bytes_to_unicode
+
+    chars = list(bytes_to_unicode().values())
+    merges = [("w", "1"), ("w", "2"), ("w", "3"), ("1", "2"), ("2", "3")] + [
+        (str(d), f"{e}</w>") for d in range(10) for e in range(10)]
+    vocab = chars + [c + "</w>" for c in chars] + ["".join(m) for m in merges] + [SOT, EOT]
+    vocab_path, merges_path = os.path.join(root, "vocab.json"), os.path.join(root, "merges.txt")
+    with open(vocab_path, "w") as f:
+        json.dump({t: i for i, t in enumerate(vocab)}, f)
+    with open(merges_path, "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(" ".join(m) for m in merges) + "\n")
+    return vocab_path, merges_path
+
+
+def phase_clip_baseline(torch):
+    """The eval CLI's CLIP baseline (no --ckpt, --clip_text_ckpt of a random
+    HF-key-space ViT-B/32 text checkpoint, the byte-BPE files, cos) on a
+    synthetic HTM-Align corpus of 512-d features, in f32 on the card and on
+    the CPU (the same metrics, within one sentence's Recall and AUC_TOL) and
+    in bf16 on the card.  The text tower's causal attention is plain on both
+    devices: no kernel launches, ``causal_calls`` counts it."""
+    import contextlib
+    import io
+
+    from temporalalignnet_torch.eval.cli import main as eval_main
+    from temporalalignnet_torch.ops.attention import multihead_attention
+
+    root = os.path.join(REPO, "build", "chip_smoke_clip")
+    shutil.rmtree(root, ignore_errors=True)
+    feats = os.path.join(root, "features")
+    os.makedirs(feats)
+    ckpt = os.path.join(root, "clip_text.pth")
+    torch.save(random_hf_state(torch, "clip_text", SEED + 30), ckpt)
+    vocab, merges = write_clip_bpe(root)
+    anno, n_aligned = {}, 0
+    for i, item in enumerate(make_corpus(3, 100, 300, SEED + 31, dim=CLIP_TEXT["embed_dim"])):
+        np.save(os.path.join(feats, f"vid{i}.npy"), item["video"])
+        anno[f"vid{i}"] = [[s["aligned"], s["start"], s["end"],
+                            " ".join(f"w{t - 1}" for t in s["input_ids"] if t)]
+                           for s in item["sentences"]]
+        n_aligned += sum(s["aligned"] for s in item["sentences"])
+    anno_path = os.path.join(root, "htm_align.json")
+    with open(anno_path, "w") as f:
+        json.dump(anno, f)
+    args = ["--task", "align", "--features", feats, "--anno", anno_path, "--clip_text_ckpt", ckpt,
+            "--clip_vocab", vocab, "--clip_merges", merges, "--clip_context",
+            str(CLIP_TEXT["context_length"]), "--clip_text_heads", str(CLIP_TEXT["heads"]),
+            "--clip_hidden_act", "quick_gelu", "--baseline_sim", "cos",
+            "--video_embed_dim", str(CLIP_TEXT["embed_dim"])]
+    out = {}
+    for mode, extra in {"card_f32": ["--f32"], "cpu": ["--device", "cpu"], "card_bf16": []}.items():
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        reset_counts()
+        causal = multihead_attention.causal_calls
+        with contextlib.redirect_stdout(io.StringIO()):
+            metrics = eval_main(args + extra)
+        out[mode] = {"metrics": metrics, "seconds": time.perf_counter() - t0,
+                     "launches": sum(read_counts().values()),
+                     "causal_attention_calls": multihead_attention.causal_calls - causal}
+    emit({"phase": "clip_baseline", "task": "align", "sim": "cos", "tower": CLIP_TEXT, **out})
+    card, cpu = out["card_f32"]["metrics"], out["cpu"]["metrics"]
+    check(abs(card["Recall"] - cpu["Recall"]) * n_aligned <= 1 + 1e-9
+          and abs(card["AUC"] - cpu["AUC"]) <= AUC_TOL, f"CLIP baseline card {card} vs cpu {cpu}")
+    check(all(np.isfinite(v) for o in out.values() for v in o["metrics"].values()),
+          "CLIP baseline: non-finite metrics")
+    check(all(o["launches"] == 0 and o["causal_attention_calls"] > 0 for o in out.values()),
+          f"CLIP baseline launches {out}")
+
+
+def phase_tower_extract(torch):
+    """tools/extract_features.py's CLIP (ViT-B/32, CLIP_FRAMES frames a call)
+    and TimeSformer (base, TIMESFORMER_CLIPS clips of 8 x 224² a call)
+    encoders on the card from random HF-key-space weights through the key
+    maps: bf16 (the path: its launches and routes counted, clips/s over
+    three calls), bf16 against f32 on the card, and f32 on the card
+    against the CPU on the first one or two clips.  Returns the launches of
+    one bf16 call of each."""
+    from temporalalignnet_torch.checkpoint import clip_vision_state_dict, timesformer_state_dict
+    from temporalalignnet_torch.tools.extract_features import (make_clip_encoder,
+                                                               make_timesformer_encoder)
+
+    towers = {
+        "clip": (clip_vision_state_dict, make_clip_encoder, CLIP_VISION, "clip_vision",
+                 (CLIP_FRAMES, 1), 2, {"short": 12, "long": 0, "f32": 0}),
+        "timesformer": (timesformer_state_dict, make_timesformer_encoder, TIMESFORMER,
+                        "timesformer", (TIMESFORMER_CLIPS, TIMESFORMER["frames"]), 1,
+                        {"short": 12, "long": 12, "f32": 0}),
+    }
+    launches = {}
+    for i, (name, (convert, make, kw, tower, lead, n_cpu, routes)) in enumerate(towers.items()):
+        report = []
+        weights = convert(random_hf_state(torch, tower, SEED + 40 + i), report)
+        check(report == [], f"{name} key map: {report}")
+        size = kw["image_size"]
+        frames = np.random.RandomState(SEED + 42 + i).randint(
+            0, 256, lead + (size, size, 3)).astype(np.uint8)
+        bf16 = make(weights, dtype=torch.bfloat16, **kw)
+        bf16(frames)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        feats = bf16(frames)
+        torch.cuda.synchronize()
+        launches[name], taken = read_counts(), read_routes()["mha_fwd"]
+        t0 = time.perf_counter()
+        for _ in range(3):
+            bf16(frames)  # returns a host array: the card is done
+        secs = (time.perf_counter() - t0) / 3
+        f32 = make(weights, **kw)
+        ref = f32(frames)
+        cpu = make(weights, device="cpu", **kw)(frames[:n_cpu])
+        rel = {"bf16_vs_f32": norm_err(torch.from_numpy(feats), torch.from_numpy(ref)),
+               "f32_card_vs_cpu": norm_err(torch.from_numpy(ref[:n_cpu]), torch.from_numpy(cpu))}
+        emit({"phase": "tower_extract", "tower": name, "config": kw, "batch": list(lead),
+              "features": list(feats.shape), "clips_per_s": lead[0] / secs,
+              "seconds_per_call": secs, "mha_fwd_launches_per_call": launches[name]["mha_fwd"],
+              "mha_fwd_routes_per_call": taken, "rel_norm_err": rel,
+              "tol": {"bf16_vs_f32": TOWER_BF16_REL, "f32_card_vs_cpu": TOWER_F32_REL}})
+        check(taken == routes, f"{name} encoder mha_fwd routes {taken}, expected {routes}")
+        check(bool(np.isfinite(feats).all()), f"{name}: non-finite features")
+        check(rel["bf16_vs_f32"] <= TOWER_BF16_REL and rel["f32_card_vs_cpu"] <= TOWER_F32_REL,
+              f"{name} features: {rel}")
+        del bf16, f32
+    return launches
+
+
 def e2e_step_time(torch, card):
     """The e2e train step at full width (E2E: 32 clips of 16 x 224², bf16,
     frozen BN): steps/s and clips/s from CUDA events around back-to-back
@@ -2668,7 +3127,8 @@ def e2e_step_time(torch, card):
           "top_host_ops_self_ms_per_step": {k[:90]: v for k, v in top_host}})
 
 
-STEP_TIME_CHILDREN = ("agreement", "init", "remat", "cotrain", "e2e")
+STEP_TIME_CHILDREN = ("agreement", "init", "remat", "cotrain", "e2e", "bert_init",
+                      "bert_cotrain")
 
 
 def phase_step_times():
@@ -2744,8 +3204,10 @@ def host_syncs(torch, fn):
 
 def step_time(torch, which, card):
     """One JSON line of times at B = 64: ``which`` 'init' (a Stage-1 train
-    step), 'remat' (the same with --remat) or 'cotrain' (a Stage-2 one): steps/s with the device time, idle
-    share, every kernel's device ms and the top host ops; 'agreement': the
+    step), 'remat' (the same with --remat) or 'cotrain' (a Stage-2 one), and
+    'bert_init' / 'bert_cotrain' (the same of the BERT TAN): steps/s with the
+    device time, idle share, peak memory, every kernel's device ms and the
+    top host ops; 'agreement': the
     agreement self-labelling alone at the cotrain step's shapes.  Each also
     counts the call's host-device synchronisations.  'e2e': the end-to-end
     S3D step at E2E (``e2e_step_time``)."""
@@ -2779,21 +3241,30 @@ def step_time(torch, which, card):
               "kernels_ms": by_name(per_kernel)})
         retrieval_forward_times(torch, card)  # after the agreement's smaller sessions
         return
-    cotrain, remat = which == "cotrain", which == "remat"
-    _, _, step, _ = train_setup(torch, dev, fused=True, cotrain=cotrain,
+    bert = which.startswith("bert_")
+    cotrain, remat = which.endswith("cotrain"), which == "remat"
+    if bert:  # BERT's vocab (ids 1 ... 30521)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+            np.random.RandomState(SEED + 6), batch_size=B, seq_len=T, max_sentences=N,
+            feature_dim=1024, vocab_size=BERT_CFG["vocab_size"] - 1, max_words=W).items()}
+    _, _, step, _ = train_setup(torch, dev, fused=True, cotrain=cotrain, bert=bert,
                                 cfg_kw=dict(remat=True) if remat else None)
     run = lambda: step(batch)
+    torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_ms(torch, run, reps=10, warmup=3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     busy_ms, per_kernel, host_ms, timing = device_profile(torch, run, reps=5, warmup=1)
     busy_ms = busy_ms if timing == "profiler" else None
     top_host = sorted(host_ms.items(), key=lambda kv: -kv[1])[:15]
-    model = "E6D6 width 512, word2vec, fused MIL-NCE, bf16 compute, f32 params"
+    model = (f"E6D6 width 512, {'BERT 12 x 768' if bert else 'word2vec'}, fused MIL-NCE, "
+             "bf16 compute, f32 params")
     metric = {"init": "train_steps_per_s", "remat": "train_remat_steps_per_s",
-              "cotrain": "cotrain_steps_per_s"}[which]
+              "cotrain": "cotrain_steps_per_s", "bert_init": "bert_train_steps_per_s",
+              "bert_cotrain": "bert_cotrain_steps_per_s"}[which]
     emit({"phase": "times", "metric": metric,
           "card": card, "value": 1e3 / step_ms, "ms_per_step": step_ms, "batch": TRAIN,
-          "model": model + {"init": "", "remat": ", --remat 1",
-                            "cotrain": ", EMA twin, agreement keep, head on"}[which],
+          "model": model + ("" if which.endswith("init") else ", --remat 1" if remat else
+                            ", EMA twin, agreement keep, head on"), "peak_gb": peak_gb,
           "device_busy_ms_per_step": busy_ms, "timing": timing,
           "idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / step_ms),
           "host_syncs_per_step": host_syncs(torch, run),
@@ -2837,27 +3308,35 @@ def phase_times(torch, card):
     gen = torch.Generator().manual_seed(SEED + 2)
     bw, bf16_peak = peaks(card)
     rows = []
-    # the eval's, the training's, then the retrieval's (its key padding)
-    for shape in KERNEL_SHAPES + MHA_BWD_SHAPES[:2] + YC2_TIMED_SHAPES:
+    # the eval's, the training's, the retrieval's (its key padding), then the
+    # towers' (BERT's padding; the vision towers' calls have no mask)
+    for shape in KERNEL_SHAPES + MHA_BWD_SHAPES[:2] + YC2_TIMED_SHAPES + TOWER_SHAPES:
         Bq, H, S, D = shape
         q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
-        pad = (yc2_mask(torch, Bq, S, dev) if shape in YC2_TIMED_SHAPES
-               else ragged_mask(torch, Bq, S, gen, dev))
-        keep = ~pad[:, None, None, :]
+        if shape in YC2_TIMED_SHAPES:
+            pad = yc2_mask(torch, Bq, S, dev)
+        elif shape in TOWER_SHAPES[1:]:
+            pad = torch.zeros(Bq, S, dtype=torch.bool, device=dev)  # counts every key
+        else:
+            pad = tower_mask(torch, shape, gen, dev)
+        mask = None if shape in TOWER_SHAPES[1:] else pad
+        keep = None if mask is None else ~pad[:, None, None, :]
         fns = {
-            "": lambda: mha_fwd(q, k, v, pad),
-            "v1_": lambda: mha_fwd_v1(q, k, v, pad),
-            "plain_": lambda: attention_reference(q, k, v, pad),
+            "": lambda: mha_fwd(q, k, v, mask),
+            "v1_": lambda: mha_fwd_v1(q, k, v, mask),
+            "plain_": lambda: attention_reference(q, k, v, mask),
             "library_": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep),
         }
         # ms: device time of every kernel the call launched (profiler);
         # wall_ms: CUDA events around back-to-back calls, host issue included
-        row = {"shape": list(shape), "dtype": "bfloat16", "route": route(q.dtype, S)}
+        row = {"shape": list(shape), "dtype": "bfloat16", "route": route(q.dtype, S),
+               "masked": mask is not None}
         for prefix, fn in fns.items():
             row[prefix + "ms"], _, _, row[prefix + "timing"] = device_profile(
                 torch, fn, confirm=True)
             row[prefix + "wall_ms"] = cuda_ms(torch, fn)
         nbytes, flops = attention_work(q, pad, full=2, passes=2)  # q, out; QK^T, PV
+        nbytes -= 0 if mask is not None else pad.numel()  # no mask to read
         t_bytes, t_ops = nbytes / bw, flops / bf16_peak
         row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -2939,6 +3418,11 @@ def main(argv) -> int:
     timed(phase_s3d, torch, card)
     e2e_launches = timed(phase_e2e_step, torch)
     htm_aa_launches, htm_aa_routes = timed(phase_htm_aa_pipeline, torch, card)
+    bert_path = timed(make_bert_dir, torch, os.path.join(REPO, "build", "chip_smoke_bert"))
+    bert_launches = timed(phase_bert, torch, files, bert_path)
+    timed(phase_bert_cli, torch, files, bert_path, eval_files, yc2_files)
+    timed(phase_clip_baseline, torch)
+    tower_launches = timed(phase_tower_extract, torch)
     timed(phase_step_times)
     emit({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t_start})
 
@@ -3018,7 +3502,23 @@ def main(argv) -> int:
         # slice 6: one full-width e2e step; generate_htm_aa over HTM_AA's videos
         e["launches_e2e_path"] = e2e_launches[e["name"]]
         e["launches_htm_aa_path"] = htm_aa_launches[e["name"]]
+        # slice 7: BERT_STEPS Stage-1 steps and BERT_STEPS cotrain steps of the
+        # BERT TAN; one bf16 call of each vision encoder
+        e["launches_bert_path"] = bert_launches["init"][e["name"]]
+        e["launches_bert_cotrain_path"] = bert_launches["cotrain"][e["name"]]
+        e["launches_clip_path"] = tower_launches["clip"][e["name"]]
+        e["launches_timesformer_path"] = tower_launches["timesformer"][e["name"]]
     entries[0]["launches_by_route_htm_aa"] = htm_aa_routes
+    for e in entries[:2]:
+        e["launches_by_route_bert"] = bert_launches["init"]["routes"][e["name"]]
+    entries[0]["tower_shapes"] = [
+        {"shape": list(sh), **{k: fwd_rows[sh][k] for k in ("route", "masked", "ms", "plain_ms",
+                                                            "library_ms", "bound_ms", "bound_by")}}
+        for sh in TOWER_SHAPES]
+    bert_bwd = train_rows[("mha_bwd", BERT_SHAPE[2])]
+    entries[1]["bert_shape"] = {"shape": bert_bwd["shape"],
+                                **{k: bert_bwd[k] for k in ("ms", "plain_ms", "library_ms",
+                                                            "bound_ms", "bound_by")}}
     emit({"kernels": [dict(route="cuda", **e) for e in entries]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

@@ -9,7 +9,9 @@ Stage-1 training of a word2vec TAN:
 - ops/         Attention and the fused MIL-NCE: plain PyTorch references and
                the hand-written Hopper kernels (csrc/*.cu) with their autograd
                Functions, built by ops/_build.py.
-- models/      TemporalAligner, TANWithText, the word2vec text tower, pos-enc.
+- models/      TemporalAligner, TANWithText, the word2vec and BERT text
+               towers, pos-enc, S3D-G, the CLIP text and image towers and
+               TimeSformer.
 - losses/      The Stage-1 loss (multi-layer MIL-NCE, threshold, BCE head).
 - train/       AdamW with the reference's groups and schedule, the train step,
                the train CLI.

@@ -6,7 +6,10 @@
   Dense kernels [in, out] transpose to ``weight [out, in]``, LayerNorm
   ``scale`` becomes ``weight``, and the separate q/k/v projections pack into
   ``attn.in_proj_weight [3D, D]`` rows [q; k; v] as nn.MultiheadAttention
-  stores them.
+  stores them.  A BERT language model (FlaxBertModule's tree under
+  ``lang_model/bert``) goes to HF's ``bert.embeddings/encoder/pooler.*``
+  keys, the inverse of JAX ``torch_convert.py:62-88``: ``kernel`` transposed
+  to ``weight``, ``scale`` and ``embedding`` to ``weight``.
 - ``s3d_state_dict_from_jax(variables)``: JAX S3D variables (the output of
   ``temporalalignnet_tpu/checkpoint/s3d_convert.py::s3d_torch_to_variables``)
   -> the ``models/s3d.py`` / ``s3d_howto100m.pth`` key space, its inverse:
@@ -51,11 +54,27 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def bert_state_dict_from_jax(tree: Dict[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A FlaxBertModule param tree -> HF torch BERT keys (under ``prefix``)."""
+    out = {}
+    for path, v in _leaves(tree):
+        pre, leaf = prefix + ".".join(path[:-1]), path[-1]
+        if leaf == "kernel":
+            out[f"{pre}.weight"] = _t(v).T.contiguous()
+        elif leaf in ("scale", "embedding"):
+            out[f"{pre}.weight"] = _t(v)
+        else:
+            out[f"{pre}.{leaf}"] = _t(v)
+    return out
+
+
 def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX TANWithText params (word2vec) -> the reference state_dict, f32 tensors."""
+    """JAX TANWithText params -> the reference state_dict, f32 tensors."""
     out: Dict[str, torch.Tensor] = {}
     lang = params.get("lang_model", {})
-    if lang:
+    if "bert" in lang:
+        out.update(bert_state_dict_from_jax(lang["bert"], "bert."))
+    elif lang:
         out["bert.word_embd.weight"] = _t(lang["word_embd"]["embedding"])
         for fc in ("fc1", "fc2"):
             out[f"bert.{fc}.weight"] = _t(lang[fc]["kernel"]).T.contiguous()

@@ -14,13 +14,18 @@ dot product or, with ``cfg.sim == 'cos'``, the cosine.  Without the
 projection the text tower outputs ``cfg.video_embed_dim`` features.  The
 weights come from ``s3d_howto100m.pth`` through
 ``checkpoint.load_milnce_checkpoint``.  The projection and the similarity run
-in f32 whatever the params' dtype (JAX ``_project``).  The CLIP mode of the
-JAX baseline (a CLIP text tower) is not here yet.
+in f32 whatever the params' dtype (JAX ``_project``).
+
+CLIP mode (eval_zeroshot_align.py:294-330): ``text_tower``, a zero-argument
+factory of the text tower (``models/clip_text.py::CLIPTextEncoder`` with the
+checkpoint's sizes), takes the word2vec tower's place at ``lang_model``;
+with no projection and ``cfg.sim == 'cos'`` the captions meet the CLIP
+features by cosine.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -35,19 +40,17 @@ EMBED_DIM = 512  # the MIL-NCE joint space: fc 1024 -> 512, word2vec fc2 -> 512
 
 class RawFeatureBaseline(nn.Module):
     def __init__(self, cfg: ModelConfig, vocab_size: int = 66251, use_visual_proj: bool = True,
-                 text_tower=None):
+                 text_tower: Optional[Callable[[], nn.Module]] = None):
         super().__init__()
-        if text_tower is not None:
-            raise NotImplementedError("RawFeatureBaseline(text_tower=...): the CLIP text tower "
-                                      "comes with ROADMAP Queue A 8 of the port")
         self.cfg = cfg
         out_dim = EMBED_DIM if use_visual_proj else cfg.video_embed_dim
-        self.lang_model = Word2VecEncoder(vocab_size=vocab_size, output_dim=out_dim)
+        self.lang_model = (text_tower() if text_tower is not None
+                           else Word2VecEncoder(vocab_size=vocab_size, output_dim=out_dim))
         self.visual_proj = nn.Linear(cfg.video_embed_dim, EMBED_DIM) if use_visual_proj else None
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.lang_model.fc1.weight.dtype
+        return next(self.lang_model.parameters()).dtype
 
     def _project(self, video: torch.Tensor) -> torch.Tensor:
         v = video.float()

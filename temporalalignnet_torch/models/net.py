@@ -1,10 +1,13 @@
-"""TANWithText — TemporalAligner + the word2vec language model as one module.
+"""TANWithText — TemporalAligner + its language model as one module.
 
-Counterpart of temporalalignnet_tpu/models/net.py (word2vec only; the BERT
-tower comes later).  The language model sits at ``bert`` — the attribute name
-the reference gives it even for word2vec (tan_model.py:38-40) — so the
-module's state_dict is the reference key space.  Text is fixed-shape
-[..., N, W] tokens, encoded on the flattened [B*N, W] batch.
+Counterpart of temporalalignnet_tpu/models/net.py.  The language model, the
+word2vec tower or (``language_model='bert'``) ``models/bert.py``'s
+BertEncoder, sits at ``bert`` — the attribute name the reference gives it
+(tan_model.py:37-40) — so the module's state_dict is the reference key
+space (``bert.embeddings.*`` / ``bert.encoder.*`` / ``bert.pooler.*`` for
+BERT).  Text is fixed-shape [..., N, W] tokens, encoded on the flattened
+[B*N, W] batch; BERT's sentence embedding is its ``pooler_output`` and its
+width (768 for bert-base-uncased) is the aligner's text input.
 """
 
 from __future__ import annotations
@@ -14,21 +17,38 @@ from typing import Dict, Optional
 import torch
 
 from temporalalignnet_torch.core.config import ModelConfig
+from temporalalignnet_torch.models.bert import BertConfig, BertEncoder
 from temporalalignnet_torch.models.tan import TemporalAligner
 from temporalalignnet_torch.models.word2vec import Word2VecEncoder
 
 
 class TANWithText(TemporalAligner):
-    def __init__(self, cfg: ModelConfig, vocab_size: int = 66251):
-        super().__init__(cfg)
-        if cfg.language_model != "word2vec":
+    def __init__(self, cfg: ModelConfig, vocab_size: int = 66251,
+                 bert_config: Optional[BertConfig] = None):
+        if cfg.language_model == "bert":
+            bert_config = bert_config or BertConfig()
+            super().__init__(cfg, text_embed_dim=bert_config.hidden_size)
+            self.bert = BertEncoder(bert_config)
+        elif cfg.language_model == "word2vec":
+            super().__init__(cfg)
+            self.bert = Word2VecEncoder(vocab_size=vocab_size, output_dim=cfg.text_embed_dim)
+        else:
             raise NotImplementedError(f"language_model={cfg.language_model!r}")
-        self.bert = Word2VecEncoder(vocab_size=vocab_size, output_dim=cfg.text_embed_dim)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "TANWithText":
+        """The aligner's CLIP-style init; BERT then takes HF's own."""
+        super().init_weights(generator)
+        if isinstance(self.bert, BertEncoder):
+            self.bert.init_weights(generator)
+        return self
 
     def encode_text(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """[..., W] tokens -> [..., C] pooled sentence embeddings."""
         lead, W = input_ids.shape[:-1], input_ids.shape[-1]
         out = self.bert(input_ids.reshape(-1, W), attention_mask.reshape(-1, W))
+        if isinstance(out, dict):  # BERT: its pooler (net.py:90-95 of the JAX package)
+            out = out["pooler_output"]
         return out.reshape(*lead, -1)
 
     def forward(

@@ -59,7 +59,7 @@ def _cos_sims(video: torch.Tensor, text: torch.Tensor, eq: str) -> torch.Tensor:
 
 
 class TemporalAligner(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, text_embed_dim: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         width = cfg.width
@@ -68,7 +68,7 @@ class TemporalAligner(nn.Module):
         self.joint_temporal_encoder = TemporalEncoder(
             width, cfg.num_joint_layers, cfg.heads, cfg.mlp_ratio, cfg.remat)
         self.video_pre_proj = nn.Linear(cfg.video_embed_dim, width, bias=False)
-        self.text_pre_proj = nn.Linear(cfg.text_embed_dim, width, bias=False)
+        self.text_pre_proj = nn.Linear(text_embed_dim or cfg.text_embed_dim, width, bias=False)
         for name in ("ln_text_init", "ln_video_init", "ln_position_init",
                      "ln_video_post_enc", "ln_joint_post_enc"):
             setattr(self, name, nn.LayerNorm(width, eps=1e-5))

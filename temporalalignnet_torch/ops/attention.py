@@ -8,15 +8,17 @@ softmax; queries at padded positions still produce values the caller masks.
   the fused kernel (temporalalignnet_tpu/ops/pallas_attention.py): a finite
   -1e30 additive bias on padded keys, so a fully padded row averages V
   uniformly; scores and softmax in f32; P cast to the value dtype before P·V;
-  output in the input dtype.  It also holds the causal mask (CLIP text tower),
-  which the kernel does not take.
+  output in the input dtype.  It also holds the causal mask (the CLIP text
+  tower), which no kernel takes: the JAX package sends causal attention to
+  plain XLA, never to its Pallas kernel (ops/attention.py:61-80 there).
 - ``KernelAttention``: the autograd Function of the Hopper kernels, forward
   ``ops/mha_fwd.py`` and backward ``ops/mha_bwd.py`` (the counterpart of the
   custom VJP at pallas_attention.py:198-221).  Only q, k, v and the mask are
   saved; the backward recomputes P.
 - ``multihead_attention``: dispatch on the device.  A CPU tensor takes the
   reference (autograd through plain PyTorch); a CUDA tensor goes through
-  ``KernelAttention`` or raises.
+  ``KernelAttention`` or raises.  Causal attention is plain PyTorch on every
+  device, as in JAX; ``multihead_attention.causal_calls`` counts it.
 """
 
 from __future__ import annotations
@@ -75,10 +77,17 @@ def multihead_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
 ) -> torch.Tensor:
     """[B, H, S, Dh] attention with an optional [B, S] key padding mask (True = pad)."""
+    if causal:
+        multihead_attention.causal_calls += 1
+        return attention_reference(q, k, v, key_padding_mask, causal=True)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, key_padding_mask)
     if q.device.type == "cuda":
         return KernelAttention.apply(q, k, v, key_padding_mask)
     raise ValueError(f"no attention path for device {q.device}")
+
+
+multihead_attention.causal_calls = 0

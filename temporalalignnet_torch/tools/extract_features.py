@@ -13,8 +13,12 @@ the 1 fps features the TAN reads.
 ``s3d_howto100m.pth``-format file (the MIL-NCE release, or the end-to-end
 trainer's ``params_latest.pth``) on ``device`` (the card unless the caller
 asks for the CPU), in f32 or, with ``dtype=torch.bfloat16``, under autocast.
-The CLIP and TimeSformer encoders of the JAX module come with their towers
-(ROADMAP Queue A 8); the decode step is injectable (``decoder``), as in
+``make_clip_encoder`` runs the CLIP ViT (``models/clip_vit.py``) per frame
+and averages a clip's frames (unit-normalized by default, CLIP's cosine
+space); ``make_timesformer_encoder`` gives TimeSformer's class feature per
+clip (``models/timesformer.py``).  Both take their tower's converted weights
+(``checkpoint/clip_convert.py``, ``checkpoint/timesformer_convert.py``) and
+uint8 frames, as in JAX.  The decode step is injectable (``decoder``), as in
 ``data/clips.py``.
 """
 
@@ -110,9 +114,7 @@ def make_s3d_encoder(weights: Union[str, Dict[str, torch.Tensor]], device: str =
 
     if isinstance(weights, str):
         weights = s3d_state_dict(load_milnce_checkpoint(weights), text=False)
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("make_s3d_encoder: no CUDA device (pass device='cpu' for the CPU)")
+    dev = _encoder_device("make_s3d_encoder", device)
     model = S3D(num_classes=weights["fc.weight"].shape[0])
     model.load_state_dict(weights, strict=True)
     layout = torch.channels_last_3d if dev.type == "cuda" else torch.contiguous_format
@@ -129,11 +131,64 @@ def make_s3d_encoder(weights: Union[str, Dict[str, torch.Tensor]], device: str =
     return encode
 
 
-def make_clip_encoder(*args, **kwargs):
-    raise NotImplementedError("make_clip_encoder: the CLIP towers come with ROADMAP Queue A 8 "
-                              "of the port")
+def _encoder_device(name: str, device: str) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{name}: no CUDA device (pass device='cpu' for the CPU)")
+    return dev
 
 
-def make_timesformer_encoder(*args, **kwargs):
-    raise NotImplementedError("make_timesformer_encoder: the TimeSformer tower comes with "
-                              "ROADMAP Queue A 8 of the port")
+def make_clip_encoder(weights: Dict[str, torch.Tensor], device: str = "cuda",
+                      dtype: torch.dtype = torch.float32, normalize: bool = True,
+                      **tower_kwargs) -> Callable[[np.ndarray], np.ndarray]:
+    """[B, T, H, W, 3] uint8 frames -> [B, E]: CLIP-ViT features of each
+    frame, averaged over the clip's T frames (T is 1 at the reference's 1
+    fps) and, with ``normalize``, unit-normalized (JAX
+    tools/extract_features.py:138-170).  ``weights``: the tower's converted
+    state_dict; ``tower_kwargs``: ``CLIPImageEncoder``'s sizes (default
+    ViT-B/32)."""
+    from temporalalignnet_torch.models.clip_vit import CLIPImageEncoder, preprocess_frames
+
+    dev = _encoder_device("make_clip_encoder", device)
+    model = CLIPImageEncoder(**tower_kwargs)
+    model.load_state_dict(weights, strict=True)
+    model = model.to(dev).eval()
+
+    @torch.inference_mode()
+    def encode(frames: np.ndarray) -> np.ndarray:
+        B, T = frames.shape[:2]
+        x = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
+        x = preprocess_frames(x.reshape((B * T,) + x.shape[2:]))
+        with torch.autocast(dev.type, dtype=dtype, enabled=dtype != torch.float32):
+            feats = model(x)
+        feats = feats.float().reshape(B, T, -1).mean(dim=1)
+        if normalize:  # CLIP similarity is cosine (eval --baseline_sim cos)
+            feats = feats / (feats.norm(dim=-1, keepdim=True) + 1e-8)
+        return feats.cpu().numpy()
+
+    return encode
+
+
+def make_timesformer_encoder(weights: Dict[str, torch.Tensor], device: str = "cuda",
+                             dtype: torch.dtype = torch.float32, **tower_kwargs
+                             ) -> Callable[[np.ndarray], np.ndarray]:
+    """[B, T, H, W, 3] uint8 clips -> [B, width]: TimeSformer's final-LN class
+    token per clip, T the tower's ``frames`` (the reference extractor's
+    8-frame clips at 8 fps; JAX tools/extract_features.py:173-200).
+    ``weights``: the tower's converted state_dict; ``tower_kwargs``:
+    ``TimeSformerEncoder``'s sizes (default the base model)."""
+    from temporalalignnet_torch.models.timesformer import TimeSformerEncoder, preprocess_clip
+
+    dev = _encoder_device("make_timesformer_encoder", device)
+    model = TimeSformerEncoder(**tower_kwargs)
+    model.load_state_dict(weights, strict=True)
+    model = model.to(dev).eval()
+
+    @torch.inference_mode()
+    def encode(clips: np.ndarray) -> np.ndarray:
+        x = preprocess_clip(torch.from_numpy(np.ascontiguousarray(clips)).to(dev))
+        with torch.autocast(dev.type, dtype=dtype, enabled=dtype != torch.float32):
+            feats = model(x)
+        return feats.float().cpu().numpy()
+
+    return encode

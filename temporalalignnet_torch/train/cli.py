@@ -44,6 +44,14 @@ state, such as a reference checkpoint, is refused (use it with
 Downstream evals: HTM-Align (``--align_anno``) and, unless ``--optim_policy
 bce``, YouCook2 retrieval (``--yc2_anno``; train/main.py:165-212).
 
+``--language_model bert --bert_dir <dir>`` trains a BERT TAN (text dim
+768 for bert-base-uncased): the directory's config.json and vocab.txt give
+the tower and the tokenizer (``models/bert.py``), and its
+``model.safetensors`` or ``pytorch_model.bin``, where there is one, the
+tower's starting weights (``[bert]`` lines report the merge; without one
+BERT trains from its own init).  BERT is trained whole, word embeddings
+included.
+
 ``--milnce_ckpt s3d_howto100m.pth`` starts the word2vec tower from the
 MIL-NCE weights, as the reference always does (word2vec_model.py:10-23),
 before ``--pretrain``, the optimizer and the EMA twin's copy; its merge is
@@ -58,7 +66,7 @@ steps and ``eval/*`` at each downstream eval to
 ``<experiment>/train.metrics.jsonl`` (and TensorBoard where tensorboardX is
 installed), and a progress line to stderr.
 
-Flags of the JAX trainer that later work brings (BERT, multi-GPU, grouped
+Flags of the JAX trainer that later work brings (multi-GPU, grouped
 dispatch) exit with a message naming that work.
 """
 
@@ -74,9 +82,9 @@ from typing import Optional
 # flag -> (the value that means "not used", the work that brings it)
 _LATER = {
     "steps_per_dispatch": (1, "grouped dispatch (a later slice; CUDA graphs)"),
-    "dp": (-1, "multi-GPU training (ROADMAP Queue A)"),
-    "tp": (1, "multi-GPU training (ROADMAP Queue A)"),
-    "multihost": (False, "multi-GPU training (ROADMAP Queue A)"),
+    "dp": (-1, "multi-GPU training (ROADMAP Queue A 4)"),
+    "tp": (1, "multi-GPU training (ROADMAP Queue A 4)"),
+    "multihost": (False, "multi-GPU training (ROADMAP Queue A 4)"),
 }
 
 
@@ -110,7 +118,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--feature_dir", required=True)
     p.add_argument("--captions", required=True)
     p.add_argument("--holdout", default=None)
-    p.add_argument("--vocab", required=True, help="word list .npy (s3d_dict format)")
+    p.add_argument("--vocab", default=None,
+                   help="word list .npy (s3d_dict format), for --language_model word2vec")
+    p.add_argument("--bert_dir", default=None,
+                   help="HF BERT directory (config.json, vocab.txt, optionally "
+                        "model.safetensors or pytorch_model.bin) for --language_model bert")
     p.add_argument("--milnce_ckpt", default=None,
                    help="s3d_howto100m.pth: start the word2vec tower from the MIL-NCE weights")
     p.add_argument("--seq_len", type=int, default=64)
@@ -176,9 +188,6 @@ def experiment_name(args) -> str:
 
 
 def _refuse_later_flags(args) -> None:
-    if args.language_model == "bert":
-        raise SystemExit("--language_model bert: the BERT tower comes with ROADMAP Queue A "
-                         "(towers) of the port")
     for flag, (unused, work) in _LATER.items():
         if getattr(args, flag) != unused:
             raise SystemExit(f"--{flag}: not in the port yet; it comes with {work}")
@@ -187,6 +196,21 @@ def _refuse_later_flags(args) -> None:
         raise SystemExit(f"--pretrain {args.pretrain}: the port reads a .pth.tar in the "
                          "reference layout, not an orbax directory of the JAX trainer "
                          "(export one with python -m temporalalignnet_tpu.tools.export_torch)")
+
+
+def load_bert_weights(bert_dir, model) -> None:
+    """``--bert_dir``'s weights, where it has a weight file, merged
+    non-strictly into the BERT tower (``bert``), the merge printed as
+    ``[bert]`` lines (JAX train/cli.py:426-458)."""
+    from temporalalignnet_torch.checkpoint import merge_into
+
+    if bert_dir.weights is None:
+        print(f"[bert] no weight file in {bert_dir.path}; "
+              "training from scratch", flush=True)
+        return
+    print(f"[bert] {bert_dir.weight_file}", flush=True)
+    for line in bert_dir.report + merge_into(model.bert, bert_dir.weights, "bert"):
+        print(f"[bert] {line}", flush=True)
 
 
 def load_milnce_text(path: str, model) -> None:
@@ -276,6 +300,7 @@ def main(argv: Optional[list] = None) -> dict:
                                              YC2RetrievalDataset)
     from temporalalignnet_torch.eval.align import AlignmentEvaluator
     from temporalalignnet_torch.eval.retrieval import RetrievalEvaluator
+    from temporalalignnet_torch.models.bert import load_bert_dir
     from temporalalignnet_torch.models.net import TANWithText
     from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
     from temporalalignnet_torch.train.optimizer import Optimizer, lr_at
@@ -304,7 +329,19 @@ def main(argv: Optional[list] = None) -> dict:
         temporal_agreement_type=args.temporal_agreement_type, loss_threshold=args.loss_threshold,
         use_alignability_head=bool(args.use_alignability_head),
         optim_policy=args.optim_policy, use_fused_milnce=fused)
-    tokenizer = Word2VecTokenizer(args.vocab, max_words=args.max_words)
+    bert_dir = None
+    if args.language_model == "bert":  # tokenizer and config (train/main.py:291-292)
+        if not args.bert_dir:
+            raise SystemExit("--language_model bert requires --bert_dir")
+        try:
+            bert_dir = load_bert_dir(args.bert_dir)
+        except ValueError as e:
+            raise SystemExit(f"--bert_dir: {e}") from None
+        tokenizer = bert_dir.tokenizer
+    elif args.vocab:
+        tokenizer = Word2VecTokenizer(args.vocab, max_words=args.max_words)
+    else:
+        raise SystemExit("--vocab is required (s3d_dict.npy word list)")
     dcfg = DataConfig(seq_len=args.seq_len, max_sentences=args.max_sentences,
                       max_words=args.max_words)
     dataset = HTMFeatureDataset(args.feature_dir, args.captions, dcfg, "train", tokenizer,
@@ -329,8 +366,11 @@ def main(argv: Optional[list] = None) -> dict:
         f.write(json.dumps(vars(args)) + "\n")
     ckpt_path = os.path.join(exp_dir, "latest.pth.tar")
 
-    model = TANWithText(mcfg, vocab_size=tokenizer.vocab_size)
+    model = TANWithText(mcfg, vocab_size=tokenizer.vocab_size,
+                        bert_config=bert_dir.config if bert_dir else None)
     model.init_weights(torch.Generator().manual_seed(args.seed))
+    if bert_dir is not None:
+        load_bert_weights(bert_dir, model)
     if args.milnce_ckpt:
         load_milnce_text(args.milnce_ckpt, model)
     if args.pretrain:

@@ -31,7 +31,7 @@ cuda`` (the default) with bf16 compute and the convolutions in
 
 The multi-host flags of the JAX CLI (``--multihost``, ``--coordinator``,
 ``--num_processes``, ``--process_id``) exit with a message: multi-GPU comes
-with ROADMAP Queue A 6.
+with ROADMAP Queue A 4.
 """
 
 from __future__ import annotations
@@ -110,7 +110,7 @@ def main(argv: Optional[list] = None) -> dict:
     for flag, unused in _MULTI_GPU.items():
         if getattr(args, flag) != unused:
             raise SystemExit(f"--{flag}: not in the port yet; multi-GPU training comes with "
-                             "ROADMAP Queue A 6")
+                             "ROADMAP Queue A 4")
 
     import numpy as np
     import torch

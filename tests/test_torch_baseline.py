@@ -83,11 +83,6 @@ def test_baseline_matches_jax(rng, sim, proj):
     assert tm.textual_feature(text) is text
 
 
-def test_baseline_refuses_a_text_tower():
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        RawFeatureBaseline(ModelConfig(**_cfg_kw("cos")), text_tower=lambda: None)
-
-
 def test_load_milnce_checkpoint_matches_jax(tmp_path, capsys):
     path = str(tmp_path / "s3d_howto100m.pth")
     text = write_milnce_checkpoint(path, VOCAB + 1, C)

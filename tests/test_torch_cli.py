@@ -76,13 +76,11 @@ def test_cli_refuses_cuda_without_a_card(files):
         main(files)
 
 
-@pytest.mark.parametrize("flag", [["--clip_text_ckpt", "c"], ["--clip_vocab", "v"],
-                                  ["--clip_bpe", "b"], ["--language_model", "bert"],
-                                  ["--bert_dir", "d"], ["--shard_eval"], ["--multihost"]])
+@pytest.mark.parametrize("flag", [["--shard_eval"], ["--multihost"]])
 def test_eval_cli_refuses_flags_of_later_slices(files, flag):
-    """The JAX eval CLI's flags the port does not bring yet exit naming the
-    work that brings them, before any file is read."""
+    """The JAX eval CLI's flags the port does not bring yet (multi-GPU) exit
+    naming the ROADMAP item that brings them, before any file is read."""
     from temporalalignnet_torch.eval.cli import main
 
-    with pytest.raises(SystemExit, match="Queue A [68]"):
+    with pytest.raises(SystemExit, match="Queue A 4"):
         main(files + flag)

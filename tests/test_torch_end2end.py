@@ -478,7 +478,7 @@ def test_e2e_cli_matches_jax(tmp_path, capsys):
 def test_e2e_cli_refuses_the_multi_host_flags(flag):
     from temporalalignnet_torch.train.end2end_cli import main
 
-    with pytest.raises(SystemExit, match="Queue A 6"):
+    with pytest.raises(SystemExit, match="Queue A 4"):
         main(["--htm_aa_csv", "c", "--video_root", "r", "--vocab", "v", *flag])
 
 

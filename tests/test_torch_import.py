@@ -1,4 +1,6 @@
-"""The PyTorch port imports no JAX and nothing of the JAX package."""
+"""The PyTorch port imports no JAX and nothing of the JAX package, nor any
+package the machine with the card lacks (transformers, regex, ftfy,
+safetensors, msgpack)."""
 
 import os
 import re
@@ -14,9 +16,12 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "temporalalignnet_torch"
 PORT_SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
-_IMPORT_ALL = """
+BLOCKED = ("jax", "flax", "optax", "orbax", "transformers", "regex", "ftfy", "safetensors",
+           "msgpack")
+
+_IMPORT_ALL = f"""
 import importlib, pkgutil, sys
-for m in ("jax", "flax", "optax", "orbax"):
+for m in {BLOCKED!r}:
     sys.modules[m] = None  # any import of them raises ImportError
 import temporalalignnet_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -32,6 +37,11 @@ SLICE_6 = {"temporalalignnet_torch.models.s3d", "temporalalignnet_torch.data.cli
            "temporalalignnet_torch.eval.linear_probe", "temporalalignnet_torch.tools",
            "temporalalignnet_torch.tools.extract_features",
            "temporalalignnet_torch.tools.generate_htm_aa"}
+# the BERT, CLIP and TimeSformer towers and their key maps (slice 7)
+SLICE_7 = {"temporalalignnet_torch.models.bert", "temporalalignnet_torch.models.clip_text",
+           "temporalalignnet_torch.models.clip_vit", "temporalalignnet_torch.models.timesformer",
+           "temporalalignnet_torch.checkpoint.clip_convert",
+           "temporalalignnet_torch.checkpoint.timesformer_convert"}
 
 
 def test_port_imports_with_jax_blocked():
@@ -41,17 +51,17 @@ def test_port_imports_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr
     imported = set(out.stdout.split())
-    assert len(imported) >= 28  # every module of the port was imported
-    assert SLICE_6 <= imported, SLICE_6 - imported
+    assert len(imported) >= 34  # every module of the port was imported
+    assert SLICE_6 | SLICE_7 <= imported, (SLICE_6 | SLICE_7) - imported
 
 
 def test_port_sources_never_import_the_jax_package():
-    pattern = re.compile(
-        r"^\s*(from\s+(temporalalignnet_tpu|jax|flax|optax|orbax)\b"
-        r"|import\s+(temporalalignnet_tpu|jax|flax|optax|orbax)\b)", re.M)
+    names = "|".join(("temporalalignnet_tpu",) + BLOCKED)
+    pattern = re.compile(rf"^\s*(from\s+({names})\b|import\s+({names})\b)", re.M)
     offenders = {str(p.relative_to(REPO)): pattern.findall(p.read_text())
                  for p in PORT_SOURCES}
     assert {k: v for k, v in offenders.items() if v} == {}
-    assert len(PORT_SOURCES) >= 28
+    assert len(PORT_SOURCES) >= 34
     assert {str(p.relative_to(REPO)) for p in PORT_SOURCES} >= {
-        m.replace(".", "/") + ("/__init__.py" if m.endswith("tools") else ".py") for m in SLICE_6}
+        m.replace(".", "/") + ("/__init__.py" if m.endswith("tools") else ".py")
+        for m in SLICE_6 | SLICE_7}

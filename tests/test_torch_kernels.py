@@ -52,7 +52,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape", [(4, 8, 64, 64), (3, 8, 72, 64), (2, 8, 200, 64),
-                                   (1, 8, 1088, 64), (2, 3, 5, 64)])
+                                   (1, 8, 1088, 64), (2, 3, 5, 64),
+                                   # the towers': BERT, CLIP ViT, TimeSformer
+                                   (16, 12, 32, 64), (4, 12, 50, 64), (24, 12, 8, 64),
+                                   (2, 12, 197, 64)])
 def test_kernel_matches_reference_on_card(cuda, shape, dtype, tol):
     q, k, v, mask = _qkv(shape, dtype, cuda)
     for m in (None, mask):
@@ -224,7 +227,7 @@ def test_bf16_grad_limit_catches_the_planted_attention_faults():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 8, 64, 64), (3, 8, 80, 64), (2, 3, 37, 64),
-                                   (1, 2, 150, 64), (2, 2, 5, 64)])
+                                   (1, 2, 150, 64), (2, 2, 5, 64), (16, 12, 32, 64)])
 def test_mha_bwd_matches_reference_grads_on_card(cuda, shape, dtype):
     """Grads of the kernel path against mha_bwd_reference (the plain version
     with the kernel's roundings) from the same inputs, per element."""

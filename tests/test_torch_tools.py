@@ -129,12 +129,6 @@ def test_feature_extractor_matches_jax(tmp_path):
     assert ours.run(videos, str(tmp_path / "ours"), bad_vids=["v2"]) == []
 
 
-@pytest.mark.parametrize("name", ["make_clip_encoder", "make_timesformer_encoder"])
-def test_other_encoders_name_their_queue_item(name):
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        getattr(extract_features, name)({})
-
-
 # --------------------------------------------------------------- the probe
 
 

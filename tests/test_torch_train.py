@@ -369,7 +369,7 @@ def test_train_cli_writes_a_checkpoint_the_eval_cli_loads(feature_dir, tmp_path,
     assert 0.0 <= metrics["Recall"] <= 1.0 and 0.0 <= metrics["AUC"] <= 1.0
 
 
-@pytest.mark.parametrize("flag", [["--language_model", "bert"], ["--dp", "2"],
+@pytest.mark.parametrize("flag", [["--dp", "2"],
                                   ["--steps_per_dispatch", "4"], ["--tp", "2"], ["--multihost"]])
 def test_train_cli_refuses_flags_of_later_slices(flag):
     from temporalalignnet_torch.train.cli import main as train_main
