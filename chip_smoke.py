@@ -160,6 +160,26 @@ Phases, each printing JSON lines:
              random HF-key-space weights: clips/s in bf16 with their
              launches (12 short; 12 short + 12 long), bf16 against f32, f32
              card against CPU (TOWER_BF16_REL, TOWER_F32_REL).
+     serving_export  slice 8 (after cotrain_cli): tools/export_eval.py on
+             the E6D6 TAN (random weights from the seed) at the bench.py
+             workload, bf16 fixed and --poly_batch, f32 fixed: saved,
+             loaded and called; SERVE_NODES temporalalignnet::mha_fwd nodes
+             in the graph and as many launches per call of the loaded
+             program ("short", "f32"), outputs equal to the live model's to
+             the bit at B = 192 and 7; the export CLI in a child (started
+             beside cotrain_cli); tools/export_torch.py on train_cli's experiment
+             directory, its file loaded strict with a forward equal to the
+             trained checkpoint's.
+     grouped_dispatch  Stage 1 and cotrain (from the train phase's state)
+             at B = 64, bf16: two groups of GROUP_K steps (the first's
+             eager warm-up steps, the capture, replays of the CUDA graph)
+             against as many eager steps from the same state, equal
+             losses, params and twin to the bit; the launches the wrappers
+             counted at capture (STEP_LAUNCHES, COTRAIN_STEP_LAUNCHES per
+             step), GROUP_K times that on the device in a profiled group of
+             replays, the host syncs of a group; in two children the train CLI with
+             --steps_per_dispatch GROUP_K --max_steps 10 (overshooting to 12,
+             with its [stop] line) against --max_steps 12 per step.
   4. times   per shape mha_fwd's, the plain version's and PyTorch's SDPA
              time beside the card's bound (K and V counted at the valid keys
              only, ``attention_work``), and the same four times for each
@@ -168,11 +188,14 @@ Phases, each printing JSON lines:
              each redesigned one (mha_fwd and milnce_fwd v1; mha_bwd,
              milnce_dv and milnce_dt v2): these kernel rows run right after
              the kernel phase, before any larger profile, and eval-forward
-             windows/s of the bench.py workload right after the eval phase.
+             windows/s of the bench.py workload right after the eval phase,
+             beside the same forward as a loaded torch.export program.
              Last, in child processes, the device ms of a retrieval forward
              call at Lb = 96 and 256, and train steps/s at B = 64 (Stage 1
-             plain and with --remat, cotrain, and the BERT TAN's Stage 1 and
-             cotrain), each with its device time, peak memory and top
+             plain and with --remat, cotrain, both also as a CUDA graph per
+             step (--steps_per_dispatch GROUP_K), and the BERT TAN's Stage 1
+             and cotrain; the two Stage 1 also with AdamW not capturable),
+             each with its device time, peak memory and top
              kernels; and e2e steps/s and clips/s at E2E with the device
              time, idle share, peak memory and the bound from S3D's
              multiply-adds.
@@ -188,7 +211,8 @@ runs.
 The card's name and power limit (nvidia-smi) and a ``kernels`` line come
 before the last line, which is {"ok": true, "device": {...}}.  Any failed
 phase raises and the script exits non-zero without that line.  Without CUDA
-it exits 2 and prints no result.
+it exits 2 and prints no result; without the port beside it (the script
+alone in a directory) it exits 1 before any output.
 """
 
 from __future__ import annotations
@@ -384,6 +408,15 @@ TOWER_SHAPES = [BERT_SHAPE, (CLIP_FRAMES, 12, 50, 64), (TIMESFORMER_CLIPS * 196,
 # of f32 sums through 12 layers; bf16 against f32 rounds every layer's inputs (as S3D's)
 TOWER_F32_REL = 1e-4
 TOWER_BF16_REL = 5e-2
+# Slice 8: the serving export of the bench.py workload (BENCH, E6D6): 6 dual + 6 joint
+# attention calls, one temporalalignnet::mha_fwd node each; the poly artifact serves
+# SERVE_BATCHES.  Grouped dispatch: GROUP_K steps a group (a CUDA graph replayed per batch);
+# the train CLI over the train phase's videos at the batch that makes GROUP_CLI_STEPS steps
+# an epoch (groups of 4, 4, 4), --max_steps 10 grouped against 12 per step
+SERVE_NODES = 12
+SERVE_BATCHES = (BENCH["B"], 7)
+GROUP_K = 4
+GROUP_CLI_STEPS = 12
 # published dense peaks (NVIDIA data sheets): bytes/s, bf16 FLOP/s
 CARD_PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
               "H100": (3.35e12, 989e12)}
@@ -645,12 +678,9 @@ def norm_err(a, b) -> float:
 
 
 def kernel_fns():
-    from temporalalignnet_torch.ops import milnce
-    from temporalalignnet_torch.ops.mha_bwd import mha_bwd
-    from temporalalignnet_torch.ops.mha_fwd import mha_fwd
+    from temporalalignnet_torch.ops import kernels
 
-    return {"mha_fwd": mha_fwd, "mha_bwd": mha_bwd, "milnce_fwd": milnce.milnce_fwd,
-            "milnce_dv": milnce.milnce_dv, "milnce_dt": milnce.milnce_dt}
+    return kernels()
 
 
 def reset_counts():
@@ -1114,18 +1144,22 @@ def phase_cli(torch, model):
 
 
 def train_setup(torch, device, fused, cfg_kw=None, state=None, compute=None, cotrain=False,
-                train_kw=None, bert=False):
+                train_kw=None, bert=False, multi=False, capturable=None):
     """A TANWithText with its optimizer, train step and, for ``cotrain`` (head
     on, agreement targets), its EMA twin; params f32 from the seed (or
     ``state``; for cotrain merged as ``--pretrain`` does, so a Stage-1 state
     without the head loads), compute bf16 on the card unless ``compute``
-    says; with ``bert`` the text tower is BERT at BERT_CFG's widths.
+    says; with ``bert`` the text tower is BERT at BERT_CFG's widths; with
+    ``multi`` the step is ``make_multi_train_step``'s (a group of steps, on
+    the card a CUDA graph replayed per batch); ``capturable`` goes to the
+    Optimizer (None: its default, True on the card).
     Returns (model, optimizer, step, twin or None)."""
     from temporalalignnet_torch.checkpoint import merge_state_dict
     from temporalalignnet_torch.core.config import LossConfig, ModelConfig, TrainConfig
     from temporalalignnet_torch.models.bert import BertConfig
     from temporalalignnet_torch.models.net import TANWithText
-    from temporalalignnet_torch.train import EMATwin, Optimizer, make_train_step
+    from temporalalignnet_torch.train import (EMATwin, Optimizer, make_multi_train_step,
+                                              make_train_step)
 
     cfg_kw = dict(cfg_kw or {}, language_model="bert") if bert else cfg_kw
     cfg = ModelConfig(fused_milnce=fused, use_alignability_head=cotrain, **(cfg_kw or {}))
@@ -1139,14 +1173,15 @@ def train_setup(torch, device, fused, cfg_kw=None, state=None, compute=None, cot
     model.to(device)
     tcfg = TrainConfig(lr=TRAIN_LR, warmup_iterations=1, total_iterations=1000,
                        **(train_kw or {}))
-    opt = Optimizer(model, tcfg)
+    opt = Optimizer(model, tcfg, capturable=capturable)
     twin = EMATwin(model, tcfg) if cotrain else None
     if compute is None:
         compute = torch.bfloat16 if device.type == "cuda" else torch.float32
     loss_kw = dict(model="cotrain", learn_agreement=True, use_alignability_head=True) \
         if cotrain else {}
-    step = make_train_step(model, opt, tcfg, LossConfig(use_fused_milnce=fused, **loss_kw),
-                           compute_dtype=compute, twin=twin)
+    step = (make_multi_train_step if multi else make_train_step)(
+        model, opt, tcfg, LossConfig(use_fused_milnce=fused, **loss_kw), compute_dtype=compute,
+        twin=twin)
     return model, opt, step, twin
 
 
@@ -1912,7 +1947,10 @@ def phase_eval_forward_times(torch, model, card):
     """Eval-forward windows/s with the forward's device time: the last
     profile of this process, right after the kernel rows and the eval
     phase (on an H100 its session lost device activity when it came after
-    the training phases)."""
+    the training phases); beside it the same forward as a loaded
+    ``torch.export`` program (tools/export_eval.py)."""
+    from temporalalignnet_torch.tools import export_eval as ee
+
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 2)
     B, T, C, N, W = (BENCH[k] for k in "BTCNW")
@@ -1928,11 +1966,27 @@ def phase_eval_forward_times(torch, model, card):
     busy_ms, per_kernel, _, timing = device_profile(torch, forward)
     busy_ms = busy_ms if timing == "profiler" else None  # events time the host too
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    # slice 8: the same forward as the loaded torch.export program (its video
+    # float32, cast inside), on the same weights and ids
+    params = ee.eval_params(model)
+    program = ee.deserialize(ee.serialize(ee.export_eval_forward(model, params, B, T, C, N,
+                                                                 W))).module()
+    video32 = video.float()
+
+    def serve():
+        with torch.no_grad():
+            program(params, video32, ids)
+
+    serve_ms = cuda_ms(torch, serve)
+    serve_busy, _, _, serve_timing = device_profile(torch, serve)
+    serve_busy = serve_busy if serve_timing == "profiler" else None
     emit({"phase": "times", "metric": "eval_forward_windows_per_s", "card": card,
           "value": B / (fwd_ms / 1e3), "ms_per_call": fwd_ms, "workload": BENCH,
           "model": "E6D6 width 512, bf16, head on", "device_busy_ms_per_call": busy_ms,
           "idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / fwd_ms),
-          "top_kernels_ms_per_call": {k[:90]: v for k, v in top}})
+          "top_kernels_ms_per_call": {k[:90]: v for k, v in top},
+          "loaded_program": {"windows_per_s": B / (serve_ms / 1e3), "ms_per_call": serve_ms,
+                             "device_busy_ms_per_call": serve_busy, "timing": serve_timing}})
 
 
 def synthetic_train_batch(torch, B, seed):
@@ -3086,6 +3140,304 @@ def phase_tower_extract(torch):
     return launches
 
 
+def serving_call(torch, program, params, video, ids):
+    """One call of a serving program, with the launch counts set to 0 just
+    before it and read just after: (output, every kernel's launches, the
+    mha_fwd routes)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        out = program(params, video, ids)
+    torch.cuda.synchronize()
+    return out, read_counts(), read_routes()["mha_fwd"]
+
+
+def start_export_cli():
+    """The export CLI (--poly_batch, bf16 on the card) in a child, started
+    beside cotrain_cli and read by phase_serving_export: (process, its
+    artifact's path)."""
+    root = os.path.join(REPO, "build", "chip_smoke_export")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = os.path.join(root, "tan_eval_poly.pt2")
+    return start([sys.executable, "-m", "temporalalignnet_torch.tools.export_eval",
+                  "--out", out, "--poly_batch"]), out
+
+
+def phase_serving_export(torch, card, stage1_ckpt, export_cli):
+    """Slice 8's serving path: tools/export_eval.py on the E6D6 TAN (random
+    weights from the seed) at the bench.py workload, bf16 (fixed and
+    --poly_batch) and f32 (fixed): the artifact saved, loaded and called,
+    its graph holding SERVE_NODES temporalalignnet::mha_fwd nodes, each call
+    of the loaded program launching the kernel as often on the bf16 "short"
+    (or "f32") route and no other kernel, its outputs equal to the live
+    model's to the bit (at B = 192, and at 7 from the poly artifact; the
+    loaded program's time comes with the eval forward's).  Then the export
+    CLI's line (``start_export_cli``), and tools/export_torch.py on
+    train_cli's experiment directory, whose file loads strict into a fresh
+    TAN with a forward equal to the trained checkpoint's."""
+    from temporalalignnet_torch.checkpoint import load_reference_checkpoint
+    from temporalalignnet_torch.core.config import ModelConfig
+    from temporalalignnet_torch.models.net import TANWithText
+    from temporalalignnet_torch.ops.mha_fwd import route
+    from temporalalignnet_torch.tools import export_eval as ee
+    from temporalalignnet_torch.tools import export_torch
+
+    dev = torch.device("cuda")
+    B, T, C, N, W = (BENCH[k] for k in "BTCNW")
+    child, cli_out = export_cli
+    try:
+        for dtype, kinds in ((torch.bfloat16, ("fixed", "poly")), (torch.float32, ("fixed",))):
+            model = make_model(torch, dev, dtype)
+            params = ee.eval_params(model)
+            which = route(dtype, T)
+            for kind in kinds:
+                t0 = time.perf_counter()
+                exported = ee.export_eval_forward(model, params, B, T, C, N, W,
+                                                  poly_batch=kind == "poly")
+                export_s = time.perf_counter() - t0
+                blob = ee.serialize(exported)
+                t0 = time.perf_counter()
+                loaded = ee.deserialize(blob)
+                load_s = time.perf_counter() - t0
+                program = loaded.module()
+                row = {"phase": "serving_export", "dtype": str(dtype).replace("torch.", ""),
+                       "kind": kind, "bytes": len(blob), "mha_fwd_nodes": ee.mha_fwd_nodes(loaded),
+                       "export_seconds": export_s, "load_seconds": load_s, "served": {}}
+                for b in SERVE_BATCHES if kind == "poly" else (B,):
+                    diffs = ee.roundtrip_check(blob, model, params, b, T, C, N, W,
+                                               atol=float("inf"))
+                    video, ids = ee.seeded_inputs(b, T, C, N, W, dev)
+                    _, counts, routes = serving_call(torch, program, params, video, ids)
+                    row["served"][b] = {"launches": counts["mha_fwd"], "routes": routes,
+                                        "other_kernels": sum(counts.values()) - counts["mha_fwd"],
+                                        **diffs}
+                    if (dtype, kind, b) == (torch.bfloat16, "fixed", B):
+                        launches = counts
+                emit(row)
+                check(row["mha_fwd_nodes"] == SERVE_NODES,
+                      f"{kind} {dtype} artifact holds {row['mha_fwd_nodes']} mha_fwd nodes")
+                for b, got in row["served"].items():
+                    check(got["launches"] == SERVE_NODES and got["routes"][which] == SERVE_NODES
+                          and got["other_kernels"] == 0,
+                          f"{kind} {dtype} program at B = {b}: {got}")
+                    check(all(v == 0.0 for k, v in got.items() if k.startswith("max_abs")),
+                          f"{kind} {dtype} round trip at B = {b} not bit-equal: {got}")
+        cli = json.loads(finish(child, "export_eval CLI", timeout=600).strip().splitlines()[-1])
+    finally:
+        stop([child])
+    emit({"phase": "serving_export_cli", **cli})
+    check(cli["mha_fwd_nodes"] == SERVE_NODES and cli["poly_batch"] and cli["device"] == card
+          and os.path.getsize(cli_out) == cli["bytes"]
+          and all(cli[k] == 0.0 for k in cli if k.startswith("max_abs_diff/")),
+          f"export CLI line {cli}")
+
+    # export_torch on the trained checkpoint's experiment directory
+    out = os.path.join(os.path.dirname(cli_out), "stage1_export.pth.tar")
+    export_torch.main(["--params", os.path.dirname(stage1_ckpt), "--out", out, "--epoch", "3",
+                       "--iteration", "4"])
+    ckpt = torch.load(out, map_location="cpu", weights_only=True)
+    fwd = {}
+    for name, path in (("exported", out), ("trained", stage1_ckpt)):
+        m = TANWithText(ModelConfig(use_alignability_head=True, random_pos_start=False),
+                        vocab_size=66251)
+        load_reference_checkpoint(path, m, verbose=False)
+        m.to(dev).eval()
+        video, ids = ee.seeded_inputs(8, T, C, N, W, dev)
+        with torch.no_grad():
+            fwd[name] = ee.EvalForward(m)(ee.eval_params(m), video, ids)
+    err = max((fwd["exported"][k] - fwd["trained"][k]).abs().max().item() for k in fwd["trained"])
+    emit({"phase": "export_torch", "keys": sorted(ckpt), "epoch": ckpt["epoch"],
+          "iteration": ckpt["iteration"], "forward_max_abs_err": err})
+    check(sorted(ckpt) == ["best_acc", "epoch", "iteration", "optimizer", "state_dict"]
+          and ckpt["optimizer"] == {} and ckpt["iteration"] == 4 and err == 0.0,
+          "export_torch's file")
+    return launches
+
+
+# the kernel each wrapper launches once a call on the train step's bf16 routes, by
+# a part of the name torch.profiler gives it (its demangled symbol)
+KERNEL_SYMBOLS = {"mha_fwd": "mha_fwd_wgmma_kernel<", "mha_bwd": "mha_bwd_fused_kernel<",
+                  "milnce_fwd": "milnce_fwd_wgmma_kernel<",
+                  "milnce_dv": "milnce_grad_wgmma_kernel<true,",
+                  "milnce_dt": "milnce_grad_wgmma_kernel<false,"}
+
+
+def profiled_launches(torch, fn):
+    """{wrapper: launches of its kernel (KERNEL_SYMBOLS) in one call of
+    ``fn``}, counted on the device in a torch.profiler trace: what ran,
+    however it was launched (a replayed CUDA graph passes no wrapper).  A
+    session can lose device activity (``device_profile``), so the counts are
+    those two sessions recorded alike, none of them all zero; None if no two
+    of PROFILER_TRIES + 1 did."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for _ in range(PROFILER_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
+        for e in prof.key_averages():
+            for name, symbol in KERNEL_SYMBOLS.items():
+                if e.device_type == DeviceType.CUDA and symbol in e.key:
+                    counts[name] += e.count
+        if any(counts.values()) and counts in seen:
+            return counts
+        seen.append(counts)
+    return None
+
+
+def grouped_against_eager(torch, batches, cotrain, state):
+    """From one state (the seed's, or ``state``), two groups of ``batches``
+    as eager train steps and as grouped ones (E6D6, B = 64, bf16, fused):
+    the first group's GraphedStep.WARMUP eager steps, the capture, and
+    replays.  Each run's losses, params (and the twin's), wrapper launch
+    counts and routes, update counts and generator state; for the grouped
+    run also the launches at capture, the device's launches in one more
+    group of replays (``profiled_launches``) and the host syncs of a
+    group."""
+    dev = torch.device("cuda")
+    runs = {}
+    for mode in ("eager", "graph"):
+        model, opt, step, twin = train_setup(torch, dev, fused=True, state=state,
+                                             cotrain=cotrain, multi=mode == "graph")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        if mode == "eager":
+            losses = torch.stack([step(b)["loss"] for b in batches + batches])
+        else:
+            losses = torch.cat([step(batches)["loss"], step(batches)["loss"]])
+        torch.cuda.synchronize()
+        runs[mode] = {
+            "seconds": time.perf_counter() - t0, "losses": losses.tolist(),
+            "launches": read_counts(), "routes": read_routes(),
+            "params": {k: v.detach().clone() for k, v in model.state_dict().items()},
+            "target": None if twin is None else {k: v.detach().clone()
+                                                 for k, v in twin.model.state_dict().items()},
+            "updates": opt.updates, "micro_steps": None if twin is None else twin.micro_steps,
+            "generator": step.generator.get_state()}
+        if mode == "graph":
+            runs[mode]["per_step"] = step.launches_per_step
+            runs[mode]["replayed"] = profiled_launches(torch, lambda: step(batches))
+            more = batches[:2]
+            runs[mode]["host_syncs_per_group"] = host_syncs(
+                torch, lambda: torch.stack(list(step(more).values())).cpu())
+        del model, opt, step, twin
+    return runs
+
+
+def phase_grouped_dispatch(torch, files, stage1_state):
+    """--steps_per_dispatch on the card: Stage 1 and cotrain (from the train
+    phase's Stage-1 state) at E6D6, B = 64, bf16, fused: from one state, two
+    groups of GROUP_K batches as grouped steps (GraphedStep.WARMUP eager
+    steps, the capture, replays) and as as many eager steps must give equal
+    losses, params and twin params (to the bit).  The wrappers count the
+    eager steps' launches and the capture's, and none of a replay's: the
+    capture's must be STEP_LAUNCHES / COTRAIN_STEP_LAUNCHES on their routes,
+    and a group of GROUP_K replays, profiled, must run GROUP_K times that on
+    the device; then the host syncs of a group (its metrics fetch).  Beside
+    it, in two children, the train CLI at GROUP_CLI_STEPS steps an epoch
+    with --steps_per_dispatch GROUP_K --max_steps 10, which must overshoot
+    to 12 and say so, against --max_steps 12 per step: equal losses and
+    params.  Returns, per case, the launches on the device in one group of
+    replays and the wrappers' count at capture."""
+    from temporalalignnet_torch.core.config import DataConfig
+    from temporalalignnet_torch.data import HTMFeatureDataset, TrainLoader
+    from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
+    from temporalalignnet_torch.train.train_step import GraphedStep
+
+    feats, captions, vocab = files
+    B, T, N, W = (TRAIN[k] for k in "BTNW")
+    ds = HTMFeatureDataset(feats, captions, DataConfig(seq_len=T, max_sentences=N, max_words=W),
+                           "train", Word2VecTokenizer(vocab, max_words=W))
+    # the CLI's batch: GROUP_CLI_STEPS steps an epoch, so that its groups of GROUP_K
+    # end at GROUP_K, 2 GROUP_K, ... and the one that crosses --max_steps 10 runs past it
+    cli_b = len(ds) // GROUP_CLI_STEPS
+    stop_at = -(-10 // GROUP_K) * GROUP_K
+    prefix = os.path.join(REPO, "build", "chip_smoke_group")
+    shutil.rmtree(prefix, ignore_errors=True)
+    base = [sys.executable, "-m", "temporalalignnet_torch.train", "--feature_dir", feats,
+            "--captions", captions, "--vocab", vocab, "--batch_size", str(cli_b),
+            "--epochs", "2", "--log_every", "1", "--warmup_iterations", "2",
+            "--runtime_save_iter", "0"]
+    children = {
+        "grouped": start(base + ["--steps_per_dispatch", str(GROUP_K), "--max_steps", "10",
+                                 "--prefix", os.path.join(prefix, "grouped")]),
+        "per_step": start(base + ["--max_steps", str(stop_at), "--prefix",
+                                  os.path.join(prefix, "per_step")])}
+    try:
+        loader = TrainLoader(ds, B, seed=SEED + 30, num_workers=8, pin_memory=True)
+        batches = []
+        while len(batches) < GROUP_K:  # 1 batch an epoch at B = 64 over the 96 videos
+            loader.set_epoch(len(batches))
+            batches += list(loader)
+        batches = batches[:GROUP_K]
+        launches = {}
+        for case, cotrain, state, per_step, by_route in (
+                ("stage1", False, None, STEP_LAUNCHES, STEP_ROUTES),
+                ("cotrain", True, stage1_state, COTRAIN_STEP_LAUNCHES, COTRAIN_STEP_ROUTES)):
+            runs = grouped_against_eager(torch, batches, cotrain, state)
+            eager, graph = runs["eager"], runs["graph"]
+            param_err = max((eager["params"][k] - graph["params"][k]).abs().max().item()
+                            for k in eager["params"])
+            target_err = None if eager["target"] is None else max(
+                (eager["target"][k] - graph["target"][k]).abs().max().item()
+                for k in eager["target"])
+            captured = {k: v[""] for k, v in graph["per_step"].items()}
+            captured_routes = {k: {r: n for r, n in v.items() if r} for k, v in
+                               graph["per_step"].items()}
+            steps = 2 * GROUP_K
+            row = {"phase": "grouped_dispatch", "case": case, "steps": steps,
+                   "eager_warmup_steps": GraphedStep.WARMUP,
+                   "losses_eager": eager["losses"], "losses_grouped": graph["losses"],
+                   "param_max_abs_err": param_err, "target_max_abs_err": target_err,
+                   "launches_per_step_at_capture": captured,
+                   "routes_per_step_at_capture": captured_routes,
+                   "launches_wrappers_grouped": graph["launches"],
+                   "launches_wrappers_eager": eager["launches"],
+                   "launches_device_group_of_replays": graph["replayed"],
+                   "updates": [eager["updates"], graph["updates"]],
+                   "twin_micro_steps": [eager["micro_steps"], graph["micro_steps"]],
+                   "host_syncs_per_group": graph["host_syncs_per_group"],
+                   "seconds": {m: r["seconds"] for m, r in runs.items()}}
+            emit(row)
+            check(eager["losses"] == graph["losses"] and param_err == 0.0
+                  and target_err in (None, 0.0), f"{case}: grouped steps differ from eager")
+            check(captured == per_step and captured_routes == by_route,
+                  f"{case}: launches per step at capture {captured} {captured_routes}")
+            check(eager["launches"] == {k: steps * v for k, v in per_step.items()}
+                  and graph["launches"] == {k: (GraphedStep.WARMUP + 1) * v
+                                            for k, v in per_step.items()},
+                  f"{case}: wrapper launches {graph['launches']}, eager {eager['launches']}")
+            check(graph["replayed"] == {k: GROUP_K * per_step[k] for k in KERNEL_SYMBOLS},
+                  f"{case}: kernels on the device in a group of replays {graph['replayed']}")
+            check(eager["updates"] == graph["updates"] == steps
+                  and eager["micro_steps"] == graph["micro_steps"]
+                  and torch.equal(eager["generator"], graph["generator"]),
+                  f"{case}: counters or generator differ")
+            launches[case] = {"replayed": graph["replayed"], "at_capture": captured}
+        outs = {k: finish(p, f"train CLI {k}", timeout=900) for k, p in children.items()}
+    finally:
+        stop(children.values())
+    finals = {k: json.loads(o.strip().splitlines()[-1]) for k, o in outs.items()}
+    losses = {k: logged_losses(o) for k, o in outs.items()}
+    overshoot = [l for l in outs["grouped"].splitlines() if l.startswith("[stop]")]
+    err = state_err(torch, finals["grouped"]["checkpoint"], finals["per_step"]["checkpoint"])
+    emit({"phase": "grouped_dispatch_cli", "batch": cli_b, "steps_per_epoch": len(ds) // cli_b,
+          "stop_lines": overshoot, "finals": finals,
+          "losses": losses, "param_max_abs_err": err})
+    check(overshoot == [f"[stop] --steps_per_dispatch group overshot --max_steps 10 by "
+                        f"{stop_at - 10} steps (stopped at {stop_at})"],
+          f"no overshoot line: {overshoot}")
+    check(finals["grouped"]["final_step"] == finals["per_step"]["final_step"] == stop_at
+          and losses["grouped"] == losses["per_step"] and err == 0.0,
+          "grouped CLI run differs from the per-step one")
+    return launches
+
+
 def e2e_step_time(torch, card):
     """The e2e train step at full width (E2E: 32 clips of 16 x 224², bf16,
     frozen BN): steps/s and clips/s from CUDA events around back-to-back
@@ -3127,14 +3479,15 @@ def e2e_step_time(torch, card):
           "top_host_ops_self_ms_per_step": {k[:90]: v for k, v in top_host}})
 
 
-STEP_TIME_CHILDREN = ("agreement", "init", "remat", "cotrain", "e2e", "bert_init",
+STEP_TIME_CHILDREN = ("agreement", "init", "init_host_adamw", "init_graph", "remat", "cotrain",
+                      "cotrain_graph", "e2e", "bert_init", "bert_init_host_adamw",
                       "bert_cotrain")
 
 
 def phase_step_times():
     """The agreement self-labelling's and a retrieval forward call's device
-    time, and Stage-1 (plain and remat) and cotrain steps/s with their
-    device time, each in a process of its own: on an H100, profiler sessions
+    time, and Stage-1 (plain, remat and graphed) and cotrain (plain and
+    graphed) steps/s with their device time, each in a process of its own: on an H100, profiler sessions
     that followed one of thousands of kernels (a train step, an eval
     forward) lost device activity.  The children start at once; each waits,
     with its CUDA context made, until its go file exists, and they are
@@ -3204,8 +3557,12 @@ def host_syncs(torch, fn):
 
 def step_time(torch, which, card):
     """One JSON line of times at B = 64: ``which`` 'init' (a Stage-1 train
-    step), 'remat' (the same with --remat) or 'cotrain' (a Stage-2 one), and
-    'bert_init' / 'bert_cotrain' (the same of the BERT TAN): steps/s with the
+    step), 'remat' (the same with --remat) or 'cotrain' (a Stage-2 one),
+    'init_graph' / 'cotrain_graph' (those steps as a CUDA graph, a group of
+    GROUP_K replays timed per step), and 'bert_init' / 'bert_cotrain' (the
+    same of the BERT TAN); 'init_host_adamw' / 'bert_init_host_adamw': the
+    eager Stage-1 steps with the optimizer not ``capturable``, AdamW's bias
+    corrections on the host as before grouped dispatch: steps/s with the
     device time, idle share, peak memory, every kernel's device ms and the
     top host ops; 'agreement': the
     agreement self-labelling alone at the cotrain step's shapes.  Each also
@@ -3241,36 +3598,56 @@ def step_time(torch, which, card):
               "kernels_ms": by_name(per_kernel)})
         retrieval_forward_times(torch, card)  # after the agreement's smaller sessions
         return
+    host_adamw = which.endswith("_host_adamw")
+    which = which.removesuffix("_host_adamw")
     bert = which.startswith("bert_")
-    cotrain, remat = which.endswith("cotrain"), which == "remat"
+    graph = which.endswith("_graph")
+    cotrain, remat = which.startswith(("cotrain", "bert_cotrain")), which == "remat"
     if bert:  # BERT's vocab (ids 1 ... 30521)
         batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
             np.random.RandomState(SEED + 6), batch_size=B, seq_len=T, max_sentences=N,
             feature_dim=1024, vocab_size=BERT_CFG["vocab_size"] - 1, max_words=W).items()}
+    # the host-side AdamW (bias corrections in double on the host, the lr a
+    # float) beside the card's capturable one: what the latter costs
     _, _, step, _ = train_setup(torch, dev, fused=True, cotrain=cotrain, bert=bert,
-                                cfg_kw=dict(remat=True) if remat else None)
-    run = lambda: step(batch)
+                                cfg_kw=dict(remat=True) if remat else None, multi=graph,
+                                capturable=False if host_adamw else None)
+    per_call = GROUP_K if graph else 1
+    if graph:  # a group of GROUP_K replays, each batch copied in from pinned memory
+        group = [{k: v.cpu().pin_memory() for k, v in batch.items()}] * GROUP_K
+        run = lambda: step(group)
+    else:
+        run = lambda: step(batch)
     torch.cuda.reset_peak_memory_stats()
-    step_ms = cuda_ms(torch, run, reps=10, warmup=3)
+    step_ms = cuda_ms(torch, run, reps=max(10 // per_call, 3), warmup=3) / per_call
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     busy_ms, per_kernel, host_ms, timing = device_profile(torch, run, reps=5, warmup=1)
-    busy_ms = busy_ms if timing == "profiler" else None
+    busy_ms = busy_ms / per_call if timing == "profiler" else None
+    per_kernel = {k: v / per_call for k, v in per_kernel.items()}
     top_host = sorted(host_ms.items(), key=lambda kv: -kv[1])[:15]
     model = (f"E6D6 width 512, {'BERT 12 x 768' if bert else 'word2vec'}, fused MIL-NCE, "
              "bf16 compute, f32 params")
     metric = {"init": "train_steps_per_s", "remat": "train_remat_steps_per_s",
               "cotrain": "cotrain_steps_per_s", "bert_init": "bert_train_steps_per_s",
-              "bert_cotrain": "bert_cotrain_steps_per_s"}[which]
+              "bert_cotrain": "bert_cotrain_steps_per_s",
+              "init_graph": "train_graph_steps_per_s",
+              "cotrain_graph": "cotrain_graph_steps_per_s"}[which]
+    kind = ("" if which in ("init", "bert_init", "init_graph") else
+            ", --remat 1" if remat else ", EMA twin, agreement keep, head on")
+    if graph:
+        kind += f", --steps_per_dispatch {GROUP_K} (a CUDA graph replayed per step)"
+    if host_adamw:
+        metric = metric.replace("_steps_per_s", "_host_adamw_steps_per_s")
+        kind += ", AdamW not capturable (bias corrections on the host)"
     emit({"phase": "times", "metric": metric,
           "card": card, "value": 1e3 / step_ms, "ms_per_step": step_ms, "batch": TRAIN,
-          "model": model + ("" if which.endswith("init") else ", --remat 1" if remat else
-                            ", EMA twin, agreement keep, head on"), "peak_gb": peak_gb,
+          "model": model + kind, "peak_gb": peak_gb,
           "device_busy_ms_per_step": busy_ms, "timing": timing,
           "idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / step_ms),
-          "host_syncs_per_step": host_syncs(torch, run),
-          "kernels_ms_per_step": by_name(per_kernel),
-          "host_self_ms_per_step_under_profiler": sum(host_ms.values()),
-          "top_host_ops_self_ms_per_step": {k[:90]: v for k, v in top_host}})
+          ("host_syncs_per_group" if graph else "host_syncs_per_step"): host_syncs(torch, run),
+          "kernels_ms_per_step": by_name(per_kernel), "kernels_per_step": len(per_kernel),
+          "host_self_ms_per_step_under_profiler": sum(host_ms.values()) / per_call,
+          "top_host_ops_self_ms_per_step": {k[:90]: v / per_call for k, v in top_host}})
 
 
 def retrieval_forward_times(torch, card):
@@ -3363,7 +3740,11 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
-    import temporalalignnet_torch  # noqa: F401  (fails before any output without the port)
+    try:
+        import temporalalignnet_torch  # noqa: F401
+    except ImportError as e:  # the script alone, without the port beside it
+        print(f"chip_smoke: {e}; run it from the repository's root", file=sys.stderr)
+        return 1
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3403,7 +3784,13 @@ def main(argv) -> int:
     retrieval_metrics, retrieval_launches = timed(phase_retrieval, torch, stage1_ckpt, yc2_files)
     timed(phase_retrieval_cli, retrieval_cli, retrieval_metrics)
     cotrain_launches = timed(phase_cotrain, torch, files, stage1_state)
-    timed(phase_cotrain_cli, torch, files, stage1_ckpt, eval_files)
+    export_cli = start_export_cli()  # untimed work, beside cotrain_cli's children
+    try:
+        timed(phase_cotrain_cli, torch, files, stage1_ckpt, eval_files)
+        export_launches = timed(phase_serving_export, torch, card, stage1_ckpt, export_cli)
+    finally:
+        stop([export_cli[0]])
+    grouped_launches = timed(phase_grouped_dispatch, torch, files, stage1_state)
     timed(phase_cache_videos, torch, files)
     # the --profile_dir child (untimed work) runs beside the next three phases
     profile_child = start_profile_dir(files)
@@ -3508,6 +3895,14 @@ def main(argv) -> int:
         e["launches_bert_cotrain_path"] = bert_launches["cotrain"][e["name"]]
         e["launches_clip_path"] = tower_launches["clip"][e["name"]]
         e["launches_timesformer_path"] = tower_launches["timesformer"][e["name"]]
+        # slice 8: one call of the loaded bf16 serving program; the kernels
+        # that ran on the device in one group of GROUP_K replayed Stage-1
+        # steps, and cotrain steps (profiled), and the wrappers' count at capture
+        e["launches_export_path"] = export_launches[e["name"]]
+        for case, key in (("stage1", "grouped"), ("cotrain", "grouped_cotrain")):
+            e[f"launches_{key}_path"] = grouped_launches[case]["replayed"][e["name"]]
+            e[f"launches_{key}_per_step_at_capture"] = \
+                grouped_launches[case]["at_capture"][e["name"]]
     entries[0]["launches_by_route_htm_aa"] = htm_aa_routes
     for e in entries[:2]:
         e["launches_by_route_bert"] = bert_launches["init"]["routes"][e["name"]]

@@ -58,12 +58,13 @@ class TANWithText(TemporalAligner):
         video_padding_mask: Optional[torch.Tensor] = None,
         lang_padding_mask: Optional[torch.Tensor] = None,
         deterministic: bool = False,
-        generator: Optional[torch.Generator] = None,
+        pos_starts=None,
     ) -> Dict[str, torch.Tensor]:
-        """Training forward (models/net.py:102-118 of the JAX package)."""
+        """Training forward (models/net.py:102-118 of the JAX package); the
+        random pos starts as ``TemporalAligner.forward`` takes them."""
         text_embed = self.encode_text(input_ids, (input_ids != 0).int())
         return super().forward(video, text_embed, video_padding_mask, lang_padding_mask,
-                               deterministic=deterministic, generator=generator)
+                               deterministic=deterministic, pos_starts=pos_starts)
 
     def text_visual_sims(
         self,

@@ -24,7 +24,7 @@ JAX model hands them over in its compute dtype.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -117,28 +117,49 @@ class TemporalAligner(nn.Module):
 
     # ------------------------------------------------------------------ helpers
 
-    def _pos_start(self, limit: int, deterministic: bool,
-                   generator: Optional[torch.Generator]) -> int:
-        """Random positional-table start offset in [0, limit) in training
-        (tan_model.py:162-166); 0 otherwise."""
-        if deterministic or not self.cfg.random_pos_start or limit <= 1:
-            return 0
+    def draw_pos_starts(self, T: int, N: int,
+                        generator: Optional[torch.Generator]) -> Optional[Tuple[int, int, int]]:
+        """The random positional-table start offsets of one training forward
+        (tan_model.py:162-166), drawn on the host from ``generator`` in the
+        forward's order: the dual branch's video start in [0, T // 2), the
+        text start in [0, N // 2) (with the text pos-enc), the joint branch's
+        video start in [0, T // 2); 0 without a draw where the range holds
+        one value.  Three ints, or None where no start is random
+        (``random_pos_start`` off)."""
+        limits = self._pos_limits(T, N)
+        if limits is None:
+            return None
         if generator is None:
             raise ValueError("a random pos start needs a torch.Generator")
-        return int(torch.randint(0, limit, (1,), generator=generator))
+        return tuple(int(torch.randint(0, n, (1,), generator=generator)) if n > 1 else 0
+                     for n in limits)
 
-    def _video_pos_embed(self, T, interpolate_from, deterministic, effective_len, generator):
+    def _pos_limits(self, T: int, N: int) -> Optional[Tuple[int, int, int]]:
+        limits = (T // 2, N // 2 if self.cfg.use_text_pos_enc else 0, T // 2)
+        if not self.cfg.random_pos_start or max(limits) <= 1:
+            return None
+        return limits
+
+    @staticmethod
+    def _pos_rows(table: torch.Tensor, n: int, start) -> torch.Tensor:
+        """Rows start ... start + n - 1 of ``table``: ``start`` an int (a
+        slice), a 0-d int tensor on the table's device (a gather: a CUDA
+        graph replays it with each step's start), or None (the first n)."""
+        if start is None:
+            return table[:n]
+        if isinstance(start, int):
+            return table[start:start + n]
+        return table.index_select(0, start + torch.arange(n, device=table.device))
+
+    def _video_pos_embed(self, T, interpolate_from, effective_len, start):
         table = self.temporal_pos_embed.to(self.dtype)
         if interpolate_from:
             return linear_interpolate(table[:interpolate_from], T, effective_len)
-        start = self._pos_start(T // 2, deterministic, generator)
-        return table[start:start + T]
+        return self._pos_rows(table, T, start)
 
-    def _video_tokens(self, video_embed, interpolate_from, deterministic, effective_len,
-                      generator):
+    def _video_tokens(self, video_embed, interpolate_from, effective_len, start):
         x = self.ln_video_init(self.video_pre_proj(video_embed.to(self.dtype)))
-        pos = self._video_pos_embed(
-            x.shape[1], interpolate_from, deterministic, effective_len, generator)
+        pos = self._video_pos_embed(x.shape[1], interpolate_from, effective_len, start)
         pos = self.ln_position_init(pos)
         return x + (pos if pos.dim() == 3 else pos[None])
 
@@ -151,11 +172,11 @@ class TemporalAligner(nn.Module):
         interpolate_from: Optional[int] = None,
         deterministic: bool = True,
         effective_len: Optional[torch.Tensor] = None,  # scalar or [B]
-        generator: Optional[torch.Generator] = None,
+        pos_start=None,  # the random table start (``_pos_rows``)
     ) -> torch.Tensor:
         """Dual-branch video features, all layers: [B, S, T, C] (tan_model.py:152-179)."""
-        x = self._video_tokens(video_embed, interpolate_from, deterministic, effective_len,
-                               generator)
+        x = self._video_tokens(video_embed, interpolate_from, effective_len,
+                               None if deterministic else pos_start)
         if self.cfg.num_encoder_layers == 0:
             return x[:, None]  # raw-feature fallback (tan_model.py:177-179)
         taps = self.video_temporal_encoder(x, video_padding_mask)
@@ -171,7 +192,7 @@ class TemporalAligner(nn.Module):
         lang_embed: torch.Tensor,  # [B, N, Ct]
         interpolate_from: Optional[int] = None,
         deterministic: bool = True,
-        generator: Optional[torch.Generator] = None,
+        pos_start=None,
     ) -> torch.Tensor:
         """Text features + text temporal pos-enc (tan_model.py:212-228)."""
         x = self.get_textual_feature(lang_embed)
@@ -180,8 +201,7 @@ class TemporalAligner(nn.Module):
         if interpolate_from:
             pos = linear_interpolate(table[:interpolate_from], N)
         else:
-            start = self._pos_start(N // 2, deterministic, generator)
-            pos = table[start:start + N]
+            pos = self._pos_rows(table, N, None if deterministic else pos_start)
         return x + self.ln_position_init(pos)[None]
 
     def get_joint_feature(
@@ -193,12 +213,12 @@ class TemporalAligner(nn.Module):
         interpolate_from: Optional[int] = None,
         deterministic: bool = True,
         effective_len: Optional[torch.Tensor] = None,
-        generator: Optional[torch.Generator] = None,
+        pos_start=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Joint encoder over [video || text]; returns ([B,S,T,C], [B,S,N,C])
         (tan_model.py:182-209)."""
-        x = self._video_tokens(video_embed, interpolate_from, deterministic, effective_len,
-                               generator)
+        x = self._video_tokens(video_embed, interpolate_from, effective_len,
+                               None if deterministic else pos_start)
         B, T, _ = x.shape
         N = lang_embed_with_time.shape[1]
         joint = torch.cat([x, lang_embed_with_time], dim=1)
@@ -222,7 +242,7 @@ class TemporalAligner(nn.Module):
         lang_padding_mask: Optional[torch.Tensor] = None,  # [B, N] True = pad
         interpolate_from: Optional[int] = None,
         deterministic: bool = False,
-        generator: Optional[torch.Generator] = None,
+        pos_starts: Union[Sequence[int], torch.Tensor, None] = None,
     ) -> Dict[str, torch.Tensor]:
         """Training forward (tan_model.py:100-149).  Without ``fused_milnce``:
         the cross-batch per-layer logits 'logits_dual' and 'logits_joint'
@@ -230,23 +250,32 @@ class TemporalAligner(nn.Module):
         ``return_dual_feature``; with it: the four per-layer normalized
         features for ops/milnce.py.  With the head, also the alignability
         logits 'dual_logits_alignability' [B, N, 1] and
-        'joint_logits_alignability' [B, S, N, 1]."""
+        'joint_logits_alignability' [B, S, N, 1].
+
+        Unless ``deterministic``, the random pos starts come as ``pos_starts``:
+        ``draw_pos_starts``'s three ints, or those as a [3] int tensor on the
+        device (what a CUDA graph replays)."""
         cfg = self.cfg
+        if (pos_starts is None and not deterministic
+                and self._pos_limits(video_embed.shape[1], lang_embed.shape[1]) is not None):
+            raise ValueError("a training forward with random pos starts needs pos_starts "
+                             "(draw_pos_starts)")
+        starts = [None] * 3 if pos_starts is None else list(pos_starts)
         video_out = self.get_visual_feature(
             video_embed, video_padding_mask, interpolate_from, deterministic,
-            generator=generator)
+            pos_start=starts[0])
         lang_raw = self.get_textual_feature(lang_embed)
         fdt = _compute_dtype(video_out, self.dtype)
         video_norm = l2_normalize(video_out).to(fdt)
         text_norm = l2_normalize(lang_raw).to(fdt)
         lang_with_time = (
             self.get_textual_feature_with_time(lang_embed, interpolate_from, deterministic,
-                                               generator)
+                                               starts[1])
             if cfg.use_text_pos_enc else lang_raw
         )
         joint_video, joint_text = self.get_joint_feature(
             video_embed, video_padding_mask, lang_with_time, lang_padding_mask,
-            interpolate_from, deterministic, generator=generator)
+            interpolate_from, deterministic, pos_start=starts[2])
         joint_video_norm = l2_normalize(joint_video).to(fdt)
         joint_text_norm = l2_normalize(joint_text).to(fdt)
 

@@ -12,7 +12,8 @@ softmax; queries at padded positions still produce values the caller masks.
   tower), which no kernel takes: the JAX package sends causal attention to
   plain XLA, never to its Pallas kernel (ops/attention.py:61-80 there).
 - ``KernelAttention``: the autograd Function of the Hopper kernels, forward
-  ``ops/mha_fwd.py`` and backward ``ops/mha_bwd.py`` (the counterpart of the
+  the custom op ``temporalalignnet::mha_fwd`` (``ops/mha_fwd.py``) and
+  backward ``ops/mha_bwd.py`` (the counterpart of the
   custom VJP at pallas_attention.py:198-221).  Only q, k, v and the mask are
   saved; the backward recomputes P.
 - ``multihead_attention``: dispatch on the device.  A CPU tensor takes the

@@ -15,9 +15,24 @@ if the launch was refused.  The route depends on the dtype and S alone
   splits in split order.
 - ``f32``: f32 FMAs on the CUDA cores, the parity path.
 
-``mha_fwd.launches`` counts its calls, ``mha_fwd.launches_by_route`` them by
-route.  ``mha_fwd_v1`` calls the earlier bf16 kernel (mma.sync), which no
-route takes, uncounted, so that a run can time the wgmma routes beside it.
+The kernel is the ``torch.library`` custom op ``temporalalignnet::mha_fwd``
+(``torch.ops.temporalalignnet.mha_fwd``, ``mha_fwd_op``): its CUDA
+implementation ``_mha_fwd_cuda`` launches the route above, and its fake
+implementation returns ``empty_like(q)``, so ``torch.export`` traces a call
+as one node of that op (the long route's split partials are allocated
+inside the CUDA implementation and never appear in the schema).  ``mha_fwd``
+sends a CUDA tensor (or a fake one) through the op and any other to the
+launch's checks, which refuse it: the op has no CPU implementation and
+never takes the plain version.  A program that calls the op (an exported
+one, ``tools/export_eval.py``) needs this module imported first, which
+registers it.
+
+``mha_fwd.launches`` counts the op's launches, ``mha_fwd.launches_by_route``
+them by route; tracing runs the fake and counts nothing.  A captured CUDA
+graph counts once at capture (``train/train_step.py::make_multi_train_step``
+adds that count per replay).  ``mha_fwd_v1`` calls the earlier bf16 kernel
+(mma.sync), which no route takes, uncounted, so that a run can time the
+wgmma routes beside it.
 The plain version of the same function is
 ``temporalalignnet_torch.ops.attention.attention_reference``.
 
@@ -75,6 +90,13 @@ def check_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  key_padding_mask: Optional[torch.Tensor]) -> Optional[int]:
     """Raise on what the attention kernels do not take; return the mask's
     pointer (None without a mask)."""
+    check_shapes(name, q, k, v, key_padding_mask)
+    return None if key_padding_mask is None else key_padding_mask.data_ptr()
+
+
+def check_shapes(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 key_padding_mask: Optional[torch.Tensor]) -> None:
+    """``check_inputs`` without touching memory (fake tensors pass it too)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"{name} takes CUDA tensors on one device, got {q.device}, "
                          f"{k.device}, {v.device}")
@@ -88,17 +110,14 @@ def check_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name} is built for head dims {HEAD_DIMS}, got {D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name} takes contiguous q, k, v")
-    pad_ptr = None
-    if key_padding_mask is not None:
-        m = key_padding_mask
+    m = key_padding_mask
+    if m is not None:
         if m.device != q.device or m.dtype not in (torch.bool, torch.uint8):
             raise ValueError(f"key_padding_mask must be bool or uint8 on {q.device}, "
                              f"got {m.dtype} on {m.device}")
         if tuple(m.shape) != (B, S) or not m.is_contiguous():
             raise ValueError(f"key_padding_mask must be a contiguous [{B}, {S}], "
                              f"got {tuple(m.shape)}")
-        pad_ptr = m.data_ptr()
-    return pad_ptr
 
 
 def mha_fwd(
@@ -107,12 +126,36 @@ def mha_fwd(
     v: torch.Tensor,
     key_padding_mask: Optional[torch.Tensor] = None,  # [B, S] bool/uint8, True = pad
 ) -> torch.Tensor:
-    """softmax(q kᵀ/√D + bias) v on the card, bias = -1e30 on padded keys."""
+    """softmax(q kᵀ/√D + bias) v on the card, bias = -1e30 on padded keys:
+    a CUDA tensor (or a fake one, under tracing) goes through the custom op
+    ``temporalalignnet::mha_fwd``; any other reaches the launch's checks,
+    which refuse it."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("mha_fwd would return an output detached from autograd; "
+                           "call ops.attention.multihead_attention (KernelAttention) instead")
+    if q.is_cuda:
+        return torch.ops.temporalalignnet.mha_fwd(q, k, v, key_padding_mask)
+    return _mha_fwd_cuda(q, k, v, key_padding_mask)
+
+
+def _mha_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The op's CUDA implementation: the route's launch, counted."""
     which = route(q.dtype, q.shape[2])
     out = _launch(which, q, k, v, key_padding_mask)
     mha_fwd.launches += 1
     mha_fwd.launches_by_route[which] += 1
     return out
+
+
+mha_fwd_op = torch.library.custom_op("temporalalignnet::mha_fwd", _mha_fwd_cuda,
+                                     mutates_args=(), device_types="cuda")
+
+
+@mha_fwd_op.register_fake
+def _mha_fwd_fake(q, k, v, key_padding_mask=None):
+    check_shapes("mha_fwd", q, k, v, key_padding_mask)
+    return torch.empty_like(q)
 
 
 def mha_fwd_v1(q, k, v, key_padding_mask=None):
@@ -125,9 +168,6 @@ def mha_fwd_v1(q, k, v, key_padding_mask=None):
 
 
 def _launch(which, q, k, v, key_padding_mask):
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise RuntimeError("mha_fwd would return an output detached from autograd; "
-                           "call ops.attention.multihead_attention (KernelAttention) instead")
     pad_ptr = check_inputs("mha_fwd", q, k, v, key_padding_mask)
     B, H, S, D = q.shape
     out = torch.empty_like(q)

@@ -66,8 +66,16 @@ steps and ``eval/*`` at each downstream eval to
 ``<experiment>/train.metrics.jsonl`` (and TensorBoard where tensorboardX is
 installed), and a progress line to stderr.
 
-Flags of the JAX trainer that later work brings (multi-GPU, grouped
-dispatch) exit with a message naming that work.
+``--steps_per_dispatch K`` runs K steps per dispatch (JAX's ``lax.scan``
+over stacked batches): on the card one CUDA graph of the whole step,
+replayed per batch (``train_step.make_multi_train_step``), on the CPU K
+eager steps; the same numbers as K single steps.  The save, eval and stop
+checks run once per group, so the last group may run past ``--max_steps``
+(a ``[stop]`` line says by how much); an epoch's tail group is shorter.  On
+the card it refuses ``--backprop_freq > 1`` and ``--skip_nonfinite``.
+
+Flags of the JAX trainer that later work brings (multi-GPU) exit with a
+message naming that work.
 """
 
 from __future__ import annotations
@@ -81,7 +89,6 @@ from typing import Optional
 
 # flag -> (the value that means "not used", the work that brings it)
 _LATER = {
-    "steps_per_dispatch": (1, "grouped dispatch (a later slice; CUDA graphs)"),
     "dp": (-1, "multi-GPU training (ROADMAP Queue A 4)"),
     "tp": (1, "multi-GPU training (ROADMAP Queue A 4)"),
     "multihost": (False, "multi-GPU training (ROADMAP Queue A 4)"),
@@ -168,7 +175,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--yc2_features", default=None)
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of the training loop here")
-    p.add_argument("--steps_per_dispatch", type=int, default=1)
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="train steps per dispatch: a CUDA graph of the step replayed per "
+                        "batch on the card; checkpoints, evals and the stop once per group")
     p.add_argument("--dp", type=int, default=-1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--multihost", action="store_true")
@@ -304,7 +313,8 @@ def main(argv: Optional[list] = None) -> dict:
     from temporalalignnet_torch.models.net import TANWithText
     from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
     from temporalalignnet_torch.train.optimizer import Optimizer, lr_at
-    from temporalalignnet_torch.train.train_step import EMATwin, make_train_step
+    from temporalalignnet_torch.train.train_step import (EMATwin, make_multi_train_step,
+                                                         make_train_step)
     from temporalalignnet_torch.utils import (AverageMeter, MetricsWriter, ProgressMeter,
                                               StepBreakdown, StepTimer, device_memory_stats,
                                               trace)
@@ -417,7 +427,14 @@ def main(argv: Optional[list] = None) -> dict:
     # the target starts as a copy of the online weights (train/main.py:463-484)
     twin = EMATwin(model, tcfg) if args.model == "cotrain" else None
     optimizer = Optimizer(model, tcfg, policy=args.optim_policy)
-    step_fn = make_train_step(model, optimizer, tcfg, loss_cfg, compute_dtype=compute, twin=twin)
+    k_disp = args.steps_per_dispatch
+    if k_disp < 1:
+        raise SystemExit(f"--steps_per_dispatch {k_disp}: must be at least 1")
+    try:
+        step_fn = (make_multi_train_step if k_disp > 1 else make_train_step)(
+            model, optimizer, tcfg, loss_cfg, compute_dtype=compute, twin=twin)
+    except ValueError as e:
+        raise SystemExit(f"--steps_per_dispatch {k_disp}: {e}") from None
     loader = TrainLoader(dataset, args.batch_size, seed=args.seed,
                          num_workers=args.num_workers, pin_memory=device.type == "cuda")
     ckpt = Checkpointer(exp_dir)
@@ -444,6 +461,7 @@ def main(argv: Optional[list] = None) -> dict:
     last_loss, final_metrics = float("nan"), {}
     t_log, steps_since = time.perf_counter(), 0
     stop = global_step >= args.max_steps > 0
+    last_check = global_step
     writer = MetricsWriter(exp_dir)
     timer, breakdown = StepTimer(), StepBreakdown()
     loss_meter, data_meter = AverageMeter("loss", ":.4f"), AverageMeter("data", ":.3f")
@@ -454,40 +472,70 @@ def main(argv: Optional[list] = None) -> dict:
             loader.set_epoch(epoch, start_batch if epoch == start_epoch else 0)
             progress = ProgressMeter(len(loader), [loss_meter, data_meter],
                                      prefix=f"Epoch {epoch} ")
+            # the batches this epoch yields: a resumed epoch starts at start_batch, so
+            # its tail group is flushed by this count, not by len(loader)
+            n_yield = len(loader) - (start_batch if epoch == start_epoch else 0)
+            pending = []
             t_data = time.perf_counter()
             for it, batch in enumerate(loader):
                 dt_data = time.perf_counter() - t_data
                 breakdown.add("data", dt_data)
                 data_meter.update(dt_data)
-                with breakdown.measure("dispatch"):
-                    metrics = step_fn(batch)
-                with breakdown.measure("fence"):
-                    last_loss = float(metrics["loss"])  # fences the step
-                global_step += 1
-                steps_since += 1
-                if math.isfinite(last_loss):  # NaN kept out of the meter (main.py:108-109)
-                    loss_meter.update(last_loss)
-                sps = timer.tick()
-                if global_step % args.log_every == 0:
-                    now = time.perf_counter()
-                    scalars = {k: float(v) for k, v in metrics.items()}
-                    row = {"step": global_step, "epoch": epoch, **scalars,
-                           "lr": lr_at(tcfg, max(optimizer.updates - 1, 0)),
-                           "steps_per_s": steps_since / (now - t_log)}
-                    print(json.dumps(row), flush=True)
-                    t_log, steps_since = now, 0
-                    scalars["device/sps"] = sps
-                    scalars.update({f"device/{k}": v for k, v in breakdown.snapshot().items()})
-                    scalars.update({f"device/{k}": v for k, v in device_memory_stats().items()})
-                    writer.add_scalars(global_step, scalars, prefix="train/")
-                    progress.display(it)
-                if args.runtime_save_iter and global_step % args.runtime_save_iter == 0:
+                if k_disp == 1:
+                    with breakdown.measure("dispatch"):
+                        metrics = step_fn(batch)
+                    with breakdown.measure("fence"):
+                        loss = float(metrics["loss"])  # fences the step
+                    rows = [(metrics, loss, optimizer.updates)]
+                else:
+                    pending.append(batch)
+                    if len(pending) < k_disp and it < n_yield - 1:
+                        t_data = time.perf_counter()
+                        continue
+                    with breakdown.measure("dispatch"):
+                        stacked = step_fn(pending)
+                    pending = []
+                    with breakdown.measure("fence"):  # one fetch fences the group
+                        host = torch.stack(list(stacked.values())).cpu()
+                    rows = [({k: host[j, i] for j, k in enumerate(stacked)},
+                             float(host[list(stacked).index("loss"), i]), u)
+                            for i, u in enumerate(step_fn.updates_after)]
+                for metrics, last_loss, updates in rows:
+                    global_step += 1
+                    steps_since += 1
+                    if math.isfinite(last_loss):  # NaN kept out of the meter (main.py:108-109)
+                        loss_meter.update(last_loss)
+                    sps = timer.tick()
+                    if global_step % args.log_every == 0:
+                        now = time.perf_counter()
+                        scalars = {k: float(v) for k, v in metrics.items()}
+                        row = {"step": global_step, "epoch": epoch, **scalars,
+                               "lr": lr_at(tcfg, max(updates - 1, 0)),
+                               "steps_per_s": steps_since / (now - t_log)}
+                        print(json.dumps(row), flush=True)
+                        t_log, steps_since = now, 0
+                        scalars["device/sps"] = sps
+                        scalars.update({f"device/{k}": v
+                                        for k, v in breakdown.snapshot().items()})
+                        scalars.update({f"device/{k}": v
+                                        for k, v in device_memory_stats().items()})
+                        writer.add_scalars(global_step, scalars, prefix="train/")
+                        progress.display(it)
+                # checkpoints, evals and the stop once per group: a boundary that a
+                # group crossed fires here (the state exists per group only)
+                rsi = args.runtime_save_iter
+                if rsi and global_step // rsi > last_check // rsi:
                     t_save = time.perf_counter()
                     path = ckpt.save_runtime(training_state(epoch), global_step)
                     print(json.dumps({"runtime_checkpoint": path, "at_step": global_step,
                                       "seconds": time.perf_counter() - t_save}), flush=True)
                     evaluate_downstream(global_step)
+                last_check = global_step
                 if args.max_steps and global_step >= args.max_steps:
+                    if global_step > args.max_steps:
+                        print(f"[stop] --steps_per_dispatch group overshot --max_steps "
+                              f"{args.max_steps} by {global_step - args.max_steps} steps "
+                              f"(stopped at {global_step})", flush=True)
                     stop = True
                     break
                 t_data = time.perf_counter()

@@ -65,8 +65,12 @@ class S3DWithText(S3D):
 
 
 def make_e2e_optimizer(model: S3DWithText, cfg: TrainConfig) -> Optimizer:
-    """AdamW over every param of ``model`` under the ``e2e`` rules."""
-    return Optimizer(model, cfg, policy="e2e")
+    """AdamW over every param of ``model`` under the ``e2e`` rules.  Not
+    ``capturable`` on the card: the e2e step has no grouped dispatch, and its
+    update stays the host-side AdamW's, bias corrections in double (the
+    card-vs-CPU update check holds it to 1e-6, past which the capturable
+    one's float32 corrections reach at the first step)."""
+    return Optimizer(model, cfg, policy="e2e", capturable=False)
 
 
 def make_e2e_train_step(model: S3DWithText, optimizer: Optimizer, temperature: float = 0.07,

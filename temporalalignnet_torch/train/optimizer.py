@@ -22,11 +22,23 @@ temporalalignnet_tpu/train/optimizer.py, whose optax chain is
   schedule alone, until 100 consecutive ones let the update through.
 - ``backprop_freq = k``: ``optax.MultiSteps``: the k micro-step gradients are
   averaged (Welford mean, as optax) and one update is applied every k.
+
+On the card (``capturable``, the default where the params lie on a CUDA
+device) an update issues device work only, so a CUDA graph can hold it
+(``train_step.make_multi_train_step``): AdamW runs with ``capturable=True``
+and its lr is a device scalar, filled with ``lr_at`` per update, or, once
+``lr_from_table`` was called (before a capture), read from a device table
+of ``lr_at`` at a device update count.  Capturable AdamW computes its bias
+corrections on the device in float32 where the other computes them on the
+host in double, so every card run of the trainer, grouped or not, takes
+this one mode, and differs from the CPU's update by float32 rounding.  The
+Python counters ``updates``, ``micro`` and ``notfinite`` go on counting on
+the host.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -66,11 +78,21 @@ def lr_at(cfg: TrainConfig, update: int) -> float:
     return float(f(cfg.lr) * (f(0.5) * (f(1.0) + np.cos(f(np.pi) * progress))))
 
 
+def lr_table(cfg: TrainConfig, device) -> torch.Tensor:
+    """[total_iterations + 1] float32 on ``device``: ``lr_at(cfg, u)`` of
+    every update u a run of ``cfg`` makes."""
+    return torch.tensor([lr_at(cfg, u) for u in range(cfg.total_iterations + 1)],
+                        dtype=torch.float32, device=device)
+
+
 class Optimizer:
     """Call ``step()`` after every backward (micro-step); it applies an update
-    every ``backprop_freq`` calls.  ``updates`` counts applied updates."""
+    every ``backprop_freq`` calls.  ``updates`` counts applied updates.
+    ``capturable`` (None: where the params lie on a CUDA device) issues an
+    update as device work only (the module's docstring)."""
 
-    def __init__(self, model: torch.nn.Module, cfg: TrainConfig, policy: str = "default"):
+    def __init__(self, model: torch.nn.Module, cfg: TrainConfig, policy: str = "default",
+                 capturable: Optional[bool] = None):
         self.cfg = cfg
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad or policy == "e2e"]
@@ -80,11 +102,35 @@ class Optimizer:
         rest = [p for n, p in named if trainable(n, policy) and no_decay(n, policy)]
         groups = [g for g in ({"params": decay, "weight_decay": cfg.wd},
                               {"params": rest, "weight_decay": 0.0}) if g["params"]]
-        self.adamw = torch.optim.AdamW(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+        device = self.grad_params[0].device if self.grad_params else torch.device("cpu")
+        self.capturable = device.type == "cuda" if capturable is None else capturable
+        if self.capturable:
+            self._lr = torch.zeros((), dtype=torch.float32, device=device)
+        self._lr_table = self._u = None  # lr_from_table's
+        self.adamw = torch.optim.AdamW(groups, lr=self._lr if self.capturable else 0.0,
+                                       betas=(0.9, 0.999), eps=1e-8,
+                                       capturable=self.capturable)
         self.updates = 0
         self.micro = 0
         self.notfinite = 0
         self._acc = None
+
+    def lr_from_table(self) -> None:
+        """From now on read each update's lr from a device table of ``lr_at``
+        at a device update count, so that a CUDA graph of ``step`` reads
+        every replay's own.  The table is computed on the host (a device
+        cosine would differ from NumPy's float32 in the last bit) and ends
+        at ``total_iterations`` (``check_lr_table``)."""
+        self._lr_table = lr_table(self.cfg, self._lr.device)
+        self._u = torch.full((1,), self.updates, dtype=torch.long, device=self._lr.device)
+
+    def check_lr_table(self, updates: int) -> None:
+        """Raise where ``updates`` more updates would read past the device lr
+        table (a replayed graph reads it unchecked)."""
+        if self.updates + updates > self._lr_table.numel():
+            raise ValueError(
+                f"updates {self.updates} + {updates} run past the lr table of total_iterations "
+                f"{self.cfg.total_iterations}: a graphed run stops at total_iterations")
 
     def zero_grad(self) -> None:
         for p in self.grad_params:
@@ -97,9 +143,14 @@ class Optimizer:
                 "notfinite": self.notfinite, "acc": self._acc}
 
     def load_state_dict(self, state: dict) -> None:
-        self.adamw.load_state_dict(state["adamw"])
+        adamw = state["adamw"]  # this optimizer's mode, whichever device wrote the state
+        adamw = dict(adamw, param_groups=[dict(g, capturable=self.capturable)
+                                          for g in adamw["param_groups"]])
+        self.adamw.load_state_dict(adamw)
         self.updates, self.micro, self.notfinite = (
             int(state["updates"]), int(state["micro"]), int(state["notfinite"]))
+        if self._u is not None:
+            self._u.fill_(self.updates)
         acc = state["acc"]
         self._acc = None if acc is None else [
             a.to(p.device, p.dtype, copy=True) for a, p in zip(acc, self.grad_params)]
@@ -135,8 +186,15 @@ class Optimizer:
                 train = [torch.where(norm < mx, g, g / norm * mx) for g in train]
         for p, g in zip(self.params, train):
             p.grad = g
+        if self._lr_table is not None:
+            self.check_lr_table(1)
+            self._lr.copy_(self._lr_table.index_select(0, self._u)[0])
+            self._u += 1
+        elif self.capturable:
+            self._lr.fill_(lr_at(self.cfg, self.updates))
+        lr = self._lr if self.capturable else lr_at(self.cfg, self.updates)
         for group in self.adamw.param_groups:
-            group["lr"] = lr_at(self.cfg, self.updates)
+            group["lr"] = lr
         self.adamw.step()
         self.updates += 1
         return True

@@ -23,7 +23,7 @@ bool, input_ids [B, N, W] int, text_padding_mask [B, N] bool, start, end
 from __future__ import annotations
 
 import copy
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -31,6 +31,7 @@ import torch
 from temporalalignnet_torch.core.config import LossConfig, TrainConfig
 from temporalalignnet_torch.losses.tan_loss import get_loss
 from temporalalignnet_torch.models.net import TANWithText
+from temporalalignnet_torch.ops import kernels
 from temporalalignnet_torch.train.optimizer import Optimizer, global_norm
 
 
@@ -99,7 +100,14 @@ def make_train_step(
     ``torch.Generator`` seeded with ``train_cfg.seed``, which the step keeps
     as ``step.generator`` (a resume restores its state).  ``twin`` (an
     ``EMATwin`` of ``model``) is required for ``loss_cfg.model == 'cotrain'``
-    and refused otherwise; the caller keeps it to save its weights."""
+    and refused otherwise; the caller keeps it to save its weights.
+
+    The step is the host's draw of the pos starts (``step.draw(batch)``:
+    three ints or None, ``TemporalAligner.draw_pos_starts``) and the device
+    work (``step.run(batch, pos_starts)`` on a batch on the device), which
+    issues no host synchronisation and, given the starts as a device
+    tensor, no copy from the host: ``make_multi_train_step`` captures it in
+    a CUDA graph."""
     if loss_cfg.use_fused_milnce != model.cfg.fused_milnce:
         raise ValueError("LossConfig.use_fused_milnce and ModelConfig.fused_milnce must agree")
     if (twin is not None) != (loss_cfg.model == "cotrain"):
@@ -108,15 +116,18 @@ def make_train_step(
     generator = torch.Generator().manual_seed(train_cfg.seed)
     autocast = compute_dtype != torch.float32
 
-    def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+    def draw(batch: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+        return model.draw_pos_starts(batch["video"].shape[1], batch["input_ids"].shape[1],
+                                     generator)
+
+    def run(batch: Dict[str, torch.Tensor], pos_starts) -> Dict[str, torch.Tensor]:
         model.train()
         with torch.autocast(device.type, dtype=compute_dtype, enabled=autocast):
             outputs = model(
                 batch["video"], batch["input_ids"].long(),
                 video_padding_mask=batch["video_padding_mask"].bool(),
                 lang_padding_mask=batch["text_padding_mask"].bool(),
-                deterministic=False, generator=generator,
+                deterministic=False, pos_starts=pos_starts,
             )
             if twin is not None:
                 outputs.update({f"ema-{k}": v for k, v in twin(batch).items()})
@@ -131,6 +142,161 @@ def make_train_step(
             twin.update(model)
         return metrics
 
+    def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+        return run(batch, draw(batch))
+
     step.generator = generator
+    step.draw, step.run = draw, run
+    step.model, step.optimizer, step.twin, step.device = model, optimizer, twin, device
     return step
 
+
+def make_multi_train_step(
+    model: TANWithText,
+    optimizer: Optimizer,
+    train_cfg: TrainConfig,
+    loss_cfg: LossConfig,
+    compute_dtype: torch.dtype = torch.float32,
+    twin: Optional[EMATwin] = None,
+) -> Callable[[List[Dict[str, torch.Tensor]]], Dict[str, torch.Tensor]]:
+    """``multi(batches) -> metrics``, each a [len(batches)] tensor on the
+    device: the train steps of a group (``--steps_per_dispatch``), equal to
+    as many ``make_train_step`` steps in order (counterpart of JAX
+    train/train_step.py::make_multi_train_step, a ``lax.scan`` over the
+    group).  ``multi.generator`` is the step's; ``multi.updates_after``
+    lists ``optimizer.updates`` after each step of the last group.
+
+    On the CPU a group is that many eager steps.  On the card
+    (``GraphedStep``) the first ``GraphedStep.WARMUP`` batches are eager
+    steps; then one whole step (``step.run``: forward, loss, backward,
+    update and, in Stage 2, the EMA) is captured in a CUDA graph on static
+    input buffers, and each later batch is one replay.  A shorter tail
+    group is fewer replays.  A failed capture raises; the card never falls
+    back to eager steps.  The graph holds device work only, so what the host
+    does per step runs per replay outside it: the pos-start draws (all of a
+    group's, in step order, copied in one pinned transfer) and the training
+    counters that a step advances in Python (``optimizer.updates``,
+    ``EMATwin.micro_steps``).  A replay passes no kernel wrapper, so the
+    wrappers' launch counts hold the eager steps' launches and the
+    capture's, once.  ``--backprop_freq > 1`` and ``--skip_nonfinite``
+    branch on the host per step and are refused on the card, and so is a
+    group that would run past ``total_iterations``, where the device lr
+    table ends (``Optimizer.lr_from_table``)."""
+    step = make_train_step(model, optimizer, train_cfg, loss_cfg, compute_dtype, twin)
+    if step.device.type == "cuda":
+        if train_cfg.backprop_freq != 1 or train_cfg.skip_nonfinite_updates:
+            raise ValueError(
+                "grouped dispatch on the card captures one update per step: --backprop_freq "
+                "> 1 and --skip_nonfinite branch on the host per step (they come with "
+                "ROADMAP 'Kernel and card work' item 2)")
+        multi = GraphedStep(step)
+    else:
+        def multi(batches):
+            rows = []
+            multi.updates_after = []
+            for b in batches:
+                rows.append(step(b))
+                multi.updates_after.append(optimizer.updates)
+            return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    multi.generator = step.generator
+    return multi
+
+
+def _read_counts() -> Dict[str, Dict[str, int]]:
+    """Every kernel's launch count (under "") and its counts by route."""
+    return {name: {"": fn.launches, **fn.launches_by_route} for name, fn in kernels().items()}
+
+
+class GraphedStep:
+    """One train step (``make_train_step``'s) captured in a CUDA graph and
+    replayed per batch.
+
+    The first WARMUP batches are eager steps on a side stream, which train
+    as any step does and leave made what a capture must not make (cuBLAS's
+    handles, the kernels' libraries, AdamW's state).  The next batch's
+    shapes fix the static buffers, on which ``step.run`` is captured once;
+    that batch and every later one is a replay.  The capture trains
+    nothing, so the counters it advanced in Python are set back.
+    ``launches_per_step`` is what the wrappers counted at capture (they
+    count no replay)."""
+
+    WARMUP = 2
+
+    def __init__(self, step):
+        self.step = step
+        self.graph = None
+        self.warm = 0
+
+    def _warm_up(self, batches: List[Dict[str, torch.Tensor]]) -> List[torch.Tensor]:
+        step, dev = self.step, self.step.device
+        main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        rows = []
+        with torch.cuda.stream(side):
+            for b in batches:
+                metrics = step(b)
+                rows.append(torch.stack([v.float() for v in metrics.values()]))
+                self.updates_after.append(step.optimizer.updates)
+        main.wait_stream(side)
+        for r in rows:
+            r.record_stream(main)
+        self.names = list(metrics)
+        self.warm += len(batches)
+        return rows
+
+    def _capture(self, batch: Dict[str, torch.Tensor], random_starts: bool) -> None:
+        step, dev = self.step, self.step.device
+        opt, twin = step.optimizer, step.twin
+        self.static = {k: v.to(dev, copy=True) for k, v in batch.items()}
+        self.pos = torch.zeros(3, dtype=torch.long, device=dev) if random_starts else None
+        opt.lr_from_table()
+        opt.zero_grad()
+        counters = (opt.updates, twin.micro_steps if twin is not None else 0)
+        before = _read_counts()
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the loader's threads may pin host memory meanwhile
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            metrics = step.run(self.static, self.pos)
+            self.row = torch.stack([v.float() for v in metrics.values()])
+        after = _read_counts()
+        self.launches_per_step = {n: {r: after[n][r] - before[n][r] for r in after[n]}
+                                  for n in after}
+        opt.updates = counters[0]
+        if twin is not None:
+            twin.micro_steps = counters[1]
+        self.graph = graph
+
+    def __call__(self, batches: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+        step, dev = self.step, self.step.device
+        self.updates_after = []
+        rows = []
+        n = min(self.WARMUP - self.warm, len(batches))
+        if n > 0:
+            rows = self._warm_up(batches[:n])
+            batches = batches[n:]
+        if batches:
+            starts = [step.draw(b) for b in batches]  # on the host, in step order
+            if self.graph is None:
+                self._capture(batches[0], starts[0] is not None)
+            for b in batches:
+                if b.keys() != self.static.keys() or any(
+                        b[k].shape != v.shape or b[k].dtype != v.dtype
+                        for k, v in self.static.items()):
+                    raise ValueError("a graphed train step takes batches of one shape and dtype")
+            step.optimizer.check_lr_table(len(batches))
+            if self.pos is not None:
+                starts = torch.tensor(starts).pin_memory().to(dev, non_blocking=True)
+            for i, b in enumerate(batches):
+                for k, v in self.static.items():
+                    v.copy_(b[k], non_blocking=True)
+                if self.pos is not None:
+                    self.pos.copy_(starts[i])
+                self.graph.replay()
+                rows.append(self.row.clone())
+                step.optimizer.updates += 1
+                self.updates_after.append(step.optimizer.updates)
+                if step.twin is not None:
+                    step.twin.micro_steps += 1
+        rows = torch.stack(rows)
+        return {k: rows[:, j] for j, k in enumerate(self.names)}

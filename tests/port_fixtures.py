@@ -61,15 +61,16 @@ def to_torch(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
-def write_feature_dir(root):
-    """Seven videos of S3D-like features with sentencified captions, as .json
-    and .jsonl, a vocab, and a holdout list naming vid5 (``root`` a Path)."""
+def write_feature_dir(root, videos=7):
+    """``videos`` videos of S3D-like features with sentencified captions, as
+    .json and .jsonl, a vocab, and a holdout list naming vid5 (``root`` a
+    Path)."""
     rng = np.random.RandomState(0)
     words = [f"w{i}" for i in range(VOCAB)]
     np.save(root / "vocab.npy", np.array(words))
     (root / "features").mkdir()
     caps = {}
-    for v in range(7):
+    for v in range(videos):
         vlen = int(rng.randint(70, 160))
         suffix = ".mp4.npy" if v % 2 else ".webm.npy"
         np.save(root / "features" / f"vid{v}{suffix}",
