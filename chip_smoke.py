@@ -8,7 +8,8 @@ through the kernels, the raw-feature MIL-NCE baseline, the HTM-AA product
 path (S3D features, HTM-AA generation, the end-to-end S3D fine-tune, a
 linear probe), the BERT TAN at bert-base-uncased's widths (training, both
 CLIs), the CLIP baseline and the CLIP and TimeSformer feature extractors,
-and times them.
+data-parallel training and sharded evaluation (two ranks on the card by
+gloo, a world of one by NCCL), and times them.
 
     python3 chip_smoke.py
 
@@ -180,6 +181,27 @@ Phases, each printing JSON lines:
              replays, the host syncs of a group; in two children the train CLI with
              --steps_per_dispatch GROUP_K --max_steps 10 (overshooting to 12,
              with its [stop] line) against --max_steps 12 per step.
+     dp_two_ranks  slice 9 (started before resume, running beside it, read
+             after it): two children on the card joined
+             by gloo (initialize_multihost(backend="gloo"); NCCL refuses two
+             ranks on one device), the global B = 64 split 32 + 32: Stage-1
+             and cotrain steps in f32 and bf16 against the 1-process step
+             on the same global batches (loss, per-tensor gradients, params
+             and twin; bf16 cotrain with the ranks' agreement targets),
+             launches and routes per rank and step, the ranks' results
+             equal to the bit; a planted fault (the column logsumexps not
+             merged) over GRAD_TOL; the eval CLI's align and retrieval with
+             --shard_eval on train_cli's checkpoint against its 1-process
+             metrics; one e2e step, frozen BN and train_bn_stats, at E2E in
+             bf16 (8 videos a rank; train_bn_stats within DP_SPREAD_FACTOR
+             times the 1-process step's spread under a reversed video
+             order) and at E2E_DP_SMALL in f64.  Each rank runs the
+             1-process steps of half the cases itself.
+     dp_world1  the train CLI (E6D6, B = 64, bf16, fused, 4 steps) with
+             --multihost in a world of one over NCCL, beside the same run
+             without a group (both started before dp_two_ranks): losses and
+             params against each other, the [multihost] line, and in its
+             --profile_dir trace NCCL's kernel and the port's per step.
   4. times   per shape mha_fwd's, the plain version's and PyTorch's SDPA
              time beside the card's bound (K and V counted at the valid keys
              only, ``attention_work``), and the same four times for each
@@ -198,7 +220,9 @@ Phases, each printing JSON lines:
              each with its device time, peak memory and top
              kernels; and e2e steps/s and clips/s at E2E with the device
              time, idle share, peak memory and the bound from S3D's
-             multiply-adds.
+             multiply-adds; in the Stage-1 child, after its plain step, the
+             same step in a world of one over NCCL (device ms, idle share,
+             NCCL's kernel ms per step).
              Device times come from torch.profiler (a kernel row's only
              when two sessions recorded the same launches); a time without
              such a session is taken with CUDA events and marked
@@ -1144,7 +1168,7 @@ def phase_cli(torch, model):
 
 
 def train_setup(torch, device, fused, cfg_kw=None, state=None, compute=None, cotrain=False,
-                train_kw=None, bert=False, multi=False, capturable=None):
+                train_kw=None, bert=False, multi=False, capturable=None, group=None):
     """A TANWithText with its optimizer, train step and, for ``cotrain`` (head
     on, agreement targets), its EMA twin; params f32 from the seed (or
     ``state``; for cotrain merged as ``--pretrain`` does, so a Stage-1 state
@@ -1152,7 +1176,8 @@ def train_setup(torch, device, fused, cfg_kw=None, state=None, compute=None, cot
     says; with ``bert`` the text tower is BERT at BERT_CFG's widths; with
     ``multi`` the step is ``make_multi_train_step``'s (a group of steps, on
     the card a CUDA graph replayed per batch); ``capturable`` goes to the
-    Optimizer (None: its default, True on the card).
+    Optimizer (None: its default, True on the card); ``group``, a process
+    group, makes the step the data-parallel one.
     Returns (model, optimizer, step, twin or None)."""
     from temporalalignnet_torch.checkpoint import merge_state_dict
     from temporalalignnet_torch.core.config import LossConfig, ModelConfig, TrainConfig
@@ -1181,7 +1206,7 @@ def train_setup(torch, device, fused, cfg_kw=None, state=None, compute=None, cot
         if cotrain else {}
     step = (make_multi_train_step if multi else make_train_step)(
         model, opt, tcfg, LossConfig(use_fused_milnce=fused, **loss_kw), compute_dtype=compute,
-        twin=twin)
+        twin=twin, group=group)
     return model, opt, step, twin
 
 
@@ -1356,13 +1381,38 @@ class TargetRecorder:
 
         self.module, self.inner, self.calls = tan_loss, tan_loss.agreement_self_labelling, []
 
-        def recorded(*args):
-            tgt, metrics = self.inner(*args)
+        def recorded(*args, **kw):
+            tgt, metrics = self.inner(*args, **kw)
             self.calls.append(([a.detach().cpu() if hasattr(a, "detach") else a for a in args],
                                tgt.cpu()))
             return tgt, metrics
 
         tan_loss.agreement_self_labelling = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module.agreement_self_labelling = self.inner
+
+
+class ForcedTargets:
+    """Within ``with``, get_loss's agreement self-labelling returns
+    ``targets[i]`` (on its device) at its i-th call, with the metrics of the
+    call it replaces: the same positives on two runs."""
+
+    def __init__(self, targets):
+        self.targets = targets
+
+    def __enter__(self):
+        from temporalalignnet_torch.losses import tan_loss
+
+        self.module, self.inner, self.n = tan_loss, tan_loss.agreement_self_labelling, 0
+
+        def forced(*args, **kw):
+            tgt, metrics = self.inner(*args, **kw)
+            self.n += 1
+            return self.targets[self.n - 1].to(tgt.device, tgt.dtype), metrics
+
+        tan_loss.agreement_self_labelling = forced
         return self
 
     def __exit__(self, *exc):
@@ -1600,7 +1650,8 @@ def phase_train_cli(torch, files, eval_files, yc2_files):
     emit({"phase": "train_cli_eval", "metrics": metrics, "seconds_both_tasks": secs})
     check(0.0 <= metrics["Recall"] <= 1.0 and 0.0 <= metrics["AUC"] <= 1.0,
           f"eval of the trained checkpoint: {metrics}")
-    return final["checkpoint"], {"metrics": outs["retrieval"], "seconds_both_tasks": secs}
+    return final["checkpoint"], {"metrics": outs["retrieval"], "align": metrics,
+                                 "seconds_both_tasks": secs}
 
 
 def make_yc2_files(root, seed):
@@ -1793,7 +1844,8 @@ def phase_resume(torch, yc2_files):
     at E6D6, B = 64, bf16, fused; cotrain at E2D2 with backprop_freq 2,
     stopped mid-accumulation.  The runs of both cases go in this process
     one after the other (the stopped ones time their runtime save); then
-    both resumed runs at once."""
+    both resumed runs at once.  Returns the training files (RESUME["videos"]
+    videos, kept for the data-parallel phase)."""
     t_phase = time.perf_counter()
     feats, captions, vocab = make_train_files(os.path.join(REPO, "build", "chip_smoke_resume"),
                                               RESUME["videos"], SEED + 20)
@@ -1819,7 +1871,6 @@ def phase_resume(torch, yc2_files):
                           "--prefix", os.path.join(root, "stopped"), "--max_steps", str(2 * k),
                           "--runtime_save_iter", "0", "--resume", "auto"])
              for case, (k, root, base, *_) in runs.items()}
-    results = {}
     try:
         for case, (k, root, _, whole, stopped_log, run_seconds) in runs.items():
             out = finish(procs[case], f"resumed {case} run", timeout=900)
@@ -1849,12 +1900,11 @@ def phase_resume(torch, yc2_files):
                   f"{case}: resumed run off the uninterrupted one beyond their spread: {row}")
             check(evals and evals[0]["eval_step"] == k and retrieval_ordered(evals[0]),
                   f"{case}: no retrieval metrics at the runtime save: {evals}")
-            results[case] = row
             subprocess.run(["rm", "-rf", root], check=True)  # several GB of checkpoints
     finally:
         stop(procs.values())
     emit({"phase": "resume_seconds", "seconds": time.perf_counter() - t_phase})
-    return results
+    return feats, captions, vocab
 
 
 def timed_row(torch, fns, nbytes, flops, bw, peak, **info):
@@ -2398,14 +2448,15 @@ def phase_s3d(torch, card):
     return macs
 
 
-def e2e_setup(torch, device, compute, grads=None, feed=None, dtype=None, **flags):
+def e2e_setup(torch, device, compute, grads=None, feed=None, dtype=None, group=None, **flags):
     """S3DWithText (vocab 66,251, dim 512) of random weights from the seed on
     ``device`` (channels_last_3d on the card), in ``dtype`` (f32 unless
     given), its e2e optimizer (lr E2E_LR, wd E2E_WD, no warm-up: the first
     step moves the params) and train step; ``grads``, when given a list,
     gets each micro-step's gradients (name -> a CPU f64 copy) as backward
     left them; ``feed`` (such a list) then replaces them, step by step, with
-    the given ones before the optimizer reads them."""
+    the given ones before the optimizer reads them; ``group``, a process
+    group, makes the step the data-parallel one."""
     from temporalalignnet_torch.core.config import TrainConfig
     from temporalalignnet_torch.train.end2end import make_e2e_optimizer, make_e2e_train_step
 
@@ -2426,7 +2477,7 @@ def e2e_setup(torch, device, compute, grads=None, feed=None, dtype=None, **flags
             return apply()
 
         opt.step = spy
-    return model, make_e2e_train_step(model, opt, compute_dtype=compute)
+    return model, make_e2e_train_step(model, opt, compute_dtype=compute, group=group)
 
 
 def e2e_batch(torch, seed, B, n, T, S, W=32):
@@ -3479,6 +3530,454 @@ def e2e_step_time(torch, card):
           "top_host_ops_self_ms_per_step": {k[:90]: v for k, v in top_host}})
 
 
+# ------------------------------------------------ slice 9: data parallelism
+
+# dp_world1: the train CLI's steps in a world of one (NCCL) and without a group
+DP_WORLD1_STEPS = 4
+# dp_two_ranks: the cases of the two ranks (two processes on the one card,
+# joined by gloo: NCCL refuses two ranks on one device), each two steps from
+# the Stage-1 state on two global batches of TRAIN["B"], B / 2 rows a rank:
+# (name, cotrain, compute dtype)
+DP_CASES = (("stage1_f32", False, "float32"), ("stage1_bf16", False, "bfloat16"),
+            ("cotrain_f32", True, "float32"), ("cotrain_bf16", True, "bfloat16"))
+DP_LOSS_TOL = {"float32": F32_STEP_TOL, "bfloat16": TRAIN_LOSS_TOL}
+# params after the two steps, per element: |a - b| <= F32_STEP_TOL·|b| + DP_PARAM_ATOL
+# (the twin's: + TARGET_ATOL).  Adam moves a weight by up to about lr whatever
+# its gradient, so where the gradient is rounding noise two runs may step
+# opposite ways; of the two steps only the second has lr > 0 (see TARGET_ATOL)
+DP_PARAM_ATOL = 4 * TRAIN_LR
+# the e2e step of the two ranks: (case, flags, dtype, batch); "full" is E2E in bf16
+# (8 videos a rank), "small" E2E_DP_SMALL in f64 (2 videos a rank, as e2e_card_vs_cpu)
+DP_E2E_CASES = (("frozen_bn", {}, "bfloat16", "full"),
+                ("train_bn_stats", {"train_bn_stats": True}, "bfloat16", "full"),
+                ("frozen_bn_f64", {}, "float64", "small"),
+                ("train_bn_stats_f64", {"train_bn_stats": True}, "float64", "small"))
+E2E_DP_SMALL = dict(B=4, n=2, T=8, S=64)
+# e2e gradients, per tensor: |a - b| <= tol·(|b| + |whole gradient|): the InfoNCE
+# sums each text's gradient with the others', so a tensor downstream of that
+# sum (the text tower's biases) can cancel to a few 1e-6 of the whole gradient,
+# where bf16 rounding alone decides its direction; f64: the InfoNCE runs in
+# f32 (tests/test_torch_multiprocess.py's bar)
+DP_E2E_GRAD_TOL = {"bfloat16": GRAD_TOL["bfloat16"], "float64": 1e-5}
+# bf16 with train_bn_stats: a random-weight S3D normalised by batch statistics
+# amplifies rounding through its BNs, so the 1-process step against itself on
+# the same clips in another video order (the "spread") is the yardstick: the
+# ranks must stay within DP_SPREAD_FACTOR times it
+DP_SPREAD_FACTOR = 4.0
+# NCCL's kernels by name: ncclDevKernel_* over several ranks; over one rank the
+# AVG of the gradient average is NCCL's onerank.cu kernel (an H100, NCCL 2.28)
+NCCL_KERNEL_MARKS = ("nccl", "onerank")
+# the kernel names of a trace, per step of the train CLI (milnce_grad_wgmma: dv and dt)
+DP_TRACE_KERNELS = {"mha_fwd_wgmma": 12, "mha_bwd_fused": 12, "milnce_fwd_wgmma": 2,
+                    "milnce_grad_wgmma": 4}
+
+
+def card_power() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_dp_world1(files):
+    """The train CLI (E6D6, B = 64, bf16, fused; DP_WORLD1_STEPS steps, lr from
+    the second) in two children: with ``--multihost`` in a world of one (NCCL,
+    ``--profile_dir``) and without a process group; read by phase_dp_world1."""
+    feats, captions, vocab = files
+    root = os.path.join(REPO, "build", "chip_smoke_dp_world1")
+    shutil.rmtree(root, ignore_errors=True)
+    base = [sys.executable, "-m", "temporalalignnet_torch.train", "--feature_dir", feats,
+            "--captions", captions, "--vocab", vocab, "--max_steps", str(DP_WORLD1_STEPS),
+            "--epochs", "1", "--log_every", "1", "--runtime_save_iter", "0",
+            "--warmup_iterations", "1"]
+    procs = {"world1": start(base + [
+                 "--prefix", os.path.join(root, "world1"), "--multihost",
+                 "--coordinator", f"127.0.0.1:{free_port()}", "--num_processes", "1",
+                 "--process_id", "0", "--profile_dir", os.path.join(root, "trace")]),
+             "plain": start(base + ["--prefix", os.path.join(root, "plain")])}
+    return procs, root
+
+
+def phase_dp_world1(torch, children):
+    """The train CLI with ``--multihost`` in a world of one (NCCL) against the
+    same run without a process group: the losses and the final params (equal
+    to the bit, or the largest difference), the ``[multihost]`` line, and in
+    the world-of-one run's torch.profiler trace the NCCL kernel of the
+    gradient average and the port's kernels, per step."""
+    procs, root = children
+    t0 = time.perf_counter()
+    try:
+        outs = {k: finish(p, f"train CLI {k} (dp_world1)", timeout=900) for k, p in procs.items()}
+    finally:
+        stop(procs.values())
+    finals = {k: json.loads(o.strip().splitlines()[-1]) for k, o in outs.items()}
+    losses = {k: logged_losses(o) for k, o in outs.items()}
+    loss_err = max(abs(a - b) for a, b in zip(losses["world1"], losses["plain"]))
+    param_err = state_err(torch, finals["world1"]["checkpoint"], finals["plain"]["checkpoint"])
+    traces = [os.path.join(root, "trace", f) for f in os.listdir(os.path.join(root, "trace"))
+              if f.startswith("trace_") and f.endswith(".json")]
+    check(len(traces) == 1, f"--profile_dir wrote {traces}")
+    with open(traces[0]) as f:
+        kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    steps = DP_WORLD1_STEPS
+    nccl = {}
+    for e in kernels:
+        if any(m in e.get("name", "").lower() for m in NCCL_KERNEL_MARKS):
+            row = nccl.setdefault(e["name"][:120], {"per_step": 0.0, "ms_per_step": 0.0})
+            row["per_step"] += 1 / steps
+            row["ms_per_step"] += e.get("dur", 0) / 1e3 / steps
+    ours = {k: sum(k in e.get("name", "") for e in kernels) / steps for k in DP_TRACE_KERNELS}
+    line = [l for l in outs["world1"].splitlines() if l.startswith("[multihost]")]
+    row = {"phase": "dp_world1", "card": card_power(), "steps": steps,
+           "losses_world1": losses["world1"], "losses_plain": losses["plain"],
+           "bit_equal": loss_err == 0.0 and param_err == 0.0,
+           "loss_max_abs_err": loss_err, "param_max_abs_err": param_err,
+           "param_bound": 2 * steps * TRAIN_LR, "multihost_line": line,
+           "nccl_kernels_in_trace": nccl, "port_kernels_per_step_in_trace": ours,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    check(len(losses["world1"]) == len(losses["plain"]) == steps, f"dp_world1 losses {losses}")
+    check(line == ["[multihost] process 0/1 builds batch rows [0, 64)"], f"dp_world1 {line}")
+    check(loss_err <= TRAIN_LOSS_TOL, f"dp_world1 losses off the plain run by {loss_err}")
+    check(param_err <= 2 * steps * TRAIN_LR, f"dp_world1 params off the plain run by {param_err}")
+    check(sum(r["per_step"] for r in nccl.values()) >= 1,
+          f"dp_world1: no NCCL kernel in the trace: {sorted({e['name'][:60] for e in kernels})}")
+    check(ours == DP_TRACE_KERNELS, f"dp_world1 kernels per step in the trace {ours}")
+
+
+def dp_errors(ours, ref, dtype):
+    """A rank's ``two_steps`` result and params against the 1-process one:
+    loss and gradient errors (the three worst tensors), and the params'
+    and the twin's worst |a - b| / (F32_STEP_TOL·|b| + atol)."""
+    loss_err, grad_err, worst = compare_steps(ours, ref)
+
+    def ratio(a, b, atol):
+        return max((((a[n] - b[n]).abs() / (F32_STEP_TOL * b[n].abs() + atol)).max().item(), n)
+                   for n in b)
+
+    out = {"loss_max_abs_err": loss_err, "grad_max_norm_err": grad_err, "worst_grad": worst,
+           "loss_tol": DP_LOSS_TOL[dtype], "grad_tol": GRAD_TOL[dtype],
+           "param_ratio": ratio(ours[3], ref[3], DP_PARAM_ATOL)}
+    if ref[2] is not None:
+        out["target_ratio"] = ratio(ours[2], ref[2], TARGET_ATOL)
+    return out
+
+
+def e2e_grad_err(ours, ref):
+    """The worst |a - b| / (|b| + |whole gradient|) over the tensors of two
+    {name: gradient} dicts, and the three worst tensors."""
+    whole = sum(g.double().square().sum().item() for g in ref.values()) ** 0.5
+    errs = sorted((((ours[n].double() - g.double()).norm().item()
+                    / (g.double().norm().item() + whole)), n) for n, g in ref.items())[::-1]
+    return errs[0][0], errs[:3]
+
+
+def dp_e2e_step(torch, dev, flags, dtype, clips, group=None):
+    """One e2e step (E2E_LR): (loss, {param: gradient}, {BN statistic: value})."""
+    grads = []
+    compute = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    model, step = e2e_setup(torch, dev, compute, grads=grads, group=group,
+                            dtype=torch.float64 if dtype == "float64" else None, **flags)
+    loss = step(clips)["loss"].item()
+    stats = {k: v.double().cpu() for k, v in model.state_dict().items() if "running" in k}
+    return loss, grads[0], stats
+
+
+def dp_steps(torch, model, step, batches, twin=None):
+    """``two_steps`` with each step's launches and routes, and the params after."""
+    losses, grads, per_step, routes = [], [], [], []
+    for batch in batches:
+        metrics, counts, r = counted_step(torch, step, batch)
+        losses.append(metrics["loss"].item())
+        grads.append({n: p.grad.detach().float().cpu()
+                      for n, p in model.named_parameters() if p.grad is not None})
+        per_step.append(counts)
+        routes.append(r)
+    target = None if twin is None else {n: p.detach().float().cpu()
+                                        for n, p in twin.model.named_parameters()}
+    params = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+    return (losses, grads, target, params), per_step, routes
+
+
+def dp_rank(torch, rank, port, work):
+    """One rank of dp_two_ranks (a child of phase_dp_two_ranks): waits for
+    the go file, joins the other rank by gloo on the card, then runs in turn
+    the DP_CASES steps on its rows, a step with the column merge skipped (a
+    planted fault), the 1-process steps of its half of DP_CASES on the
+    global batches (both ranks at once), against which it holds those
+    cases' results, the sharded align and retrieval CLIs (the 1-process
+    CLIs' retrieval metrics, equal; align as ``phase_cli`` holds its CLI
+    to the in-process evaluator), and one e2e step
+    with frozen and with trained BN statistics, held against the 1-process
+    results the parent saved; writes its results as JSON.  The two ranks'
+    gradients and params are the same to the bit (``digest``)."""
+    import temporalalignnet_torch.ops.milnce as milnce
+    from temporalalignnet_torch.eval.cli import main as eval_main
+    from temporalalignnet_torch.parallel import distributed
+    from temporalalignnet_torch.parallel.mesh import local_batch_rows
+
+    distributed.initialize_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                                     device="cuda:0")
+    group = distributed.default_group()
+    dev = torch.device("cuda", 0)
+    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    lo, hi = local_batch_rows(TRAIN["B"], group)
+    rows = [{k: v[lo:hi] for k, v in b.items()} for b in inputs["batches"]]
+    out = {"rank": rank, "rows": [lo, hi], "cases": {}}
+
+    def digest(tensors):
+        return sum(t.double().sum().item() * (i + 1) for i, t in enumerate(tensors))
+
+    sharded, targets = {}, {}
+    for name, cotrain, dt in DP_CASES:
+        model, _, step, twin = train_setup(torch, dev, fused=True, state=inputs["state"],
+                                           compute=getattr(torch, dt), cotrain=cotrain,
+                                           group=group)
+        with TargetRecorder() as rec:
+            res, per_step, routes = dp_steps(torch, model, step, rows, twin)
+        # every rank's agreement targets of each step, [B, T, N]
+        targets[name] = [distributed.all_gather(t, 0, group) for _, t in rec.calls]
+        sharded[name] = res
+        out["cases"][name] = {"losses": res[0], "launches_per_step": per_step,
+                              "routes_per_step": routes,
+                              "digest": [digest(res[3].values())]
+                              + [digest(g.values()) for g in res[1]]}
+        del model, step, twin
+    # the planted fault: each rank's own column logsumexps, no merge
+    merge = milnce.merge_lse
+    milnce.merge_lse = lambda lse, group: lse
+    try:
+        model, _, step, _ = train_setup(torch, dev, fused=True, state=inputs["state"],
+                                        compute=torch.bfloat16, group=group)
+        fault, _, _ = dp_steps(torch, model, step, rows[:1])
+    finally:
+        milnce.merge_lse = merge
+    del model, step
+    # the 1-process steps of this rank's half of the cases, on the global batches
+    for i, (name, cotrain, dt) in enumerate(DP_CASES):
+        if i % 2 != rank:
+            continue
+        model, _, step, twin = train_setup(torch, dev, fused=True, state=inputs["state"],
+                                           compute=getattr(torch, dt), cotrain=cotrain)
+        with TargetRecorder() as rec:
+            ref, _, _ = dp_steps(torch, model, step, inputs["batches"], twin)
+        if cotrain:  # the agreement targets of one process against the ranks'
+            diff = [(i, *map(int, x)) for i, ((_, a), b) in enumerate(zip(rec.calls,
+                                                                           targets[name]))
+                    for x in (a != b).nonzero()[:, [0, 2]].unique(dim=0)]
+            out["cases"][name]["target_sentences_differing"] = [
+                {"step": i, "video": b, "sentence": n,
+                 "margins_joint_dual": window_margins(torch, rec.calls[i][0], b, n)}
+                for i, b, n in diff]
+        if cotrain and dt == "bfloat16":
+            # bf16 rounds the twin's sims apart on the two runs, and a discrete
+            # target may then flip at a near-tie: the 1-process step is held
+            # with the ranks' targets (the f32 case holds them as they come)
+            del model, step, twin
+            model, _, step, twin = train_setup(torch, dev, fused=True, state=inputs["state"],
+                                               compute=getattr(torch, dt), cotrain=cotrain)
+            with ForcedTargets(targets[name]):
+                ref, _, _ = dp_steps(torch, model, step, inputs["batches"], twin)
+        out["cases"][name].update(dp_errors(sharded[name], ref, dt), checked_by=rank)
+        if name == "stage1_bf16":
+            out["fault"] = compare_steps((fault[0], fault[1]), (ref[0][:1], ref[1][:1]))
+        del model, step, twin, ref
+    del sharded, fault
+    torch.cuda.empty_cache()
+    distributed.barrier()
+    t0 = time.perf_counter()
+    e_feats, anno, e_vocab = inputs["eval_files"]
+    y_feats, y_anno, y_vocab = inputs["yc2_files"]
+    ckpt = ["--ckpt", inputs["ckpt"], "--shard_eval"]
+    out["evals"] = {
+        "align": eval_main(["--task", "align", "--features", e_feats, "--anno", anno,
+                            "--vocab", e_vocab, *ckpt]),
+        "retrieval": eval_main(["--task", "retrieval", "--features", y_feats, "--anno", y_anno,
+                                "--vocab", y_vocab, *ckpt]),
+        "seconds": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+    out["e2e"], sharded = {}, {}
+    for case, flags, dt, size in DP_E2E_CASES:
+        full = inputs["e2e_batch" if size == "full" else "e2e_small"]
+        per = full["clips"].shape[0] // 2
+        clips = {k: v[per * rank:per * (rank + 1)] for k, v in full.items()}
+        t0 = time.perf_counter()
+        sharded[case] = dp_e2e_step(torch, dev, flags, dt, clips, group)
+        loss, grads, stats = sharded[case]
+        out["e2e"][case] = {"loss": loss, "digest": [digest(grads.values()),
+                                                     digest(stats.values())],
+                            "setup_and_step_seconds": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+    # the 1-process steps of this rank's half of the cases, on the global clips
+    for i, (case, flags, dt, size) in enumerate(DP_E2E_CASES):
+        if i % 2 != rank:
+            continue
+        clips = inputs["e2e_batch" if size == "full" else "e2e_small"]
+        ref_loss, ref_grads, ref_stats = dp_e2e_step(torch, dev, flags, dt, clips)
+        loss, grads, stats = sharded[case]
+        grad_err, worst = e2e_grad_err(grads, ref_grads)
+        row = out["e2e"][case]
+        row.update(loss_abs_err=abs(loss - ref_loss), grad_err=grad_err, worst_grad=worst,
+                   stats_max_norm_err=max(((norm_err(stats[k], v), k)
+                                           for k, v in ref_stats.items()), default=[0.0, None]),
+                   spread=None, checked_by=rank)
+        if dt == "bfloat16":  # the same clips, the videos in reverse order
+            back = {k: v.flip(0) for k, v in clips.items()}
+            loss2, grads2, stats2 = dp_e2e_step(torch, dev, flags, dt, back)
+            row["spread"] = {
+                "loss_abs_err": abs(loss2 - ref_loss),
+                "grad_err": e2e_grad_err(grads2, ref_grads)[0],
+                "stats_max_norm_err": max((norm_err(stats2[k], v) for k, v in ref_stats.items()),
+                                          default=0.0)}
+        del ref_grads, ref_stats
+        torch.cuda.empty_cache()
+    distributed.destroy()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def start_dp_two_ranks(torch, stage1_state, stage1_ckpt, eval_files, yc2_files):
+    """dp_two_ranks' two children (``dp_rank``), started on the inputs they
+    share (written to build/chip_smoke_dp/); they run beside the resume
+    phase and phase_dp_two_ranks reads them."""
+    from temporalalignnet_torch.data.synthetic import synthetic_batch
+
+    work = os.path.join(REPO, "build", "chip_smoke_dp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    T, N, W = (TRAIN[k] for k in "TNW")
+    batches = [{k: torch.from_numpy(v) for k, v in synthetic_batch(
+        np.random.RandomState(SEED + 40 + i), batch_size=TRAIN["B"], seq_len=T,
+        max_sentences=N, feature_dim=1024, vocab_size=66250, max_words=W).items()}
+        for i in range(2)]
+    e2e_small = e2e_batch(torch, SEED + 43, *(E2E_DP_SMALL[k] for k in "BnTS"))
+    e2e_small["clips"] = e2e_small["clips"].double()
+    torch.save({"batches": batches, "state": stage1_state, "e2e_small": e2e_small,
+                "e2e_batch": e2e_batch(torch, SEED + 42, E2E["B"], E2E["n"], E2E["T"], E2E["S"]),
+                "ckpt": stage1_ckpt, "eval_files": eval_files, "yc2_files": yc2_files},
+               os.path.join(work, "inputs.pt"))
+    port = free_port()
+    ranks = [start([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), str(port),
+                    work]) for r in range(2)]
+    return ranks, work, time.perf_counter()
+
+
+def phase_dp_two_ranks(children, eval_files, cli_metrics):
+    """Two processes on the one card joined by gloo through the library's
+    entry points (``initialize_multihost(backend="gloo")``; the CLIs keep
+    NCCL), started by start_dp_two_ranks before the resume phase and read
+    here.  Each rank holds its B / 2 rows: the Stage-1 and cotrain steps,
+    f32 compute and bf16, each against the 1-process step on the same two
+    global batches (loss, per-tensor norm-relative gradients, params and
+    the twin after the second step; the launches and routes per rank and
+    step: 12/12/2/2/2, 24 mha_fwd in cotrain), a planted fault (the column
+    merge skipped) that must exceed the bf16 limit, the sharded align and
+    retrieval CLIs on the train CLI's checkpoint (the 1-process CLIs'
+    metrics: retrieval equal, align within phase_cli's bars), and one e2e
+    step, frozen BN and train_bn_stats, at E2E (16 videos x 2 clips of 16 x
+    224², bf16, 8 videos a rank) and at E2E_DP_SMALL in f64 (loss,
+    gradients, BN statistics).  Returns each rank's launches over its bf16
+    Stage-1 and cotrain steps."""
+    ranks, work, t_start = children
+    try:
+        for r, proc in enumerate(ranks):
+            finish(proc, f"dp_two_ranks rank {r}", timeout=900)
+    finally:
+        stop(ranks)
+    t_ranks = time.perf_counter() - t_start
+    outs = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    card = card_power()
+    for name, cotrain, dt in DP_CASES:
+        rows = [o["cases"][name] for o in outs]
+        checked = next(row for row in rows if "checked_by" in row)
+        emit({"phase": "dp_two_ranks", "case": name, "card": card, "batch": TRAIN["B"],
+              "rows_per_rank": TRAIN["B"] // 2, **{f"rank{r}": row for r, row in enumerate(rows)}})
+        want = COTRAIN_STEP_LAUNCHES if cotrain else STEP_LAUNCHES
+        routes = ((COTRAIN_STEP_ROUTES if cotrain else STEP_ROUTES) if dt == "bfloat16" else
+                  {k: {r: (want[k] if r == "f32" else 0) for r in v}
+                   for k, v in STEP_ROUTES.items()})
+        what = f"dp_two_ranks {name}"
+        if cotrain and dt == "float32":
+            check(not checked["target_sentences_differing"], f"{what}: agreement targets differ")
+        check(checked["loss_max_abs_err"] <= DP_LOSS_TOL[dt], f"{what} loss {checked}")
+        check(checked["grad_max_norm_err"] <= GRAD_TOL[dt],
+              f"{what} grads {checked['worst_grad']}")
+        check(checked["param_ratio"][0] <= 1.0, f"{what} params {checked['param_ratio']}")
+        check(checked.get("target_ratio", [0.0])[0] <= 1.0, f"{what} twin {checked}")
+        check(rows[0]["digest"] == rows[1]["digest"] and rows[0]["losses"] == rows[1]["losses"],
+              f"{what}: the ranks' gradients, params or losses differ")
+        for r, row in enumerate(rows):
+            check_launches(row["launches_per_step"], row["routes_per_step"], want, routes,
+                           f"{what} rank {r}")
+    fault = next(o["fault"] for o in outs if "fault" in o)
+    emit({"phase": "dp_two_ranks_planted_fault", "card": card,
+          "fault": "column logsumexps not merged over the ranks (bf16 Stage-1 step)",
+          "loss_abs_err": fault[0], "grad_max_norm_err": fault[1], "worst_grad": fault[2],
+          "tol": GRAD_TOL["bfloat16"]})
+    check(fault[1] > GRAD_TOL["bfloat16"], f"planted fault not caught {fault}")
+    evals = [o["evals"] for o in outs]
+    emit({"phase": "dp_two_ranks_evals", "card": card, "ranks": evals,
+          "one_process": {"align": cli_metrics["align"], "retrieval": cli_metrics["metrics"]}})
+    with open(eval_files[1]) as f:
+        n_aligned = sum(s[0] for sents in json.load(f).values() for s in sents)
+    for ev in evals:
+        # retrieval: equal; align: as phase_cli, within the order of index_add_'s
+        # atomic sums on the card, which no two runs share (one sentence, AUC_TOL)
+        align, ref = ev["align"], cli_metrics["align"]
+        check(ev["retrieval"] == cli_metrics["metrics"],
+              f"sharded retrieval {ev['retrieval']} against one process {cli_metrics}")
+        check(abs(align["Recall"] - ref["Recall"]) * n_aligned <= 1 + 1e-9
+              and abs(align["AUC"] - ref["AUC"]) <= AUC_TOL,
+              f"sharded align {align} against one process {ref}")
+    e2e_rows = [o["e2e"] for o in outs]
+    emit({"phase": "dp_two_ranks_e2e", "card": card,
+          "cases": {c: {"dtype": dt, "clips": ([E2E["B"] * E2E["n"], E2E["T"], E2E["S"], E2E["S"]]
+                                               if size == "full" else
+                                               [E2E_DP_SMALL["B"] * E2E_DP_SMALL["n"],
+                                                E2E_DP_SMALL["T"], E2E_DP_SMALL["S"],
+                                                E2E_DP_SMALL["S"]])}
+                    for c, _, dt, size in DP_E2E_CASES},
+          "ranks": e2e_rows, "loss_tol": TRAIN_LOSS_TOL, "grad_tol": DP_E2E_GRAD_TOL,
+          "spread_factor": DP_SPREAD_FACTOR})
+    for case, _, dt, _ in DP_E2E_CASES:
+        v = next(row[case] for row in e2e_rows if "checked_by" in row[case])
+        what = f"dp e2e {case}: {v}"
+        loss_bar, grad_bar = TRAIN_LOSS_TOL, DP_E2E_GRAD_TOL[dt]
+        stats_bar = GRAD_TOL["bfloat16"] if dt == "bfloat16" else 1e-9
+        if dt == "float64":
+            loss_bar = 1e-6
+        elif case.startswith("train_bn_stats"):
+            loss_bar = max(loss_bar, DP_SPREAD_FACTOR * v["spread"]["loss_abs_err"])
+            grad_bar = max(grad_bar, DP_SPREAD_FACTOR * v["spread"]["grad_err"])
+            stats_bar = max(stats_bar, DP_SPREAD_FACTOR * v["spread"]["stats_max_norm_err"])
+        check(v["loss_abs_err"] <= loss_bar, f"{what} loss over {loss_bar}")
+        check(v["grad_err"] <= grad_bar, f"{what} grads over {grad_bar}")
+        check(v["stats_max_norm_err"][0] <= stats_bar, f"{what} BN statistics over {stats_bar}")
+        check(e2e_rows[0][case]["digest"] == e2e_rows[1][case]["digest"]
+              and e2e_rows[0][case]["loss"] == e2e_rows[1][case]["loss"],
+              f"dp e2e {case}: the ranks' gradients, BN statistics or losses differ")
+    emit({"phase": "dp_two_ranks_seconds", "card": card,
+          "ranks_from_their_start": t_ranks})
+    shutil.rmtree(work, ignore_errors=True)
+    per_rank = {}
+    for o in outs:
+        counts = [c for name in ("stage1_bf16", "cotrain_bf16")
+                  for c in o["cases"][name]["launches_per_step"]]
+        per_rank[f"rank{o['rank']}"] = {k: sum(c[k] for c in counts) for k in counts[0]}
+    return per_rank
+
+
 STEP_TIME_CHILDREN = ("agreement", "init", "init_host_adamw", "init_graph", "remat", "cotrain",
                       "cotrain_graph", "e2e", "bert_init", "bert_init_host_adamw",
                       "bert_cotrain")
@@ -3648,6 +4147,49 @@ def step_time(torch, which, card):
           "kernels_ms_per_step": by_name(per_kernel), "kernels_per_step": len(per_kernel),
           "host_self_ms_per_step_under_profiler": sum(host_ms.values()) / per_call,
           "top_host_ops_self_ms_per_step": {k[:90]: v / per_call for k, v in top_host}})
+    if which == "init" and not host_adamw:  # slice 9: the same step in a world of one
+        del step, run
+        dp_world1_step_time(torch, card, batch, {
+            "ms_per_step": step_ms, "device_busy_ms_per_step": busy_ms, "timing": timing,
+            "idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / step_ms)})
+
+
+def dp_world1_step_time(torch, card, batch, plain):
+    """The Stage-1 step (E6D6, B = 64, bf16, fused) in a world of one over
+    NCCL, in the ``init`` child right after its plain step (``plain``: that
+    step's timing): launches per step (STEP_LAUNCHES on STEP_ROUTES), ms per
+    step, device busy ms and idle share, and the NCCL kernels' device ms
+    per step (the gradient average: NCCL's AVG launches its kernel over one
+    rank)."""
+    from temporalalignnet_torch.parallel import distributed
+
+    distributed.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        _, _, step, _ = train_setup(torch, torch.device("cuda"), fused=True,
+                                    group=distributed.default_group())
+        step(batch)
+        _, launches, routes = counted_step(torch, step, batch)
+        check(launches == STEP_LAUNCHES and routes == STEP_ROUTES,
+              f"dp_world1 step launched {launches} on {routes}")
+        run = lambda: step(batch)
+        step_ms = cuda_ms(torch, run, reps=10, warmup=2)
+        busy_ms, per_kernel, _, timing = device_profile(torch, run, reps=5, warmup=1)
+        nccl = {k: v for k, v in by_name(per_kernel, 120).items()
+                if any(m in k.lower() for m in NCCL_KERNEL_MARKS)}
+        emit({"phase": "times", "metric": "dp_world1_step", "card": card,
+              "card_power": card_power(), "batch": TRAIN,
+              "model": "E6D6 width 512, word2vec, fused MIL-NCE, bf16 compute, f32 params",
+              "dp_world1": {"ms_per_step": step_ms, "timing": timing,
+                            "device_busy_ms_per_step": busy_ms if timing == "profiler" else None,
+                            "idle_share": (max(0.0, 1.0 - busy_ms / step_ms)
+                                           if timing == "profiler" else None),
+                            "nccl_kernels_ms_per_step": nccl, "launches_per_step": launches,
+                            "routes_per_step": routes},
+              "plain": plain})
+        if timing == "profiler":
+            check(nccl, "dp_world1: no NCCL kernel in the profile of a step")
+    finally:
+        distributed.destroy()
 
 
 def retrieval_forward_times(torch, card):
@@ -3749,6 +4291,9 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = torch.cuda.get_device_name(0)
+    if argv[:1] == ["--dp-rank"]:  # a child of phase_dp_two_ranks
+        dp_rank(torch, int(argv[1]), int(argv[2]), argv[3])
+        return 0
     if argv[:1] == ["--step-time"]:  # a child of phase_step_times
         while not os.path.exists(argv[2]):  # released by the parent
             time.sleep(0.05)
@@ -3801,7 +4346,20 @@ def main(argv) -> int:
         timed(phase_profile_dir, profile_child)
     finally:
         stop([profile_child[0]])
-    timed(phase_resume, torch, yc2_files)
+    # slice 9: the two ranks run beside the resume phase, the world-of-one CLI
+    # children beside the end of the two ranks
+    dp_ranks = timed(start_dp_two_ranks, torch, stage1_state, stage1_ckpt, eval_files,
+                     yc2_files)
+    try:
+        resume_files = timed(phase_resume, torch, yc2_files)
+        world1 = start_dp_world1(resume_files)
+        try:
+            dp_launches = timed(phase_dp_two_ranks, dp_ranks, eval_files, retrieval_cli)
+            timed(phase_dp_world1, torch, world1)
+        finally:
+            stop(world1[0].values())
+    finally:
+        stop(dp_ranks[0])
     timed(phase_s3d, torch, card)
     e2e_launches = timed(phase_e2e_step, torch)
     htm_aa_launches, htm_aa_routes = timed(phase_htm_aa_pipeline, torch, card)
@@ -3813,11 +4371,7 @@ def main(argv) -> int:
     timed(phase_step_times)
     emit({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t_start})
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card_power(), flush=True)
     fwd_rows = {tuple(r["shape"]): r for r in rows}
     timed, glob = fwd_rows[MHA_BWD_SHAPES[1]], fwd_rows[KERNEL_SHAPES[3]]
     yc2_timed = [{"shape": list(sh), "route": fwd_rows[sh]["route"],
@@ -3903,6 +4457,8 @@ def main(argv) -> int:
             e[f"launches_{key}_path"] = grouped_launches[case]["replayed"][e["name"]]
             e[f"launches_{key}_per_step_at_capture"] = \
                 grouped_launches[case]["at_capture"][e["name"]]
+    for e in entries:  # slice 9: each rank's launches over its bf16 Stage-1 and cotrain steps
+        e["launches_dp_path"] = {r: n[e["name"]] for r, n in dp_launches.items()}
     entries[0]["launches_by_route_htm_aa"] = htm_aa_routes
     for e in entries[:2]:
         e["launches_by_route_bert"] = bert_launches["init"]["routes"][e["name"]]

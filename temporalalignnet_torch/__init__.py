@@ -22,6 +22,9 @@ Stage-1 training of a word2vec TAN:
 - eval/        AlignmentEvaluator (overlap-seq and global), RetrievalEvaluator,
                metrics, CLI (also the raw-feature MIL-NCE baseline).
 - utils/       Meters, step timing, the torch.profiler trace, the metrics log.
+- parallel/    Data parallelism over torch.distributed: the process group
+               (NCCL on the card, gloo on the CPU), the collectives, each
+               rank's batch rows.
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``.  On a CPU
 tensor every kernel wrapper takes its plain PyTorch version; on a CUDA tensor

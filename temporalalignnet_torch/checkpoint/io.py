@@ -23,6 +23,11 @@ JAX Checkpointer compares a runtime step with an epoch index; the module's
 ``latest(directory)`` finds the same file without opening a Checkpointer,
 which would create the subdirectories and clear temporary files.
 
+Under a process group only rank 0 writes (and rotates and clears) files;
+every rank keeps the same bookkeeping and waits at a barrier after each
+save, so a file is complete before any rank goes on (JAX's ``is_master``
+gates, train/cli.py:332); ``--resume`` reads the same file on every rank.
+
 The files hold whatever the trainer passes (the reference layout plus the
 port's resume state, ``train/cli.py``); the epoch files also the
 ``metrics`` they were ranked by, read back when a Checkpointer opens the
@@ -39,6 +44,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from temporalalignnet_torch.checkpoint.convert import atomic_save
+from temporalalignnet_torch.parallel.distributed import barrier, is_master
 
 MAX_BEST = 5
 _RUNTIME = re.compile(r"^step_(\d+)\.pth\.tar$")
@@ -90,10 +96,12 @@ class Checkpointer:
         self.best_metric = best_metric
         self.runtime_dir = os.path.join(directory, "runtime")
         self.epoch_dir = os.path.join(directory, "epoch")
-        for d in (self.runtime_dir, self.epoch_dir):
-            os.makedirs(d, exist_ok=True)
-            for tmp in glob.glob(os.path.join(d, "*.pth.tar.tmp*")):
-                os.remove(tmp)
+        if is_master():
+            for d in (self.runtime_dir, self.epoch_dir):
+                os.makedirs(d, exist_ok=True)
+                for tmp in glob.glob(os.path.join(d, "*.pth.tar.tmp*")):
+                    os.remove(tmp)
+        barrier()
         # epoch -> (rank metric, training step), read from the files' headers
         self._epochs: Dict[int, Tuple[float, int]] = {}
         for epoch, path in _listed(self.epoch_dir, _EPOCH).items():
@@ -107,21 +115,26 @@ class Checkpointer:
 
     def save_runtime(self, state: Dict[str, Any], step: int) -> str:
         path = os.path.join(self.runtime_dir, f"step_{step:09d}.pth.tar")
-        atomic_save(state, path)
-        for s, old in _listed(self.runtime_dir, _RUNTIME).items():
-            if s != step:
-                os.remove(old)
+        if is_master():
+            atomic_save(state, path)
+            for s, old in _listed(self.runtime_dir, _RUNTIME).items():
+                if s != step:
+                    os.remove(old)
+        barrier()
         return path
 
     def save_epoch(self, state: Dict[str, Any], epoch: int,
                    metrics: Optional[dict] = None) -> str:
         """``state`` must hold ``iteration`` (its training step)."""
         path = self.epoch_path(epoch)
-        atomic_save(dict(state, metrics=dict(metrics or {})), path)
+        if is_master():
+            atomic_save(dict(state, metrics=dict(metrics or {})), path)
         self._epochs[epoch] = (self._metric(metrics), int(state["iteration"]))
         for e in self._rotated_out():
-            os.remove(self.epoch_path(e))
+            if is_master():
+                os.remove(self.epoch_path(e))
             del self._epochs[e]
+        barrier()
         return path
 
     def _ranked(self):

@@ -11,6 +11,13 @@ utils/data_utils.py:9-93, ``DataLoaderBG``).
 Determinism: the epoch order is a shuffle by ``RandomState((seed, epoch))``
 and sample i of the epoch draws from ``RandomState((seed, epoch, i))``, as in
 the JAX package, so both give bit-equal batches.
+
+Data parallelism (``local_rows=(lo, hi)``, ``parallel/mesh.py::
+local_batch_rows``): ``batch_size`` stays the global batch (the epoch
+order, ``len`` and the step count are the same on every rank), and each
+rank builds only rows [lo, hi) of every batch, each still drawing from the
+generator of its index in the epoch, so a rank's rows equal those rows of
+the 1-process batch bit for bit (JAX data/prefetch.py:43-70, 113-114).
 """
 
 from __future__ import annotations
@@ -31,9 +38,12 @@ class TrainLoader:
     as dicts of torch tensors."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0, num_workers: int = 4,
-                 prefetch: int = 2, pin_memory: bool = False):
+                 prefetch: int = 2, pin_memory: bool = False, local_rows=None):
         if len(dataset) == 0:
             raise ValueError("empty dataset")
+        if local_rows is not None and not 0 <= local_rows[0] < local_rows[1] <= batch_size:
+            raise ValueError(f"local_rows {local_rows} outside a batch of {batch_size}")
+        self.local_rows = local_rows
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
@@ -76,8 +86,9 @@ class TrainLoader:
                 for b in range(self.start_batch, nb):
                     if stop.is_set():
                         return
-                    lo = b * self.batch_size
-                    samples = list(self._pool.map(build_sample, range(lo, lo + self.batch_size)))
+                    lo, hi = self.local_rows or (0, self.batch_size)
+                    first = b * self.batch_size
+                    samples = list(self._pool.map(build_sample, range(first + lo, first + hi)))
                     q.put(self._to_torch(stack_samples(samples)))
                 q.put(None)
             except BaseException as e:  # surface worker errors to the consumer

@@ -8,6 +8,13 @@ each chunk gathers its windows from the packed feature table on the device,
 runs the sims, and scatter-adds them into the per-video canvases along time
 with ``index_add_``.  Only the stitched canvases come back to the host.
 
+With ``group`` (a process group) each forward call's windows (overlap-seq)
+or videos (global) split over the ranks in contiguous blocks, each rank
+runs its block, and the results are gathered back to every rank
+(``parallel/mesh.py::sharded_rows``), which then
+stitches the same canvases: every rank returns the same metrics, those of
+the 1-process evaluation (JAX eval/align.py:43-58, 480-530).
+
 Leak-freedom is kept: a window's active sentences are derived only from the
 NON-alignable sentences' ASR timestamps (eval_zeroshot_align.py:143-167), and
 inactive sentences are key-masked in the joint encoder.
@@ -24,6 +31,7 @@ import torch
 from temporalalignnet_torch.core.config import EvalConfig
 from temporalalignnet_torch.eval.metrics import roc_auc_score
 from temporalalignnet_torch.eval.pack import _round_up, pack_video_table
+from temporalalignnet_torch.parallel.mesh import sharded_rows
 
 MASK_VALUE = -6.0e4
 TEMPERATURE = 0.07  # sims are read as logits / 0.07 (train/main.py:183-184)
@@ -38,11 +46,13 @@ class AlignmentEvaluator:
     ``corpus`` items: {'video': np [vlen, C], 'sentences': list of
     {'aligned': 0/1, 'start': float, 'end': float, 'input_ids': np [W] int}},
     optionally 'vid' (items with the same 'vid' share one copy of the video).
+    ``group``: the process group whose ranks share the forward calls.
     """
 
-    def __init__(self, model: torch.nn.Module, cfg: EvalConfig):
+    def __init__(self, model: torch.nn.Module, cfg: EvalConfig, group=None):
         self.model = model.eval()
         self.cfg = cfg
+        self.group = group
         self.device = next(model.parameters()).device
         # overlap-seq reads the head on joint layer 2, global on the last
         # (eval_zeroshot_align.py:186 vs :213)
@@ -183,7 +193,9 @@ class AlignmentEvaluator:
                 # keep them out of every sum
                 t_idx = torch.minimum(idx, vl - 1)
                 wins = table[rows0[vk][:, None] + t_idx]  # [w, T, C]
-                joint, dual, a_joint = self._window_sims(wins, ~in_range, text[vk], ~act)
+                joint, dual, a_joint = sharded_rows(
+                    len(vk), lambda a, b: self._window_sims(
+                        wins[a:b], ~in_range[a:b], text[vk[a:b]], ~act[a:b]), self.group)
                 wmask = (in_range[:, :, None] & act[:, None, :]).float()  # [w, T, Nb]
                 cols = (col0[vk][:, None] + t_idx).reshape(-1)
                 to_canvas = lambda x: x.permute(2, 0, 1).reshape(Nb, -1)
@@ -245,15 +257,20 @@ class AlignmentEvaluator:
                 vlens = torch.tensor([preps[i]["vlen"] for i in take], device=dev)
                 in_range = len_iota[None] < vlens[:, None]  # [V, Tb]
                 rows = row_off[take][:, None] + torch.minimum(len_iota[None], vlens[:, None] - 1)
-                # the joint encoder only: the global method reads no dual sim
-                sims = self.model.text_visual_sims(
-                    table[rows], text, ~in_range, torch.as_tensor(tpad, device=dev),
-                    interpolate_from=cfg.seq_len, effective_len=vlens, dual=False)
-                joint = sims["sim"][:, -1] / TEMPERATURE  # [V, Tb, Nb]
-                if self.use_head:
-                    a_joint = sims["alignability-joint"][:, -1, :, 0].float()
-                else:
-                    a_joint = joint.masked_fill(~in_range[:, :, None], -math.inf).amax(dim=1)
+                tpad_d = torch.as_tensor(tpad, device=dev)
+
+                def run(a, b):
+                    # the joint encoder only: the global method reads no dual sim
+                    sims = self.model.text_visual_sims(
+                        table[rows[a:b]], text[a:b], ~in_range[a:b], tpad_d[a:b],
+                        interpolate_from=cfg.seq_len, effective_len=vlens[a:b], dual=False)
+                    joint = sims["sim"][:, -1] / TEMPERATURE  # [V, Tb, Nb]
+                    if self.use_head:
+                        return joint, sims["alignability-joint"][:, -1, :, 0].float()
+                    return joint, joint.masked_fill(~in_range[a:b, :, None],
+                                                    -math.inf).amax(dim=1)
+
+                joint, a_joint = sharded_rows(len(take), run, self.group)
                 joint, a_joint = joint.cpu().numpy(), a_joint.cpu().numpy()
                 for k, i in enumerate(take):
                     n, v = preps[i]["n_text"], preps[i]["vlen"]

@@ -29,8 +29,15 @@ Runs on ``--device cuda`` (the default) in bf16, or in f32 with ``--f32``;
 ``--device cpu`` runs the plain PyTorch path in f32.  On the card every
 attention goes through the Hopper kernel, except the CLIP text tower's
 causal one, which is plain PyTorch as in JAX.  Prints one JSON line of
-metrics.  The JAX eval CLI's multi-GPU flags exit with a message naming the
-work that brings them.
+metrics.
+
+Multi-GPU (JAX eval/cli.py:83-109, 280-293): ``--multihost`` joins the
+processes (one per card: ``--coordinator host:port --num_processes N
+--process_id i`` in each, or torchrun's environment; ``parallel/
+distributed.py``), and ``--shard_eval`` splits every forward call's windows
+or clips over them; each process prints the same metrics, those of one
+process.  Without a process group ``--shard_eval`` changes nothing (JAX
+builds its mesh only over more than one device).
 """
 
 from __future__ import annotations
@@ -40,14 +47,11 @@ import json
 import os
 from typing import Optional
 
-# flag -> (the value that means "not used", the work that brings it)
-_LATER = {
-    "shard_eval": (False, "multi-GPU eval (ROADMAP Queue A 4)"),
-    "multihost": (False, "multi-GPU eval (ROADMAP Queue A 4)"),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from temporalalignnet_torch.parallel import distributed
+
     p = argparse.ArgumentParser("temporalalignnet_torch zero-shot eval")
     p.add_argument("--task", required=True, choices=["align", "retrieval"])
     p.add_argument("--ckpt", default=None,
@@ -76,8 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="text-tower heads (8 for B/32 and B/16, 12 for L/14)")
     p.add_argument("--clip_hidden_act", default="quick_gelu", choices=["quick_gelu", "gelu"],
                    help="the checkpoint config's hidden_act")
-    p.add_argument("--shard_eval", action="store_true")
-    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--shard_eval", action="store_true",
+                   help="split the forward calls over the processes of --multihost")
+    distributed.add_multihost_flags(p)
     p.add_argument("--method", default="overlap-seq", choices=["overlap-seq", "global"])
     p.add_argument("--global_buckets", type=int, default=3,
                    help="method=global: max padded-length buckets the corpus splits into")
@@ -97,12 +102,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--f32", action="store_true",
                    help="float32 compute on the card (the CPU always runs f32)")
     return p
-
-
-def _refuse_later_flags(args) -> None:
-    for flag, (unused, work) in _LATER.items():
-        if getattr(args, flag) != unused:
-            raise SystemExit(f"--{flag}: not in the port yet; it comes with {work}")
 
 
 def build_tokenizer(args):
@@ -169,8 +168,21 @@ def build_baseline(args, vocab_size: int):
 
 def main(argv: Optional[list] = None) -> dict:
     args = build_parser().parse_args(argv)
-    _refuse_later_flags(args)
+    import torch
 
+    from temporalalignnet_torch.parallel import distributed
+
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device here (pass --device cpu for the CPU path)")
+    started = distributed.start_multihost(args)
+    try:
+        return _evaluate(args, distributed.default_group() if args.shard_eval else None)
+    finally:
+        if started:
+            distributed.destroy()
+
+
+def _evaluate(args, group) -> dict:
     import torch
 
     from temporalalignnet_torch.checkpoint import load_reference_checkpoint
@@ -180,9 +192,9 @@ def main(argv: Optional[list] = None) -> dict:
     from temporalalignnet_torch.eval.retrieval import RetrievalEvaluator
     from temporalalignnet_torch.models.net import TANWithText
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device here (pass --device cpu for the CPU path)")
+    from temporalalignnet_torch.parallel.distributed import process_device
+
+    device = process_device(args.device)
     dtype = torch.float32 if args.f32 or device.type == "cpu" else Precision().compute
 
     tokenizer, bert_config = build_tokenizer(args)
@@ -214,10 +226,10 @@ def main(argv: Optional[list] = None) -> dict:
     words = getattr(tokenizer, "max_words", args.max_words)
     if args.task == "align":
         ds = HTMAlignDataset(args.features, args.anno, tokenizer, words)
-        out = AlignmentEvaluator(model, cfg).evaluate(list(ds))
+        out = AlignmentEvaluator(model, cfg, group).evaluate(list(ds))
     else:
         ds = YC2RetrievalDataset(args.features, args.anno, "val", tokenizer, words)
-        out = RetrievalEvaluator(model, cfg).evaluate(list(ds))
+        out = RetrievalEvaluator(model, cfg, group).evaluate(list(ds))
     print(json.dumps(out))
     return out
 

@@ -15,6 +15,12 @@ Lb = round_up(L, 32) with a key-padding mask; clips group by (Lb,
 interpolate) and each group runs in forward calls of at most
 ``EvalConfig.batch_windows`` windows.  Windows of L >= seq_len resize the
 first seq_len pos-enc rows onto their L valid steps (``effective_len``).
+
+With ``group`` (a process group) each forward call's clips split over the
+ranks in contiguous blocks and the pooled features are gathered back to
+every rank (``parallel/mesh.py``); the text features are small and every
+rank computes them all, as JAX replicates them (eval/retrieval.py:75-95,
+232-248).  Every rank returns the 1-process metrics.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from temporalalignnet_torch.core.config import EvalConfig
 from temporalalignnet_torch.eval.metrics import retrieval_metrics
 from temporalalignnet_torch.eval.pack import _round_up, pack_video_table
 from temporalalignnet_torch.models.net import TANWithText
+from temporalalignnet_torch.parallel.mesh import sharded_rows
 
 
 def plan_clip_windows(start: float, end: float, num_clips: int = 10):
@@ -65,11 +72,12 @@ class RetrievalEvaluator:
     the model's parameters (a TANWithText or a RawFeatureBaseline).
     ``items``: {'video': np [vlen, C], 'start', 'end', 'input_ids': np [W]
     int}, optionally 'vid' (items with the same 'vid' share one copy of the
-    video)."""
+    video).  ``group``: the process group whose ranks share the clips."""
 
-    def __init__(self, model: torch.nn.Module, cfg: EvalConfig):
+    def __init__(self, model: torch.nn.Module, cfg: EvalConfig, group=None):
         self.model = model.eval()
         self.cfg = cfg
+        self.group = group
         self.device = next(model.parameters()).device
 
     def _prepare_item(self, it: Dict) -> Tuple[np.ndarray, int, int, np.ndarray, np.ndarray, bool]:
@@ -128,16 +136,21 @@ class RetrievalEvaluator:
             iota = torch.arange(Lb, device=dev)
             for c0 in range(0, len(idxs), per_call):
                 sub = idxs[c0:c0 + per_call]
-                row_off = put([off_of[keys[i]] for i in sub])
-                vlens = put([vlen_of[keys[i]] for i in sub])
-                starts = put(np.stack([preps[i][0] for i in sub]))
-                wpad = put(np.stack([preps[i][3] for i in sub]))
-                seg = put(np.stack([preps[i][4] for i in sub]))
-                eff_len = put([preps[i][1] for i in sub])
-                idx = starts[:, :, None] + iota  # [q, K, Lb]
-                idx = torch.minimum(idx.clamp_min(0), vlens[:, None, None] - 1)
-                wins = table[row_off[:, None, None] + idx]  # [q, K, Lb, C]
-                pooled = self._pooled(wins, wpad, seg, eff_len, interp)
+
+                def run(lo, hi, sub=sub, iota=iota, interp=interp):
+                    part = sub[lo:hi]
+                    row_off = put([off_of[keys[i]] for i in part])
+                    vlens = put([vlen_of[keys[i]] for i in part])
+                    starts = put(np.stack([preps[i][0] for i in part]))
+                    wpad = put(np.stack([preps[i][3] for i in part]))
+                    seg = put(np.stack([preps[i][4] for i in part]))
+                    eff_len = put([preps[i][1] for i in part])
+                    idx = starts[:, :, None] + iota  # [q, K, Lb]
+                    idx = torch.minimum(idx.clamp_min(0), vlens[:, None, None] - 1)
+                    wins = table[row_off[:, None, None] + idx]  # [q, K, Lb, C]
+                    return self._pooled(wins, wpad, seg, eff_len, interp)
+
+                pooled = sharded_rows(len(sub), lambda lo, hi: (run(lo, hi),), self.group)[0]
                 if out is None:
                     out = torch.empty(len(items), pooled.shape[-1], device=dev)
                 out[put(sub)] = pooled

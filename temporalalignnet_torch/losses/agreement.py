@@ -14,7 +14,10 @@ loss.py:89); everything is f32 on the caller's device.  The discrete steps
 scores tie to within rounding.
 
 Shapes: logits_diag [B, S, T, N] (the same-video slice), masks [B, T] /
-[B, N] (True = pad), binary_tgt_raw [B, N, T].
+[B, N] (True = pad), binary_tgt_raw [B, N, T].  Under a process group
+(``group``) these are a rank's videos; the two confidence quantiles and the
+``confidence-ratio`` are over every rank's sentences, as JAX computes them
+over the global batch.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from temporalalignnet_torch.core.config import LossConfig
 from temporalalignnet_torch.losses.masked import masked_mean, masked_quantile
+from temporalalignnet_torch.parallel.distributed import all_gather, all_reduce_sum
 
 
 def circulant_last(x: torch.Tensor) -> torch.Tensor:
@@ -153,6 +157,7 @@ def agreement_self_labelling(
     text_padding_mask: torch.Tensor,  # [B, N] True = pad
     binary_tgt_raw: torch.Tensor,  # [B, N, T]
     cfg: LossConfig,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (agreement target [B, T, N] f32 0/1, metrics).  The caller
     expands the target to the cross-batch mask with an identity over videos:
@@ -172,9 +177,11 @@ def agreement_self_labelling(
     iou = inter_diag.sum(1) / union_diag.sum(1).clamp(min=1e-5)  # [B, N]
 
     valid = ~text_padding_mask
-    dual_conf = dual_max_logits >= masked_quantile(dual_max_logits, valid,
+    every = (lambda x: x) if group is None else (lambda x: all_gather(x, 0, group))
+    valid_all = every(valid.to(torch.uint8)).bool()
+    dual_conf = dual_max_logits >= masked_quantile(every(dual_max_logits), valid_all,
                                                    cfg.confidence_quantile)
-    joint_conf = joint_max_logits >= masked_quantile(joint_max_logits, valid,
+    joint_conf = joint_max_logits >= masked_quantile(every(joint_max_logits), valid_all,
                                                      cfg.confidence_quantile)
     confidence_iou = iou >= cfg.iou_threshold
     confidence_mask = dual_conf & joint_conf & confidence_iou  # [B, N]
@@ -204,8 +211,14 @@ def agreement_self_labelling(
     no_pos = dedup.sum(1) == 0  # [B, N]
     dedup = torch.where(no_pos[:, None, :], binary_diag, dedup)
 
+    if group is None:
+        ratio = masked_mean(confidence_mask.float(), valid)
+    else:
+        m = valid.float()
+        sums = all_reduce_sum(torch.stack([(confidence_mask.float() * m).sum(), m.sum()]), group)
+        ratio = sums[0] / sums[1].clamp(min=1.0)
     metrics = {
-        "confidence-ratio": masked_mean(confidence_mask.float(), valid),
+        "confidence-ratio": ratio,
         "iou-threshold": torch.full((), cfg.iou_threshold, device=dedup.device),
     }
     return dedup, metrics

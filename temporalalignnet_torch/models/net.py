@@ -59,12 +59,14 @@ class TANWithText(TemporalAligner):
         lang_padding_mask: Optional[torch.Tensor] = None,
         deterministic: bool = False,
         pos_starts=None,
+        group=None,
     ) -> Dict[str, torch.Tensor]:
         """Training forward (models/net.py:102-118 of the JAX package); the
-        random pos starts as ``TemporalAligner.forward`` takes them."""
+        random pos starts and the process group as ``TemporalAligner.forward``
+        takes them."""
         text_embed = self.encode_text(input_ids, (input_ids != 0).int())
         return super().forward(video, text_embed, video_padding_mask, lang_padding_mask,
-                               deterministic=deterministic, pos_starts=pos_starts)
+                               deterministic=deterministic, pos_starts=pos_starts, group=group)
 
     def text_visual_sims(
         self,

@@ -26,6 +26,9 @@ model/s3d_milnce/s3dg.py:27-379).
   statistics and folds the batch's BIASED variance into its running
   variance, as flax does (``nn.BatchNorm3d`` would fold the unbiased one).
   Its output keeps the input's dtype (bf16 under autocast on the card).
+  Under data parallelism (``S3D.sync_batch_stats(group)``) the batch mean
+  and variance are those of every rank's batch (each an all-reduced sum,
+  differentiable), as GSPMD's BN statistics are global in JAX.
 - ``freeze_early``: no gradient reaches conv1 ... mixed_3c (``freeze_forward``,
   s3dg.py:351-378; JAX ``stop_gradient``); their forward runs without
   autograd.
@@ -39,6 +42,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from temporalalignnet_torch.parallel.distributed import all_reduce_sum, world_size
 
 Kernel3 = Tuple[int, int, int]
 BN_EPS = 1e-5
@@ -101,6 +106,7 @@ class BatchNorm(nn.Module):
     def __init__(self, dim: int, frozen: bool = True):
         super().__init__()
         self.frozen = frozen
+        self.group = None  # the process group whose batches the statistics span
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
@@ -110,12 +116,31 @@ class BatchNorm(nn.Module):
         if self.frozen or not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, BN_EPS)
+        if self.group is not None:
+            return self._global_batch_norm(x)
         with torch.no_grad():  # flax: the biased batch variance into the running one
             var, mean = torch.var_mean(x.to(self.running_mean.dtype), dim=(0, 2, 3, 4),
                                        correction=0)
             self.running_mean.lerp_(mean, BN_MOMENTUM)
             self.running_var.lerp_(var, BN_MOMENTUM)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, BN_EPS)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Training BN on the statistics of every rank's batch, in f32: the
+        mean, then the biased variance about it, each a sum all-reduced
+        over the ranks (its backward all-reduces the cotangents)."""
+        dims = (0, 2, 3, 4)
+        xf = x.to(self.running_mean.dtype)
+        n = x.numel() // x.shape[1] * world_size(self.group)  # every rank's batch is as large
+        mean = all_reduce_sum(xf.sum(dims), self.group) / n
+        centred = xf - mean[None, :, None, None, None]
+        var = all_reduce_sum((centred * centred).sum(dims), self.group) / n
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, BN_MOMENTUM)
+            self.running_var.lerp_(var, BN_MOMENTUM)
+        scale = self.weight * torch.rsqrt(var + BN_EPS)
+        y = centred * scale[None, :, None, None, None] + self.bias[None, :, None, None, None]
+        return y.to(x.dtype)
 
 
 class STConv3D(nn.Module):
@@ -213,6 +238,14 @@ class S3D(nn.Module):
             self.add_module(name, block)
             cin = block.output_dim
         self.fc = nn.Linear(cin, num_classes)
+
+    def sync_batch_stats(self, group) -> "S3D":
+        """Training BNs normalise with the statistics of every rank's batch
+        of ``group`` (None: this process's batch)."""
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.group = group
+        return self
 
     def early(self, x: torch.Tensor) -> torch.Tensor:
         """conv1 ... mixed_3c (what ``freeze_early`` freezes)."""

@@ -32,6 +32,7 @@ import torch.nn as nn
 from temporalalignnet_torch.core.config import ModelConfig
 from temporalalignnet_torch.models.posenc import linear_interpolate, sine_position_embedding
 from temporalalignnet_torch.models.transformer import TemporalEncoder
+from temporalalignnet_torch.parallel.distributed import all_gather
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -243,10 +244,13 @@ class TemporalAligner(nn.Module):
         interpolate_from: Optional[int] = None,
         deterministic: bool = False,
         pos_starts: Union[Sequence[int], torch.Tensor, None] = None,
+        group=None,
     ) -> Dict[str, torch.Tensor]:
         """Training forward (tan_model.py:100-149).  Without ``fused_milnce``:
         the cross-batch per-layer logits 'logits_dual' and 'logits_joint'
-        [B, S, T, B, N] f32, plus the dual features with
+        [B, S, T, B, N] f32 (under a process group ``group``: this rank's B
+        videos against the texts of every rank's videos, [B, S, T, B_all, N],
+        through the differentiable all-gather), plus the dual features with
         ``return_dual_feature``; with it: the four per-layer normalized
         features for ops/milnce.py.  With the head, also the alignability
         logits 'dual_logits_alignability' [B, N, 1] and
@@ -288,8 +292,10 @@ class TemporalAligner(nn.Module):
             }
         else:
             out = {
-                "logits_dual": _cross_logits(video_norm, text_norm, "astc,bkc->astbk"),
-                "logits_joint": _cross_logits(joint_video_norm, joint_text_norm,
+                "logits_dual": _cross_logits(video_norm, all_gather(text_norm, 0, group),
+                                             "astc,bkc->astbk"),
+                "logits_joint": _cross_logits(joint_video_norm,
+                                              all_gather(joint_text_norm, 0, group),
                                               "astc,bskc->astbk"),
             }
             if cfg.return_dual_feature:

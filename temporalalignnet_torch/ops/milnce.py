@@ -1,7 +1,7 @@
 """Fused MIL-NCE: the masked cross-batch logsumexps of the training loss
 without the [S, B·T, B·N] logits (counterpart of
-temporalalignnet_tpu/ops/pallas_milnce.py::fused_milnce_elements, single
-device).
+temporalalignnet_tpu/ops/pallas_milnce.py::fused_milnce_elements, on one
+device and, with ``group``, over a process group).
 
 ``fused_milnce_elements(video [S,R,C], text [S,K,C] | [K,C], pos_mask [R,K],
 col_valid [K], mask_value, inv_temp) -> (v_el [S,R], t_el [S,K])`` equals
@@ -25,6 +25,19 @@ layer and its gradient is summed over them.
   ``milnce_dv_v2`` and ``milnce_dt_v2`` call the earlier bf16 kernels of
   those two files, uncounted, for timing.
 
+- With ``group`` (a process group), ``MilNCEFunction`` keeps the
+  ``_sharded_milnce`` contract (pallas_milnce.py:822-897).  Each rank holds its rows of the video and
+  its columns of the text; the forward gathers every rank's text, runs the
+  forward kernel on its rows against all columns, keeps the row logsumexps
+  and merges the column ones over the ranks (``merge_lse``: the max, then
+  the sum of the exponentials, JAX's (m, s) merge from natural logs); the
+  backward sums the cotangent of the replicated column elements over the
+  ranks (the adjoint), runs ``milnce_dv`` and ``milnce_dt`` with the global
+  column logsumexps, keeps dv and sum-reduce-scatters dt back to each rank's
+  columns.  A CPU tensor takes the plain versions in place of the kernels,
+  with the same collectives.  The merge is collectives and plain tensor
+  ops, as JAX's is XLA collectives outside any ``pallas_call``: no kernel.
+
 The masks go to the kernels as bytes: ``pos_mask`` as a [R, K] bool tensor
 (it is block-diagonal in the loss, but the contract takes any mask), so the
 kernels read R·K bytes rather than rebuilding it.  None of the TPU plumbing
@@ -40,6 +53,8 @@ from typing import Tuple
 import torch
 
 from temporalalignnet_torch.ops import _build
+from temporalalignnet_torch.parallel.distributed import (all_gather, all_reduce_max,
+                                                         all_reduce_sum, reduce_scatter)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64  # rows and columns per kernel tile (csrc/milnce_tile.cuh)
@@ -75,11 +90,23 @@ def masked_lse(sim, pos_mask, col_valid, mask_value: float):
             torch.logsumexp(neg, 1))
 
 
-def masked_lse_elements(sim, pos_mask, col_valid, mask_value: float):
+def merge_lse(lse, group):
+    """Column logsumexps of each rank's rows merged into those of every
+    rank's rows: max, then log of the summed exponentials (differentiable
+    through ``all_reduce_sum``; the max is a constant shift)."""
+    if group is None:
+        return lse
+    top = all_reduce_max(lse, group)
+    return top + torch.log(all_reduce_sum(torch.exp(lse - top), group))
+
+
+def masked_lse_elements(sim, pos_mask, col_valid, mask_value: float, group=None):
     """(v_den - v_num [S, R], t_den - t_num [S, K]) of f32 logits sim
-    [S, R, K] (losses/tan_loss.py::_milnce_components of the JAX package)."""
+    [S, R, K] (losses/tan_loss.py::_milnce_components of the JAX package).
+    With ``group``, sim holds this rank's rows against every rank's
+    columns, and the column logsumexps merge over the ranks."""
     vnum, vden, tnum, tden = masked_lse(sim, pos_mask, col_valid, mask_value)
-    return vden - vnum, tden - tnum
+    return vden - vnum, merge_lse(tden, group) - merge_lse(tnum, group)
 
 
 def milnce_grad_reference(video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp: float):
@@ -296,28 +323,41 @@ milnce_dt.launches_by_route = dict.fromkeys(DT_ROUTES, 0)
 
 class MilNCEFunction(torch.autograd.Function):
     """(v_el, t_el) through the kernels; saves the features, masks and the
-    four logsumexps, as the custom VJP at pallas_milnce.py:789-817 does."""
+    four logsumexps, as the custom VJP at pallas_milnce.py:789-817 does.
+    With a process group ``group``, the ``_sharded_milnce`` contract (the
+    module docstring): v_el [S, R_rank] of this rank's rows, t_el [S, K_all]
+    of every rank's columns; on the CPU through the plain versions."""
 
     @staticmethod
-    def forward(ctx, video, text, pos_mask, col_valid, mask_value, inv_temp):
-        vnum, vden, tnum, tden = milnce_fwd(video, text, pos_mask, col_valid, mask_value,
-                                            inv_temp)
-        ctx.save_for_backward(video, text, pos_mask, col_valid, vnum, vden, tnum, tden)
-        ctx.inv_temp = inv_temp
+    def forward(ctx, video, text, pos_mask, col_valid, mask_value, inv_temp, group):
+        kdim = text.dim() - 2  # the column axis of [K, C] or [S, K, C]
+        text_all = all_gather(text, kdim, group).contiguous()
+        fwd = milnce_fwd if video.is_cuda else milnce_lse_reference
+        vnum, vden, tnum, tden = fwd(video, text_all, pos_mask, col_valid, mask_value, inv_temp)
+        tnum, tden = merge_lse(tnum, group), merge_lse(tden, group)
+        ctx.save_for_backward(video, text_all, pos_mask, col_valid, vnum, vden, tnum, tden)
+        ctx.inv_temp, ctx.group, ctx.kdim = inv_temp, group, kdim
         return vden - vnum, tden - tnum
 
     @staticmethod
     def backward(ctx, g_v, g_t):
-        video, text, pos_mask, col_valid, *lse = ctx.saved_tensors
+        video, text_all, pos_mask, col_valid, *lse = ctx.saved_tensors
         if g_v is None:
             g_v = torch.zeros(video.shape[:2], dtype=torch.float32, device=video.device)
         if g_t is None:
-            g_t = torch.zeros(video.shape[0], text.shape[-2], dtype=torch.float32,
+            g_t = torch.zeros(video.shape[0], text_all.shape[-2], dtype=torch.float32,
                               device=video.device)
-        args = (video, text, pos_mask, col_valid, lse, g_v, g_t, ctx.inv_temp)
-        dv = milnce_dv(*args) if ctx.needs_input_grad[0] else None
-        dt = milnce_dt(*args) if ctx.needs_input_grad[1] else None
-        return dv, dt, None, None, None, None
+        # t_el is replicated: every rank's cotangent of it reaches every rank's rows
+        g_t = all_reduce_sum(g_t, ctx.group)
+        args = (video, text_all, pos_mask, col_valid, lse, g_v, g_t, ctx.inv_temp)
+        if video.is_cuda:
+            dv = milnce_dv(*args) if ctx.needs_input_grad[0] else None
+            dt = milnce_dt(*args) if ctx.needs_input_grad[1] else None
+        else:
+            dv, dt = milnce_grad_reference(*args)
+        if ctx.needs_input_grad[1]:  # this rank's rows' part of every column's gradient
+            dt = reduce_scatter(dt, ctx.kdim, ctx.group).contiguous()
+        return dv, dt, None, None, None, None, None
 
 
 def fused_milnce_elements(
@@ -327,11 +367,18 @@ def fused_milnce_elements(
     col_valid: torch.Tensor,  # [K] bool
     mask_value: float,
     inv_temp: float = 1.0,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(v_el [S, R], t_el [S, K]) f32, without materializing the logits on the card."""
-    if video.device.type == "cpu":
+    """(v_el [S, R], t_el [S, K]) f32, without materializing the logits on the card.
+
+    With ``group`` (a process group): ``video`` and ``text`` are this rank's
+    rows and columns, ``pos_mask`` [R, K_all] and ``col_valid`` [K_all] are
+    over every rank's columns in rank order, and t_el [S, K_all] is the
+    same on every rank."""
+    if video.device.type == "cpu" and group is None:
         return milnce_reference(video, text, pos_mask, col_valid, mask_value, inv_temp)
-    if video.device.type == "cuda":
+    if video.device.type in ("cpu", "cuda"):
         return MilNCEFunction.apply(video.contiguous(), text.contiguous(), pos_mask.contiguous(),
-                                    col_valid.contiguous(), float(mask_value), float(inv_temp))
+                                    col_valid.contiguous(), float(mask_value), float(inv_temp),
+                                    group)
     raise ValueError(f"no MIL-NCE path for device {video.device}")

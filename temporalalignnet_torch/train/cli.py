@@ -74,8 +74,19 @@ checks run once per group, so the last group may run past ``--max_steps``
 (a ``[stop]`` line says by how much); an epoch's tail group is shorter.  On
 the card it refuses ``--backprop_freq > 1`` and ``--skip_nonfinite``.
 
-Flags of the JAX trainer that later work brings (multi-GPU) exit with a
-message naming that work.
+Data parallelism (JAX train/cli.py:113-130, 190-196, 340-351): one process
+per card, started by torchrun (``torchrun --nproc_per_node N -m
+temporalalignnet_torch.train --multihost ...``) or by hand with
+``--multihost --coordinator host:port --num_processes N --process_id i``
+in each; ``--dp`` is -1 or the number of processes.  ``--batch_size`` is
+the global batch: each process builds its rows of it (a
+``[multihost] process i/n builds batch rows [lo, hi)`` line) and the step
+runs on the global batch (``train/train_step.py``).  Process i takes
+``cuda:LOCAL_RANK`` (or the card ``--device`` names).  Only process 0
+writes checkpoints, the metrics log and the log lines; the downstream evals
+split their forward calls over the processes.  ``--tp > 1`` (tensor
+parallelism) and ``--steps_per_dispatch > 1`` on the card under a process
+group exit with a message naming the work that brings them.
 """
 
 from __future__ import annotations
@@ -87,15 +98,10 @@ import os
 import time
 from typing import Optional
 
-# flag -> (the value that means "not used", the work that brings it)
-_LATER = {
-    "dp": (-1, "multi-GPU training (ROADMAP Queue A 4)"),
-    "tp": (1, "multi-GPU training (ROADMAP Queue A 4)"),
-    "multihost": (False, "multi-GPU training (ROADMAP Queue A 4)"),
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
+    from temporalalignnet_torch.parallel.distributed import add_multihost_flags
+
     p = argparse.ArgumentParser("temporalalignnet_torch trainer")
     # model (train/config.py:7-20)
     p.add_argument("--model", default="init", choices=["init", "cotrain"])
@@ -178,9 +184,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps_per_dispatch", type=int, default=1,
                    help="train steps per dispatch: a CUDA graph of the step replayed per "
                         "batch on the card; checkpoints, evals and the stop once per group")
-    p.add_argument("--dp", type=int, default=-1)
-    p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--dp", type=int, default=-1,
+                   help="data-parallel size: -1 or the number of processes")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel size (1 only)")
+    add_multihost_flags(p)
     return p
 
 
@@ -196,10 +203,7 @@ def experiment_name(args) -> str:
             f"_lr{args.lr}")
 
 
-def _refuse_later_flags(args) -> None:
-    for flag, (unused, work) in _LATER.items():
-        if getattr(args, flag) != unused:
-            raise SystemExit(f"--{flag}: not in the port yet; it comes with {work}")
+def _refuse_pretrain_dirs(args) -> None:
     if args.pretrain and (os.path.isdir(args.pretrain)
                           or not args.pretrain.endswith((".pth.tar", ".pth", ".tar"))):
         raise SystemExit(f"--pretrain {args.pretrain}: the port reads a .pth.tar in the "
@@ -293,11 +297,34 @@ def restore_training(state: dict, model, optimizer, step_fn, twin) -> int:
 
 def main(argv: Optional[list] = None) -> dict:
     args = build_parser().parse_args(argv)
-    _refuse_later_flags(args)
+    _refuse_pretrain_dirs(args)
     if args.model == "cotrain":  # the cotrain preset (train/main.py:361-363)
         args.learn_agreement = 1
         args.use_alignability_head = 1
 
+    import torch
+
+    from temporalalignnet_torch.parallel import distributed
+    from temporalalignnet_torch.parallel.mesh import TP_WORK, make_mesh
+
+    if args.tp != 1:
+        raise SystemExit(f"--tp {args.tp}: tensor parallelism is not in the port; it comes "
+                         f"with {TP_WORK}")
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device here (pass --device cpu for the CPU path)")
+    started = distributed.start_multihost(args)
+    try:
+        try:
+            mesh = make_mesh(args.dp, args.tp)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        return _train(args, mesh.group)
+    finally:
+        if started:
+            distributed.destroy()
+
+
+def _train(args, group) -> dict:
     import torch
 
     from temporalalignnet_torch.checkpoint import (Checkpointer, atomic_save,
@@ -315,13 +342,14 @@ def main(argv: Optional[list] = None) -> dict:
     from temporalalignnet_torch.train.optimizer import Optimizer, lr_at
     from temporalalignnet_torch.train.train_step import (EMATwin, make_multi_train_step,
                                                          make_train_step)
+    from temporalalignnet_torch.parallel.distributed import (barrier, is_master, master_print,
+                                                             process_device, rank, world_size)
+    from temporalalignnet_torch.parallel.mesh import local_batch_rows
     from temporalalignnet_torch.utils import (AverageMeter, MetricsWriter, ProgressMeter,
                                               StepBreakdown, StepTimer, device_memory_stats,
                                               trace)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device here (pass --device cpu for the CPU path)")
+    device = process_device(args.device)
     compute = torch.float32 if args.f32 or device.type == "cpu" else Precision().compute
     fused = resolve_fused_milnce(args.fused_milnce, device.type)
     if args.fused_milnce == "auto":
@@ -371,10 +399,20 @@ def main(argv: Optional[list] = None) -> dict:
         seed=args.seed)
 
     exp_dir = os.path.join(args.prefix, experiment_name(args))
-    os.makedirs(exp_dir, exist_ok=True)
-    with open(os.path.join(exp_dir, "running_command.txt"), "a") as f:
-        f.write(json.dumps(vars(args)) + "\n")
+    if is_master():  # side effects on process 0 only (main_nce.py:119, 406-407)
+        os.makedirs(exp_dir, exist_ok=True)
+        with open(os.path.join(exp_dir, "running_command.txt"), "a") as f:
+            f.write(json.dumps(vars(args)) + "\n")
     ckpt_path = os.path.join(exp_dir, "latest.pth.tar")
+    # every process derives the same epoch order and builds only its rows
+    local_rows = None
+    if group is not None:
+        try:
+            local_rows = local_batch_rows(args.batch_size, group)
+        except ValueError as e:
+            raise SystemExit(f"--batch_size: {e}") from None
+        print(f"[multihost] process {rank()}/{world_size()} "
+              f"builds batch rows [{local_rows[0]}, {local_rows[1]})", flush=True)
 
     model = TANWithText(mcfg, vocab_size=tokenizer.vocab_size,
                         bert_config=bert_dir.config if bert_dir else None)
@@ -410,12 +448,12 @@ def main(argv: Optional[list] = None) -> dict:
         for name, load, evaluator in sets:
             if name not in eval_cache:
                 eval_cache[name] = load()
-            ev = evaluator(model, EvalConfig(seq_len=args.seq_len))
+            ev = evaluator(model, EvalConfig(seq_len=args.seq_len), group)
             with torch.no_grad(), torch.autocast(device.type, dtype=compute,
                                                  enabled=compute != torch.float32):
                 metrics.update(ev.evaluate(eval_cache[name]))
         if metrics:
-            print(json.dumps({"eval_step": step, **metrics}), flush=True)
+            master_print(json.dumps({"eval_step": step, **metrics}), flush=True)
             if writer is not None:
                 writer.add_scalars(step, metrics, prefix="eval/")
         best_acc = max(best_acc, metrics.get("Recall", 0.0))
@@ -432,11 +470,12 @@ def main(argv: Optional[list] = None) -> dict:
         raise SystemExit(f"--steps_per_dispatch {k_disp}: must be at least 1")
     try:
         step_fn = (make_multi_train_step if k_disp > 1 else make_train_step)(
-            model, optimizer, tcfg, loss_cfg, compute_dtype=compute, twin=twin)
+            model, optimizer, tcfg, loss_cfg, compute_dtype=compute, twin=twin, group=group)
     except ValueError as e:
         raise SystemExit(f"--steps_per_dispatch {k_disp}: {e}") from None
     loader = TrainLoader(dataset, args.batch_size, seed=args.seed,
-                         num_workers=args.num_workers, pin_memory=device.type == "cuda")
+                         num_workers=args.num_workers, pin_memory=device.type == "cuda",
+                         local_rows=local_rows)
     ckpt = Checkpointer(exp_dir)
     global_step = 0
     if args.resume:
@@ -446,8 +485,8 @@ def main(argv: Optional[list] = None) -> dict:
     # a runtime checkpoint's step also gives the position within its epoch
     start_epoch, start_batch = divmod(global_step, steps_per_epoch)
     if args.resume:
-        print(f"[resume] at step {global_step} (epoch {start_epoch}, batch {start_batch})",
-              flush=True)
+        master_print(f"[resume] at step {global_step} (epoch {start_epoch}, batch "
+                     f"{start_batch})", flush=True)
 
     def training_state(epoch: int) -> dict:
         """The reference layout, plus what an exact resume needs."""
@@ -512,7 +551,7 @@ def main(argv: Optional[list] = None) -> dict:
                         row = {"step": global_step, "epoch": epoch, **scalars,
                                "lr": lr_at(tcfg, max(updates - 1, 0)),
                                "steps_per_s": steps_since / (now - t_log)}
-                        print(json.dumps(row), flush=True)
+                        master_print(json.dumps(row), flush=True)
                         t_log, steps_since = now, 0
                         scalars["device/sps"] = sps
                         scalars.update({f"device/{k}": v
@@ -520,15 +559,17 @@ def main(argv: Optional[list] = None) -> dict:
                         scalars.update({f"device/{k}": v
                                         for k, v in device_memory_stats().items()})
                         writer.add_scalars(global_step, scalars, prefix="train/")
-                        progress.display(it)
+                        if is_master():
+                            progress.display(it)
                 # checkpoints, evals and the stop once per group: a boundary that a
                 # group crossed fires here (the state exists per group only)
                 rsi = args.runtime_save_iter
                 if rsi and global_step // rsi > last_check // rsi:
                     t_save = time.perf_counter()
                     path = ckpt.save_runtime(training_state(epoch), global_step)
-                    print(json.dumps({"runtime_checkpoint": path, "at_step": global_step,
-                                      "seconds": time.perf_counter() - t_save}), flush=True)
+                    master_print(json.dumps({"runtime_checkpoint": path, "at_step": global_step,
+                                             "seconds": time.perf_counter() - t_save}),
+                                 flush=True)
                     evaluate_downstream(global_step)
                 last_check = global_step
                 if args.max_steps and global_step >= args.max_steps:
@@ -545,7 +586,9 @@ def main(argv: Optional[list] = None) -> dict:
             state = training_state(epoch)
             ckpt.save_epoch(state, epoch, epoch_metrics)
             del state["resume"]
-            atomic_save(state, ckpt_path)
+            if is_master():
+                atomic_save(state, ckpt_path)
+            barrier()
     writer.close()
     out = {"final_step": global_step, "loss": last_loss,
            "loss_finite": math.isfinite(last_loss), "checkpoint": ckpt_path, **final_metrics}

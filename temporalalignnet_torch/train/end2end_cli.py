@@ -1,4 +1,4 @@
-"""End-to-end S3D fine-tune CLI on one card (counterpart of
+"""End-to-end S3D fine-tune CLI (counterpart of
 temporalalignnet_tpu/train/end2end_cli.py; reference end2end/main_nce.py):
 
   python -m temporalalignnet_torch.train.end2end_cli \\
@@ -29,9 +29,17 @@ cuda`` (the default) with bf16 compute and the convolutions in
   ``<experiment>/e2e.metrics.jsonl``; the last stdout line is
   ``{"final_step": ..., <the last step's metrics>}``.
 
-The multi-host flags of the JAX CLI (``--multihost``, ``--coordinator``,
-``--num_processes``, ``--process_id``) exit with a message: multi-GPU comes
-with ROADMAP Queue A 4.
+Data parallelism (JAX train/end2end_cli.py:75-163; reference
+main_nce.py:140-158, 229-231, 283-285): ``--multihost`` with
+``--coordinator host:port --num_processes N --process_id i`` in each
+process (or torchrun's or SLURM's environment), one process per card.
+``--batch_size`` stays the global batch; each process builds its rows of it
+(a ``[multihost]`` line says which), the InfoNCE takes every process's
+embeddings as negatives, ``--train_bn_stats 1`` normalises with the global
+batch statistics, and the gradients are averaged before each update
+(``train/end2end.py``).  Only process 0 writes checkpoints, the metrics log,
+the log lines and the export; ``--debug_batch_hash`` prints each process's
+rows, tagged with its rank.
 """
 
 from __future__ import annotations
@@ -42,11 +50,10 @@ import os
 import zlib
 from typing import Optional
 
-# flag -> the value that means "not used"
-_MULTI_GPU = {"multihost": False, "coordinator": None, "num_processes": None, "process_id": None}
-
 
 def build_parser() -> argparse.ArgumentParser:
+    from temporalalignnet_torch.parallel.distributed import add_multihost_flags
+
     p = argparse.ArgumentParser("temporalalignnet_torch end2end S3D fine-tune")
     p.add_argument("--htm_aa_csv", required=True)
     p.add_argument("--video_root", required=True)
@@ -82,10 +89,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(no ffmpeg binary needed)")
     p.add_argument("--check_existence", type=int, default=1,
                    help="0 skips the per-video file-existence filter (video_loader.py:71-73)")
-    p.add_argument("--multihost", action="store_true")
-    p.add_argument("--coordinator", default=None)
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+    add_multihost_flags(p)
     p.add_argument("--debug_batch_hash", type=int, default=0,
                    help="1 = print a crc32 of every batch tensor")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -107,11 +111,21 @@ def load_pretrain(path: str, model) -> None:
 
 def main(argv: Optional[list] = None) -> dict:
     args = build_parser().parse_args(argv)
-    for flag, unused in _MULTI_GPU.items():
-        if getattr(args, flag) != unused:
-            raise SystemExit(f"--{flag}: not in the port yet; multi-GPU training comes with "
-                             "ROADMAP Queue A 4")
+    import torch
 
+    from temporalalignnet_torch.parallel import distributed
+
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device here (pass --device cpu for the CPU path)")
+    started = distributed.start_multihost(args)
+    try:
+        return _train(args, distributed.default_group())
+    finally:
+        if started:
+            distributed.destroy()
+
+
+def _train(args, group) -> dict:
     import numpy as np
     import torch
 
@@ -122,11 +136,12 @@ def main(argv: Optional[list] = None) -> dict:
     from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
     from temporalalignnet_torch.train.end2end import (S3DWithText, make_e2e_optimizer,
                                                       make_e2e_train_step)
+    from temporalalignnet_torch.parallel.distributed import (barrier, is_master, master_print,
+                                                             process_device, rank, world_size)
+    from temporalalignnet_torch.parallel.mesh import local_batch_rows
     from temporalalignnet_torch.utils import AverageMeter, MetricsWriter, StepTimer
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device here (pass --device cpu for the CPU path)")
+    device = process_device(args.device)
     compute = torch.float32 if device.type == "cpu" else Precision().compute
 
     tokenizer = Word2VecTokenizer(args.vocab, max_words=args.max_words)
@@ -152,16 +167,26 @@ def main(argv: Optional[list] = None) -> dict:
     layout = torch.channels_last_3d if device.type == "cuda" else torch.contiguous_format
     model.to(device=device, memory_format=layout)
     optimizer = make_e2e_optimizer(model, tcfg)
-    step_fn = make_e2e_train_step(model, optimizer, args.temperature, compute)
+    step_fn = make_e2e_train_step(model, optimizer, args.temperature, compute, group)
+    local_rows = None
+    if group is not None:  # every process builds its rows of each global batch
+        try:
+            local_rows = local_batch_rows(args.batch_size, group)
+        except ValueError as e:
+            raise SystemExit(f"--batch_size: {e}") from None
+        print(f"[multihost] process {rank()}/{world_size()} builds batch rows "
+              f"[{local_rows[0]}, {local_rows[1]})", flush=True)
 
     exp_dir = os.path.join(args.prefix, f"e2e_bs{args.batch_size}_lr{args.lr}_f{args.num_frames}")
-    os.makedirs(exp_dir, exist_ok=True)
+    if is_master():
+        os.makedirs(exp_dir, exist_ok=True)
     ckpt = Checkpointer(exp_dir, best_metric="loss")
     writer = MetricsWriter(exp_dir, name="e2e")
     timer = StepTimer()
     loss_meter = AverageMeter("loss", ":.4f")
     loader = TrainLoader(dataset, args.batch_size, seed=args.seed,
-                         num_workers=args.num_workers, pin_memory=device.type == "cuda")
+                         num_workers=args.num_workers, pin_memory=device.type == "cuda",
+                         local_rows=local_rows)
 
     def training_state(epoch: int) -> dict:
         return {"epoch": epoch, "iteration": global_step,
@@ -177,7 +202,8 @@ def main(argv: Optional[list] = None) -> dict:
             if args.debug_batch_hash:
                 for k in sorted(batch):
                     crc = zlib.crc32(np.ascontiguousarray(batch[k].numpy()).tobytes())
-                    print(f"[batchhash] {global_step} {k} {crc:08x}", flush=True)
+                    tag = f" rank {rank()}" if group is not None else ""
+                    print(f"[batchhash]{tag} {global_step} {k} {crc:08x}", flush=True)
             metrics = step_fn(batch)
             global_step += 1
             last = {k: float(v) for k, v in metrics.items()}  # fences the step
@@ -185,15 +211,17 @@ def main(argv: Optional[list] = None) -> dict:
             sps = timer.tick()
             if global_step % args.log_every == 0:
                 writer.add_scalars(global_step, {**last, "device/sps": sps}, "e2e/")
-                print(f"Epoch {epoch} step {global_step}: {loss_meter}", flush=True)
+                master_print(f"Epoch {epoch} step {global_step}: {loss_meter}", flush=True)
             if args.runtime_save_iter and global_step % args.runtime_save_iter == 0:
                 ckpt.save_runtime(training_state(epoch), global_step)
             if args.max_steps and global_step >= args.max_steps:
                 stop = True
                 break
         ckpt.save_epoch(training_state(epoch), epoch, {"loss": -loss_meter.avg})
-    atomic_save({k: v.detach().cpu().contiguous() for k, v in model.state_dict().items()},
-                os.path.join(exp_dir, "params_latest.pth"))
+    if is_master():
+        atomic_save({k: v.detach().cpu().contiguous() for k, v in model.state_dict().items()},
+                    os.path.join(exp_dir, "params_latest.pth"))
+    barrier()
     writer.close()
     print(json.dumps({"final_step": global_step, **last}), flush=True)
     return last

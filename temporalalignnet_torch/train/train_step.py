@@ -15,6 +15,15 @@ TANWithText whose no-grad, deterministic forward feeds ``get_loss`` under
 ``ema-<key>`` and whose params follow the online ones by momentum after
 every optimizer step (train/main.py:112-122).
 
+Data parallelism (``group``, a process group): each rank runs the step on
+its rows of the global batch, backprops ``world · l_r`` (its share of the
+global loss, ``losses/tan_loss.py``) and averages the gradients over the
+ranks with one all-reduce of a flat buffer (``average_gradients``) before
+the optimizer, so every rank holds the same params, optimizer state and
+EMA twin.  The reduction runs with any group, one rank included.  The
+explicit all-reduce stands in for ``DistributedDataParallel``: the twin's
+params never get a gradient and DDP's hooks reorder the reductions.
+
 Batch dict (fixed shapes): video [B, T, Cv] f32, video_padding_mask [B, T]
 bool, input_ids [B, N, W] int, text_padding_mask [B, N] bool, start, end
 [B, N] f32, abs_text_pos [B, N, 2] f32.
@@ -32,7 +41,10 @@ from temporalalignnet_torch.core.config import LossConfig, TrainConfig
 from temporalalignnet_torch.losses.tan_loss import get_loss
 from temporalalignnet_torch.models.net import TANWithText
 from temporalalignnet_torch.ops import kernels
+from temporalalignnet_torch.parallel.distributed import average_, world_size
 from temporalalignnet_torch.train.optimizer import Optimizer, global_norm
+
+GRAPH_WORK = "grouped dispatch under a process group (ROADMAP Queue A 6)"
 
 
 class EMATwin:
@@ -55,14 +67,15 @@ class EMATwin:
         self.backprop_freq = train_cfg.backprop_freq
         self.micro_steps = 0
 
-    def __call__(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def __call__(self, batch: Dict[str, torch.Tensor], group=None) -> Dict[str, torch.Tensor]:
         """The deterministic forward (no random pos start, tan_model.py:333),
         under the caller's autocast; draws nothing from any generator."""
         with torch.no_grad():
             return self.model(
                 batch["video"], batch["input_ids"].long(),
                 video_padding_mask=batch["video_padding_mask"].bool(),
-                lang_padding_mask=batch["text_padding_mask"].bool(), deterministic=True)
+                lang_padding_mask=batch["text_padding_mask"].bool(), deterministic=True,
+                group=group)
 
     @torch.no_grad()
     def update(self, online: TANWithText) -> None:
@@ -88,6 +101,18 @@ class EMATwin:
         self.micro_steps = int(state["micro_steps"])
 
 
+def average_gradients(grads: List[torch.Tensor], group) -> None:
+    """The gradients averaged over the ranks of ``group`` in place, through
+    one all-reduce of a flat buffer (every rank passes the same tensors)."""
+    if group is None or not grads:
+        return
+    flat = average_(torch.cat([g.reshape(-1) for g in grads]), group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
 def make_train_step(
     model: TANWithText,
     optimizer: Optimizer,
@@ -95,6 +120,7 @@ def make_train_step(
     loss_cfg: LossConfig,
     compute_dtype: torch.dtype = torch.float32,
     twin: Optional[EMATwin] = None,
+    group=None,
 ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """``step(batch) -> metrics``; the random pos starts draw from a CPU
     ``torch.Generator`` seeded with ``train_cfg.seed``, which the step keeps
@@ -107,7 +133,11 @@ def make_train_step(
     work (``step.run(batch, pos_starts)`` on a batch on the device), which
     issues no host synchronisation and, given the starts as a device
     tensor, no copy from the host: ``make_multi_train_step`` captures it in
-    a CUDA graph."""
+    a CUDA graph.
+
+    With ``group`` the batch is this rank's rows of the global batch and
+    the step is the data-parallel one (the module docstring); the metrics
+    are the global batch's on every rank."""
     if loss_cfg.use_fused_milnce != model.cfg.fused_milnce:
         raise ValueError("LossConfig.use_fused_milnce and ModelConfig.fused_milnce must agree")
     if (twin is not None) != (loss_cfg.model == "cotrain"):
@@ -115,6 +145,7 @@ def make_train_step(
     device = model.video_pre_proj.weight.device
     generator = torch.Generator().manual_seed(train_cfg.seed)
     autocast = compute_dtype != torch.float32
+    world = world_size(group) if group is not None else 1
 
     def draw(batch: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
         return model.draw_pos_starts(batch["video"].shape[1], batch["input_ids"].shape[1],
@@ -127,14 +158,15 @@ def make_train_step(
                 batch["video"], batch["input_ids"].long(),
                 video_padding_mask=batch["video_padding_mask"].bool(),
                 lang_padding_mask=batch["text_padding_mask"].bool(),
-                deterministic=False, pos_starts=pos_starts,
+                deterministic=False, pos_starts=pos_starts, group=group,
             )
             if twin is not None:
-                outputs.update({f"ema-{k}": v for k, v in twin(batch).items()})
-        loss, metrics = get_loss(outputs, batch, loss_cfg)
+                outputs.update({f"ema-{k}": v for k, v in twin(batch, group).items()})
+        loss, metrics = get_loss(outputs, batch, loss_cfg, group)
         optimizer.zero_grad()
-        loss.backward()
+        (loss * world if group is not None else loss).backward()
         grads = [p.grad for p in optimizer.grad_params if p.grad is not None]
+        average_gradients(grads, group)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads)
         optimizer.step()
@@ -149,6 +181,7 @@ def make_train_step(
     step.generator = generator
     step.draw, step.run = draw, run
     step.model, step.optimizer, step.twin, step.device = model, optimizer, twin, device
+    step.group = group
     return step
 
 
@@ -159,6 +192,7 @@ def make_multi_train_step(
     loss_cfg: LossConfig,
     compute_dtype: torch.dtype = torch.float32,
     twin: Optional[EMATwin] = None,
+    group=None,
 ) -> Callable[[List[Dict[str, torch.Tensor]]], Dict[str, torch.Tensor]]:
     """``multi(batches) -> metrics``, each a [len(batches)] tensor on the
     device: the train steps of a group (``--steps_per_dispatch``), equal to
@@ -182,9 +216,14 @@ def make_multi_train_step(
     capture's, once.  ``--backprop_freq > 1`` and ``--skip_nonfinite``
     branch on the host per step and are refused on the card, and so is a
     group that would run past ``total_iterations``, where the device lr
-    table ends (``Optimizer.lr_from_table``)."""
-    step = make_train_step(model, optimizer, train_cfg, loss_cfg, compute_dtype, twin)
+    table ends (``Optimizer.lr_from_table``).  Under a process group the
+    card refuses grouped dispatch (capturing the collectives is later work);
+    the CPU runs its eager steps, data-parallel."""
+    step = make_train_step(model, optimizer, train_cfg, loss_cfg, compute_dtype, twin, group)
     if step.device.type == "cuda":
+        if group is not None:
+            raise ValueError(f"grouped dispatch on the card under a process group comes with "
+                             f"{GRAPH_WORK}")
         if train_cfg.backprop_freq != 1 or train_cfg.skip_nonfinite_updates:
             raise ValueError(
                 "grouped dispatch on the card captures one update per step: --backprop_freq "

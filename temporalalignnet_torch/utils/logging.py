@@ -8,7 +8,8 @@ blocks the train step: one JSON line per ``add_scalars`` call in
 for the end-to-end trainer), and TensorBoard events under
 ``<logdir>/<name>/`` when ``tensorboardX`` imports (an optional extra, not a
 dependency; ``torch.utils.tensorboard`` is not used, since it imports
-TensorFlow where that is installed).
+TensorFlow where that is installed).  Under a process group only rank 0
+writes: the other ranks' writers take the calls and write nothing.
 """
 
 from __future__ import annotations
@@ -20,13 +21,18 @@ import threading
 import time
 from typing import Dict
 
+from temporalalignnet_torch.parallel.distributed import is_master
+
 
 class MetricsWriter:
     """Queue-backed scalar writer; one JSONL line per add_scalars call."""
 
     def __init__(self, logdir: str, name: str = "train"):
-        os.makedirs(logdir, exist_ok=True)
         self.path = os.path.join(logdir, f"{name}.metrics.jsonl")
+        self.enabled = is_master()
+        if not self.enabled:
+            return
+        os.makedirs(logdir, exist_ok=True)
         self._file = open(self.path, "a", buffering=1)
         try:
             from tensorboardX import SummaryWriter  # optional
@@ -40,6 +46,8 @@ class MetricsWriter:
         self._thread.start()
 
     def add_scalars(self, step: int, scalars: Dict[str, float], prefix: str = "") -> None:
+        if not self.enabled:
+            return
         payload = {"step": int(step), "time": time.time(),
                    **{f"{prefix}{k}": float(v) for k, v in scalars.items()}}
         try:
@@ -61,6 +69,8 @@ class MetricsWriter:
 
     def close(self) -> None:
         """Writes what is queued, then closes the sinks."""
+        if not self.enabled:
+            return
         self._running = False
         self._thread.join(timeout=5)
         self._file.close()

@@ -152,3 +152,59 @@ def jax_s3d_variables(model, *inputs, seed=0):
         return (rng.randn(*shape) * 0.02).astype(np.float32)  # biases
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+# ----------------------------------------------------- 2-process gloo runs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Ranks:
+    """The jobs of ``tests/torch_mp_worker.py`` running on ``world`` CPU
+    processes joined by gloo, started at once; ``result(name)`` waits for
+    the processes (once) and returns each rank's result of a job."""
+
+    def __init__(self, job_dir, jobs, world=2, timeout=300):
+        import os
+        import subprocess
+        import sys
+
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        for job in jobs:
+            if job["kind"] == "cli":
+                job["port"] = free_port()
+        self.job_dir, self.timeout = job_dir, timeout
+        torch.save(jobs, os.path.join(job_dir, "jobs.pt"))
+        port = free_port()
+        env = {**os.environ, "PYTHONPATH": repo, "OMP_NUM_THREADS": "1"}
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.join(repo, "tests", "torch_mp_worker.py"), str(r),
+             str(world), str(port), str(job_dir)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        self.outputs = None
+
+    def wait(self):
+        if self.outputs is None:
+            self.outputs = [p.communicate(timeout=self.timeout)[0] for p in self.procs]
+            for p, out in zip(self.procs, self.outputs):
+                assert p.returncode == 0, out[-6000:]
+        return self.outputs
+
+    def result(self, name):
+        import os
+
+        self.wait()
+        return [torch.load(os.path.join(self.job_dir, f"{name}.{r}.pt"), weights_only=False)
+                for r in range(len(self.procs))]
+
+    def stop(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()

@@ -78,9 +78,19 @@ def test_cli_refuses_cuda_without_a_card(files):
 
 @pytest.mark.parametrize("flag", [["--shard_eval"], ["--multihost"]])
 def test_eval_cli_refuses_flags_of_later_slices(files, flag):
-    """The JAX eval CLI's flags the port does not bring yet (multi-GPU) exit
-    naming the ROADMAP item that brings them, before any file is read."""
+    """The JAX eval CLI's multi-GPU flags: ``--shard_eval`` without a process
+    group and ``--multihost --shard_eval`` in a world of one give the
+    metrics of the plain run, and the CLI leaves no process group behind."""
+    import socket
+
     from temporalalignnet_torch.eval.cli import main
 
-    with pytest.raises(SystemExit, match="Queue A 4"):
-        main(files + flag)
+    plain = main(files + ["--device", "cpu"])
+    if flag == ["--multihost"]:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        flag = flag + ["--coordinator", f"127.0.0.1:{port}", "--num_processes", "1",
+                       "--process_id", "0", "--shard_eval"]
+    assert main(files + flag + ["--device", "cpu"]) == plain
+    assert not torch.distributed.is_initialized()

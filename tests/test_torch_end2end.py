@@ -475,11 +475,35 @@ def test_e2e_cli_matches_jax(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--multihost"], ["--coordinator", "h:1"],
                                   ["--num_processes", "2"], ["--process_id", "0"]])
-def test_e2e_cli_refuses_the_multi_host_flags(flag):
+def test_e2e_cli_refuses_the_multi_host_flags(flag, tmp_path, capsys):
+    """The JAX CLI's multi-host flags: ``--multihost`` in a world of one
+    trains (its ``[multihost]`` line, the export written by process 0);
+    the coordinates without ``--multihost`` are refused, and so is
+    ``--process_id`` without ``--num_processes``, as jax.distributed takes
+    them together."""
+    import socket
+
     from temporalalignnet_torch.train.end2end_cli import main
 
-    with pytest.raises(SystemExit, match="Queue A 4"):
-        main(["--htm_aa_csv", "c", "--video_root", "r", "--vocab", "v", *flag])
+    root = _cli_files(tmp_path)
+    argv = _cli_args(root, "mh", root / "s3d_howto100m.pth") + ["--device", "cpu",
+                                                               "--max_steps", "1"]
+    if flag == ["--multihost"]:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        out = main(argv + flag + ["--coordinator", f"127.0.0.1:{port}", "--num_processes", "1",
+                                  "--process_id", "0"])
+        assert "[multihost] process 0/1 builds batch rows [0, 2)" in capsys.readouterr().out
+        assert np.isfinite(out["loss"]) and not torch.distributed.is_initialized()
+        assert list((root / "mh").glob("*/params_latest.pth"))
+        return
+    if flag == ["--process_id", "0"]:
+        with pytest.raises(SystemExit, match="--num_processes"):
+            main(argv + ["--multihost"] + flag)
+        return
+    with pytest.raises(SystemExit, match="goes with --multihost"):
+        main(argv + flag)
 
 
 def test_e2e_cli_defaults_to_the_card(tmp_path):

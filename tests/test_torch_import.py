@@ -46,6 +46,9 @@ SLICE_7 = {"temporalalignnet_torch.models.bert", "temporalalignnet_torch.models.
 # the serving export, the bare reference checkpoint and the inspection helpers (slice 8)
 SLICE_8 = {"temporalalignnet_torch.tools.export_eval", "temporalalignnet_torch.tools.export_torch",
            "temporalalignnet_torch.utils.vis"}
+# data parallelism over torch.distributed (slice 9)
+SLICE_9 = {"temporalalignnet_torch.parallel", "temporalalignnet_torch.parallel.distributed",
+           "temporalalignnet_torch.parallel.mesh"}
 
 
 def test_port_imports_with_jax_blocked():
@@ -56,7 +59,8 @@ def test_port_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     imported = set(out.stdout.split())
     assert len(imported) >= 34  # every module of the port was imported
-    assert SLICE_6 | SLICE_7 | SLICE_8 <= imported, (SLICE_6 | SLICE_7 | SLICE_8) - imported
+    slices = SLICE_6 | SLICE_7 | SLICE_8 | SLICE_9
+    assert slices <= imported, slices - imported
 
 
 def test_port_sources_never_import_the_jax_package():
@@ -67,5 +71,5 @@ def test_port_sources_never_import_the_jax_package():
     assert {k: v for k, v in offenders.items() if v} == {}
     assert len(PORT_SOURCES) >= 34
     assert {str(p.relative_to(REPO)) for p in PORT_SOURCES} >= {
-        m.replace(".", "/") + ("/__init__.py" if m.endswith("tools") else ".py")
-        for m in SLICE_6 | SLICE_7 | SLICE_8}
+        m.replace(".", "/") + ("/__init__.py" if m.endswith(("tools", "parallel")) else ".py")
+        for m in SLICE_6 | SLICE_7 | SLICE_8 | SLICE_9}

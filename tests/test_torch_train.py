@@ -373,12 +373,49 @@ def test_train_cli_writes_a_checkpoint_the_eval_cli_loads(feature_dir, tmp_path,
     assert 0.0 <= metrics["Recall"] <= 1.0 and 0.0 <= metrics["AUC"] <= 1.0
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"], ["--multihost"]])
-def test_train_cli_refuses_flags_of_later_slices(flag):
+def test_train_cli_refuses_flags_of_later_slices(flag, feature_dir, tmp_path, capsys):
+    """The JAX trainer's multi-GPU flags: ``--dp 2`` without a process group
+    is refused naming the launcher, ``--tp 2`` is refused naming the ROADMAP
+    item that brings tensor parallelism, and ``--multihost`` in a world of
+    one (``--dp 1``) trains as the run without it: the same losses, and
+    params within f32 rounding (the group's collectives add autograd nodes,
+    which may change the order in which a gradient's terms are summed)."""
     from temporalalignnet_torch.train.cli import main as train_main
 
-    with pytest.raises(SystemExit, match="slice|Queue A"):
-        train_main(["--feature_dir", "f", "--captions", "c", "--vocab", "v", *flag])
+    argv = ["--feature_dir", str(feature_dir / "features"),
+            "--captions", str(feature_dir / "captions.json"),
+            "--vocab", str(feature_dir / "vocab.npy"), "--device", "cpu", "--batch_size", "2",
+            "--seq_len", "32", "--max_sentences", "4", "--max_steps", "2", "--log_every", "1",
+            "--num_workers", "2", "--runtime_save_iter", "0", *CLI_SHAPE]
+    if flag[0] == "--dp":
+        with pytest.raises(SystemExit, match="torchrun"):
+            train_main(argv + flag)
+        return
+    if flag[0] == "--tp":
+        with pytest.raises(SystemExit, match="Queue A 5"):
+            train_main(argv + flag)
+        return
+    single = train_main(argv + ["--prefix", str(tmp_path / "single")])
+    capsys.readouterr()
+    world1 = train_main(argv + ["--prefix", str(tmp_path / "world1"), "--dp", "1", *flag,
+                                "--coordinator", f"127.0.0.1:{_free_port()}",
+                                "--num_processes", "1", "--process_id", "0"])
+    assert "[multihost] process 0/1 builds batch rows [0, 2)" in capsys.readouterr().out
+    assert not torch.distributed.is_initialized()  # the CLI left its group
+    assert world1["loss"] == single["loss"] and world1["final_step"] == 2
+    a = torch.load(single["checkpoint"], weights_only=True)["state_dict"]
+    b = torch.load(world1["checkpoint"], weights_only=True)["state_dict"]
+    for k in a:
+        torch.testing.assert_close(b[k], a[k], rtol=0, atol=1e-6)
 
 
 # ------------------------------------------------------------------ remat
