@@ -9,7 +9,9 @@ path (S3D features, HTM-AA generation, the end-to-end S3D fine-tune, a
 linear probe), the BERT TAN at bert-base-uncased's widths (training, both
 CLIs), the CLIP baseline and the CLIP and TimeSformer feature extractors,
 data-parallel training and sharded evaluation (two ranks on the card by
-gloo, a world of one by NCCL), and times them.
+gloo, a world of one by NCCL, also as a CUDA graph), tensor parallelism
+(two ranks by gloo) and the offline text pipeline's BERT punctuator, and
+times them.
 
     python3 chip_smoke.py
 
@@ -201,7 +203,30 @@ Phases, each printing JSON lines:
              --multihost in a world of one over NCCL, beside the same run
              without a group (both started before dp_two_ranks): losses and
              params against each other, the [multihost] line, and in its
-             --profile_dir trace NCCL's kernel and the port's per step.
+             --profile_dir trace NCCL's kernel and the port's per step;
+             since slice 10 beside them the same world-of-one run with
+             --steps_per_dispatch GROUP_K (the step and its collectives in
+             one CUDA graph): losses and params equal to the eager run's to
+             the bit, NCCL's kernel once per step, once per replay among the
+             kernels the graph launches issued.
+     tp_two_ranks  slice 10 (started after dp_two_ranks, running beside the
+             world-of-one CLIs, s3d and e2e_step): tensor parallelism over
+             TP = 2 children on the card joined by gloo, E6D6 width 512, 8
+             heads (4 a rank: mha_fwd and mha_bwd on [64, 4, S, 64]), B = 64
+             on both ranks: Stage-1 and cotrain steps in f32 and bf16 against
+             the 1-process step (loss, norm-relative gradients, the gathered
+             params and twin), launches and routes per rank and step
+             (12/12/2/2/2, 24 mha_fwd in cotrain), the ranks' gathered
+             results and replicated params equal; a planted fault (the
+             row-parallel biases added on both ranks) over the bf16 limit.
+     punctuate  slice 10 (after tower_extract): python -m
+             temporalalignnet_torch.tools.process_htm's main with a
+             bert-base punctuator directory (random weights, 15 labels, a
+             synthetic vocab) over PUNCT's 16 synthetic videos: every video
+             written, 12 mha_fwd launches per predict call on the f32 route,
+             tokens/s and the pipeline's seconds; the first videos' logits on
+             the card against the CPU (TOWER_F32_REL), their labels (a flip
+             only at a near-tie, its margin printed) and sentences.
   4. times   per shape mha_fwd's, the plain version's and PyTorch's SDPA
              time beside the card's bound (K and V counted at the valid keys
              only, ``attention_work``), and the same four times for each
@@ -222,7 +247,13 @@ Phases, each printing JSON lines:
              time, idle share, peak memory and the bound from S3D's
              multiply-adds; in the Stage-1 child, after its plain step, the
              same step in a world of one over NCCL (device ms, idle share,
-             NCCL's kernel ms per step).
+             NCCL's kernel ms per step), and since slice 10 that step and
+             the plain one as CUDA graphs (a group of GROUP_K replays:
+             steps/s, device ms, idle share, the device launches of the
+             port's kernels and NCCL's in a group, profiled).  The kernel
+             rows add mha_fwd's f32 route at the punctuator's
+             [4, 12, 258, 64] (bound at f32 outside the tensor cores) and
+             mha_fwd and mha_bwd at the tensor-parallel shapes.
              Device times come from torch.profiler (a kernel row's only
              when two sessions recorded the same launches); a time without
              such a session is taken with CUDA events and marked
@@ -444,6 +475,30 @@ GROUP_CLI_STEPS = 12
 # published dense peaks (NVIDIA data sheets): bytes/s, bf16 FLOP/s
 CARD_PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
               "H100": (3.35e12, 989e12)}
+# float32 outside the tensor cores (NVIDIA data sheets): the f32 route's peak
+CARD_F32_PEAKS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12}
+# Slice 10.  The punctuator: a BERT-base token classifier (BERT_CFG, 15 labels, random
+# weights from the seed) through tools/process_htm.py over PUNCT["videos"] synthetic
+# videos of about PUNCT["captions"] unpunctuated captions; f32 on the card (mha_fwd's f32
+# route, 12 launches per predict call, one call per video) against the CPU on the first
+# PUNCT["cpu_videos"] videos' calls.  Its attention shape: [chunks, 12, 258, 64], the
+# chunks near-equal (np.array_split), so each row has 258 or 257 valid keys.
+PUNCT = dict(videos=16, captions=60, labels=15, cpu_videos=4)
+PUNCT_SHAPE = (4, 12, 258, 64)
+PUNCT_STOPWORDS = ("so", "we", "the", "and", "to", "it", "now", "you", "is", "this", "of",
+                   "in", "a", "that", "then", "just")
+# a label the card and the CPU disagree on must be a near-tie: the two labels' biased
+# probabilities (Sentencify's) within PUNCT_MARGIN_TOL on the CPU
+PUNCT_MARGIN_TOL = 1e-4
+# tensor parallelism: E6D6 width 512, 8 heads over TP ranks (two children on the card
+# joined by gloo): each rank's mha_fwd and mha_bwd on [B, 8 / TP, S, 64] at the dual and
+# joint lengths
+TP = 2
+TP_SHAPES = [(TRAIN["B"], 8 // TP, 64, 64), (TRAIN["B"], 8 // TP, 80, 64)]
+TP_CASES = (("stage1_f32", False, "float32"), ("stage1_bf16", False, "bfloat16"),
+            ("cotrain_f32", True, "float32"), ("cotrain_bf16", True, "bfloat16"))
+# the bf16 yardstick's relative noise on the input features (tp_bars)
+TP_SPREAD_NOISE = 1e-3
 
 
 def start(args):
@@ -489,6 +544,13 @@ def peaks(name: str):
     return CARD_PEAKS["H100"]
 
 
+def f32_peak(name: str) -> float:
+    for key, val in CARD_F32_PEAKS.items():  # most specific first
+        if key in name:
+            return val
+    return CARD_F32_PEAKS["H100"]
+
+
 def ragged_mask(torch, B, S, gen, device):
     """Key padding [B, S]: random valid lengths; with B > 1 the last row is
     fully padded (the kernel must keep it finite)."""
@@ -509,10 +571,22 @@ def bert_mask(torch, B, S, gen, device):
     return mask.to(device)
 
 
+def punct_mask(torch, B, S, device):
+    """Key padding of the punctuator's chunks [B, S]: np.array_split's
+    near-equal chunks of B (S - 2) - B // 2 tokens, each with [CLS] and
+    [SEP]: the first rows S valid keys, the last B // 2 rows S - 1."""
+    lengths = torch.tensor([len(c) + 2 for c in np.array_split(np.arange(B * (S - 2) - B // 2),
+                                                                B)])
+    return (torch.arange(S)[None] >= lengths[:, None]).to(device)
+
+
 def tower_mask(torch, shape, gen, device):
-    """The key padding a check of ``shape`` uses: BERT's at its shape, else ragged."""
+    """The key padding a check of ``shape`` uses: BERT's at its shape, the
+    punctuator's at its, else ragged."""
     if tuple(shape) == BERT_SHAPE:
         return bert_mask(torch, shape[0], shape[2], gen, device)
+    if tuple(shape) == PUNCT_SHAPE:
+        return punct_mask(torch, shape[0], shape[2], device)
     return ragged_mask(torch, shape[0], shape[2], gen, device)
 
 
@@ -663,7 +737,7 @@ def phase_kernel_check(torch):
             check(ferr > tol, f"limit {tol} misses the planted fault {f}: {ferr}")
 
     dtypes = ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL))
-    for shape in MHA_FWD_CHECK_SHAPES + TOWER_SHAPES:
+    for shape in MHA_FWD_CHECK_SHAPES + TOWER_SHAPES + [PUNCT_SHAPE] + TP_SHAPES:
         for dtype, tol in dtypes:
             for masked in (False, True):
                 check_one(shape, dtype, tol, masked, lambda: tower_mask(torch, shape, gen, dev))
@@ -757,7 +831,7 @@ def phase_mha_bwd_check(torch):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 4)
     worst = {}
-    for shape in MHA_BWD_SHAPES + [MHA_BWD_V2_SHAPE, BERT_SHAPE]:
+    for shape in MHA_BWD_SHAPES + [MHA_BWD_V2_SHAPE, BERT_SHAPE] + TP_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             tol = GRAD_TOL[name]
@@ -1168,7 +1242,8 @@ def phase_cli(torch, model):
 
 
 def train_setup(torch, device, fused, cfg_kw=None, state=None, compute=None, cotrain=False,
-                train_kw=None, bert=False, multi=False, capturable=None, group=None):
+                train_kw=None, bert=False, multi=False, capturable=None, group=None,
+                tp_group=None):
     """A TANWithText with its optimizer, train step and, for ``cotrain`` (head
     on, agreement targets), its EMA twin; params f32 from the seed (or
     ``state``; for cotrain merged as ``--pretrain`` does, so a Stage-1 state
@@ -1177,7 +1252,8 @@ def train_setup(torch, device, fused, cfg_kw=None, state=None, compute=None, cot
     ``multi`` the step is ``make_multi_train_step``'s (a group of steps, on
     the card a CUDA graph replayed per batch); ``capturable`` goes to the
     Optimizer (None: its default, True on the card); ``group``, a process
-    group, makes the step the data-parallel one.
+    group, makes the step the data-parallel one; ``tp_group`` shards the
+    encoder blocks over its ranks (tensor parallelism).
     Returns (model, optimizer, step, twin or None)."""
     from temporalalignnet_torch.checkpoint import merge_state_dict
     from temporalalignnet_torch.core.config import LossConfig, ModelConfig, TrainConfig
@@ -1196,6 +1272,10 @@ def train_setup(torch, device, fused, cfg_kw=None, state=None, compute=None, cot
     elif state is not None:
         model.load_state_dict(state)
     model.to(device)
+    if tp_group is not None:
+        from temporalalignnet_torch.parallel.tensor import shard_model_
+
+        shard_model_(model, tp_group)
     tcfg = TrainConfig(lr=TRAIN_LR, warmup_iterations=1, total_iterations=1000,
                        **(train_kw or {}))
     opt = Optimizer(model, tcfg, capturable=capturable)
@@ -1935,7 +2015,7 @@ def phase_train_times(torch, card):
     bw, peak = peaks(card)
     gen = torch.Generator().manual_seed(SEED + 7)
     rows = {}
-    for shape in MHA_BWD_SHAPES[:2] + [BERT_SHAPE]:
+    for shape in MHA_BWD_SHAPES[:2] + [BERT_SHAPE] + TP_SHAPES:
         Bq, H, S, D = shape
         q, k, v, g = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16) for _ in range(4))
         pad = tower_mask(torch, shape, gen, dev)
@@ -1951,7 +2031,7 @@ def phase_train_times(torch, card):
         nbytes, flops = attention_work(q, pad, full=5, passes=5)
         row = timed_row(torch, fns, nbytes, flops, bw, peak, shape=list(shape), dtype="bfloat16")
         emit({"phase": "times", "kernel": "mha_bwd", "card": card, **row})
-        rows[("mha_bwd", S)] = row
+        rows[("mha_bwd", "tp", S) if shape in TP_SHAPES else ("mha_bwd", S)] = row
 
     inv_temp, mv = 1.0 / 0.07, -6.0e4
     for S_, Bm, Tm, Nm, C, shared in MILNCE_SHAPES:
@@ -3314,10 +3394,11 @@ KERNEL_SYMBOLS = {"mha_fwd": "mha_fwd_wgmma_kernel<", "mha_bwd": "mha_bwd_fused_
                   "milnce_dt": "milnce_grad_wgmma_kernel<false,"}
 
 
-def profiled_launches(torch, fn):
+def profiled_launches(torch, fn, nccl=False):
     """{wrapper: launches of its kernel (KERNEL_SYMBOLS) in one call of
     ``fn``}, counted on the device in a torch.profiler trace: what ran,
-    however it was launched (a replayed CUDA graph passes no wrapper).  A
+    however it was launched (a replayed CUDA graph passes no wrapper); with
+    ``nccl`` also NCCL's kernels (NCCL_KERNEL_MARKS) under "nccl".  A
     session can lose device activity (``device_profile``), so the counts are
     those two sessions recorded alike, none of them all zero; None if no two
     of PROFILER_TRIES + 1 did."""
@@ -3330,10 +3411,19 @@ def profiled_launches(torch, fn):
             fn()
             torch.cuda.synchronize()
         counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
-        for e in prof.key_averages():
+        if nccl:
+            counts["nccl"] = 0
+        events = prof.key_averages()
+        host = {e.key for e in events if e.device_type == DeviceType.CPU}  # ranges, not kernels
+        for e in events:
+            if e.key in host:
+                continue
             for name, symbol in KERNEL_SYMBOLS.items():
                 if e.device_type == DeviceType.CUDA and symbol in e.key:
                     counts[name] += e.count
+            if nccl and e.device_type == DeviceType.CUDA and any(
+                    m in e.key.lower() for m in NCCL_KERNEL_MARKS):
+                counts["nccl"] += e.count
         if any(counts.values()) and counts in seen:
             return counts
         seen.append(counts)
@@ -3532,8 +3622,11 @@ def e2e_step_time(torch, card):
 
 # ------------------------------------------------ slice 9: data parallelism
 
-# dp_world1: the train CLI's steps in a world of one (NCCL) and without a group
-DP_WORLD1_STEPS = 4
+# dp_world1: the train CLI's steps in a world of one (NCCL) and without a group, and
+# (since slice 10) in a world of one with --steps_per_dispatch GROUP_K: the one epoch of
+# the resume videos (5 batches of 64), groups of 4 and 1 (GraphedStep.WARMUP eager
+# steps, then 3 replays)
+DP_WORLD1_STEPS = 5
 # dp_two_ranks: the cases of the two ranks (two processes on the one card,
 # joined by gloo: NCCL refuses two ranks on one device), each two steps from
 # the Stage-1 state on two global batches of TRAIN["B"], B / 2 rows a rank:
@@ -3598,11 +3691,15 @@ def start_dp_world1(files):
             "--captions", captions, "--vocab", vocab, "--max_steps", str(DP_WORLD1_STEPS),
             "--epochs", "1", "--log_every", "1", "--runtime_save_iter", "0",
             "--warmup_iterations", "1"]
-    procs = {"world1": start(base + [
-                 "--prefix", os.path.join(root, "world1"), "--multihost",
-                 "--coordinator", f"127.0.0.1:{free_port()}", "--num_processes", "1",
-                 "--process_id", "0", "--profile_dir", os.path.join(root, "trace")]),
-             "plain": start(base + ["--prefix", os.path.join(root, "plain")])}
+    world1 = lambda: ["--multihost", "--coordinator", f"127.0.0.1:{free_port()}",
+                      "--num_processes", "1", "--process_id", "0"]
+    procs = {"world1": start(base + ["--prefix", os.path.join(root, "world1"), *world1(),
+                                     "--profile_dir", os.path.join(root, "trace")]),
+             "plain": start(base + ["--prefix", os.path.join(root, "plain")]),
+             # slice 10: the same world of one, its steps as a CUDA graph holding NCCL's
+             "graph": start(base + ["--prefix", os.path.join(root, "graph"), *world1(),
+                                    "--steps_per_dispatch", str(GROUP_K),
+                                    "--profile_dir", os.path.join(root, "trace_graph")])}
     return procs, root
 
 
@@ -3611,7 +3708,12 @@ def phase_dp_world1(torch, children):
     same run without a process group: the losses and the final params (equal
     to the bit, or the largest difference), the ``[multihost]`` line, and in
     the world-of-one run's torch.profiler trace the NCCL kernel of the
-    gradient average and the port's kernels, per step."""
+    gradient average and the port's kernels, per step.  Since slice 10 also
+    the world-of-one run with --steps_per_dispatch GROUP_K (its steps and
+    their NCCL collectives in a CUDA graph) against the eager one: losses
+    and params equal to the bit, NCCL's kernel once per step in its trace,
+    once per replay among the kernels its cudaGraphLaunch calls issued.
+    Returns that run's row."""
     procs, root = children
     t0 = time.perf_counter()
     try:
@@ -3622,19 +3724,41 @@ def phase_dp_world1(torch, children):
     losses = {k: logged_losses(o) for k, o in outs.items()}
     loss_err = max(abs(a - b) for a, b in zip(losses["world1"], losses["plain"]))
     param_err = state_err(torch, finals["world1"]["checkpoint"], finals["plain"]["checkpoint"])
-    traces = [os.path.join(root, "trace", f) for f in os.listdir(os.path.join(root, "trace"))
-              if f.startswith("trace_") and f.endswith(".json")]
-    check(len(traces) == 1, f"--profile_dir wrote {traces}")
-    with open(traces[0]) as f:
-        kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
     steps = DP_WORLD1_STEPS
+    events = {}
+    for which in ("trace", "trace_graph"):
+        traces = [os.path.join(root, which, f) for f in os.listdir(os.path.join(root, which))
+                  if f.startswith("trace_") and f.endswith(".json")]
+        check(len(traces) == 1, f"--profile_dir wrote {traces}")
+        with open(traces[0]) as f:
+            events[which] = json.load(f)["traceEvents"]
+    kernels = [e for e in events["trace"] if e.get("cat") == "kernel"]
+    is_nccl = lambda e: any(m in e.get("name", "").lower() for m in NCCL_KERNEL_MARKS)
     nccl = {}
     for e in kernels:
-        if any(m in e.get("name", "").lower() for m in NCCL_KERNEL_MARKS):
+        if is_nccl(e):
             row = nccl.setdefault(e["name"][:120], {"per_step": 0.0, "ms_per_step": 0.0})
             row["per_step"] += 1 / steps
             row["ms_per_step"] += e.get("dur", 0) / 1e3 / steps
     ours = {k: sum(k in e.get("name", "") for e in kernels) / steps for k in DP_TRACE_KERNELS}
+    # the graphed run: its NCCL kernels, and those a cudaGraphLaunch issued (the
+    # kernel's correlation id is its launching runtime call's)
+    g_kernels = [e for e in events["trace_graph"] if e.get("cat") == "kernel"]
+    launches = {e.get("args", {}).get("correlation") for e in events["trace_graph"]
+                if e.get("cat") == "cuda_runtime" and "GraphLaunch" in e.get("name", "")}
+    replays = steps - 2  # GraphedStep.WARMUP eager steps, then replays
+    graph_row = {
+        "steps": steps, "replayed_steps": replays, "graph_launches_in_trace": len(launches),
+        "nccl_kernels": sum(map(is_nccl, g_kernels)),
+        "nccl_kernels_in_replays": sum(
+            is_nccl(e) and e.get("args", {}).get("correlation") in launches for e in g_kernels),
+        "port_kernels_per_step": {k: sum(k in e.get("name", "") for e in g_kernels) / steps
+                                  for k in DP_TRACE_KERNELS},
+        "losses": logged_losses(outs["graph"]),
+        "loss_max_abs_err_vs_eager": max(abs(a - b) for a, b in zip(logged_losses(outs["graph"]),
+                                                                    losses["world1"])),
+        "param_max_abs_err_vs_eager": state_err(torch, finals["graph"]["checkpoint"],
+                                                finals["world1"]["checkpoint"])}
     line = [l for l in outs["world1"].splitlines() if l.startswith("[multihost]")]
     row = {"phase": "dp_world1", "card": card_power(), "steps": steps,
            "losses_world1": losses["world1"], "losses_plain": losses["plain"],
@@ -3644,6 +3768,9 @@ def phase_dp_world1(torch, children):
            "nccl_kernels_in_trace": nccl, "port_kernels_per_step_in_trace": ours,
            "seconds": time.perf_counter() - t0}
     emit(row)
+    emit({"phase": "dp_world1_graph", "card": row["card"],
+          "run": f"the same CLI, --steps_per_dispatch {GROUP_K}: the step and its NCCL "
+                 "collectives in one CUDA graph", **graph_row})
     check(len(losses["world1"]) == len(losses["plain"]) == steps, f"dp_world1 losses {losses}")
     check(line == ["[multihost] process 0/1 builds batch rows [0, 64)"], f"dp_world1 {line}")
     check(loss_err <= TRAIN_LOSS_TOL, f"dp_world1 losses off the plain run by {loss_err}")
@@ -3651,6 +3778,15 @@ def phase_dp_world1(torch, children):
     check(sum(r["per_step"] for r in nccl.values()) >= 1,
           f"dp_world1: no NCCL kernel in the trace: {sorted({e['name'][:60] for e in kernels})}")
     check(ours == DP_TRACE_KERNELS, f"dp_world1 kernels per step in the trace {ours}")
+    check(graph_row["loss_max_abs_err_vs_eager"] == 0.0
+          and graph_row["param_max_abs_err_vs_eager"] == 0.0
+          and len(graph_row["losses"]) == steps, f"dp_world1_graph against eager {graph_row}")
+    check(graph_row["nccl_kernels"] == steps, f"dp_world1_graph NCCL kernels {graph_row}")
+    check(not launches or graph_row["nccl_kernels_in_replays"] == replays,
+          f"dp_world1_graph: NCCL kernels in the replays {graph_row}")
+    check(graph_row["port_kernels_per_step"] == DP_TRACE_KERNELS,
+          f"dp_world1_graph kernels per step in the trace {graph_row}")
+    return graph_row
 
 
 def dp_errors(ours, ref, dtype):
@@ -3978,6 +4114,386 @@ def phase_dp_two_ranks(children, eval_files, cli_metrics):
     return per_rank
 
 
+# ------------------------------------------------------------------ slice 10
+
+
+def make_punct_dir(torch, root):
+    """A punctuator directory at bert-base's widths: config.json with 15
+    labels (Sentencify's LABEL_LIST), the synthetic 30,522-line vocab with
+    PUNCT_STOPWORDS in place of its last words (so English captions pass
+    the language filter and tokenize), and random pytorch_model.bin weights
+    from the seed in HF's BertForTokenClassification key space (``bert.*``
+    without the pooler, ``classifier.*``)."""
+    from temporalalignnet_torch.models.bert import (BertConfig, BertForTokenClassification,
+                                                    write_bert_dir)
+    from temporalalignnet_torch.tools.sentencify import LABEL_LIST
+
+    cfg = BertConfig(**BERT_CFG)
+    gen = torch.Generator().manual_seed(SEED + 50)
+    model = BertForTokenClassification(cfg, PUNCT["labels"])
+    model.bert.init_weights(gen)
+    with torch.no_grad():
+        model.classifier.weight.copy_(torch.randn(model.classifier.weight.shape, generator=gen)
+                                      * cfg.initializer_range)
+        model.classifier.bias.zero_()
+    vocab = bert_vocab()
+    vocab[-len(PUNCT_STOPWORDS):] = PUNCT_STOPWORDS
+    path = os.path.join(root, "bert-restore-punctuation")
+    write_bert_dir(path, cfg, vocab, model.state_dict())
+    with open(os.path.join(path, "config.json")) as f:
+        config = json.load(f)
+    config["id2label"] = {str(i): label for i, label in enumerate(LABEL_LIST)}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    return path
+
+
+def make_punct_captions(path, seed):
+    """PUNCT["videos"] videos of about PUNCT["captions"] unpunctuated ASR
+    captions of 6-12 words, half of them PUNCT_STOPWORDS and half 'w<n>'
+    words (n past the vocab's whole words splits into wordpieces), 1.5-4 s
+    each, now and then after a gap over 1 s, in the raw {vid: {text, start,
+    end}} layout."""
+    rng = np.random.RandomState(seed)
+    raw = {}
+    for v in range(PUNCT["videos"]):
+        caps, starts, ends, t = [], [], [], 0.0
+        for _ in range(PUNCT["captions"] + rng.randint(-8, 9)):
+            n = rng.randint(6, 13)
+            words = [str(w) for w in rng.choice(PUNCT_STOPWORDS, n)]
+            for j in rng.choice(n, n // 2, replace=False):
+                words[j] = f"w{rng.randint(0, 60000)}"
+            d = 1.5 + 2.5 * rng.rand()
+            caps.append(" ".join(words))
+            starts.append(round(t, 3))
+            ends.append(round(t + d, 3))
+            t += d + (1.5 if rng.rand() < 0.1 else 0.0)
+        raw[f"punct{v:02d}"] = {"text": caps, "start": starts, "end": ends}
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def punct_labels(logits, mask):
+    """Sentencify's labels of one predict call (softmax, the -0.4 bias on
+    the no-punctuation labels, argmax) and the biased probabilities."""
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    prob = e / e.sum(-1, keepdims=True)
+    prob[:, :, 0:2] += -0.4
+    return prob.argmax(-1), prob
+
+
+def phase_punctuate(torch, card):
+    """Slice 10's main path: ``python -m temporalalignnet_torch.tools.process_htm``
+    (split, the language and length filters in a process pool, then the
+    punctuator on the card) over PUNCT's synthetic videos with a bert-base
+    punctuator directory: the files it writes, the mha_fwd launches (12 per
+    predict call, all ``f32``), tokens/s of the predict calls and the
+    pipeline's seconds; then the first PUNCT["cpu_videos"] calls on the
+    CPU: logits (relative norm against TOWER_F32_REL), labels (a flip must
+    be a near-tie, its margin printed) and the sentences of those videos.
+    Returns the launches of the pipeline's run."""
+    from temporalalignnet_torch.tools import process_htm, sentencify
+
+    root = os.path.join(REPO, "build", "chip_smoke_punct")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    model_dir = make_punct_dir(torch, root)
+    raw = make_punct_captions(os.path.join(root, "raw_caption.json"), SEED + 51)
+    t_files = time.perf_counter() - t0
+    calls = []  # (ids, mask, logits, seconds) of each card predict call
+    predict = sentencify.HFPunctuator.predict
+
+    def recorded(self, ids, mask):
+        t = time.perf_counter()
+        out = predict(self, ids, mask)  # ends in a copy to the host
+        calls.append((ids, mask, out, time.perf_counter() - t))
+        return out
+
+    sentencify.HFPunctuator.predict = recorded
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = process_htm.main(["--raw_caption", raw, "--out_dir", os.path.join(root, "out"),
+                                 "--punct_model_dir", model_dir, "--num_chunks", "2",
+                                 "--jobs", "2"])
+        wall = time.perf_counter() - t0
+        launches, routes = read_counts(), read_routes()
+    finally:
+        sentencify.HFPunctuator.predict = predict
+    written = {}
+    for p in outs:
+        with open(p) as f:
+            written.update(json.load(f))
+    tokens = int(sum(m.sum() for _, m, _, _ in calls))
+    predict_s = sum(c[3] for c in calls)
+    # the first videos again on the CPU, from the same inputs
+    cpu = sentencify.HFPunctuator(model_dir, device="cpu")
+    prepared = [item for p in outs
+                for item in process_htm._prepare_chunk(p.replace("sentencified_chunk",
+                                                                 "filtered_chunk"))]
+    n_cpu = PUNCT["cpu_videos"]
+    rel, max_abs, flips, sentences_equal = [], 0.0, [], []
+    t0 = time.perf_counter()
+    for i, (ids, mask, card_logits, _) in enumerate(calls[:n_cpu]):
+        cpu_logits = cpu.predict(ids, mask)
+        valid = mask.astype(bool)
+        a, b = card_logits[valid], cpu_logits[valid]
+        rel.append(float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+        max_abs = max(max_abs, float(np.abs(a - b).max()))
+        ours, _ = punct_labels(card_logits, mask)
+        theirs, prob = punct_labels(cpu_logits, mask)
+        for r, c in zip(*np.nonzero((ours != theirs) & valid)):
+            flips.append({"video": prepared[i][0], "chunk": int(r), "token": int(c),
+                          "card_label": int(ours[r, c]), "cpu_label": int(theirs[r, c]),
+                          "cpu_margin": float(prob[r, c, theirs[r, c]] - prob[r, c, ours[r, c]])})
+        vid, caps, starts, ends = prepared[i]
+        text, s0, e0 = sentencify.Sentencify(cpu).punctuate_and_cut(caps, starts, ends)
+        sentences_equal.append(written[vid] == {"text": text, "start": s0, "end": e0})
+    cpu_seconds = time.perf_counter() - t0
+    chunks = [int(c[0].shape[0]) for c in calls]
+    emit({"phase": "punctuate", "card": card_power(), "model": "BERT-base token classifier "
+          f"(12 x 768, 12 heads, {PUNCT['labels']} labels), random weights, f32, TF32 off",
+          "videos": PUNCT["videos"], "videos_written": len(written),
+          "sentences": sum(len(v["text"]) for v in written.values()),
+          "predict_calls": len(calls), "chunks_per_call": chunks,
+          "max_chunk_len": max(int(c[0].shape[1]) for c in calls), "tokens": tokens,
+          "tokens_per_s_predict": tokens / predict_s, "predict_seconds": predict_s,
+          "pipeline_seconds": wall, "files_seconds": t_files,
+          "launches": launches, "routes": routes,
+          "cpu_videos": n_cpu, "logits_rel_norm_err": rel, "logits_max_abs_err": max_abs,
+          "tol": TOWER_F32_REL, "label_flips": flips, "margin_tol": PUNCT_MARGIN_TOL,
+          "sentences_equal": sentences_equal, "cpu_seconds": cpu_seconds})
+    check(len(written) == PUNCT["videos"], f"punctuate wrote {len(written)} videos")
+    check(len(calls) == PUNCT["videos"] and min(chunks) >= 2,
+          f"punctuate: {len(calls)} predict calls of {chunks} chunks")
+    check(launches["mha_fwd"] == 12 * len(calls)
+          and routes["mha_fwd"] == {"short": 0, "long": 0, "f32": 12 * len(calls)},
+          f"punctuate launched mha_fwd {launches['mha_fwd']} on {routes['mha_fwd']}")
+    check(all(launches[k] == 0 for k in launches if k != "mha_fwd"), f"punctuate {launches}")
+    check(max(rel) <= TOWER_F32_REL, f"punctuator logits card vs CPU {rel}")
+    check(all(f["cpu_margin"] <= PUNCT_MARGIN_TOL for f in flips), f"label flips {flips}")
+    check(all(sentences_equal) or flips, f"punctuate sentences differ: {sentences_equal}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(launches, routes=routes)
+
+
+def tp_rank(torch, rank, port, work):
+    """One rank of tp_two_ranks (a child of phase_tp_two_ranks): joins the
+    other by gloo on the card, makes the (1, TP) mesh, then runs each of
+    TP_CASES' two steps on the global batches with its shard of the encoder
+    blocks, the 1-process steps of its half of the cases (both ranks at
+    once), a planted fault (the row-parallel biases added on both ranks, on
+    weights whose row-parallel biases are random) against the 1-process
+    step on those weights; the gathered params and gradients and their
+    errors as JSON."""
+    from temporalalignnet_torch.parallel import distributed
+    from temporalalignnet_torch.parallel import tensor as tp_ops
+    from temporalalignnet_torch.parallel.mesh import make_mesh
+
+    distributed.initialize_multihost(f"127.0.0.1:{port}", TP, rank, backend="gloo",
+                                     device="cuda:0")
+    mesh = make_mesh(1, TP)
+    dev = torch.device("cuda", 0)
+    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    batches = inputs["batches"]
+    out = {"rank": rank, "cases": {}}
+
+    def digest(tensors):
+        return sum(t.double().sum().item() * (i + 1) for i, t in enumerate(tensors))
+
+    def gathered(res):
+        losses, grads, target, params = res
+        gather = lambda sd: tp_ops.tp_gather_state_dict(sd, mesh.tp_group)
+        return (losses, [gather(g) for g in grads], None if target is None else gather(target),
+                gather(params))
+
+    def tp_steps(state, compute, cotrain, steps):
+        model, _, step, twin = train_setup(torch, dev, fused=True, state=state,
+                                           compute=compute, cotrain=cotrain,
+                                           group=mesh.dp_group, tp_group=mesh.tp_group)
+        with TargetRecorder() as rec:
+            res, per_step, routes = dp_steps(torch, model, step, steps, twin)
+        replicated = [p for n, p in model.named_parameters() if not tp_ops.is_sharded(p)]
+        return gathered(res), per_step, routes, digest(replicated), [t for _, t in rec.calls]
+
+    sharded, targets = {}, {}
+    t0 = time.perf_counter()
+    for name, cotrain, dt in TP_CASES:
+        res, per_step, routes, rep, targets[name] = tp_steps(
+            inputs["state"], getattr(torch, dt), cotrain, batches)
+        sharded[name] = res
+        out["cases"][name] = {"losses": res[0], "launches_per_step": per_step,
+                              "routes_per_step": routes, "replicated_digest": rep,
+                              "digest": [digest(res[3].values())]
+                              + [digest(g.values()) for g in res[1]]}
+        torch.cuda.empty_cache()
+    # the planted fault, on weights whose row-parallel biases are random
+    row = tp_ops.row_parallel_linear
+    tp_ops.row_parallel_linear = lambda x, w, b, g: tp_ops.reduce_from_tp(
+        torch.nn.functional.linear(x, w, b.to(x.dtype)), g)
+    try:
+        fault = tp_steps(inputs["biased_state"], torch.bfloat16, False, batches[:1])[0]
+    finally:
+        tp_ops.row_parallel_linear = row
+    correct = tp_steps(inputs["biased_state"], torch.bfloat16, False, batches[:1])[0]
+    out["ranks_seconds"] = time.perf_counter() - t0
+    # the 1-process steps of this rank's half of the cases, on the same batches
+    for i, (name, cotrain, dt) in enumerate(TP_CASES):
+        if i % TP != rank:
+            continue
+        model, _, step, twin = train_setup(torch, dev, fused=True, state=inputs["state"],
+                                           compute=getattr(torch, dt), cotrain=cotrain)
+        # bf16 cotrain: a discrete agreement target may flip at a near-tie between
+        # two bf16 runs, so the 1-process step is held with the ranks' targets
+        with ForcedTargets(targets[name]) if cotrain and dt == "bfloat16" else TargetRecorder():
+            ref, _, _ = dp_steps(torch, model, step, batches, twin)
+        out["cases"][name].update(dp_errors(sharded[name], ref, dt), checked_by=rank)
+        del model, step, twin
+        if dt == "bfloat16":  # the yardstick: one process, the features moved below bf16's step
+            model, _, step, twin = train_setup(torch, dev, fused=True, state=inputs["state"],
+                                               compute=torch.bfloat16, cotrain=cotrain)
+            gen = torch.Generator().manual_seed(SEED + 63)
+            moved = [dict(b, video=b["video"] * (1 + TP_SPREAD_NOISE * torch.randn(
+                b["video"].shape, generator=gen))) for b in batches]
+            with ForcedTargets(targets[name]) if cotrain else TargetRecorder():
+                rev, _, _ = dp_steps(torch, model, step, moved, twin)
+            loss_err, grad_err, _ = compare_steps(rev, ref)
+            out["cases"][name]["spread"] = {"loss_abs_err": loss_err, "grad_max_norm_err": grad_err}
+            del model, step, twin, rev
+        del ref
+        torch.cuda.empty_cache()
+    if rank == 0:
+        model, _, step, _ = train_setup(torch, dev, fused=True, state=inputs["biased_state"],
+                                        compute=torch.bfloat16)
+        ref, _, _ = dp_steps(torch, model, step, batches[:1])
+        out["fault"] = compare_steps((fault[0], fault[1]), (ref[0], ref[1]))
+        out["biased_correct"] = compare_steps((correct[0], correct[1]), (ref[0], ref[1]))
+    distributed.destroy()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def start_tp_two_ranks(torch, stage1_state):
+    """tp_two_ranks' children (``tp_rank``) on the inputs they share, written
+    to build/chip_smoke_tp/: the train phase's Stage-1 state, the same with
+    random row-parallel biases (N(0, 0.1), for the planted fault) and two
+    global batches of TRAIN's shapes."""
+    from temporalalignnet_torch.data.synthetic import synthetic_batch
+    from temporalalignnet_torch.parallel.tensor import tp_dim
+
+    work = os.path.join(REPO, "build", "chip_smoke_tp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    T, N, W = (TRAIN[k] for k in "TNW")
+    batches = [{k: torch.from_numpy(v) for k, v in synthetic_batch(
+        np.random.RandomState(SEED + 60 + i), batch_size=TRAIN["B"], seq_len=T,
+        max_sentences=N, feature_dim=1024, vocab_size=66250, max_words=W).items()}
+        for i in range(2)]
+    gen = torch.Generator().manual_seed(SEED + 62)
+    biased = {k: (torch.randn(v.shape, generator=gen) * 0.1
+                  if k.endswith(("out_proj.bias", "c_proj.bias")) and ".resblocks." in k else v)
+              for k, v in stage1_state.items()}
+    check(any(tp_dim(k) is not None for k in biased), "tp: no sharded key in the state")
+    torch.save({"batches": batches, "state": stage1_state, "biased_state": biased},
+               os.path.join(work, "inputs.pt"))
+    port = free_port()
+    ranks = [start([sys.executable, os.path.abspath(__file__), "--tp-rank", str(r), str(port),
+                    work]) for r in range(TP)]
+    return ranks, work, time.perf_counter()
+
+
+def tp_bars(checked, dt):
+    """(loss bar, gradient bar) of a tensor-parallel case against one process:
+    f32 DP_LOSS_TOL / GRAD_TOL; bf16 at least DP_SPREAD_FACTOR times the
+    1-process step's own spread under input features moved by
+    TP_SPREAD_NOISE (relative), below bf16's resolution of 2^-8: the same
+    function, some roundings flipped.  The tp ranks round each partial
+    product to bf16 where one GEMM rounds its sum once, in every block, and
+    a random-weight network amplifies bf16 rounding (on an H100: bf16
+    cotrain 0.047 against one process, its batch rows reversed 0.005; on
+    the CPU the input moved so moves the cotrain gradients by 0.14)."""
+    if dt != "bfloat16":
+        return DP_LOSS_TOL[dt], GRAD_TOL[dt]
+    spread = checked["spread"]
+    return (max(DP_LOSS_TOL[dt], DP_SPREAD_FACTOR * spread["loss_abs_err"]),
+            max(GRAD_TOL[dt], DP_SPREAD_FACTOR * spread["grad_max_norm_err"]))
+
+
+def phase_tp_two_ranks(children):
+    """Tensor parallelism, TP = 2 ranks on the one card joined by gloo (NCCL
+    refuses two ranks on one device), started by start_tp_two_ranks: E6D6
+    width 512, 8 heads (4 a rank), B = 64 on both ranks (dp 1), Stage 1
+    and cotrain in f32 and bf16 compute, two steps each against the
+    1-process step on the same weights and batches: losses, norm-relative
+    gradients and the gathered params (and twin) after the second step;
+    each rank's launches and routes per step (12/12/2/2/2, 24 mha_fwd in
+    cotrain); both ranks' gathered results and replicated params equal; the
+    planted fault (row-parallel biases added on both ranks) over the bf16
+    limit, the same step done right within it.  Returns each rank's
+    launches over its bf16 Stage-1 and cotrain steps."""
+    ranks, work, t_start = children
+    try:
+        for r, proc in enumerate(ranks):
+            finish(proc, f"tp_two_ranks rank {r}", timeout=900)
+    finally:
+        stop(ranks)
+    t_ranks = time.perf_counter() - t_start
+    outs = []
+    for r in range(TP):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    card = card_power()
+    for name, cotrain, dt in TP_CASES:
+        rows = [o["cases"][name] for o in outs]
+        checked = next(row for row in rows if "checked_by" in row)
+        emit({"phase": "tp_two_ranks", "case": name, "card": card, "batch": TRAIN["B"],
+              "tp": TP, "heads_per_rank": 8 // TP,
+              **{f"rank{r}": row for r, row in enumerate(rows)}})
+        want = COTRAIN_STEP_LAUNCHES if cotrain else STEP_LAUNCHES
+        routes = ((COTRAIN_STEP_ROUTES if cotrain else STEP_ROUTES) if dt == "bfloat16" else
+                  {k: {r: (want[k] if r == "f32" else 0) for r in v}
+                   for k, v in STEP_ROUTES.items()})
+        what = f"tp_two_ranks {name}"
+        loss_bar, grad_bar = tp_bars(checked, dt)
+        check(checked["loss_max_abs_err"] <= loss_bar, f"{what} loss {checked}")
+        check(checked["grad_max_norm_err"] <= grad_bar,
+              f"{what} grads over {grad_bar}: {checked['worst_grad']}")
+        check(checked["param_ratio"][0] <= 1.0, f"{what} params {checked['param_ratio']}")
+        check(checked.get("target_ratio", [0.0])[0] <= 1.0, f"{what} twin {checked}")
+        check(rows[0]["digest"] == rows[1]["digest"] and rows[0]["losses"] == rows[1]["losses"]
+              and rows[0]["replicated_digest"] == rows[1]["replicated_digest"],
+              f"{what}: the ranks' gathered gradients, params, replicated params or losses differ")
+        for r, row in enumerate(rows):
+            check_launches(row["launches_per_step"], row["routes_per_step"], want, routes,
+                           f"{what} rank {r}")
+    fault, correct = outs[0]["fault"], outs[0]["biased_correct"]
+    bar = tp_bars(next(o["cases"]["stage1_bf16"] for o in outs
+                       if "checked_by" in o["cases"]["stage1_bf16"]), "bfloat16")[1]
+    emit({"phase": "tp_two_ranks_planted_fault", "card": card,
+          "fault": "row-parallel biases (out_proj, c_proj) added on both ranks, before the "
+                   "reduce (bf16 Stage-1 step; row-parallel biases N(0, 0.1))",
+          "loss_abs_err": fault[0], "grad_max_norm_err": fault[1], "worst_grad": fault[2],
+          "done_right": {"loss_abs_err": correct[0], "grad_max_norm_err": correct[1]},
+          "tol": bar})
+    check(fault[1] > bar, f"tp planted fault not caught by {bar}: {fault}")
+    check(correct[1] <= bar, f"tp step on the biased weights over {bar}: {correct}")
+    emit({"phase": "tp_two_ranks_seconds", "card": card, "ranks_from_their_start": t_ranks,
+          "ranks_steps_seconds": [o["ranks_seconds"] for o in outs]})
+    shutil.rmtree(work, ignore_errors=True)
+    per_rank = {}
+    for o in outs:
+        counts = [c for name in ("stage1_bf16", "cotrain_bf16")
+                  for c in o["cases"][name]["launches_per_step"]]
+        per_rank[f"rank{o['rank']}"] = {
+            "steps": {k: sum(c[k] for c in counts) for k in counts[0]},
+            "stage1_step": o["cases"]["stage1_bf16"]["launches_per_step"][0],
+            "cotrain_step": o["cases"]["cotrain_bf16"]["launches_per_step"][0]}
+    return per_rank
+
+
 STEP_TIME_CHILDREN = ("agreement", "init", "init_host_adamw", "init_graph", "remat", "cotrain",
                       "cotrain_graph", "e2e", "bert_init", "bert_init_host_adamw",
                       "bert_cotrain")
@@ -3992,7 +4508,7 @@ def phase_step_times():
     with its CUDA context made, until its go file exists, and they are
     released one after another, so that no two time at once.
     ``process_seconds`` counts from a child's release."""
-    children = {}
+    children, lines = {}, []
     try:
         for which in STEP_TIME_CHILDREN:
             go = os.path.join(REPO, "build", f"step_time_go_{which}")
@@ -4006,9 +4522,11 @@ def phase_step_times():
             out = finish(proc, f"step times of {which}", timeout=900)
             for line in out.splitlines():
                 if line.startswith("{"):
-                    emit(dict(json.loads(line), process_seconds=time.perf_counter() - t0))
+                    lines.append(dict(json.loads(line), process_seconds=time.perf_counter() - t0))
+                    emit(lines[-1])
     finally:
         stop([proc for proc, _ in children.values()])
+    return lines
 
 
 def by_name(per_kernel, n=90):
@@ -4188,6 +4706,37 @@ def dp_world1_step_time(torch, card, batch, plain):
               "plain": plain})
         if timing == "profiler":
             check(nccl, "dp_world1: no NCCL kernel in the profile of a step")
+        del step, run
+        # slice 10: the same step as a CUDA graph holding the collectives, beside the
+        # graphed step without a group
+        graphed = {}
+        for which, group in (("dp_world1_graph", distributed.default_group()),
+                             ("plain_graph", None)):
+            _, _, multi, _ = train_setup(torch, torch.device("cuda"), fused=True, multi=True,
+                                         group=group)
+            pinned = [{k: v.cpu().pin_memory() for k, v in batch.items()}] * GROUP_K
+            run = lambda: multi(pinned)
+            run()  # the warm-up steps and the capture
+            ms = cuda_ms(torch, run, reps=3, warmup=1) / GROUP_K
+            busy, per_kernel, _, timing = device_profile(torch, run, reps=5, warmup=1)
+            busy = busy / GROUP_K if timing == "profiler" else None
+            graphed[which] = {
+                "ms_per_step": ms, "steps_per_s": 1e3 / ms, "timing": timing,
+                "device_busy_ms_per_step": busy,
+                "idle_share": None if busy is None else max(0.0, 1.0 - busy / ms),
+                "nccl_kernels_ms_per_step": {k: v / GROUP_K for k, v in by_name(
+                    per_kernel, 120).items() if any(m in k.lower() for m in NCCL_KERNEL_MARKS)},
+                "device_launches_per_group": profiled_launches(torch, run, nccl=True)}
+            del multi, run
+        emit({"phase": "times", "metric": "dp_world1_graph_step", "card": card,
+              "card_power": card_power(), "batch": TRAIN, "group_steps": GROUP_K,
+              "model": "E6D6 width 512, word2vec, fused MIL-NCE, bf16 compute, f32 params, "
+                       f"--steps_per_dispatch {GROUP_K} (a CUDA graph replayed per step)",
+              **graphed})
+        counts = graphed["dp_world1_graph"]["device_launches_per_group"]
+        check(counts is None or counts == dict(
+            {k: GROUP_K * n for k, n in STEP_LAUNCHES.items()}, nccl=GROUP_K),
+            f"dp_world1_graph: device launches in a group of replays {counts}")
     finally:
         distributed.destroy()
 
@@ -4229,9 +4778,13 @@ def phase_times(torch, card):
     rows = []
     # the eval's, the training's, the retrieval's (its key padding), then the
     # towers' (BERT's padding; the vision towers' calls have no mask)
-    for shape in KERNEL_SHAPES + MHA_BWD_SHAPES[:2] + YC2_TIMED_SHAPES + TOWER_SHAPES:
+    shapes = KERNEL_SHAPES + MHA_BWD_SHAPES[:2] + YC2_TIMED_SHAPES + TOWER_SHAPES + TP_SHAPES
+    for shape in shapes + [PUNCT_SHAPE]:
         Bq, H, S, D = shape
-        q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+        # the punctuator's attention runs in f32 (its own bound: f32 outside the tensor cores)
+        dtype = torch.float32 if shape == PUNCT_SHAPE else torch.bfloat16
+        peak = f32_peak(card) if shape == PUNCT_SHAPE else bf16_peak
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(3))
         if shape in YC2_TIMED_SHAPES:
             pad = yc2_mask(torch, Bq, S, dev)
         elif shape in TOWER_SHAPES[1:]:
@@ -4248,16 +4801,18 @@ def phase_times(torch, card):
         }
         # ms: device time of every kernel the call launched (profiler);
         # wall_ms: CUDA events around back-to-back calls, host issue included
-        row = {"shape": list(shape), "dtype": "bfloat16", "route": route(q.dtype, S),
-               "masked": mask is not None}
+        row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+               "route": route(q.dtype, S), "masked": mask is not None}
+        if dtype == torch.float32:  # mha_fwd_v1 is the earlier bf16 kernel
+            del fns["v1_"]
         for prefix, fn in fns.items():
             row[prefix + "ms"], _, _, row[prefix + "timing"] = device_profile(
                 torch, fn, confirm=True)
             row[prefix + "wall_ms"] = cuda_ms(torch, fn)
         nbytes, flops = attention_work(q, pad, full=2, passes=2)  # q, out; QK^T, PV
         nbytes -= 0 if mask is not None else pad.numel()  # no mask to read
-        t_bytes, t_ops = nbytes / bw, flops / bf16_peak
-        row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+        t_bytes, t_ops = nbytes / bw, flops / peak
+        row.update(bound_ms=max(t_bytes, t_ops) * 1e3, peak_flops_per_s=peak,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=nbytes, flops=flops)
         emit({"phase": "times", "kernel": "mha_fwd", "card": card, **row})
@@ -4293,6 +4848,9 @@ def main(argv) -> int:
     card = torch.cuda.get_device_name(0)
     if argv[:1] == ["--dp-rank"]:  # a child of phase_dp_two_ranks
         dp_rank(torch, int(argv[1]), int(argv[2]), argv[3])
+        return 0
+    if argv[:1] == ["--tp-rank"]:  # a child of phase_tp_two_ranks
+        tp_rank(torch, int(argv[1]), int(argv[2]), argv[3])
         return 0
     if argv[:1] == ["--step-time"]:  # a child of phase_step_times
         while not os.path.exists(argv[2]):  # released by the parent
@@ -4355,20 +4913,28 @@ def main(argv) -> int:
         world1 = start_dp_world1(resume_files)
         try:
             dp_launches = timed(phase_dp_two_ranks, dp_ranks, eval_files, retrieval_cli)
+            # slice 10: the tensor-parallel ranks run beside the world-of-one CLIs' wait,
+            # s3d and e2e_step (no timing), read before the timed HTM-AA pipeline
+            tp_ranks = timed(start_tp_two_ranks, torch, stage1_state)
             timed(phase_dp_world1, torch, world1)
         finally:
             stop(world1[0].values())
     finally:
         stop(dp_ranks[0])
-    timed(phase_s3d, torch, card)
-    e2e_launches = timed(phase_e2e_step, torch)
+    try:
+        timed(phase_s3d, torch, card)
+        e2e_launches = timed(phase_e2e_step, torch)
+        tp_launches = timed(phase_tp_two_ranks, tp_ranks)
+    finally:
+        stop(tp_ranks[0])
     htm_aa_launches, htm_aa_routes = timed(phase_htm_aa_pipeline, torch, card)
     bert_path = timed(make_bert_dir, torch, os.path.join(REPO, "build", "chip_smoke_bert"))
     bert_launches = timed(phase_bert, torch, files, bert_path)
     timed(phase_bert_cli, torch, files, bert_path, eval_files, yc2_files)
     timed(phase_clip_baseline, torch)
     tower_launches = timed(phase_tower_extract, torch)
-    timed(phase_step_times)
+    punct_launches = timed(phase_punctuate, torch, card)
+    step_lines = timed(phase_step_times)
     emit({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t_start})
 
     print(card_power(), flush=True)
@@ -4459,6 +5025,30 @@ def main(argv) -> int:
                 grouped_launches[case]["at_capture"][e["name"]]
     for e in entries:  # slice 9: each rank's launches over its bf16 Stage-1 and cotrain steps
         e["launches_dp_path"] = {r: n[e["name"]] for r, n in dp_launches.items()}
+    # slice 10: the punctuator's pipeline over PUNCT's videos; each tensor-parallel rank
+    # over its bf16 Stage-1 and cotrain steps (2 each), and per step; the device launches
+    # of a group of GROUP_K replayed world-of-one steps (profiled, NCCL's kernel beside)
+    graph_counts = next(l for l in step_lines if l.get("metric") == "dp_world1_graph_step")[
+        "dp_world1_graph"]["device_launches_per_group"]
+    for e in entries:
+        e["launches_punct_path"] = punct_launches[e["name"]]
+        e["launches_tp_path"] = {r: {"bf16_stage1_and_cotrain_steps": n["steps"][e["name"]],
+                                     "per_stage1_step": n["stage1_step"][e["name"]],
+                                     "per_cotrain_step": n["cotrain_step"][e["name"]]}
+                                 for r, n in tp_launches.items()}
+        e["launches_dp_graph_path"] = (None if graph_counts is None else
+                                       {"kernel": graph_counts[e["name"]],
+                                        "nccl": graph_counts["nccl"], "replays": GROUP_K})
+    entries[0]["launches_by_route_punct"] = punct_launches["routes"]["mha_fwd"]
+    entries[0]["punct_shape"] = {"shape": list(PUNCT_SHAPE), **{k: fwd_rows[PUNCT_SHAPE][k] for k in (
+        "dtype", "route", "masked", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "peak_flops_per_s")}}
+    entries[0]["tp_shapes"] = [{"shape": list(sh), **{k: fwd_rows[sh][k] for k in (
+        "route", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}} for sh in TP_SHAPES]
+    entries[1]["tp_shapes"] = [{"shape": train_rows[("mha_bwd", "tp", sh[2])]["shape"], **{
+        k: train_rows[("mha_bwd", "tp", sh[2])][k] for k in ("ms", "plain_ms", "library_ms",
+                                                             "bound_ms", "bound_by")}}
+        for sh in TP_SHAPES]
     entries[0]["launches_by_route_htm_aa"] = htm_aa_routes
     for e in entries[:2]:
         e["launches_by_route_bert"] = bert_launches["init"]["routes"][e["name"]]

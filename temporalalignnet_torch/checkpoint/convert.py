@@ -212,9 +212,15 @@ def reference_checkpoint(model: torch.nn.Module, optimizer=None, epoch: int = 0,
                          target: Optional[torch.nn.Module] = None) -> Dict[str, Any]:
     """``{epoch, state_dict, best_acc, optimizer, iteration}`` in the reference
     layout; the weights on the CPU in their own dtype.  With ``target`` (the
-    EMA twin's model) the state_dict is ``twin_state_dict``'s."""
+    EMA twin's model) the state_dict is ``twin_state_dict``'s.  A
+    tensor-parallel model's weights (and its optimizer's state) are gathered
+    to the full shapes, the key space of tp = 1 (a collective over its tp
+    ranks, which call this together)."""
+    from temporalalignnet_torch.parallel.tensor import model_tp_group, tp_gather_state_dict
+
     def cpu(m):
-        return {k: v.detach().cpu() for k, v in m.state_dict().items()}
+        sd = tp_gather_state_dict(m.state_dict(), model_tp_group(m))
+        return {k: v.detach().cpu() for k, v in sd.items()}
 
     return {
         "epoch": epoch,

@@ -31,8 +31,12 @@ The port needs no ``transformers``:
 - ``load_bert_dir``: config.json, vocab.txt with tokenizer_config.json, and
   the weights of ``model.safetensors`` (read by ``read_safetensors``, stdlib
   and torch) or ``pytorch_model.bin`` (``torch.load(weights_only=True)``),
-  put in the encoder's key space by ``bert_state_dict``.  A directory whose
-  only weights are ``flax_model.msgpack`` is refused.
+  put in the encoder's key space by ``bert_state_dict``, a token
+  classifier's ``classifier.*`` split off first (``split_classifier``).  A
+  directory whose only weights are ``flax_model.msgpack`` is refused.
+- ``BertForTokenClassification``: HF's token classifier in eval mode (the
+  punctuator of ``tools/sentencify.py``): ``bert`` without the pooler, and
+  ``classifier``; its state_dict is HF's key space.
 """
 
 from __future__ import annotations
@@ -181,14 +185,16 @@ class BertPooler(nn.Module):
 
 
 class BertEncoder(nn.Module):
-    """[B, W] token ids -> {last_hidden_state [B, W, D], pooler_output [B, D]}."""
+    """[B, W] token ids -> {last_hidden_state [B, W, D], pooler_output [B, D]}
+    (without the pooler, ``add_pooling_layer=False`` as HF's token
+    classifier builds its ``bert``: last_hidden_state only)."""
 
-    def __init__(self, cfg: Optional[BertConfig] = None):
+    def __init__(self, cfg: Optional[BertConfig] = None, add_pooling_layer: bool = True):
         super().__init__()
         self.cfg = cfg or BertConfig()
         self.embeddings = BertEmbeddings(self.cfg)
         self.encoder = BertLayers(self.cfg)
-        self.pooler = BertPooler(self.cfg)
+        self.pooler = BertPooler(self.cfg) if add_pooling_layer else None
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "BertEncoder":
@@ -211,7 +217,33 @@ class BertEncoder(nn.Module):
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         h = self.encoder(self.embeddings(input_ids), (attention_mask == 0).contiguous())
+        if self.pooler is None:
+            return {"last_hidden_state": h}
         return {"last_hidden_state": h, "pooler_output": self.pooler(h)}
+
+
+class BertForTokenClassification(nn.Module):
+    """HF ``BertForTokenClassification`` in eval mode: ``bert`` (no pooler),
+    dropout as identity, ``classifier`` Linear(hidden, num_labels); its
+    state_dict is HF's key space (``bert.*``, ``classifier.*``).
+    [B, W] ids -> [B, W, num_labels] logits."""
+
+    def __init__(self, cfg: BertConfig, num_labels: int):
+        super().__init__()
+        self.bert = BertEncoder(cfg, add_pooling_layer=False)
+        self.classifier = nn.Linear(cfg.hidden_size, num_labels)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.classifier(self.bert(input_ids, attention_mask)["last_hidden_state"])
+
+
+def num_labels(config_path: str) -> int:
+    """The labels of an HF config.json: its ``id2label``, else ``num_labels``,
+    else HF's default 2."""
+    with open(config_path) as f:
+        raw = json.load(f)
+    return len(raw["id2label"]) if "id2label" in raw else int(raw.get("num_labels", 2))
 
 
 # ---------------------------------------------------------------------------
@@ -406,12 +438,22 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def split_classifier(sd: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor],
+                                                           Dict[str, torch.Tensor]]:
+    """(everything else, the token classifier's ``classifier.*`` weights in
+    f32 under ``weight`` / ``bias``) of an HF BERT weight file."""
+    head = {k[len("classifier."):]: torch.as_tensor(v).float()
+            for k, v in sd.items() if k.startswith("classifier.")}
+    return {k: v for k, v in sd.items() if not k.startswith("classifier.")}, head
+
+
 def bert_state_dict(sd: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], List[str]]:
     """HF BERT weights (BertModel, or BertForPreTraining and the like under
     ``bert.``) -> BertEncoder's keys in f32: the ``bert.`` prefix stripped,
     the old LayerNorm names ``gamma``/``beta`` renamed, the ``cls.*`` heads
-    and the position/token-type id buffers dropped.  Returns (weights, the
-    report of what was dropped)."""
+    and the position/token-type id buffers dropped.  A token classifier's
+    ``classifier.*`` must be split off first (``split_classifier``).
+    Returns (weights, the report of what was dropped)."""
     out, report = {}, []
     for key, value in sd.items():
         if key.startswith("bert."):
@@ -419,6 +461,9 @@ def bert_state_dict(sd: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor
         if key.startswith("cls."):
             report.append(f"dropped (pre-training head): {key}")
             continue
+        if key.startswith("classifier."):
+            raise ValueError(f"{key}: a token classifier's head; split it off with "
+                             "split_classifier")
         if key.endswith(("embeddings.position_ids", "embeddings.token_type_ids")):
             continue
         if key.endswith(".gamma"):
@@ -437,6 +482,7 @@ class BertDir:
     weights: Optional[Dict[str, torch.Tensor]]  # BertEncoder keys; None: no weight file
     weight_file: Optional[str]
     report: List[str]
+    classifier: Dict[str, torch.Tensor]  # a token classifier's head (weight, bias), or {}
 
 
 def load_bert_dir(path: str) -> BertDir:
@@ -450,13 +496,14 @@ def load_bert_dir(path: str) -> BertDir:
                                                                   weights_only=True))):
         file = os.path.join(path, name)
         if os.path.exists(file):
-            weights, report = bert_state_dict(read(file))
-            return BertDir(path, config, tokenizer, weights, file, report)
+            rest, head = split_classifier(read(file))
+            weights, report = bert_state_dict(rest)
+            return BertDir(path, config, tokenizer, weights, file, report, head)
     if os.path.exists(os.path.join(path, "flax_model.msgpack")):
         raise ValueError(f"{path}: its only weights are flax_model.msgpack (Flax's msgpack "
                          "format), which the port does not read; give it model.safetensors "
                          "or pytorch_model.bin")
-    return BertDir(path, config, tokenizer, None, None, [])
+    return BertDir(path, config, tokenizer, None, None, [], {})
 
 
 def write_bert_dir(path: str, config: BertConfig, vocab: Sequence[str],

@@ -1,15 +1,22 @@
-"""The data-parallel mesh and the row contracts (the data-parallel part of
+"""The (dp, tp) mesh and the row contracts (counterpart of
 temporalalignnet_tpu/parallel/mesh.py).
 
-Under ``torch.distributed`` the mesh is the process group: one rank per card,
-each holding a full copy of the params, and the batch split over the ranks
-in contiguous row blocks (the JAX package's ``P('data')`` over the
-``data`` axis).  Tensor parallelism (the JAX package's ``model`` axis and
-its ``_TP_RULES``) is not here: ``tp > 1`` is refused.
+Under ``torch.distributed`` the mesh is the process group: one rank per
+card, ``dp`` data-parallel replicas of ``tp`` tensor-parallel ranks each.
+Rank r is dp index r // tp and tp index r % tp, JAX's row-major reshape of
+the devices to ``(dp, tp)`` (mesh.py:60 there).  The batch is split over
+the dp index in contiguous row blocks (the JAX package's ``P('data')``), so
+the tp ranks of one replica share their rows; the encoder blocks are
+sharded over the tp ranks (``parallel/tensor.py``, JAX's ``_TP_RULES`` on
+the ``model`` axis).
 
-- ``make_mesh(dp, tp)``: checks ``dp`` against the world size;
-- ``local_batch_rows(global_batch)``: this rank's ``[lo, hi)`` rows of a
-  global batch (mesh.py:73-95), refused unless the world size divides it;
+- ``make_mesh(dp, tp)``: checks ``dp · tp`` against the world size and,
+  with tp > 1, makes the dp groups (the ranks of one tp index: the loss's
+  global batch, the gradient average) and the tp groups (the ranks of one
+  dp index); with tp = 1 the dp group is the whole group;
+- ``local_batch_rows(global_batch, dp_group)``: this rank's ``[lo, hi)``
+  rows of a global batch (mesh.py:73-95), by its dp index, refused unless
+  the dp size divides it;
 - ``sharded_rows`` / ``fetch_global``: the process-group forms of the JAX
   package's ``put_from_host`` and ``fetch_global`` (mesh.py:115-128,
   147-160) for the evaluators: every rank holds the whole host array, runs
@@ -27,41 +34,54 @@ import torch
 
 from temporalalignnet_torch.parallel import distributed
 
-TP_WORK = "tensor parallelism (ROADMAP Queue A 5)"
-
-
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``dp`` ranks of ``group`` (None: one process, no group)."""
+    """``dp`` replicas over ``dp_group`` (None: one process, no group), each
+    of ``tp`` ranks over ``tp_group`` (None: tp = 1)."""
 
     dp: int
-    group: Any = None
+    dp_group: Any = None
+    tp: int = 1
+    tp_group: Any = None
 
 
 def make_mesh(dp_size: int = -1, tp_size: int = 1, group=None) -> Mesh:
-    """The data-parallel mesh over the default process group (or ``group``):
-    ``dp_size`` -1 means every rank; any other value must be the world size."""
-    if tp_size != 1:
-        raise ValueError(f"--tp {tp_size}: tensor parallelism is not in the port; it comes "
-                         f"with {TP_WORK}")
+    """The mesh over the default process group (or ``group``): ``dp_size``
+    -1 means world / tp; the world must be dp · tp.  Every rank makes every
+    subgroup, in one order (``dist.new_group`` is collective)."""
+    if tp_size < 1:
+        raise ValueError(f"--tp {tp_size}: must be at least 1")
     if group is None:
         group = distributed.default_group()
     world = distributed.world_size(group)
-    if dp_size not in (-1, world):
-        hint = ("" if group is not None else
-                "; start one process per card with torchrun (or --multihost with "
-                "--coordinator, --num_processes and --process_id in each)")
-        raise ValueError(f"--dp {dp_size}: the data-parallel size is the world size, "
-                         f"{world}{hint}")
-    return Mesh(world, group)
+    hint = ("" if group is not None else
+            "; start one process per card with torchrun (or --multihost with "
+            "--coordinator, --num_processes and --process_id in each)")
+    if world % tp_size:
+        raise ValueError(f"--tp {tp_size} does not divide the {world} processes{hint}")
+    if dp_size not in (-1, world // tp_size):
+        raise ValueError(f"--dp {dp_size}: the data-parallel size is the world size over "
+                         f"--tp, {world} / {tp_size} = {world // tp_size}{hint}")
+    if tp_size == 1:
+        return Mesh(world, group)
+    import torch.distributed as dist
+
+    ranks = dist.get_process_group_ranks(group)
+    dp_size, me = world // tp_size, distributed.rank(group)
+    tp_groups = [dist.new_group([ranks[i * tp_size + j] for j in range(tp_size)])
+                 for i in range(dp_size)]
+    dp_groups = [dist.new_group([ranks[i * tp_size + j] for i in range(dp_size)])
+                 for j in range(tp_size)]
+    return Mesh(dp_size, dp_groups[me % tp_size], tp_size, tp_groups[me // tp_size])
 
 
 def local_batch_rows(global_batch: int, group=None) -> Tuple[int, int]:
-    """[lo, hi): this rank's contiguous rows of a global batch."""
+    """[lo, hi): this rank's contiguous rows of a global batch, by its rank in
+    ``group`` (the dp group: its dp index)."""
     world, r = distributed.world_size(group), distributed.rank(group)
     if global_batch % world:
         raise ValueError(f"batch {global_batch} does not split over {world} ranks: the "
-                         "global batch must be a multiple of the world size")
+                         "global batch must be a multiple of the data-parallel size")
     per = global_batch // world
     return r * per, (r + 1) * per
 

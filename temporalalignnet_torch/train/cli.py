@@ -84,9 +84,20 @@ the global batch: each process builds its rows of it (a
 runs on the global batch (``train/train_step.py``).  Process i takes
 ``cuda:LOCAL_RANK`` (or the card ``--device`` names).  Only process 0
 writes checkpoints, the metrics log and the log lines; the downstream evals
-split their forward calls over the processes.  ``--tp > 1`` (tensor
-parallelism) and ``--steps_per_dispatch > 1`` on the card under a process
-group exit with a message naming the work that brings them.
+split their forward calls over the processes.
+
+Tensor parallelism (JAX train/cli.py:130, 327, 340): ``--tp T`` shards the
+encoder blocks' attention heads and MLPs over T processes
+(``parallel/tensor.py``; JAX's ``_TP_RULES``), and ``--dp`` is then the
+number of processes over T (-1: all of them).  Process r is dp index r // T
+and tp index r % T; the T processes of one dp index build the same batch
+rows.  ``--tp`` must divide ``--heads``, ``--width`` and 4 x ``--width``.
+The checkpoints hold the gathered weights and optimizer state, the tp = 1
+key space: the eval CLI and a run at any ``--tp`` read them.
+
+``--steps_per_dispatch > 1`` on the card runs under an NCCL process group
+too (the graph holds the collectives); it refuses a gloo group and
+``--tp > 1``.
 """
 
 from __future__ import annotations
@@ -186,7 +197,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "batch on the card; checkpoints, evals and the stop once per group")
     p.add_argument("--dp", type=int, default=-1,
                    help="data-parallel size: -1 or the number of processes")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel size (1 only)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel size: the encoder blocks sharded over this many "
+                        "processes")
     add_multihost_flags(p)
     return p
 
@@ -278,8 +291,11 @@ def read_resume_state(spec: str, ckpt) -> dict:
 
 def restore_training(state: dict, model, optimizer, step_fn, twin) -> int:
     """Weights, optimizer, pos-start generator and twin from a checkpoint the
-    trainer wrote; returns its step."""
-    sd = state["state_dict"]
+    trainer wrote (a tensor-parallel model takes its shard); returns its
+    step."""
+    from temporalalignnet_torch.parallel.tensor import shard_for
+
+    sd = shard_for(model, state["state_dict"])
     halves = {p: {k[len(p):]: v for k, v in sd.items() if k.startswith(p)}
               for p in ("online.", "target.")}
     if (twin is not None) != bool(halves["target."]):
@@ -305,11 +321,8 @@ def main(argv: Optional[list] = None) -> dict:
     import torch
 
     from temporalalignnet_torch.parallel import distributed
-    from temporalalignnet_torch.parallel.mesh import TP_WORK, make_mesh
+    from temporalalignnet_torch.parallel.mesh import make_mesh
 
-    if args.tp != 1:
-        raise SystemExit(f"--tp {args.tp}: tensor parallelism is not in the port; it comes "
-                         f"with {TP_WORK}")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device here (pass --device cpu for the CPU path)")
     started = distributed.start_multihost(args)
@@ -318,13 +331,13 @@ def main(argv: Optional[list] = None) -> dict:
             mesh = make_mesh(args.dp, args.tp)
         except ValueError as e:
             raise SystemExit(str(e)) from None
-        return _train(args, mesh.group)
+        return _train(args, mesh)
     finally:
         if started:
             distributed.destroy()
 
 
-def _train(args, group) -> dict:
+def _train(args, mesh) -> dict:
     import torch
 
     from temporalalignnet_torch.checkpoint import (Checkpointer, atomic_save,
@@ -345,10 +358,12 @@ def _train(args, group) -> dict:
     from temporalalignnet_torch.parallel.distributed import (barrier, is_master, master_print,
                                                              process_device, rank, world_size)
     from temporalalignnet_torch.parallel.mesh import local_batch_rows
+    from temporalalignnet_torch.parallel.tensor import shard_model_
     from temporalalignnet_torch.utils import (AverageMeter, MetricsWriter, ProgressMeter,
                                               StepBreakdown, StepTimer, device_memory_stats,
                                               trace)
 
+    group = mesh.dp_group  # the loss's global batch and the gradient average
     device = process_device(args.device)
     compute = torch.float32 if args.f32 or device.type == "cpu" else Precision().compute
     fused = resolve_fused_milnce(args.fused_milnce, device.type)
@@ -411,7 +426,9 @@ def _train(args, group) -> dict:
             local_rows = local_batch_rows(args.batch_size, group)
         except ValueError as e:
             raise SystemExit(f"--batch_size: {e}") from None
-        print(f"[multihost] process {rank()}/{world_size()} "
+        tp_index = f" (dp index {rank(group)}, tp index {rank(mesh.tp_group)})" \
+            if mesh.tp_group is not None else ""
+        print(f"[multihost] process {rank()}/{world_size()}{tp_index} "
               f"builds batch rows [{local_rows[0]}, {local_rows[1]})", flush=True)
 
     model = TANWithText(mcfg, vocab_size=tokenizer.vocab_size,
@@ -426,6 +443,11 @@ def _train(args, group) -> dict:
     if args.test:
         load_reference_checkpoint(args.test, model)
     model.to(device)
+    if mesh.tp_group is not None:  # this process's shard of the encoder blocks
+        try:
+            shard_model_(model, mesh.tp_group)
+        except ValueError as e:  # --tp does not divide the heads or the widths
+            raise SystemExit(str(e)) from None
 
     eval_cache: dict = {}
     best_acc = 0.0  # the best HTM-Align Recall so far, the reference's best_acc

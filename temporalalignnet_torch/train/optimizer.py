@@ -23,6 +23,14 @@ temporalalignnet_tpu/train/optimizer.py, whose optax chain is
 - ``backprop_freq = k``: ``optax.MultiSteps``: the k micro-step gradients are
   averaged (Welford mean, as optax) and one update is applied every k.
 
+Under tensor parallelism (a model that holds its shard,
+``parallel/tensor.py``) clipping sees whole parameters, as JAX clips its
+global arrays: a sharded parameter's squared norm is summed over the tp
+ranks, a replicated one counts once; AdamW's moments are sharded like their
+parameters, and ``state_dict`` / ``load_state_dict`` gather them and the
+``backprop_freq`` accumulator to the full shapes and shard them again (a
+collective over the tp ranks).
+
 On the card (``capturable``, the default where the params lie on a CUDA
 device) an update issues device work only, so a CUDA graph can hold it
 (``train_step.make_multi_train_step``): AdamW runs with ``capturable=True``
@@ -42,8 +50,11 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from temporalalignnet_torch.core.config import TrainConfig
+from temporalalignnet_torch.parallel import tensor as tp_ops
+from temporalalignnet_torch.parallel.distributed import _all_reduce, rank, world_size
 
 MAX_CONSECUTIVE_ERRORS = 100
 
@@ -98,10 +109,16 @@ class Optimizer:
                  if p.requires_grad or policy == "e2e"]
         self.grad_params: List[torch.nn.Parameter] = [p for _, p in named]
         self.params = [p for n, p in named if trainable(n, policy)]
-        decay = [p for n, p in named if trainable(n, policy) and not no_decay(n, policy)]
-        rest = [p for n, p in named if trainable(n, policy) and no_decay(n, policy)]
-        groups = [g for g in ({"params": decay, "weight_decay": cfg.wd},
-                              {"params": rest, "weight_decay": 0.0}) if g["params"]]
+        decay = [(n, p) for n, p in named if trainable(n, policy) and not no_decay(n, policy)]
+        rest = [(n, p) for n, p in named if trainable(n, policy) and no_decay(n, policy)]
+        groups = [g for g in ({"params": [p for _, p in decay], "weight_decay": cfg.wd},
+                              {"params": [p for _, p in rest], "weight_decay": 0.0})
+                  if g["params"]]
+        # the names of AdamW's param indices and of the accumulator's entries
+        self._names = [n for n, _ in decay + rest]
+        self._grad_names = [n for n, _ in named]
+        self.tp_group = tp_ops.model_tp_group(model)
+        self._sharded = [tp_ops.is_sharded(p) for p in self.params]
         device = self.grad_params[0].device if self.grad_params else torch.device("cpu")
         self.capturable = device.type == "cuda" if capturable is None else capturable
         if self.capturable:
@@ -136,13 +153,30 @@ class Optimizer:
         for p in self.grad_params:
             p.grad = None
 
+    def _map_shards(self, state: dict, fn) -> dict:
+        """``state`` with ``fn(name, tensor)`` applied to AdamW's moments and
+        the accumulator's entries (the counters as they are)."""
+        adamw = state["adamw"]
+        moments = {i: {k: fn(self._names[i], v) if torch.is_tensor(v) and v.dim() else v
+                       for k, v in s.items()} for i, s in adamw["state"].items()}
+        acc = state["acc"]
+        return dict(state, adamw=dict(adamw, state=moments),
+                    acc=None if acc is None else [fn(n, a) for n, a in zip(self._grad_names, acc)])
+
     def state_dict(self) -> dict:
         """Everything an exact resume needs: AdamW's moments, the counters,
-        and the accumulator of a part-done ``backprop_freq`` cycle."""
-        return {"adamw": self.adamw.state_dict(), "updates": self.updates, "micro": self.micro,
-                "notfinite": self.notfinite, "acc": self._acc}
+        and the accumulator of a part-done ``backprop_freq`` cycle; under
+        tensor parallelism gathered to the full shapes."""
+        state = {"adamw": self.adamw.state_dict(), "updates": self.updates, "micro": self.micro,
+                 "notfinite": self.notfinite, "acc": self._acc}
+        if self.tp_group is None:
+            return state
+        return self._map_shards(state, lambda n, x: tp_ops.gather_tensor(n, x, self.tp_group))
 
     def load_state_dict(self, state: dict) -> None:
+        if self.tp_group is not None:  # a full state: this rank's shard of it
+            r, tp = rank(self.tp_group), world_size(self.tp_group)
+            state = self._map_shards(state, lambda n, x: tp_ops.shard_tensor(n, x, r, tp))
         adamw = state["adamw"]  # this optimizer's mode, whichever device wrote the state
         adamw = dict(adamw, param_groups=[dict(g, capturable=self.capturable)
                                           for g in adamw["param_groups"]])
@@ -179,10 +213,13 @@ class Optimizer:
         if self.cfg.clip_grad_norm > 0:
             mx = self.cfg.clip_grad_norm
             if self.cfg.clip_mode == "per_param":
-                train = [g * torch.clamp(mx / (torch.linalg.vector_norm(g.float()) + 1e-6),
-                                         max=1.0) for g in train]
+                norms = [torch.linalg.vector_norm(g.float()) for g in train]
+                if self.tp_group is not None:  # a sharded parameter's whole norm
+                    norms = whole_norms(norms, self._sharded, self.tp_group).unbind()
+                train = [g * torch.clamp(mx / (n + 1e-6), max=1.0)
+                         for g, n in zip(train, norms)]
             else:
-                norm = global_norm(train)
+                norm = global_norm(train, self._sharded, self.tp_group)
                 train = [torch.where(norm < mx, g, g / norm * mx) for g in train]
         for p, g in zip(self.params, train):
             p.grad = g
@@ -200,7 +237,20 @@ class Optimizer:
         return True
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
+def whole_norms(norms, sharded, tp_group) -> torch.Tensor:
+    """[n]: each norm of a shard made its whole parameter's (the squares
+    summed over the tp ranks, one all-reduce); a replicated one as it is."""
+    norms = torch.stack(list(norms))
+    mask = torch.tensor(sharded, device=norms.device)
+    summed = _all_reduce(torch.where(mask, norms.square(), 0.0), dist.ReduceOp.SUM, tp_group)
+    return torch.where(mask, summed.sqrt(), norms)
+
+
+def global_norm(tensors, sharded=None, tp_group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm); under
+    tensor parallelism (``tp_group``, with ``sharded`` per tensor) of the
+    whole parameters."""
+    norms = torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors])
+    if tp_group is None:
+        return torch.linalg.vector_norm(norms)
+    return torch.linalg.vector_norm(whole_norms(norms.unbind(), sharded, tp_group))

@@ -24,6 +24,14 @@ EMA twin.  The reduction runs with any group, one rank included.  The
 explicit all-reduce stands in for ``DistributedDataParallel``: the twin's
 params never get a gradient and DDP's hooks reorder the reductions.
 
+Tensor parallelism (a model that holds its shard, ``parallel/tensor.py``):
+``group`` is the dp group (the loss's global batch, the gradient average);
+the tp ranks of a replica run the same rows, each its shard of the encoder
+blocks.  The replicated params' gradients, equal on the tp ranks up to the
+order of a kernel's sums, are averaged over the tp group too, so that those
+params stay bit-equal there; the EMA twin is a copy of the sharded model,
+sharded alike; ``grad_norm`` is the whole params' norm.
+
 Batch dict (fixed shapes): video [B, T, Cv] f32, video_padding_mask [B, T]
 bool, input_ids [B, N, W] int, text_padding_mask [B, N] bool, start, end
 [B, N] f32, abs_text_pos [B, N, 2] f32.
@@ -41,10 +49,9 @@ from temporalalignnet_torch.core.config import LossConfig, TrainConfig
 from temporalalignnet_torch.losses.tan_loss import get_loss
 from temporalalignnet_torch.models.net import TANWithText
 from temporalalignnet_torch.ops import kernels
+from temporalalignnet_torch.parallel import tensor as tp_ops
 from temporalalignnet_torch.parallel.distributed import average_, world_size
 from temporalalignnet_torch.train.optimizer import Optimizer, global_norm
-
-GRAPH_WORK = "grouped dispatch under a process group (ROADMAP Queue A 6)"
 
 
 class EMATwin:
@@ -146,6 +153,7 @@ def make_train_step(
     generator = torch.Generator().manual_seed(train_cfg.seed)
     autocast = compute_dtype != torch.float32
     world = world_size(group) if group is not None else 1
+    tp_group = tp_ops.model_tp_group(model)
 
     def draw(batch: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
         return model.draw_pos_starts(batch["video"].shape[1], batch["input_ids"].shape[1],
@@ -165,10 +173,14 @@ def make_train_step(
         loss, metrics = get_loss(outputs, batch, loss_cfg, group)
         optimizer.zero_grad()
         (loss * world if group is not None else loss).backward()
-        grads = [p.grad for p in optimizer.grad_params if p.grad is not None]
+        with_grad = [p for p in optimizer.grad_params if p.grad is not None]
+        grads = [p.grad for p in with_grad]
         average_gradients(grads, group)
+        sharded = [tp_ops.is_sharded(p) for p in with_grad]
+        if tp_group is not None:  # the replicated params stay equal on the tp ranks
+            average_gradients([g for g, s in zip(grads, sharded) if not s], tp_group)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = global_norm(grads, sharded, tp_group)
         optimizer.step()
         if twin is not None:
             twin.update(model)
@@ -183,6 +195,29 @@ def make_train_step(
     step.model, step.optimizer, step.twin, step.device = model, optimizer, twin, device
     step.group = group
     return step
+
+
+def check_graphable(model: TANWithText, train_cfg: TrainConfig, group=None) -> None:
+    """Raise where a CUDA graph cannot hold the train step: a process group
+    that is not NCCL's, a tensor-parallel model, and the host branches of
+    ``--backprop_freq > 1`` and ``--skip_nonfinite``."""
+    if group is not None:
+        import torch.distributed as dist
+
+        backend = dist.get_backend(group)
+        if backend != "nccl":
+            raise ValueError(
+                f"grouped dispatch on the card captures the step's collectives in a CUDA "
+                f"graph: a {backend} collective is host code, which a graph cannot hold (use "
+                "NCCL, or --steps_per_dispatch 1)")
+    if tp_ops.model_tp_group(model) is not None:
+        raise ValueError("grouped dispatch on the card takes no tensor-parallel model (--tp "
+                         "> 1): its steps run one at a time (--steps_per_dispatch 1)")
+    if train_cfg.backprop_freq != 1 or train_cfg.skip_nonfinite_updates:
+        raise ValueError(
+            "grouped dispatch on the card captures one update per step: --backprop_freq "
+            "> 1 and --skip_nonfinite branch on the host per step (they come with "
+            "ROADMAP 'Kernel and card work' item 2)")
 
 
 def make_multi_train_step(
@@ -216,19 +251,16 @@ def make_multi_train_step(
     capture's, once.  ``--backprop_freq > 1`` and ``--skip_nonfinite``
     branch on the host per step and are refused on the card, and so is a
     group that would run past ``total_iterations``, where the device lr
-    table ends (``Optimizer.lr_from_table``).  Under a process group the
-    card refuses grouped dispatch (capturing the collectives is later work);
-    the CPU runs its eager steps, data-parallel."""
+    table ends (``Optimizer.lr_from_table``).  Under an NCCL process group
+    the graph holds the step's collectives too (the text all-gather, the
+    column-logsumexp merges, the ``milnce_dt`` reduce-scatter, the loss
+    statistics, the gradient average), each on buffers of the graph's pool,
+    the same on every replay.  The card refuses a gloo group (a gloo
+    collective is host code, which a CUDA graph cannot hold) and a
+    tensor-parallel model; the CPU runs its eager steps under any group."""
     step = make_train_step(model, optimizer, train_cfg, loss_cfg, compute_dtype, twin, group)
     if step.device.type == "cuda":
-        if group is not None:
-            raise ValueError(f"grouped dispatch on the card under a process group comes with "
-                             f"{GRAPH_WORK}")
-        if train_cfg.backprop_freq != 1 or train_cfg.skip_nonfinite_updates:
-            raise ValueError(
-                "grouped dispatch on the card captures one update per step: --backprop_freq "
-                "> 1 and --skip_nonfinite branch on the host per step (they come with "
-                "ROADMAP 'Kernel and card work' item 2)")
+        check_graphable(model, train_cfg, group)
         multi = GraphedStep(step)
     else:
         def multi(batches):

@@ -3,8 +3,10 @@ tests/test_resume.py:192-260) and what a CUDA graph of the train step needs
 of the model and the optimizer: on the CPU, a grouped run against the
 per-step run, bit-equal, with an epoch's tail group and a mid-epoch resume;
 the overshoot line; the random pos starts as a device index; the device lr
-table and its end.  On a card (``cuda``): a group of eager warm-up steps
-and replays against as many eager steps.  The CPU tests'
+table and its end; what a graph refuses (a gloo group, a tensor-parallel
+model, the host branches).  On a card (``cuda``): a group of eager warm-up
+steps and replays against as many eager steps, also under a world-of-one
+NCCL group (the collectives captured).  The CPU tests'
 JAX-free fixtures are imported inside them, so the card's tests collect
 without JAX:
 
@@ -134,7 +136,7 @@ def _batch(seed, B=3, T=16, N=4, Wd=8):
         feature_dim=MODEL["video_embed_dim"], vocab_size=50, max_words=Wd).items()}
 
 
-def _setup(cotrain=False, device="cpu", multi=False, **train_kw):
+def _setup(cotrain=False, device="cpu", multi=False, group=None, **train_kw):
     head = dict(use_alignability_head=True) if cotrain else {}
     card = str(device) != "cpu"  # heads of 64: the kernels' head dim
     model = TANWithText(ModelConfig(**MODEL, **head, use_text_pos_enc=True, fused_milnce=card),
@@ -146,7 +148,7 @@ def _setup(cotrain=False, device="cpu", multi=False, **train_kw):
     loss_kw = dict(model="cotrain", learn_agreement=True, **head) if cotrain else {}
     make = make_multi_train_step if multi else make_train_step
     step = make(model, opt, tcfg, LossConfig(use_fused_milnce=card, **loss_kw),
-                compute_dtype=torch.float32, twin=twin)
+                compute_dtype=torch.float32, twin=twin, group=group)
     return model, opt, step, twin
 
 
@@ -255,3 +257,82 @@ def test_cli_refuses_host_branches_grouped_on_card_only(data, tmp_path):
                   "--max_steps", "4")
     assert out["final_step"] == 4 and out["loss_finite"]
     assert os.path.exists(out["checkpoint"])
+
+
+@pytest.fixture
+def world_of_one():
+    """A gloo group of one CPU process, left at the end."""
+    from port_fixtures import free_port
+    from temporalalignnet_torch.parallel import distributed
+
+    assert distributed.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cpu")
+    try:
+        yield distributed.default_group()
+    finally:
+        distributed.destroy()
+
+
+@pytest.mark.parametrize("what", ["gloo", "tensor_parallel", "host_branch"])
+def test_graph_refusals_say_why(world_of_one, what):
+    """What a CUDA graph of the step cannot hold, refused with its reason
+    (``check_graphable``, which the card runs before a capture): a gloo
+    group's collectives are host code; a tensor-parallel model; the host
+    branches of --backprop_freq > 1.  An NCCL group passes."""
+    from temporalalignnet_torch.parallel.tensor import TPGroup
+    from temporalalignnet_torch.train.train_step import check_graphable
+
+    model = _setup()[0]
+    tcfg = TrainConfig(lr=1e-3, backprop_freq=2 if what == "host_branch" else 1)
+    group = world_of_one if what == "gloo" else None
+    if what == "tensor_parallel":
+        model.joint_temporal_encoder.resblocks[0].attn.tp = TPGroup(world_of_one)
+    match = {"gloo": "gloo collective is host code", "tensor_parallel": "tensor-parallel",
+             "host_branch": "branch on the host"}[what]
+    with pytest.raises(ValueError, match=match):
+        check_graphable(model, tcfg, group)
+    check_graphable(_setup()[0], TrainConfig(lr=1e-3))  # no group, no branch: capturable
+
+
+def test_grouped_steps_under_a_group_equal_single_steps_on_the_cpu(world_of_one):
+    """On the CPU a group of steps under a process group (here gloo, a world
+    of one) is that many eager data-parallel steps."""
+    batches = [_batch(s) for s in range(3)]
+    ref_model, _, step, _ = _setup(group=world_of_one)
+    want = [step(b) for b in batches]
+    model, _, multi, _ = _setup(multi=True, group=world_of_one)
+    got = multi(batches)
+    for k in want[0]:
+        assert torch.equal(got[k], torch.stack([w[k] for w in want])), k
+    _assert_equal(ref_model.state_dict(), model.state_dict())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cotrain", [False, True], ids=["init", "cotrain"])
+def test_graphed_group_under_nccl_equals_eager_steps_on_card(cuda, cotrain):
+    """A world of one over NCCL: the captured step holds its collectives (the
+    loss's gathers and statistics, the column merges, the gradient average);
+    its replays against as many eager steps under the same group, to the bit."""
+    import socket
+
+    from temporalalignnet_torch.parallel import distributed
+    from temporalalignnet_torch.train.train_step import GraphedStep
+
+    with socket.socket() as sock:  # port_fixtures imports JAX, which the card's machine lacks
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    distributed.initialize_multihost(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        group = distributed.default_group()
+        n = GraphedStep.WARMUP + 2
+        batches = [{k: v.pin_memory() for k, v in _batch(s).items()} for s in range(n)]
+        model, opt, step, twin = _setup(cotrain, cuda, group=group)
+        want = torch.stack([step(b)["loss"] for b in batches])
+        gmodel, gopt, multi, gtwin = _setup(cotrain, cuda, multi=True, group=group)
+        got = multi(batches)["loss"]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and gopt.updates == opt.updates == n
+        _assert_equal(model.state_dict(), gmodel.state_dict())
+        if cotrain:
+            _assert_equal(twin.model.state_dict(), gtwin.model.state_dict())
+    finally:
+        distributed.destroy()

@@ -49,6 +49,10 @@ SLICE_8 = {"temporalalignnet_torch.tools.export_eval", "temporalalignnet_torch.t
 # data parallelism over torch.distributed (slice 9)
 SLICE_9 = {"temporalalignnet_torch.parallel", "temporalalignnet_torch.parallel.distributed",
            "temporalalignnet_torch.parallel.mesh"}
+# the offline text pipeline and tensor parallelism (slice 10)
+SLICE_10 = {"temporalalignnet_torch.tools.filters", "temporalalignnet_torch.tools.convert_captions",
+            "temporalalignnet_torch.tools.sentencify", "temporalalignnet_torch.tools.process_htm",
+            "temporalalignnet_torch.tools.whisper_asr", "temporalalignnet_torch.parallel.tensor"}
 
 
 def test_port_imports_with_jax_blocked():
@@ -59,7 +63,7 @@ def test_port_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     imported = set(out.stdout.split())
     assert len(imported) >= 34  # every module of the port was imported
-    slices = SLICE_6 | SLICE_7 | SLICE_8 | SLICE_9
+    slices = SLICE_6 | SLICE_7 | SLICE_8 | SLICE_9 | SLICE_10
     assert slices <= imported, slices - imported
 
 
@@ -72,4 +76,4 @@ def test_port_sources_never_import_the_jax_package():
     assert len(PORT_SOURCES) >= 34
     assert {str(p.relative_to(REPO)) for p in PORT_SOURCES} >= {
         m.replace(".", "/") + ("/__init__.py" if m.endswith(("tools", "parallel")) else ".py")
-        for m in SLICE_6 | SLICE_7 | SLICE_8 | SLICE_9}
+        for m in SLICE_6 | SLICE_7 | SLICE_8 | SLICE_9 | SLICE_10}

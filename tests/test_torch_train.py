@@ -383,9 +383,9 @@ def _free_port():
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"], ["--multihost"]])
 def test_train_cli_refuses_flags_of_later_slices(flag, feature_dir, tmp_path, capsys):
-    """The JAX trainer's multi-GPU flags: ``--dp 2`` without a process group
-    is refused naming the launcher, ``--tp 2`` is refused naming the ROADMAP
-    item that brings tensor parallelism, and ``--multihost`` in a world of
+    """The JAX trainer's multi-GPU flags: ``--dp 2`` and ``--tp 2`` without a
+    process group are refused naming the launcher (tensor parallelism itself:
+    tests/test_torch_tensor_parallel.py), and ``--multihost`` in a world of
     one (``--dp 1``) trains as the run without it: the same losses, and
     params within f32 rounding (the group's collectives add autograd nodes,
     which may change the order in which a gradient's terms are summed)."""
@@ -396,12 +396,8 @@ def test_train_cli_refuses_flags_of_later_slices(flag, feature_dir, tmp_path, ca
             "--vocab", str(feature_dir / "vocab.npy"), "--device", "cpu", "--batch_size", "2",
             "--seq_len", "32", "--max_sentences", "4", "--max_steps", "2", "--log_every", "1",
             "--num_workers", "2", "--runtime_save_iter", "0", *CLI_SHAPE]
-    if flag[0] == "--dp":
+    if flag[0] in ("--dp", "--tp"):
         with pytest.raises(SystemExit, match="torchrun"):
-            train_main(argv + flag)
-        return
-    if flag[0] == "--tp":
-        with pytest.raises(SystemExit, match="Queue A 5"):
             train_main(argv + flag)
         return
     single = train_main(argv + ["--prefix", str(tmp_path / "single")])

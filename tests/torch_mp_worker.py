@@ -1,5 +1,6 @@
-"""One rank of the port's 2-process gloo runs on the CPU (the tests of
-``tests/test_torch_parallel.py`` and ``tests/test_torch_multiprocess.py``).
+"""One rank of the port's multi-process gloo runs on the CPU (the tests of
+``tests/test_torch_parallel.py``, ``tests/test_torch_multiprocess.py`` and
+``tests/test_torch_tensor_parallel.py``).
 
     python tests/torch_mp_worker.py <rank> <world> <port> <job_dir>
 
@@ -7,7 +8,8 @@ Reads the jobs the test wrote to ``<job_dir>/jobs.pt``, a list of dicts with
 a ``name`` and a ``kind``, runs each on this rank and saves its result to
 ``<job_dir>/<name>.<rank>.pt``.  The library jobs (``milnce``, ``step``,
 ``e2e``, ``loader``) run first, in one process group set up by
-``initialize_multihost`` on ``127.0.0.1:<port>``; the CLI jobs (``cli``) then
+``initialize_multihost`` on ``127.0.0.1:<port>`` (``tp_step`` and ``tp_shards``
+make their (dp, tp) mesh in it); the CLI jobs (``cli``) then
 run one after the other, each CLI setting up its own group through its
 ``--multihost`` flags on the job's port and leaving it at its end.  Imports
 no JAX: the tests hold the results against JAX and against one process.
@@ -74,6 +76,77 @@ def step(job, group):
             "target": twin.model.state_dict() if twin is not None else None}
 
 
+def tp_step(job, group):
+    """Train steps of the tiny TAN on a (dp, tp) mesh of the world: this
+    rank's shard of the encoder blocks, the rows of its dp index.  The
+    metrics of each step, the gathered gradients of the last, params, twin
+    and optimizer state after, and this rank's own replicated params.  With
+    ``planted`` the row-parallel biases are added on every rank, before the
+    reduce (the fault ``row_parallel_linear`` avoids)."""
+    import torch.nn.functional as F
+
+    from temporalalignnet_torch.core.config import LossConfig, ModelConfig, TrainConfig
+    from temporalalignnet_torch.models.net import TANWithText
+    from temporalalignnet_torch.parallel import tensor as tp_ops
+    from temporalalignnet_torch.parallel.mesh import make_mesh
+    from temporalalignnet_torch.train import EMATwin, Optimizer, make_train_step
+
+    mesh = make_mesh(job["dp"], job["tp"])
+    model = TANWithText(ModelConfig(**job["model_kw"]), vocab_size=job["vocab_size"])
+    model.load_state_dict(job["state_dict"], strict=True)
+    tp_ops.shard_model_(model, mesh.tp_group)
+    tcfg = TrainConfig(**job["train_kw"])
+    loss_cfg = LossConfig(**job["loss_kw"])
+    twin = EMATwin(model, tcfg) if loss_cfg.model == "cotrain" else None
+    opt = Optimizer(model, tcfg, policy=loss_cfg.optim_policy)
+    fn = make_train_step(model, opt, tcfg, loss_cfg, twin=twin, group=mesh.dp_group)
+    batch = _rows(job["batch"], mesh.dp_group)
+    row = tp_ops.row_parallel_linear
+    if job.get("planted"):
+        tp_ops.row_parallel_linear = lambda x, w, b, g: tp_ops.reduce_from_tp(
+            F.linear(x, w, b), g)
+    try:
+        metrics = [{k: v.item() for k, v in fn(batch).items()} for _ in range(job["steps"])]
+    finally:
+        tp_ops.row_parallel_linear = row
+    gather = lambda sd: tp_ops.tp_gather_state_dict(sd, mesh.tp_group)
+    return {"metrics": metrics,
+            "grads": gather({n: p.grad.clone() for n, p in model.named_parameters()
+                             if p.grad is not None}),
+            "params": gather(model.state_dict()),
+            "target": gather(twin.model.state_dict()) if twin is not None else None,
+            "optimizer": opt.state_dict(),
+            "replicated": {n: v for n, v in model.state_dict().items()
+                           if tp_ops.tp_dim(n) is None},
+            "sharded": sorted(n for n, p in model.named_parameters() if tp_ops.is_sharded(p)),
+            "shapes": {n: tuple(p.shape) for n, p in model.named_parameters()}}
+
+
+def tp_shards(job, group):
+    """The round trips of a full state_dict and of a full optimizer state
+    through this rank's shard and the gather over its tp ranks."""
+    from temporalalignnet_torch.core.config import ModelConfig, TrainConfig
+    from temporalalignnet_torch.models.net import TANWithText
+    from temporalalignnet_torch.parallel import tensor as tp_ops
+    from temporalalignnet_torch.parallel.mesh import make_mesh
+    from temporalalignnet_torch.train import Optimizer
+
+    mesh = make_mesh(job["dp"], job["tp"])
+    sd = job["state_dict"]
+    r = distributed.rank(mesh.tp_group)
+    back = tp_ops.tp_gather_state_dict(tp_ops.tp_shard_state_dict(sd, r, mesh.tp), mesh.tp_group)
+    model = TANWithText(ModelConfig(**job["model_kw"]), vocab_size=job["vocab_size"])
+    model.load_state_dict(sd, strict=True)
+    tp_ops.shard_model_(model, mesh.tp_group)
+    opt = None
+    if job["optimizer"] is not None:
+        opt = Optimizer(model, TrainConfig(**job["train_kw"]))
+        opt.load_state_dict(job["optimizer"])  # full -> this rank's shard
+    return {"state_dict": back, "optimizer": opt.state_dict() if opt is not None else None,
+            "rows": _rows(job["batch"], mesh.dp_group)["video"].shape[0],
+            "dp_rank": distributed.rank(mesh.dp_group), "tp_rank": r}
+
+
 def e2e(job, group):
     """One e2e step of S3DWithText on this rank's videos of the global batch."""
     from temporalalignnet_torch.core.config import TrainConfig
@@ -123,7 +196,8 @@ def cli(job, rank, world):
     return {"out": main(job["argv"] + flags)}
 
 
-LIBRARY = {"milnce": milnce, "step": step, "e2e": e2e, "loader": loader}
+LIBRARY = {"milnce": milnce, "step": step, "e2e": e2e, "loader": loader, "tp_step": tp_step,
+           "tp_shards": tp_shards}
 
 
 def main(argv):
