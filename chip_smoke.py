@@ -153,7 +153,9 @@ Phases, each printing JSON lines:
              times (short and fused routes) and each MIL-NCE kernel twice.
      bert_cli  the train CLI with --language_model bert --bert_dir (3 steps
              at B = 16), --model cotrain --pretrain on its checkpoint, then
-             the eval CLI's two tasks on the twin checkpoint at once.
+             the eval CLI's two tasks on the twin checkpoint at once (since
+             slice 11 in a thread beside resume and the ranks, its lines
+             printed here).
      clip_baseline  the eval CLI's CLIP baseline (--clip_text_ckpt of random
              HF-key-space ViT-B/32 text weights, byte-BPE files, cos) on a
              corpus of 512-d features: f32 card and CPU agree, bf16 runs; the
@@ -241,8 +243,7 @@ Phases, each printing JSON lines:
              call at Lb = 96 and 256, and train steps/s at B = 64 (Stage 1
              plain and with --remat, cotrain, both also as a CUDA graph per
              step (--steps_per_dispatch GROUP_K), and the BERT TAN's Stage 1
-             and cotrain; the two Stage 1 also with AdamW not capturable),
-             each with its device time, peak memory and top
+             and cotrain), each with its device time, peak memory and top
              kernels; and e2e steps/s and clips/s at E2E with the device
              time, idle share, peak memory and the bound from S3D's
              multiply-adds; in the Stage-1 child, after its plain step, the
@@ -258,11 +259,28 @@ Phases, each printing JSON lines:
              when two sessions recorded the same launches); a time without
              such a session is taken with CUDA events and marked
              "timing": "cuda_events".
+  5. bench_tools  slice 11, after the step-time children (started with
+             them, released one after another): python -m
+             temporalalignnet_torch.tools.bench_train_step at its defaults
+             (B = 64, 3 warm-up steps and 3 rounds of 30) with --stage 1
+             --fused 1, --stage 2 --fused 1 and --stage 1 --fused 0: the
+             wrappers' launches over the run must be the step's (BENCH_LAUNCHES)
+             times 93, on the step's routes, and the steps/s at most
+             BENCH_RATE_MAX x 1000 / the init (cotrain) child's device ms a
+             step (a higher rate means the fence is missing);
+             tools.bench_e2e_step --batch_size 16 (the e2e child's step): its
+             steps/s within BENCH_E2E_RATE of 1000 / that child's device ms;
+             at its default 8 videos with --profile_dir under build/: the
+             trace must exist (its device events printed); tools.bench_loader
+             at its defaults, --metadata 20000 and --vlen_files 2000, each
+             line parsed.  A bench_tool line per run.
 A ``phase_seconds`` line gives each phase's wall seconds.  The child
 processes (the CLIs, the step-time runs) share one bytecode cache under
 build/pycache, and runs that time nothing go at once: the eval CLI's two
 methods, its two tasks on the trained checkpoint, the two resumed training
-runs.
+runs, the BERT CLIs beside resume.  Since slice 11 each python -m child runs
+in a spare process made ready ahead (make_spares: Python started, torch and
+the port imported), so that the CLIs pay no process start.
 The card's name and power limit (nvidia-smi) and a ``kernels`` line come
 before the last line, which is {"ok": true, "device": {...}}.  Any failed
 phase raises and the script exits non-zero without that line.  Without CUDA
@@ -272,11 +290,13 @@ alone in a directory) it exits 1 before any output.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -501,10 +521,54 @@ TP_CASES = (("stage1_f32", False, "float32"), ("stage1_bf16", False, "bfloat16")
 TP_SPREAD_NOISE = 1e-3
 
 
+# every child process started (stopped at the end), and the children made
+# ready ahead (make_spares), each waiting to run one python -m
+STARTED = []
+SPARES = []
+SPARE_IDS = itertools.count()
+SPARE_LOCK = threading.Lock()  # the BERT CLIs' thread takes spares too
+
+
 def start(args):
-    """A child process running ``args`` from the repo root, output captured."""
-    return subprocess.Popen(args, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+    """A child process running ``args`` from the repo root, output captured.
+    ``python -m <module> ...`` goes to a spare child when one is left: it
+    has started Python and imported torch and the port already."""
+    with SPARE_LOCK:
+        spare = SPARES.pop(0) if args[1:2] == ["-m"] and SPARES else None
+    if spare is not None:
+        proc, go = spare
+        with open(go + ".tmp", "w") as f:
+            json.dump(args[2:], f)
+        os.replace(go + ".tmp", go)
+        return proc
+    STARTED.append(subprocess.Popen(args, cwd=REPO, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+    return STARTED[-1]
+
+
+def make_spares(n):
+    """``n`` more spare children (``start``): each starts Python and imports
+    torch and the port now, before the runs that will use it (a process
+    start costs several seconds on the card's host)."""
+    for _ in range(n):
+        SPARES.append(start_gated("--spare", str(next(SPARE_IDS))))
+
+
+def spare_child(go) -> int:
+    """A spare child: the imports, then ``python -m`` of the module and
+    arguments its go file holds."""
+    import importlib
+    import runpy
+
+    for module in ("torch", "temporalalignnet_torch.train.cli", "temporalalignnet_torch.eval.cli",
+                   "temporalalignnet_torch.train.end2end_cli"):
+        importlib.import_module(module)
+    wait_for_release(go)
+    with open(go) as f:
+        module, *argv = json.load(f)
+    sys.argv = [module, *argv]
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    return 0
 
 
 def finish(proc, what, timeout):
@@ -1242,16 +1306,14 @@ def phase_cli(torch, model):
 
 
 def train_setup(torch, device, fused, cfg_kw=None, state=None, compute=None, cotrain=False,
-                train_kw=None, bert=False, multi=False, capturable=None, group=None,
-                tp_group=None):
+                train_kw=None, bert=False, multi=False, group=None, tp_group=None):
     """A TANWithText with its optimizer, train step and, for ``cotrain`` (head
     on, agreement targets), its EMA twin; params f32 from the seed (or
     ``state``; for cotrain merged as ``--pretrain`` does, so a Stage-1 state
     without the head loads), compute bf16 on the card unless ``compute``
     says; with ``bert`` the text tower is BERT at BERT_CFG's widths; with
     ``multi`` the step is ``make_multi_train_step``'s (a group of steps, on
-    the card a CUDA graph replayed per batch); ``capturable`` goes to the
-    Optimizer (None: its default, True on the card); ``group``, a process
+    the card a CUDA graph replayed per batch); ``group``, a process
     group, makes the step the data-parallel one; ``tp_group`` shards the
     encoder blocks over its ranks (tensor parallelism).
     Returns (model, optimizer, step, twin or None)."""
@@ -1278,7 +1340,7 @@ def train_setup(torch, device, fused, cfg_kw=None, state=None, compute=None, cot
         shard_model_(model, tp_group)
     tcfg = TrainConfig(lr=TRAIN_LR, warmup_iterations=1, total_iterations=1000,
                        **(train_kw or {}))
-    opt = Optimizer(model, tcfg, capturable=capturable)
+    opt = Optimizer(model, tcfg)
     twin = EMATwin(model, tcfg) if cotrain else None
     if compute is None:
         compute = torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -1652,16 +1714,13 @@ def phase_cotrain_cli(torch, files, stage1_ckpt, eval_files):
     feats, captions, vocab = files
     prefix = os.path.join(REPO, "build", "chip_smoke_train", "exp")
     t0 = time.perf_counter()
-    run = subprocess.run(
+    out = finish(start(
         [sys.executable, "-m", "temporalalignnet_torch.train", "--model", "cotrain",
          "--pretrain", stage1_ckpt, "--feature_dir", feats, "--captions", captions,
          "--vocab", vocab, "--max_steps", "4", "--epochs", "4", "--log_every", "2",
-         "--prefix", prefix],
-        cwd=REPO, capture_output=True, text=True, timeout=900,
-    )
-    check(run.returncode == 0, f"cotrain CLI failed:\n{run.stderr[-4000:]}")
-    lines = [json.loads(l) for l in run.stdout.splitlines() if l.startswith("{")]
-    report = [l for l in run.stdout.splitlines() if l.startswith("[pretrain]")]
+         "--prefix", prefix]), "cotrain CLI", timeout=900)
+    lines = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+    report = [l for l in out.splitlines() if l.startswith("[pretrain]")]
     final = lines[-1]
     sd = torch.load(final["checkpoint"], map_location="cpu", weights_only=True)["state_dict"]
     halves = {p: sum(k.startswith(p) for k in sd) for p in ("online.", "target.")}
@@ -1675,14 +1734,11 @@ def phase_cotrain_cli(torch, files, stage1_ckpt, eval_files):
 
     e_feats, anno, e_vocab = eval_files
     t0 = time.perf_counter()
-    run = subprocess.run(
+    out = finish(start(
         [sys.executable, "-m", "temporalalignnet_torch.eval", "--task", "align",
          "--ckpt", final["checkpoint"], "--features", e_feats, "--anno", anno,
-         "--vocab", e_vocab],
-        cwd=REPO, capture_output=True, text=True, timeout=600,
-    )
-    check(run.returncode == 0, f"eval CLI on the twin checkpoint failed:\n{run.stderr[-4000:]}")
-    metrics = json.loads(run.stdout.strip().splitlines()[-1])
+         "--vocab", e_vocab]), "eval CLI on the twin checkpoint", timeout=600)
+    metrics = json.loads(out.strip().splitlines()[-1])
     emit({"phase": "cotrain_cli_eval", "metrics": metrics, "seconds": time.perf_counter() - t0})
     check(0.0 <= metrics["Recall"] <= 1.0 and 0.0 <= metrics["AUC"] <= 1.0,
           f"eval of the twin checkpoint: {metrics}")
@@ -1697,14 +1753,12 @@ def phase_train_cli(torch, files, eval_files, yc2_files):
     feats, captions, vocab = files
     prefix = os.path.join(REPO, "build", "chip_smoke_train", "exp")
     t0 = time.perf_counter()
-    run = subprocess.run(
+    out = finish(start(
         [sys.executable, "-m", "temporalalignnet_torch.train", "--feature_dir", feats,
          "--captions", captions, "--vocab", vocab, "--max_steps", "4", "--epochs", "4",
-         "--log_every", "2", "--use_alignability_head", "1", "--prefix", prefix],
-        cwd=REPO, capture_output=True, text=True, timeout=900,
-    )
-    check(run.returncode == 0, f"train CLI failed:\n{run.stderr[-4000:]}")
-    lines = [json.loads(l) for l in run.stdout.splitlines() if l.startswith("{")]
+         "--log_every", "2", "--use_alignability_head", "1", "--prefix", prefix]),
+        "train CLI", timeout=900)
+    lines = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
     final = lines[-1]
     emit({"phase": "train_cli", "log": lines[:-1], "final": final,
           "seconds": time.perf_counter() - t0})
@@ -3013,11 +3067,11 @@ def phase_bert(torch, files, bert_path):
     return totals
 
 
-def phase_bert_cli(torch, files, bert_path, eval_files, yc2_files):
+def phase_bert_cli(files, bert_path, eval_files, yc2_files, say=emit):
     """The user's entry points with --language_model bert on the card: the
     train CLI (3 steps at B = 16) from the directory's weights, --model
     cotrain --pretrain on its checkpoint (3 steps), then at once the eval
-    CLI's two tasks on the twin checkpoint."""
+    CLI's two tasks on the twin checkpoint; ``say`` takes each line."""
     feats, captions, _ = files
     prefix = os.path.join(REPO, "build", "chip_smoke_bert", "exp")
     train = [sys.executable, "-m", "temporalalignnet_torch.train", "--feature_dir", feats,
@@ -3028,14 +3082,12 @@ def phase_bert_cli(torch, files, bert_path, eval_files, yc2_files):
     for name, extra in (("bert_train_cli", ["--use_alignability_head", "1"]),
                         ("bert_cotrain_cli", ["--model", "cotrain", "--pretrain", "{ckpt}"])):
         t0 = time.perf_counter()
-        run = subprocess.run(train + [a.format(ckpt=ckpt) for a in extra], cwd=REPO,
-                             capture_output=True, text=True, timeout=900)
-        check(run.returncode == 0, f"{name} failed:\n{run.stderr[-4000:]}")
-        lines = [json.loads(l) for l in run.stdout.splitlines() if l.startswith("{")]
-        report = [l for l in run.stdout.splitlines() if l.startswith(("[bert]", "[pretrain]"))]
+        out = finish(start(train + [a.format(ckpt=ckpt) for a in extra]), name, timeout=900)
+        lines = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+        report = [l for l in out.splitlines() if l.startswith(("[bert]", "[pretrain]"))]
         final = lines[-1]
-        emit({"phase": name, "log": lines[:-1], "final": final, "report": report,
-              "seconds": time.perf_counter() - t0})
+        say({"phase": name, "log": lines[:-1], "final": final, "report": report,
+             "seconds": time.perf_counter() - t0})
         check(final["final_step"] == 3 and final["loss_finite"], f"{name} final line {final}")
         check(not [l for l in report if l.startswith("[bert] missing")],
               f"{name}: BERT keys missing from the weight file: {report}")
@@ -3054,12 +3106,39 @@ def phase_bert_cli(torch, files, bert_path, eval_files, yc2_files):
                                  .strip().splitlines()[-1]) for task, proc in procs.items()}
     finally:
         stop(procs.values())
-    emit({"phase": "bert_eval_cli", "metrics": outs, "seconds_both_tasks":
-          time.perf_counter() - t0})
+    say({"phase": "bert_eval_cli", "metrics": outs,
+         "seconds_both_tasks": time.perf_counter() - t0})
     check(0.0 <= outs["align"]["Recall"] <= 1.0 and 0.0 <= outs["align"]["AUC"] <= 1.0,
           f"BERT eval CLI align: {outs['align']}")
     check(len(outs["retrieval"]) == 12 and all(np.isfinite(v) for v in outs["retrieval"].values()),
           f"BERT eval CLI retrieval: {outs['retrieval']}")
+
+
+def start_bert_cli(files, bert_path, eval_files, yc2_files):
+    """phase_bert_cli in a thread (its CLIs time nothing), its lines kept;
+    joined by finish_bert_cli."""
+    result = {"lines": [], "error": None}
+
+    def run():
+        try:
+            phase_bert_cli(files, bert_path, eval_files, yc2_files, say=result["lines"].append)
+        except BaseException as e:  # raised again by finish_bert_cli
+            result["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, result
+
+
+def finish_bert_cli(started):
+    """The BERT CLIs' lines, once their thread has ended; its failure raised."""
+    thread, result = started
+    thread.join(timeout=1800)
+    check(not thread.is_alive(), "the BERT CLIs did not end")
+    for line in result["lines"]:
+        emit(line)
+    if result["error"] is not None:
+        raise result["error"]
 
 
 def hf_shapes(tower):
@@ -3579,7 +3658,7 @@ def phase_grouped_dispatch(torch, files, stage1_state):
     return launches
 
 
-def e2e_step_time(torch, card):
+def e2e_step_time(torch, card, ready=lambda: None):
     """The e2e train step at full width (E2E: 32 clips of 16 x 224², bf16,
     frozen BN): steps/s and clips/s from CUDA events around back-to-back
     steps on one batch, the device time and idle share (torch.profiler),
@@ -3592,6 +3671,7 @@ def e2e_step_time(torch, card):
                                                       E2E["S"]).to(dev), stem=True)
     batch = {k: v.to(dev) for k, v in e2e_batch(torch, SEED + 25, E2E["B"], E2E["n"],
                                                    E2E["T"], E2E["S"]).items()}
+    ready()
     run = lambda: step(batch)
     step_ms = cuda_ms(torch, run, reps=10, warmup=3)
     busy_ms, per_kernel, host_ms, timing = device_profile(torch, run, reps=5, warmup=1)
@@ -4494,9 +4574,50 @@ def phase_tp_two_ranks(children):
     return per_rank
 
 
-STEP_TIME_CHILDREN = ("agreement", "init", "init_host_adamw", "init_graph", "remat", "cotrain",
-                      "cotrain_graph", "e2e", "bert_init", "bert_init_host_adamw",
-                      "bert_cotrain")
+STEP_TIME_CHILDREN = ("agreement", "init", "init_graph", "remat", "cotrain", "cotrain_graph",
+                      "e2e", "bert_init", "bert_cotrain")
+
+
+def start_gated(flag, which, extra=(), name=None):
+    """A child ``chip_smoke.py <flag> <which> <go> <extra>`` started now; it
+    makes ready (imports, for a step-time child its CUDA context) and waits
+    until its go file (under build/, named after ``name`` or ``which``)
+    exists.  Returns (process, go file)."""
+    go = os.path.join(REPO, "build", f"go{flag.replace('-', '_')}_{name or which}")
+    for path in (go, go + ".ready"):
+        if os.path.exists(path):
+            os.remove(path)
+    return start([sys.executable, os.path.abspath(__file__), flag, which, go, *extra]), go
+
+
+def wait_for_release(go) -> None:
+    """In a gated child: say it is ready (``<go>.ready``), then wait for its
+    go file."""
+    open(go + ".ready", "w").close()
+    while not os.path.exists(go):
+        time.sleep(0.05)
+
+
+def wait_ready(children, what, timeout):
+    """Until every gated child in ``children`` ({name: (process, go)}) has
+    said it is ready (``wait_for_release``); a child that ended before is
+    finished here, which raises its error."""
+    t0 = time.perf_counter()
+    for name, (proc, go) in children.items():
+        while not os.path.exists(go + ".ready"):
+            if proc.poll() is not None:
+                finish(proc, f"{what} {name} (before it was ready)", timeout=60)
+            check(time.perf_counter() - t0 < timeout, f"{what} {name} not ready")
+            time.sleep(0.05)
+
+
+def release(child, what, timeout):
+    """Release a ``start_gated`` child; (its stdout, seconds from release)."""
+    proc, go = child
+    t0 = time.perf_counter()
+    open(go, "w").close()
+    out = finish(proc, what, timeout)
+    return out, time.perf_counter() - t0
 
 
 def phase_step_times():
@@ -4504,25 +4625,21 @@ def phase_step_times():
     time, and Stage-1 (plain, remat and graphed) and cotrain (plain and
     graphed) steps/s with their device time, each in a process of its own: on an H100, profiler sessions
     that followed one of thousands of kernels (a train step, an eval
-    forward) lost device activity.  The children start at once; each waits,
-    with its CUDA context made, until its go file exists, and they are
-    released one after another, so that no two time at once.
+    forward) lost device activity.  The children start at once; each makes
+    ready (its model, batch and inputs on the card) and waits until its go
+    file exists; once all are ready they are released one after another, so
+    that no two time at once and none times beside another's set-up.
     ``process_seconds`` counts from a child's release."""
     children, lines = {}, []
     try:
         for which in STEP_TIME_CHILDREN:
-            go = os.path.join(REPO, "build", f"step_time_go_{which}")
-            if os.path.exists(go):
-                os.remove(go)
-            children[which] = (start([sys.executable, os.path.abspath(__file__), "--step-time",
-                                      which, go]), go)
-        for which, (proc, go) in children.items():
-            t0 = time.perf_counter()
-            open(go, "w").close()
-            out = finish(proc, f"step times of {which}", timeout=900)
+            children[which] = start_gated("--step-time", which)
+        wait_ready(children, "step-time child", timeout=600)
+        for which, child in children.items():
+            out, seconds = release(child, f"step times of {which}", timeout=900)
             for line in out.splitlines():
                 if line.startswith("{"):
-                    lines.append(dict(json.loads(line), process_seconds=time.perf_counter() - t0))
+                    lines.append(dict(json.loads(line), process_seconds=seconds))
                     emit(lines[-1])
     finally:
         stop([proc for proc, _ in children.values()])
@@ -4572,21 +4689,18 @@ def host_syncs(torch, fn):
     return where
 
 
-def step_time(torch, which, card):
+def step_time(torch, which, card, ready=lambda: None):
     """One JSON line of times at B = 64: ``which`` 'init' (a Stage-1 train
     step), 'remat' (the same with --remat) or 'cotrain' (a Stage-2 one),
     'init_graph' / 'cotrain_graph' (those steps as a CUDA graph, a group of
     GROUP_K replays timed per step), and 'bert_init' / 'bert_cotrain' (the
-    same of the BERT TAN); 'init_host_adamw' / 'bert_init_host_adamw': the
-    eager Stage-1 steps with the optimizer not ``capturable``, AdamW's bias
-    corrections on the host as before grouped dispatch: steps/s with the
-    device time, idle share, peak memory, every kernel's device ms and the
-    top host ops; 'agreement': the
+    same of the BERT TAN): steps/s with the device time, idle share, peak
+    memory, every kernel's device ms and the top host ops; 'agreement': the
     agreement self-labelling alone at the cotrain step's shapes.  Each also
     counts the call's host-device synchronisations.  'e2e': the end-to-end
     S3D step at E2E (``e2e_step_time``)."""
     if which == "e2e":
-        e2e_step_time(torch, card)
+        e2e_step_time(torch, card, ready)
         return
     from temporalalignnet_torch.core.config import LossConfig
     from temporalalignnet_torch.data.synthetic import synthetic_batch
@@ -4606,6 +4720,7 @@ def step_time(torch, which, card):
         cfg = LossConfig(model="cotrain", learn_agreement=True)
         run = lambda: agreement_self_labelling(*diags, batch["video_padding_mask"],
                                                batch["text_padding_mask"], raw, cfg)
+        ready()
         busy_ms, per_kernel, host_ms, timing = device_profile(torch, run)
         emit({"phase": "times", "metric": "agreement_ms", "card": card, "shape": [B, S, T, N],
               "device_ms": busy_ms if timing == "profiler" else None, "timing": timing,
@@ -4615,8 +4730,6 @@ def step_time(torch, which, card):
               "kernels_ms": by_name(per_kernel)})
         retrieval_forward_times(torch, card)  # after the agreement's smaller sessions
         return
-    host_adamw = which.endswith("_host_adamw")
-    which = which.removesuffix("_host_adamw")
     bert = which.startswith("bert_")
     graph = which.endswith("_graph")
     cotrain, remat = which.startswith(("cotrain", "bert_cotrain")), which == "remat"
@@ -4624,17 +4737,15 @@ def step_time(torch, which, card):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
             np.random.RandomState(SEED + 6), batch_size=B, seq_len=T, max_sentences=N,
             feature_dim=1024, vocab_size=BERT_CFG["vocab_size"] - 1, max_words=W).items()}
-    # the host-side AdamW (bias corrections in double on the host, the lr a
-    # float) beside the card's capturable one: what the latter costs
     _, _, step, _ = train_setup(torch, dev, fused=True, cotrain=cotrain, bert=bert,
-                                cfg_kw=dict(remat=True) if remat else None, multi=graph,
-                                capturable=False if host_adamw else None)
+                                cfg_kw=dict(remat=True) if remat else None, multi=graph)
     per_call = GROUP_K if graph else 1
     if graph:  # a group of GROUP_K replays, each batch copied in from pinned memory
         group = [{k: v.cpu().pin_memory() for k, v in batch.items()}] * GROUP_K
         run = lambda: step(group)
     else:
         run = lambda: step(batch)
+    ready()
     torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_ms(torch, run, reps=max(10 // per_call, 3), warmup=3) / per_call
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -4653,9 +4764,6 @@ def step_time(torch, which, card):
             ", --remat 1" if remat else ", EMA twin, agreement keep, head on")
     if graph:
         kind += f", --steps_per_dispatch {GROUP_K} (a CUDA graph replayed per step)"
-    if host_adamw:
-        metric = metric.replace("_steps_per_s", "_host_adamw_steps_per_s")
-        kind += ", AdamW not capturable (bias corrections on the host)"
     emit({"phase": "times", "metric": metric,
           "card": card, "value": 1e3 / step_ms, "ms_per_step": step_ms, "batch": TRAIN,
           "model": model + kind, "peak_gb": peak_gb,
@@ -4665,7 +4773,7 @@ def step_time(torch, which, card):
           "kernels_ms_per_step": by_name(per_kernel), "kernels_per_step": len(per_kernel),
           "host_self_ms_per_step_under_profiler": sum(host_ms.values()) / per_call,
           "top_host_ops_self_ms_per_step": {k[:90]: v / per_call for k, v in top_host}})
-    if which == "init" and not host_adamw:  # slice 9: the same step in a world of one
+    if which == "init":  # slice 9: the same step in a world of one
         del step, run
         dp_world1_step_time(torch, card, batch, {
             "ms_per_step": step_ms, "device_busy_ms_per_step": busy_ms, "timing": timing,
@@ -4820,6 +4928,190 @@ def phase_times(torch, card):
     return rows
 
 
+# ------------------------------------------------------ slice 11: bench tools
+
+# (name, tool, arguments): each run of phase_bench_tools, in the order released
+BENCH_RUNS = (
+    ("train_stage1_fused", "bench_train_step", ("--stage", "1", "--fused", "1")),
+    ("train_stage2_fused", "bench_train_step", ("--stage", "2", "--fused", "1")),
+    ("train_stage1_plain", "bench_train_step", ("--stage", "1", "--fused", "0")),
+    ("e2e_b16", "bench_e2e_step", ("--batch_size", str(E2E["B"]))),
+    # at the default 8 videos, for its trace: one timed round of 5 steps
+    ("e2e_trace", "bench_e2e_step", ("--iters", "5", "--repeats", "1", "--profile_dir",
+                                     os.path.join(REPO, "build", "chip_smoke_bench_trace"))),
+    ("loader", "bench_loader", ()),
+    ("loader_metadata", "bench_loader", ("--metadata", "20000")),
+    ("loader_vlen", "bench_loader", ("--vlen_files", "2000")),
+)
+# steps of a bench_train_step run at its defaults: 3 warm-up, 3 rounds of 30
+BENCH_TRAIN_STEPS = 3 + 3 * 30
+# launches per step: --fused 1 as the train and cotrain phases', --fused 0 the
+# attention kernels alone (the loss from the plain logits)
+BENCH_PLAIN_LAUNCHES = dict(STEP_LAUNCHES, milnce_fwd=0, milnce_dv=0, milnce_dt=0)
+BENCH_PLAIN_ROUTES = dict(STEP_ROUTES, **{k: {"wgmma": 0, "f32": 0}
+                                          for k in ("milnce_fwd", "milnce_dv", "milnce_dt")})
+BENCH_LAUNCHES = {"train_stage1_fused": (STEP_LAUNCHES, STEP_ROUTES, "train_steps_per_s"),
+                  "train_stage2_fused": (COTRAIN_STEP_LAUNCHES, COTRAIN_STEP_ROUTES,
+                                         "cotrain_steps_per_s"),
+                  "train_stage1_plain": (BENCH_PLAIN_LAUNCHES, BENCH_PLAIN_ROUTES,
+                                         "train_steps_per_s")}
+# a tool's steps/s against 1000 / the step-time child's device ms a step at the
+# same shape: the train step's at most this (the eager step is host-bound, so
+# any fenced rate lies well under it); the e2e step's (card-bound, ~3 % idle)
+# within these
+BENCH_RATE_MAX = 1.05
+BENCH_E2E_RATE = (0.8, 1.05)
+
+
+def bench_tool_child(tool, go, argv) -> int:
+    """A child of phase_bench_tools: ``python -m
+    temporalalignnet_torch.tools.<tool> <argv>`` once its go file exists
+    (imports made before); for the train-step tool the wrappers' launch
+    counts, set to 0 just before the tool runs, follow as a JSON line."""
+    import importlib
+    import runpy
+
+    # the imports before the release (runpy runs the tool's module itself)
+    for module in ("torch", "temporalalignnet_torch.train.train_step",
+                   "temporalalignnet_torch.train.end2end", "temporalalignnet_torch.data.prefetch",
+                   "temporalalignnet_torch.utils.profiling",
+                   "temporalalignnet_torch.tools.convert_captions"):
+        importlib.import_module(module)
+    if tool != "bench_loader":  # the card's context too; the loader bench runs on the host
+        sys.modules["torch"].zeros(1, device="cuda")
+    wait_for_release(go)
+    counted = tool == "bench_train_step"
+    if counted:
+        reset_counts()
+    sys.argv = [tool, *argv]
+    runpy.run_module(f"temporalalignnet_torch.tools.{tool}", run_name="__main__",
+                     alter_sys=True)
+    if counted:
+        emit({"bench_counts": read_counts(), "bench_routes": read_routes()})
+    # the tool has closed what it wrote; skip the interpreter's and the CUDA
+    # context's teardown, which the parent would wait for before the next run
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def start_bench_tools():
+    """Every BENCH_RUNS child, started now; each waits for its release."""
+    return {name: start_gated("--bench-tool", tool, argv, name=name)
+            for name, tool, argv in BENCH_RUNS}
+
+
+def bench_loader_lines(text):
+    """The loader bench's printed lines, parsed."""
+    import re
+
+    num = lambda x: float(x.replace(",", ""))
+    out = {"workers": {}, "stores": {}}
+    for line in text.splitlines():
+        if m := re.match(r"workers=(\d+): ([\d,.]+) samples/s .* feeding ([\d,.]+) samples/s "
+                         r"needs ~([\d.]+)x", line):
+            w, sps, target = int(m[1]), num(m[2]), num(m[3])
+            out["target_samples_per_s"] = target
+            out["workers"][w] = {"samples_per_s": sps, "times_this_rate": num(m[4]),
+                                 "cores_at_this_rate": w * target / sps}
+        elif m := re.match(r"(.+): init ([\d,.]+) s, peak RSS ([\d,.]+) MB \(\+(-?[\d,.]+) MB "
+                           r"over the ([\d,.]+) MB", line):
+            out["stores"][m[1]] = {"init_s": num(m[2]), "peak_rss_mb": num(m[3]),
+                                   "rss_over_baseline_mb": num(m[4]),
+                                   "import_baseline_mb": num(m[5])}
+        elif m := re.match(r"build_vlen_table: (\d+) files in ([\d,.]+) s \(([\d.]+) ms/file",
+                           line):
+            out["vlen_files"], out["vlen_s"], out["ms_per_file"] = int(m[1]), num(m[2]), num(m[3])
+        elif m := re.match(r"corpus: (\d+) samples", line):
+            out["samples"] = int(m[1])
+        elif m := re.match(r"convert_captions .*: ([\d,.]+) s", line):
+            out["convert_s"] = num(m[1])
+    return {k: v for k, v in out.items() if v != {}}
+
+
+def trace_device_events(trace_dir):
+    """(the trace file a bench run wrote under ``trace_dir``, {category:
+    events} of its device events: kernels, copies and sets)."""
+    files = [f for f in os.listdir(trace_dir) if f.startswith("trace_") and f.endswith(".json")]
+    check(len(files) == 1, f"one trace file under {trace_dir}, found {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f).get("traceEvents", [])
+    cats = {}
+    for e in events:
+        cat = e.get("cat", "")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            cats[cat] = cats.get(cat, 0) + 1
+    return files[0], cats
+
+
+def phase_bench_tools(children, step_lines, card):
+    """The bench tools' runs (BENCH_RUNS), released one after another, each
+    checked; returns the launches per step of the --stage 1 --fused 1 run."""
+    device_ms = {l["metric"]: l.get("device_busy_ms_per_step") for l in step_lines
+                 if "metric" in l}
+    shutil.rmtree(os.path.join(REPO, "build", "chip_smoke_bench_trace"), ignore_errors=True)
+    per_step = None
+    for name, tool, argv in BENCH_RUNS:
+        out, seconds = release(children[name], f"{tool} {' '.join(argv)}", timeout=600)
+        line = {"phase": "bench_tool", "run": name, "card": card,
+                "command": f"python -m temporalalignnet_torch.tools.{tool} {' '.join(argv)}",
+                "process_seconds": seconds}
+        if tool == "bench_loader":
+            line["output"] = bench_loader_lines(out)
+            emit(line)
+            if name == "loader":
+                check(len(line["output"]["workers"]) == 3, f"loader workers: {out}")
+                check(line["output"]["target_samples_per_s"] == round(
+                    58.67 * TRAIN["B"]), "the loader bench's --target_sps default")
+            elif name == "loader_metadata":
+                check(len(line["output"]["stores"]) == 2, f"loader stores: {out}")
+            else:
+                check(line["output"]["vlen_files"] == 2000, f"vlen files: {out}")
+            continue
+        jsons = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+        result = next(j for j in jsons if "metric" in j)
+        line["output"] = result
+        if tool == "bench_train_step":
+            counts = next(j for j in jsons if "bench_counts" in j)
+            launches, routes, child = BENCH_LAUNCHES[name]
+            d_ms = device_ms.get(child)
+            line["check"] = {
+                "steps": BENCH_TRAIN_STEPS, "launches": counts["bench_counts"],
+                "launches_per_step": {k: v / BENCH_TRAIN_STEPS
+                                      for k, v in counts["bench_counts"].items()},
+                "routes": counts["bench_routes"], "step_time_child": child,
+                "child_device_ms_per_step": d_ms,
+                "rate_max": None if d_ms is None else BENCH_RATE_MAX * 1e3 / d_ms}
+            emit(line)
+            check(counts["bench_counts"] == {k: v * BENCH_TRAIN_STEPS
+                                             for k, v in launches.items()},
+                  f"{name} launched {counts['bench_counts']}, expected {launches} a step")
+            check(counts["bench_routes"] == {k: {r: n * BENCH_TRAIN_STEPS for r, n in v.items()}
+                                             for k, v in routes.items()},
+                  f"{name} routes {counts['bench_routes']}")
+            check(d_ms is not None, f"{child}: no device ms a step to bound {name}")
+            check(result["value"] <= line["check"]["rate_max"],
+                  f"{name}: {result['value']} steps/s over {line['check']['rate_max']}")
+            if name == "train_stage1_fused":
+                per_step = {k: v // BENCH_TRAIN_STEPS for k, v in counts["bench_counts"].items()}
+        elif name == "e2e_b16":
+            d_ms = device_ms.get("e2e_steps_per_s")
+            lo, hi = BENCH_E2E_RATE
+            line["check"] = {"child_device_ms_per_step": d_ms,
+                             "rate_range": None if d_ms is None else [lo * 1e3 / d_ms,
+                                                                      hi * 1e3 / d_ms]}
+            emit(line)
+            check(d_ms is not None, "e2e: no device ms a step")
+            check(lo * 1e3 / d_ms <= result["steps_per_sec"] <= hi * 1e3 / d_ms,
+                  f"e2e tool at {result['steps_per_sec']} steps/s, child {d_ms} device ms")
+        else:
+            trace, events = trace_device_events(argv[-1])
+            line["check"] = {"trace": trace, "device_events": events}
+            emit(line)
+        check(np.isfinite(result["value"]) and result["value"] > 0, f"{name}: {result}")
+    return per_step
+
+
 def share_bytecode_cache() -> None:
     """Keep Python's bytecode under build/pycache, for this process and the
     ones it starts (the CLIs, the step-time runs).  Where the interpreter
@@ -4832,6 +5124,10 @@ def share_bytecode_cache() -> None:
 
 def main(argv) -> int:
     share_bytecode_cache()
+    if argv[:1] == ["--bench-tool"]:  # a child of phase_bench_tools, before any CUDA call
+        return bench_tool_child(argv[1], argv[2], argv[3:])
+    if argv[:1] == ["--spare"]:  # a spare child (make_spares)
+        return spare_child(argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -4853,9 +5149,7 @@ def main(argv) -> int:
         tp_rank(torch, int(argv[1]), int(argv[2]), argv[3])
         return 0
     if argv[:1] == ["--step-time"]:  # a child of phase_step_times
-        while not os.path.exists(argv[2]):  # released by the parent
-            time.sleep(0.05)
-        step_time(torch, argv[1], card)
+        step_time(torch, argv[1], card, ready=lambda: wait_for_release(argv[2]))
         return 0
     emit({"python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "card": card})
@@ -4879,6 +5173,7 @@ def main(argv) -> int:
     train_rows = timed(phase_train_times, torch, card)
     model, eval_launches = timed(phase_eval, torch)
     timed(phase_eval_forward_times, torch, model, card)
+    make_spares(8)  # for the CLIs up to cotrain_cli's
     eval_files = timed(phase_cli, torch, model)
     files = timed(make_train_files, os.path.join(REPO, "build", "chip_smoke_train"), 96, SEED)
     launches, stage1_state = timed(phase_train, torch, files)
@@ -4886,6 +5181,7 @@ def main(argv) -> int:
     stage1_ckpt, retrieval_cli = timed(phase_train_cli, torch, files, eval_files, yc2_files)
     retrieval_metrics, retrieval_launches = timed(phase_retrieval, torch, stage1_ckpt, yc2_files)
     timed(phase_retrieval_cli, retrieval_cli, retrieval_metrics)
+    make_spares(14)  # for the CLIs from grouped_dispatch's to the e2e CLI's
     cotrain_launches = timed(phase_cotrain, torch, files, stage1_state)
     export_cli = start_export_cli()  # untimed work, beside cotrain_cli's children
     try:
@@ -4904,6 +5200,9 @@ def main(argv) -> int:
         timed(phase_profile_dir, profile_child)
     finally:
         stop([profile_child[0]])
+    # the BERT CLIs (untimed) run beside the resume phase and the ranks
+    bert_path = timed(make_bert_dir, torch, os.path.join(REPO, "build", "chip_smoke_bert"))
+    bert_cli = start_bert_cli(files, bert_path, eval_files, yc2_files)
     # slice 9: the two ranks run beside the resume phase, the world-of-one CLI
     # children beside the end of the two ranks
     dp_ranks = timed(start_dp_two_ranks, torch, stage1_state, stage1_ckpt, eval_files,
@@ -4928,13 +5227,17 @@ def main(argv) -> int:
     finally:
         stop(tp_ranks[0])
     htm_aa_launches, htm_aa_routes = timed(phase_htm_aa_pipeline, torch, card)
-    bert_path = timed(make_bert_dir, torch, os.path.join(REPO, "build", "chip_smoke_bert"))
     bert_launches = timed(phase_bert, torch, files, bert_path)
-    timed(phase_bert_cli, torch, files, bert_path, eval_files, yc2_files)
+    timed(finish_bert_cli, bert_cli)
     timed(phase_clip_baseline, torch)
     tower_launches = timed(phase_tower_extract, torch)
     punct_launches = timed(phase_punctuate, torch, card)
-    step_lines = timed(phase_step_times)
+    bench_children = start_bench_tools()  # slice 11: waiting beside the step-time children
+    try:
+        step_lines = timed(phase_step_times)
+        bench_launches = timed(phase_bench_tools, bench_children, step_lines, card)
+    finally:
+        stop([proc for proc, _ in bench_children.values()])
     emit({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t_start})
 
     print(card_power(), flush=True)
@@ -5039,6 +5342,8 @@ def main(argv) -> int:
         e["launches_dp_graph_path"] = (None if graph_counts is None else
                                        {"kernel": graph_counts[e["name"]],
                                         "nccl": graph_counts["nccl"], "replays": GROUP_K})
+        # slice 11: per step of the train-step bench tool, --stage 1 --fused 1
+        e["launches_bench_path"] = bench_launches[e["name"]]
     entries[0]["launches_by_route_punct"] = punct_launches["routes"]["mha_fwd"]
     entries[0]["punct_shape"] = {"shape": list(PUNCT_SHAPE), **{k: fwd_rows[PUNCT_SHAPE][k] for k in (
         "dtype", "route", "masked", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -5067,4 +5372,8 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    try:
+        code = main(sys.argv[1:])
+    finally:
+        stop(STARTED)
+    sys.exit(code)
