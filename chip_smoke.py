@@ -29,12 +29,15 @@ Phases, each printing JSON lines:
              valid keys, one row with 1), [250, 8, S, 64] and one-clip calls
              [10, 8, S, 64] on the long route; the route each call took is
              checked, and a planted fault (padded keys left unmasked) must
-             exceed the bf16 limit.
+             exceed the bf16 limit; in f32 at the training shapes the plain
+             version in single-pass TF32 (allow_tf32) must exceed F32_TOL.
      kernel_bwd  mha_bwd (dq, dk, dv) against mha_bwd_reference, the plain
              version with the kernel's bf16 roundings, per element
              (GRAD_TOL); planted faults must exceed the limit.  Each route:
              bf16 "fused" at the training shapes, BERT's and an odd S, bf16 "v2" at
-             S = 200, "f32" at all four; the route each call took is checked.
+             S = 200, "f32" at all four (at the training shapes also the
+             plain version in single-pass TF32 as a planted fault); the
+             route each call took is checked.
      kernel_milnce  milnce_fwd against milnce_reference (the loss's
              elements) and its four logsumexps against milnce_lse_reference,
              milnce_dv and milnce_dt against milnce_grad_reference, at the
@@ -252,9 +255,16 @@ Phases, each printing JSON lines:
              the plain one as CUDA graphs (a group of GROUP_K replays:
              steps/s, device ms, idle share, the device launches of the
              port's kernels and NCCL's in a group, profiled).  The kernel
-             rows add mha_fwd's f32 route at the punctuator's
-             [4, 12, 258, 64] (bound at f32 outside the tensor cores) and
-             mha_fwd and mha_bwd at the tensor-parallel shapes.
+             rows add the f32 routes (F32_TIMED_SHAPES for mha_fwd, the
+             punctuator's [4, 12, 258, 64] among them; the training shapes
+             for mha_bwd, with SDPA's f32 backward; milnce_fwd, milnce_dv
+             and milnce_dt at the training shape), each bound by split TF32
+             (SPLIT_PASSES x FLOPs at the TF32 peak) with the bound of f32
+             outside the tensor cores beside it; mha_bwd's v2 route at
+             [64, 8, 200, 64]; mha_fwd and mha_bwd at the tensor-parallel
+             shapes; and, after the eval phase, the device ms of the
+             bench.py eval forward in f32 (as eval --f32 runs it, 12 f32
+             launches a call).
              Device times come from torch.profiler (a kernel row's only
              when two sessions recorded the same launches); a time without
              such a session is taken with CUDA events and marked
@@ -286,6 +296,11 @@ before the last line, which is {"ok": true, "device": {...}}.  Any failed
 phase raises and the script exits non-zero without that line.  Without CUDA
 it exits 2 and prints no result; without the port beside it (the script
 alone in a directory) it exits 1 before any output.
+
+    python3 chip_smoke.py --kernels-only
+
+runs the build, the kernel checks, the kernel rows and the f32 eval forward
+alone (a few minutes), and prints no result line.
 """
 
 from __future__ import annotations
@@ -305,8 +320,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 SEED = 0
-# f32: the kernel and the reference differ only in the order of the sums
-# (f32 FMAs; TF32 off for the reference's matmuls).
+# f32: the kernels' f32 routes run split TF32 on the tensor cores (every
+# product big·small + small·big + big·big of TF32 halves into f32
+# accumulators, csrc/tf32x3.cuh): f32-accurate products, so the kernel and the
+# reference (TF32 off for its matmuls) differ by the order of the f32 sums,
+# the dropped small·small term and small's truncation (each ~2^-21 of a
+# product or less).  Single-pass TF32 misses this limit by 40x or more
+# (tests/test_torch_f32_split.py; the planted fault tf32_single_pass in the
+# kernel checks).
 F32_TOL = 1e-5
 # bf16: the kernel rounds P and the output to bf16; the reference runs in f32
 # from the same bf16 inputs.
@@ -321,7 +342,8 @@ BF16_TOL = 2e-2
 # that the two sides round to neighbouring bf16 values.  Each limit must also
 # be exceeded by the planted faults the phase computes from the plain
 # version (a dropped rowsum(dP P), padded keys left unmasked, a dropped
-# column term, padded columns left unmasked).  On an H100 80GB HBM3 the
+# column term, padded columns left unmasked; for mha_bwd in f32 at the
+# training shapes also its products in single-pass TF32).  On an H100 80GB HBM3 the
 # kernels read at most 1.2e-5 (f32) and 7.1e-3 (bf16); the faults 0.24 and up.
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # MIL-NCE values v_el, t_el (f32 from the exact products of the features),
@@ -333,7 +355,8 @@ AUC_TOL = 1e-3
 # [B, H, S, D]: eval dual encoder; eval joint at N = 8; a long sentence bucket;
 # global method (key splits)
 KERNEL_SHAPES = [(192, 8, 64, 64), (192, 8, 72, 64), (64, 8, 200, 64), (1, 8, 1088, 64)]
-MHA_FWD_CHECK_SHAPES = KERNEL_SHAPES + [(64, 8, 80, 64), (8, 8, 37, 64)]  # + train joint, odd S
+# + train dual and joint, odd S
+MHA_FWD_CHECK_SHAPES = KERNEL_SHAPES + [(64, 8, 64, 64), (64, 8, 80, 64), (8, 8, 37, 64)]
 # the YC2 retrieval path's buckets S = Lb: a full forward call (25 clips of
 # 10 windows) at each route's edges, and one-clip calls on the long route
 YC2_SHAPES = [(250, 8, S, 64) for S in (32, 96, 128, 160, 256)] + [
@@ -495,8 +518,14 @@ GROUP_CLI_STEPS = 12
 # published dense peaks (NVIDIA data sheets): bytes/s, bf16 FLOP/s
 CARD_PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
               "H100": (3.35e12, 989e12)}
-# float32 outside the tensor cores (NVIDIA data sheets): the f32 route's peak
+# float32 outside the tensor cores (NVIDIA data sheets): the f32 routes' bound
+# before they moved to the tensor cores, printed beside the restated one
 CARD_F32_PEAKS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12}
+# TF32 dense on the tensor cores (NVIDIA data sheets).  An f32-accurate product in
+# split TF32 costs SPLIT_PASSES TF32 products (big·small, small·big, big·big), so an
+# f32 row is bound at max(bytes / bw, SPLIT_PASSES · FLOPs / this peak)
+CARD_TF32_PEAKS = {"H100 PCIe": 378e12, "H100 NVL": 417e12, "H100": 495e12}
+SPLIT_PASSES = 3
 # Slice 10.  The punctuator: a BERT-base token classifier (BERT_CFG, 15 labels, random
 # weights from the seed) through tools/process_htm.py over PUNCT["videos"] synthetic
 # videos of about PUNCT["captions"] unpunctuated captions; f32 on the card (mha_fwd's f32
@@ -505,6 +534,10 @@ CARD_F32_PEAKS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100": 67e12}
 # chunks near-equal (np.array_split), so each row has 258 or 257 valid keys.
 PUNCT = dict(videos=16, captions=60, labels=15, cpu_videos=4)
 PUNCT_SHAPE = (4, 12, 258, 64)
+# mha_fwd's f32 route, timed at the eval's dual and joint shapes, the training's,
+# the global method's and the punctuator's; mha_bwd's at the training's
+F32_TIMED_SHAPES = KERNEL_SHAPES[:2] + MHA_BWD_SHAPES[:2] + [KERNEL_SHAPES[3], PUNCT_SHAPE]
+MHA_BWD_V2_TIMED_SHAPE = (64, 8, 200, 64)  # bf16 past S = 128: the v2 route, timed
 PUNCT_STOPWORDS = ("so", "we", "the", "and", "to", "it", "now", "you", "is", "this", "of",
                    "in", "a", "that", "then", "just")
 # a label the card and the CPU disagree on must be a near-tie: the two labels' biased
@@ -613,6 +646,26 @@ def f32_peak(name: str) -> float:
         if key in name:
             return val
     return CARD_F32_PEAKS["H100"]
+
+
+def tf32_peak(name: str) -> float:
+    for key, val in CARD_TF32_PEAKS.items():  # most specific first
+        if key in name:
+            return val
+    return CARD_TF32_PEAKS["H100"]
+
+
+def f32_bounds(card, nbytes, flops):
+    """An f32 row's bounds: the restated one (split TF32 on the tensor cores)
+    as ``bound_ms``, and the earlier one (f32 FMAs outside them) beside it."""
+    bw = peaks(card)[0]
+    t_bytes = nbytes / bw
+    t_split, t_cores = SPLIT_PASSES * flops / tf32_peak(card), flops / f32_peak(card)
+    return dict(bound_ms=max(t_bytes, t_split) * 1e3,
+                bound_by="bytes" if t_bytes >= t_split else "operations",
+                peak_flops_per_s=tf32_peak(card) / SPLIT_PASSES,
+                bound_ms_f32_cores=max(t_bytes, t_cores) * 1e3,
+                bound_by_f32_cores="bytes" if t_bytes >= t_cores else "operations")
 
 
 def ragged_mask(torch, B, S, gen, device):
@@ -777,6 +830,9 @@ def phase_kernel_check(torch):
         torch.cuda.synchronize()
         ref = attention_reference(q.float(), k.float(), v.float(), mask)
         info = {}
+        if dtype == torch.float32 and shape in MHA_BWD_SHAPES[:2]:  # the training shapes
+            info["planted_fault_max_abs_err"] = {"tf32_single_pass": abs_err(
+                tf32_plain(torch, attention_reference, q, k, v, mask), ref)}
         if dtype == torch.bfloat16:
             info["v1_max_abs_err"] = abs_err(mha_fwd_v1(q, k, v, mask), ref)
             if taken == "long":
@@ -868,6 +924,18 @@ def route_taken(fn, before):
     return moved[0]
 
 
+def tf32_plain(torch, fn, *args):
+    """A planted fault of the f32 routes: the plain version ``fn`` with its
+    matrix products in single-pass TF32 (allow_tf32), which the f32 limits
+    must catch."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 def mha_bwd_dropped_rowsum(torch, q, k, v, mask, dout):
     """A planted fault: mha_bwd_reference with dS = P dP, the rowsum(dP P)
     term dropped (dv is unchanged by it)."""
@@ -910,6 +978,9 @@ def phase_mha_bwd_check(torch):
                 ours = [t.grad for t in leaves]
                 plain = mha_bwd_reference(q, k, v, mask, g)
                 faults = {"rowsum_dropped": mha_bwd_dropped_rowsum(torch, q, k, v, mask, g)}
+                if dtype == torch.float32 and shape in MHA_BWD_SHAPES[:2]:  # training shapes
+                    faults["tf32_single_pass"] = tf32_plain(torch, mha_bwd_reference, q, k, v,
+                                                            mask, g)
                 if masked:
                     faults["padded_keys_unmasked"] = mha_bwd_reference(q, k, v, None, g)
                 torch.cuda.synchronize()
@@ -2041,17 +2112,18 @@ def phase_resume(torch, yc2_files):
     return feats, captions, vocab
 
 
-def timed_row(torch, fns, nbytes, flops, bw, peak, **info):
-    """Device ms (profiler) and CUDA-event ms of each of ``fns`` {prefix: fn},
-    beside the bound max(bytes / bw, flops / peak); for the kernel's own call
-    (prefix "") also the device ms of each kernel it launched."""
+def timed_row(torch, fns, nbytes, flops, bw, peak, reps=20, **info):
+    """Device ms (profiler) and CUDA-event ms of each of ``fns`` {prefix: fn}
+    over ``reps`` calls, beside the bound max(bytes / bw, flops / peak); for
+    the kernel's own call (prefix "") also the device ms of each kernel it
+    launched."""
     row = dict(info)
     for prefix, fn in fns.items():
         row[prefix + "ms"], per_kernel, _, row[prefix + "timing"] = device_profile(
-            torch, fn, confirm=True)
+            torch, fn, reps=reps, confirm=True)
         if not prefix:
             row["kernels_ms"] = {k[:60]: v for k, v in per_kernel.items()}
-        row[prefix + "wall_ms"] = cuda_ms(torch, fn)
+        row[prefix + "wall_ms"] = cuda_ms(torch, fn, reps=reps)
     t_bytes, t_ops = nbytes / bw, flops / peak
     row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes, flops=flops)
@@ -2063,15 +2135,21 @@ def phase_train_times(torch, card):
 
     from temporalalignnet_torch.ops import milnce
     from temporalalignnet_torch.ops.attention import attention_reference
-    from temporalalignnet_torch.ops.mha_bwd import mha_bwd, mha_bwd_v2
+    from temporalalignnet_torch.ops.mha_bwd import mha_bwd, mha_bwd_v2, route
 
     dev = torch.device("cuda")
     bw, peak = peaks(card)
     gen = torch.Generator().manual_seed(SEED + 7)
     rows = {}
-    for shape in MHA_BWD_SHAPES[:2] + [BERT_SHAPE] + TP_SHAPES:
+    bf16, f32 = torch.bfloat16, torch.float32
+    # bf16 at the training shapes (beside the earlier v2 kernel), BERT's and the
+    # tensor-parallel ones, and past S = 128 (the v2 route itself); f32 at the
+    # training shapes
+    specs = ([(sh, bf16) for sh in MHA_BWD_SHAPES[:2] + [BERT_SHAPE] + TP_SHAPES]
+             + [(MHA_BWD_V2_TIMED_SHAPE, bf16)] + [(sh, f32) for sh in MHA_BWD_SHAPES[:2]])
+    for shape, dtype in specs:
         Bq, H, S, D = shape
-        q, k, v, g = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16) for _ in range(4))
+        q, k, v, g = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(4))
         pad = tower_mask(torch, shape, gen, dev)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         plain_out = attention_reference(*leaves, pad)
@@ -2081,22 +2159,33 @@ def phase_train_times(torch, card):
                "v2_": lambda: mha_bwd_v2(q, k, v, pad, g),
                "plain_": lambda: torch.autograd.grad(plain_out, leaves, g, retain_graph=True),
                "library_": lambda: torch.autograd.grad(lib_out, lib, g, retain_graph=True)}
+        which = route(dtype, S)
+        if which != "fused":  # the v2 route is the v2 kernel; f32 has no earlier bf16 kernel
+            del fns["v2_"]
         # q, dout, dq, dk, dv; QK^T, dout V^T, P^T dout, dS K, dS^T Q
         nbytes, flops = attention_work(q, pad, full=5, passes=5)
-        row = timed_row(torch, fns, nbytes, flops, bw, peak, shape=list(shape), dtype="bfloat16")
+        row = timed_row(torch, fns, nbytes, flops, bw, peak, shape=list(shape),
+                        dtype=str(dtype).split(".")[-1], route=which)
+        if dtype == f32:
+            row.update(f32_bounds(card, nbytes, flops))
         emit({"phase": "times", "kernel": "mha_bwd", "card": card, **row})
-        rows[("mha_bwd", "tp", S) if shape in TP_SHAPES else ("mha_bwd", S)] = row
+        key = (("mha_bwd", "tp", S) if shape in TP_SHAPES else ("mha_bwd", "f32", S)
+               if dtype == f32 else ("mha_bwd", S))
+        rows[key] = row
 
     inv_temp, mv = 1.0 / 0.07, -6.0e4
-    for S_, Bm, Tm, Nm, C, shared in MILNCE_SHAPES:
+    # bf16 at every MIL-NCE shape; f32 at the training shape (shared and per-layer text)
+    for (S_, Bm, Tm, Nm, C, shared), dtype in ([(sh, bf16) for sh in MILNCE_SHAPES]
+                                               + [(sh, f32) for sh in MILNCE_SHAPES[:2]]):
         v, t, pm, cv, gv, gt = milnce_problem(torch, S_, Bm, Tm, Nm, C, shared, gen, dev)
-        v, t = v.bfloat16(), t.bfloat16()
+        v, t = v.to(dtype), t.to(dtype)
         lse = milnce.milnce_fwd(v, t, pm, cv, mv, inv_temp)
         vr, tr = v.clone().requires_grad_(), t.clone().requires_grad_()
         a, b = milnce.milnce_reference(vr, tr, pm, cv, mv, inv_temp)
         plain_loss = (a * gv).sum() + (b * gt).sum()
         R, K = Bm * Tm, Bm * Nm
-        feat_bytes = (v.numel() + t.numel()) * 2 + pm.numel() + cv.numel()
+        size = v.element_size()
+        feat_bytes = (v.numel() + t.numel()) * size + pm.numel() + cv.numel()
         lse_bytes = (2 * S_ * R + 2 * S_ * K) * 4
         cases = {
             "milnce_fwd": ({"": lambda: milnce.milnce_fwd(v, t, pm, cv, mv, inv_temp),
@@ -2109,21 +2198,28 @@ def phase_train_times(torch, card):
                                                               inv_temp),
                            "plain_": lambda: torch.autograd.grad(plain_loss, [vr],
                                                                  retain_graph=True)},
-                          feat_bytes + 2 * lse_bytes + v.numel() * 2, 4 * S_ * R * K * C),
+                          feat_bytes + 2 * lse_bytes + v.numel() * size, 4 * S_ * R * K * C),
             "milnce_dt": ({"": lambda: milnce.milnce_dt(v, t, pm, cv, lse, gv, gt, inv_temp),
                            "v2_": lambda: milnce.milnce_dt_v2(v, t, pm, cv, lse, gv, gt,
                                                               inv_temp),
                            "plain_": lambda: torch.autograd.grad(plain_loss, [tr],
                                                                  retain_graph=True)},
-                          feat_bytes + 2 * lse_bytes + t.numel() * 2, 4 * S_ * R * K * C),
+                          feat_bytes + 2 * lse_bytes + t.numel() * size, 4 * S_ * R * K * C),
         }
         for name, (fns, nbytes, flops) in cases.items():
+            if dtype == f32:  # the earlier kernels are bf16
+                fns = {p_: f for p_, f in fns.items() if p_ in ("", "plain_")}
             with torch.no_grad() if name == "milnce_fwd" else torch.enable_grad():
-                row = timed_row(torch, fns, nbytes, flops, bw, peak, S=S_, R=R, K=K, C=C,
-                                text="shared" if shared else "per-layer", dtype="bfloat16",
-                                library_ms=None)
+                # the f32 kernels take milliseconds a call: 5 calls a session
+                row = timed_row(torch, fns, nbytes, flops, bw, peak,
+                                reps=5 if dtype == f32 else 20, S=S_, R=R, K=K, C=C,
+                                text="shared" if shared else "per-layer",
+                                dtype=str(dtype).split(".")[-1], library_ms=None)
+            if dtype == f32:
+                row.update(f32_bounds(card, nbytes, flops))
             emit({"phase": "times", "kernel": name, "card": card, **row})
-            rows[(name, S_, R, K, shared)] = row
+            rows[(name, S_, R, K, shared) if dtype == bf16 else
+                 (name, "f32", S_, R, K, shared)] = row
     return rows
 
 
@@ -2171,6 +2267,44 @@ def phase_eval_forward_times(torch, model, card):
           "top_kernels_ms_per_call": {k[:90]: v for k, v in top},
           "loaded_program": {"windows_per_s": B / (serve_ms / 1e3), "ms_per_call": serve_ms,
                              "device_busy_ms_per_call": serve_busy, "timing": serve_timing}})
+
+
+def phase_eval_forward_f32_times(torch, card):
+    """The eval forward of the bench.py workload in f32, as ``eval --f32`` runs
+    it (E6D6, head on): device ms of one call (profiler) beside the CUDA-event
+    ms, and mha_fwd's launches per call by route (12, all on ``f32``) with
+    their device ms."""
+    from temporalalignnet_torch.ops.mha_fwd import mha_fwd
+
+    dev = torch.device("cuda")
+    model = make_model(torch, dev, torch.float32)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    B, T, C, N, W = (BENCH[k] for k in "BTCNW")
+    video = torch.randn(B, T, C, generator=gen).to(dev)
+    ids = torch.randint(1, 60000, (B, N, W), generator=gen).to(dev)
+    mask = (ids != 0).int()
+
+    def forward():
+        with torch.inference_mode():
+            model.text_visual_sims(video, model.encode_text(ids, mask))
+
+    before = dict(mha_fwd.launches_by_route)
+    forward()
+    torch.cuda.synchronize()
+    per_call = {r: n - before[r] for r, n in mha_fwd.launches_by_route.items()}
+    fwd_ms = cuda_ms(torch, forward, reps=5)  # a call takes ~33 ms
+    busy_ms, per_kernel, _, timing = device_profile(torch, forward, reps=5)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "times", "metric": "eval_forward_f32_device_ms", "card": card,
+          "workload": BENCH, "model": "E6D6 width 512, f32, head on",
+          "device_ms_per_call": busy_ms if timing == "profiler" else None, "timing": timing,
+          "ms_per_call": fwd_ms, "mha_fwd_launches_per_call": per_call,
+          "mha_fwd_device_ms_per_call": sum(v for k, v in per_kernel.items() if "mha_fwd" in k),
+          "top_kernels_ms_per_call": {k[:90]: v for k, v in top}})
+    check(per_call["f32"] == 12 and sum(per_call.values()) == 12,
+          f"f32 eval forward: mha_fwd launches per call {per_call}, expected 12 on f32")
+    del model
+    torch.cuda.empty_cache()
 
 
 def synthetic_train_batch(torch, B, seed):
@@ -4884,14 +5018,13 @@ def phase_times(torch, card):
     gen = torch.Generator().manual_seed(SEED + 2)
     bw, bf16_peak = peaks(card)
     rows = []
-    # the eval's, the training's, the retrieval's (its key padding), then the
-    # towers' (BERT's padding; the vision towers' calls have no mask)
+    # bf16: the eval's, the training's, the retrieval's (its key padding), then
+    # the towers' (BERT's padding; the vision towers' calls have no mask); f32:
+    # F32_TIMED_SHAPES (the punctuator's attention runs in f32)
     shapes = KERNEL_SHAPES + MHA_BWD_SHAPES[:2] + YC2_TIMED_SHAPES + TOWER_SHAPES + TP_SHAPES
-    for shape in shapes + [PUNCT_SHAPE]:
+    for shape, dtype in ([(sh, torch.bfloat16) for sh in shapes]
+                         + [(sh, torch.float32) for sh in F32_TIMED_SHAPES]):
         Bq, H, S, D = shape
-        # the punctuator's attention runs in f32 (its own bound: f32 outside the tensor cores)
-        dtype = torch.float32 if shape == PUNCT_SHAPE else torch.bfloat16
-        peak = f32_peak(card) if shape == PUNCT_SHAPE else bf16_peak
         q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(3))
         if shape in YC2_TIMED_SHAPES:
             pad = yc2_mask(torch, Bq, S, dev)
@@ -4914,15 +5047,20 @@ def phase_times(torch, card):
         if dtype == torch.float32:  # mha_fwd_v1 is the earlier bf16 kernel
             del fns["v1_"]
         for prefix, fn in fns.items():
-            row[prefix + "ms"], _, _, row[prefix + "timing"] = device_profile(
+            row[prefix + "ms"], per_kernel, _, row[prefix + "timing"] = device_profile(
                 torch, fn, confirm=True)
+            if not prefix:
+                row["kernels_ms"] = {k_[:60]: v_ for k_, v_ in per_kernel.items()}
             row[prefix + "wall_ms"] = cuda_ms(torch, fn)
         nbytes, flops = attention_work(q, pad, full=2, passes=2)  # q, out; QK^T, PV
         nbytes -= 0 if mask is not None else pad.numel()  # no mask to read
-        t_bytes, t_ops = nbytes / bw, flops / peak
-        row.update(bound_ms=max(t_bytes, t_ops) * 1e3, peak_flops_per_s=peak,
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bytes=nbytes, flops=flops)
+        if dtype == torch.float32:
+            row.update(f32_bounds(card, nbytes, flops), bytes=nbytes, flops=flops)
+        else:
+            t_bytes, t_ops = nbytes / bw, flops / bf16_peak
+            row.update(bound_ms=max(t_bytes, t_ops) * 1e3, peak_flops_per_s=bf16_peak,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=nbytes, flops=flops)
         emit({"phase": "times", "kernel": "mha_fwd", "card": card, **row})
         rows.append(row)
     return rows
@@ -5153,6 +5291,18 @@ def main(argv) -> int:
         return 0
     emit({"python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "card": card})
+    if argv[:1] == ["--kernels-only"]:
+        # the kernel phases alone (build, the checks against the plain
+        # versions, the kernel rows, the f32 eval forward), no result line
+        phase_build()
+        phase_kernel_check(torch)
+        phase_mha_bwd_check(torch)
+        phase_milnce_check(torch)
+        phase_times(torch, card)
+        phase_train_times(torch, card)
+        phase_eval_forward_f32_times(torch, card)
+        print(card_power(), flush=True)
+        return 0
 
     seconds = {}
 
@@ -5173,6 +5323,7 @@ def main(argv) -> int:
     train_rows = timed(phase_train_times, torch, card)
     model, eval_launches = timed(phase_eval, torch)
     timed(phase_eval_forward_times, torch, model, card)
+    timed(phase_eval_forward_f32_times, torch, card)
     make_spares(8)  # for the CLIs up to cotrain_cli's
     eval_files = timed(phase_cli, torch, model)
     files = timed(make_train_files, os.path.join(REPO, "build", "chip_smoke_train"), 96, SEED)
@@ -5241,7 +5392,8 @@ def main(argv) -> int:
     emit({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t_start})
 
     print(card_power(), flush=True)
-    fwd_rows = {tuple(r["shape"]): r for r in rows}
+    fwd_rows = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}
+    f32_rows = {tuple(r["shape"]): r for r in rows if r["dtype"] == "float32"}
     timed, glob = fwd_rows[MHA_BWD_SHAPES[1]], fwd_rows[KERNEL_SHAPES[3]]
     yc2_timed = [{"shape": list(sh), "route": fwd_rows[sh]["route"],
                   **{k: fwd_rows[sh][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -5345,9 +5497,19 @@ def main(argv) -> int:
         # slice 11: per step of the train-step bench tool, --stage 1 --fused 1
         e["launches_bench_path"] = bench_launches[e["name"]]
     entries[0]["launches_by_route_punct"] = punct_launches["routes"]["mha_fwd"]
-    entries[0]["punct_shape"] = {"shape": list(PUNCT_SHAPE), **{k: fwd_rows[PUNCT_SHAPE][k] for k in (
+    entries[0]["punct_shape"] = {"shape": list(PUNCT_SHAPE), **{k: f32_rows[PUNCT_SHAPE][k] for k in (
         "dtype", "route", "masked", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
         "peak_flops_per_s")}}
+    # the f32 routes (split TF32) at their timed shapes, with both bounds
+    f32_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_ms_f32_cores")
+    entries[0]["f32_route"] = {
+        "source": "temporalalignnet_torch/csrc/mha_fwd_f32.cu",
+        "shapes": [{"shape": list(sh), **{k: f32_rows[sh][k] for k in f32_keys}}
+                   for sh in F32_TIMED_SHAPES]}
+    entries[1]["f32_route"] = {
+        "source": "temporalalignnet_torch/csrc/mha_bwd_f32.cu",
+        "shapes": [{"shape": list(sh), **{k: train_rows[("mha_bwd", "f32", sh[2])][k]
+                                          for k in f32_keys}} for sh in MHA_BWD_SHAPES[:2]]}
     entries[0]["tp_shapes"] = [{"shape": list(sh), **{k: fwd_rows[sh][k] for k in (
         "route", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}} for sh in TP_SHAPES]
     entries[1]["tp_shapes"] = [{"shape": train_rows[("mha_bwd", "tp", sh[2])]["shape"], **{

@@ -16,21 +16,16 @@
 // Three routes, chosen by dtype and S alone (ops/mha_bwd.py::route):
 // - "fused", bf16 with S <= 128 (every training shape): one kernel, one block
 //   per (batch row, head), one pass (mha_bwd_fused_kernel, below).
-// - "v2", bf16 with S > 128, and "f32": the two kernels described next.
-//
-// Two kernels per dtype (FlashAttention-2 shape, any S, D = 64):
-// - dq: a block owns (batch row, head, a run of queries) and streams the keys
-//   twice: first an online (max, sum, sum of e^s dP) recurrence gives each
-//   row's max m, 1 / sum and rowsum(dP P); then dS and dQ.  m, 1 / sum and
-//   the row sum go to a [3, B H S] scratch.  1 / sum and m are kept apart
-//   (not folded into one log-sum-exp), because at -1e30 the sum's log would
-//   vanish in f32.
-// - dkdv: a block owns (batch row, head, a run of keys) and streams the
-//   queries, recomputing P from the saved m and 1 / sum.
-// bf16 (the training path) runs every product on the tensor cores
-// (mha_bwd_*_bf16_kernel, below); f32 runs them as f32 FMAs on the CUDA
-// cores (mha_bwd_dq_kernel, mha_bwd_dkdv_kernel: 64-row tiles through shared
-// memory), the parity path.
+// - "v2", bf16 with S > 128: two kernels on mma.sync (FlashAttention-2 shape,
+//   any S).  dq: a block owns (batch row, head, a run of queries) and streams
+//   the keys twice: first an online (max, sum, sum of e^s dP) recurrence
+//   gives each row's max m, 1 / sum and rowsum(dP P); then dS and dQ.  m,
+//   1 / sum and the row sum go to a [3, B H S] scratch, kept apart (not
+//   folded into one log-sum-exp), because at -1e30 the sum's log would
+//   vanish in f32.  dkdv: a block owns (batch row, head, a run of keys) and
+//   streams the queries, recomputing P from the saved m and 1 / sum.
+// - "f32" (the --f32 training path): split TF32 on the tensor cores, in
+//   csrc/mha_bwd_f32.cu.
 //
 // What bounds it on an H100: at the training shapes ([64, 8, 64, 64] dual,
 // [64, 8, 80, 64] joint) the 10 B H S^2 D FLOPs (1.3-2.1 GFLOP) take 1.4-2.1
@@ -47,30 +42,9 @@
 
 namespace {
 
-constexpr int D = 64;           // head dim
-constexpr int BT = 64;          // queries or keys per tile
-constexpr int NTHREADS = 128;   // 16 row groups x 8 column groups
-constexpr int LDT = BT + 4;     // stride of the transposed [D][BT] and [BT][BT] tiles
-constexpr int LDR = D + 4;      // stride of the row-major [BT][D] tiles
+constexpr int D = 64;          // head dim
+constexpr int BT = 64;         // queries or keys per tile
 constexpr float MASK_BIAS = -1.0e30f;
-
-// ------------------------------------------------------- f32: CUDA cores
-//
-// 128 threads per 64-row tile; thread (rg, cg) owns rows 4 rg .. +3 and
-// columns (or dims) 8 cg .. +7.  Tiles are staged in shared memory as f32,
-// transposed for the dot products and row-major for the accumulations.
-
-// rows [n0, n0 + BT) of a [S, D] head into dst transposed ([D][LDT]) and, if
-// rows is not null, row-major ([BT][LDR]); rows past S are zero
-__device__ __forceinline__ void stage(float* dst_t, float* rows, const float* src, int n0,
-                                      int S) {
-  for (int e = threadIdx.x; e < BT * D; e += NTHREADS) {
-    const int j = e / D, d = e % D;
-    const float x = (n0 + j < S) ? src[size_t(n0 + j) * D + d] : 0.f;
-    dst_t[d * LDT + j] = x;
-    if (rows != nullptr) rows[j * LDR + d] = x;
-  }
-}
 
 // key bias of keys [k0, k0 + BT): 0 real, -1e30 padded, -inf past S
 __device__ __forceinline__ void stage_bias(float* bias, const uint8_t* pad, int b, int k0,
@@ -79,238 +53,6 @@ __device__ __forceinline__ void stage_bias(float* bias, const uint8_t* pad, int 
     const int key = k0 + j;
     bias[j] = key >= S ? -INFINITY
                        : ((pad != nullptr && pad[size_t(b) * S + key]) ? MASK_BIAS : 0.f);
-  }
-}
-
-// acc[i][j] = sum_d at[d][4 rg + i] * bt[d][8 cg + j] over the D dims
-__device__ __forceinline__ void tile_dot(float acc[4][8], const float* at, const float* bt,
-                                         int rg, int cg) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float4 av = *reinterpret_cast<const float4*>(&at[d * LDT + rg * 4]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&bt[d * LDT + cg * 8]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&bt[d * LDT + cg * 8 + 4]);
-    const float ar[4] = {av.x, av.y, av.z, av.w};
-    const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-  }
-}
-
-// acc[i][c] += sum_j wt[j][4 rg + i] * rows[j][8 cg + c] over the BT tile entries
-__device__ __forceinline__ void tile_acc(float acc[4][8], const float* wt, const float* rows,
-                                         int rg, int cg) {
-#pragma unroll 4
-  for (int j = 0; j < BT; ++j) {
-    const float4 wv = *reinterpret_cast<const float4*>(&wt[j * LDT + rg * 4]);
-    const float4 r0 = *reinterpret_cast<const float4*>(&rows[j * LDR + cg * 8]);
-    const float4 r1 = *reinterpret_cast<const float4*>(&rows[j * LDR + cg * 8 + 4]);
-    const float w[4] = {wv.x, wv.y, wv.z, wv.w};
-    const float r[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(w[i], r[c], acc[i][c]);
-  }
-}
-
-// reduce over the 8 column-group lanes that share a row group
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 8; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 8; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-constexpr size_t DQ_SMEM = sizeof(float) * (5 * size_t(D) * LDT + size_t(BT) * LDR + BT);
-constexpr size_t DKDV_SMEM =
-    sizeof(float) * (4 * size_t(D) * LDT + 2 * size_t(BT) * LDR + 2 * size_t(BT) * LDT + 3 * BT);
-
-__global__ void __launch_bounds__(NTHREADS)
-mha_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                  const uint8_t* __restrict__ pad, const float* __restrict__ dout,
-                  float* __restrict__ dq, float* __restrict__ stats, int H, int S, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;              // [D][LDT] query tile, transposed
-  float* dot = qt + D * LDT;     // [D][LDT] dO tile, transposed
-  float* kt = dot + D * LDT;     // [D][LDT] key tile, transposed
-  float* vt = kt + D * LDT;      // [D][LDT] value tile, transposed
-  float* dst = vt + D * LDT;     // [BT keys][LDT] dS, transposed
-  float* ks = dst + BT * LDT;    // [BT][LDR] key tile, row-major
-  float* bias = ks + BT * LDR;   // [BT]
-
-  const int tid = threadIdx.x, rg = tid / 8, cg = tid % 8;
-  const int bh = blockIdx.x, b = bh / H, q0 = blockIdx.y * BT;
-  const size_t base = size_t(bh) * S * D;
-  stage(qt, nullptr, q + base, q0, S);
-  stage(dot, nullptr, dout + base, q0, S);
-
-  float m[4], l[4], a[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f, a[i] = 0.f;
-  float s[4][8], dp[4][8];
-
-  // pass 1: row max, sum and sum of e^s dP, online over the key tiles
-  for (int k0 = 0; k0 < S; k0 += BT) {
-    __syncthreads();
-    stage(kt, nullptr, k + base, k0, S);
-    stage(vt, nullptr, v + base, k0, S);
-    stage_bias(bias, pad, b, k0, S);
-    __syncthreads();
-    tile_dot(s, qt, kt, rg, cg);
-    tile_dot(dp, dot, vt, rg, cg);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = s[i][j] * scale + bias[cg * 8 + j];
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(mx));  // finite: the tile holds a key
-      const float corr = expf(m[i] - m_new);
-      float sl = 0.f, sa = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float e = expf(s[i][j] - m_new);
-        sl += e;
-        sa += e * dp[i][j];
-      }
-      l[i] = l[i] * corr + group_sum(sl);
-      a[i] = a[i] * corr + group_sum(sa);
-      m[i] = m_new;
-    }
-  }
-  float linv[4], delta[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    linv[i] = 1.f / l[i];
-    delta[i] = a[i] * linv[i];
-    const int r = q0 + rg * 4 + i;
-    if (cg == 0 && r < S) {
-      const size_t plane = size_t(gridDim.x) * S;
-      stats[size_t(bh) * S + r] = m[i];
-      stats[plane + size_t(bh) * S + r] = linv[i];
-      stats[2 * plane + size_t(bh) * S + r] = delta[i];
-    }
-  }
-
-  // pass 2: dS = P (dP - delta), dQ += dS K
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
-  for (int k0 = 0; k0 < S; k0 += BT) {
-    __syncthreads();
-    stage(kt, ks, k + base, k0, S);
-    stage(vt, nullptr, v + base, k0, S);
-    stage_bias(bias, pad, b, k0, S);
-    __syncthreads();
-    tile_dot(s, qt, kt, rg, cg);
-    tile_dot(dp, dot, vt, rg, cg);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = expf(s[i][j] * scale + bias[cg * 8 + j] - m[i]) * linv[i];
-        dst[(cg * 8 + j) * LDT + rg * 4 + i] = p * (dp[i][j] - delta[i]);
-      }
-    __syncthreads();
-    tile_acc(acc, dst, ks, rg, cg);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + rg * 4 + i;
-    if (r >= S) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) dq[base + size_t(r) * D + cg * 8 + c] = acc[i][c] * scale;
-  }
-}
-
-__global__ void __launch_bounds__(NTHREADS)
-mha_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                    const uint8_t* __restrict__ pad, const float* __restrict__ dout,
-                    const float* __restrict__ stats, float* __restrict__ dk, float* __restrict__ dv,
-                    int H, int S, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem;              // [D][LDT] key tile, transposed (resident)
-  float* vt = kt + D * LDT;      // [D][LDT] value tile, transposed (resident)
-  float* qt = vt + D * LDT;      // [D][LDT] query tile, transposed
-  float* dot = qt + D * LDT;     // [D][LDT] dO tile, transposed
-  float* qs = dot + D * LDT;     // [BT][LDR] query tile, row-major
-  float* dos = qs + BT * LDR;    // [BT][LDR] dO tile, row-major
-  float* pt = dos + BT * LDR;    // [BT queries][LDT] P, rounded
-  float* dst = pt + BT * LDT;    // [BT queries][LDT] dS, rounded
-  float* rm = dst + BT * LDT;    // [BT] row max of each query
-  float* rl = rm + BT;           // [BT] 1 / row sum
-  float* rd = rl + BT;           // [BT] rowsum(dP P)
-
-  const int tid = threadIdx.x, rg = tid / 8, cg = tid % 8;
-  const int bh = blockIdx.x, b = bh / H, k0 = blockIdx.y * BT;
-  const size_t base = size_t(bh) * S * D;
-  const size_t plane = size_t(gridDim.x) * S;
-  stage(kt, nullptr, k + base, k0, S);
-  stage(vt, nullptr, v + base, k0, S);
-  float kb[4];  // this thread's keys' bias
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + rg * 4 + i;
-    kb[i] = key >= S ? -INFINITY
-                     : ((pad != nullptr && pad[size_t(b) * S + key]) ? MASK_BIAS : 0.f);
-  }
-
-  float gk[4][8], gv[4][8], s[4][8], dp[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) gk[i][c] = gv[i][c] = 0.f;
-
-  for (int q0 = 0; q0 < S; q0 += BT) {
-    __syncthreads();
-    stage(qt, qs, q + base, q0, S);
-    stage(dot, dos, dout + base, q0, S);
-    for (int j = tid; j < BT; j += NTHREADS) {
-      const bool in = q0 + j < S;  // a query past S gets P = 0
-      rm[j] = in ? stats[size_t(bh) * S + q0 + j] : 0.f;
-      rl[j] = in ? stats[plane + size_t(bh) * S + q0 + j] : 0.f;
-      rd[j] = in ? stats[2 * plane + size_t(bh) * S + q0 + j] : 0.f;
-    }
-    __syncthreads();
-    tile_dot(s, kt, qt, rg, cg);   // s[key i][query j]
-    tile_dot(dp, vt, dot, rg, cg);  // dP[query j][key i]
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int qj = cg * 8 + j;
-        const float p = expf(s[i][j] * scale + kb[i] - rm[qj]) * rl[qj];
-        pt[qj * LDT + rg * 4 + i] = p;
-        dst[qj * LDT + rg * 4 + i] = p * (dp[i][j] - rd[qj]);
-      }
-    __syncthreads();
-    tile_acc(gv, pt, dos, rg, cg);
-    tile_acc(gk, dst, qs, rg, cg);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + rg * 4 + i;
-    if (key >= S) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      dk[base + size_t(key) * D + cg * 8 + c] = gk[i][c] * scale;
-      dv[base + size_t(key) * D + cg * 8 + c] = gv[i][c];
-    }
   }
 }
 
@@ -641,32 +383,6 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* pad,
-                       const void* dout, void* dq, void* dk, void* dv, void* stats, int B,
-                       int H, int S, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(mha_bwd_dq_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(DQ_SMEM));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(mha_bwd_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(DKDV_SMEM));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(unsigned(B) * unsigned(H), unsigned((S + BT - 1) / BT));
-  const float scale = 1.0f / sqrtf(float(D));
-  mha_bwd_dq_kernel<<<grid, NTHREADS, DQ_SMEM, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const uint8_t*>(pad), static_cast<const float*>(dout), static_cast<float*>(dq),
-      static_cast<float*>(stats), H, S, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  mha_bwd_dkdv_kernel<<<grid, NTHREADS, DKDV_SMEM, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const uint8_t*>(pad), static_cast<const float*>(dout),
-      static_cast<const float*>(stats), static_cast<float*>(dk), static_cast<float*>(dv), H, S,
-      scale);
-  return cudaGetLastError();
-}
-
 // ------------------------------------------- bf16, S <= 128: fused, wgmma + TMA
 //
 // The TPU kernel's own schedule: a block holds a whole head, so each score
@@ -985,17 +701,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pad,
 
 }  // namespace
 
-// stats: 3 B H S f32 of scratch.  dtype: 0 = float32, 1 = bfloat16.
-// Returns a cudaError_t (0 = launched).
-extern "C" int mha_bwd(const void* q, const void* k, const void* v, const void* pad,
-                       const void* dout, void* dq, void* dk, void* dv, void* stats, int B, int H,
-                       int S, int head_dim, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || head_dim != D || (S + BT - 1) / BT > 65535)
+// The v2 route: bf16 at any S (taken past S = 128), the dq kernel and the
+// dk/dv kernel on mma.sync.  stats: 3 B H S f32 of scratch.  Returns a
+// cudaError_t (0 = launched).
+extern "C" int mha_bwd_v2(const void* q, const void* k, const void* v, const void* pad,
+                          const void* dout, void* dq, void* dk, void* dv, void* stats, int B,
+                          int H, int S, int head_dim, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || head_dim != D || (S + BT - 1) / BT > 65535 ||
+      stats == nullptr)
     return int(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return int(launch_f32(q, k, v, pad, dout, dq, dk, dv, stats, B, H, S, st));
-  if (dtype == 1) return int(launch_bf16(q, k, v, pad, dout, dq, dk, dv, stats, B, H, S, st));
-  return int(cudaErrorInvalidValue);
+  return int(launch_bf16(q, k, v, pad, dout, dq, dk, dv, stats, B, H, S,
+                         static_cast<cudaStream_t>(stream)));
 }
 
 // The fused route: bf16, S <= 128, no scratch.  Pointers 16-byte aligned

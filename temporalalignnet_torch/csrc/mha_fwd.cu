@@ -5,8 +5,9 @@
 // Pallas TPU kernel reached through fused_attention).  Same semantics: scores
 // and softmax in f32, P rounded to the value dtype before P.V, output in the
 // input dtype, and a finite -1e30 bias so a fully padded row averages V
-// uniformly over the real keys instead of producing NaN.  In f32 every product
-// is a true f32 FMA (no TF32), as the TPU kernel asks for Precision.HIGHEST.
+// uniformly over the real keys instead of producing NaN.  In f32 the TPU
+// kernel asks for Precision.HIGHEST: a level of accuracy (f32's), which the
+// f32 route meets with split TF32 on the tensor cores (tf32x3.cuh).
 //
 // What bounds it on an H100: at the TAN shapes (S = 64 dual, 64 + Nb joint,
 // D = 64) the whole problem is bound by memory: q, k, v and out are read or
@@ -26,239 +27,30 @@
 //   block per (batch row, head, 128 queries), and where that grid is short of
 //   the card the key range is split across blocks and a small kernel merges
 //   the splits' (max, sum, O) in split order.
-// - bf16, v1 (mha_fwd with dtype 1; no route takes it, kept to be timed
-//   beside the wgmma routes): one warp per 16 query rows, mma.sync m16n8k16
-//   with ldmatrix, cp.async double buffering.  Past S = 128 it runs 4 warps
-//   and 64 queries a block, about one block per SM at [1, 8, 1088, 64], each
-//   walking 17 key tiles in series: latency-bound, 2x slower than SDPA there.
-// - f32: every product is an f32 FMA on the CUDA cores (128 threads, 4 rows x
-//   8 keys each, 64-query tiles), so this path is bound by instruction issue,
-//   not by bytes.
+// - bf16, v1 (mha_fwd_v1; no route takes it, kept to be timed beside the
+//   wgmma routes): one warp per 16 query rows, mma.sync m16n8k16 with
+//   ldmatrix, cp.async double buffering.  Past S = 128 it runs 4 warps and 64
+//   queries a block, about one block per SM at [1, 8, 1088, 64], each walking
+//   17 key tiles in series: latency-bound, 2x slower than SDPA there.
+// - f32 (the eval's --f32, the punctuator, f32 training): split TF32 on the
+//   tensor cores, in csrc/mha_fwd_f32.cu.
 //
 // Layout: q, k, v, out are [B, H, S, D] contiguous; pad is [B, S] bytes
 // (nonzero = padded key) or null.  Built by temporalalignnet_torch/ops/_build.py
 // into a shared library with a plain C interface, called through ctypes.
 
 #include "hopper.cuh"
-
-#include <math.h>
+#include "mha_merge.cuh"
+#include "mma.cuh"
 
 namespace {
 
-// ------------------------------------------------------- f32: CUDA cores
-
-constexpr int BQ = 64;         // queries per block
-constexpr int BK = 64;         // keys per streamed tile
-constexpr int NTHREADS = 128;  // 16 row groups x 8 column groups
-constexpr int RPT = 4;         // query rows per thread (16 x 4 = 64)
-constexpr int CPT = 8;         // key columns per thread in the score tile (8 x 8 = 64)
-constexpr int LDT = 64 + 4;    // row stride of the transposed [D][64] and [BK][BQ] tiles
 constexpr float MASK_BIAS = -1.0e30f;
-
-static_assert(BQ == 16 * RPT && BK == 8 * CPT, "thread layout covers the tile");
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // q^T [D][LDT], k^T [D][LDT] (reused as P^T [BK][LDT]), v [BK][D + 4], bias [BK]
-  return sizeof(float) * (size_t(D) * LDT + size_t(D > BK ? D : BK) * LDT +
-                          size_t(BK) * (D + 4) + BK);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-mha_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const uint8_t* __restrict__ pad,
-                   float* __restrict__ out, int H, int S, float scale) {
-  static_assert(D % 32 == 0, "each thread owns D/8 output dims, a multiple of 4");
-  constexpr int DPT = D / 8;  // output dims per thread
-  constexpr int LDV = D + 4;
-
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                       // [D][LDT]: q tile, transposed
-  float* kt = qt + D * LDT;               // [D][LDT]: k tile, transposed
-  float* pt = kt;                         // [BK][LDT]: P^T, written after the scores
-  float* vs = kt + (D > BK ? D : BK) * LDT;  // [BK][LDV]
-  float* bias = vs + BK * LDV;            // [BK]
-
-  const int tid = threadIdx.x;
-  const int rg = tid / CPT;  // row group: rows rg*RPT .. +RPT
-  const int cg = tid % CPT;  // column group: keys cg*CPT .. +CPT, dims cg*DPT .. +DPT
-  const int bh = blockIdx.x;  // b * H + h
-  const int b = bh / H;
-  const int q0 = blockIdx.y * BQ;
-  const size_t base = size_t(bh) * S * D;
-
-  for (int e = tid; e < BQ * D; e += NTHREADS) {
-    const int r = e / D, d = e % D;
-    qt[d * LDT + r] = (q0 + r < S) ? q[base + size_t(q0 + r) * D + d] : 0.f;
-  }
-
-  float m[RPT], l[RPT], acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    __syncthreads();  // the previous tile's P^T and V are no longer read
-    for (int e = tid; e < BK * D; e += NTHREADS) {
-      const int j = e / D, d = e % D;
-      const bool in = k0 + j < S;
-      const size_t off = base + size_t(k0 + j) * D + d;
-      kt[d * LDT + j] = in ? k[off] : 0.f;
-      vs[j * LDV + d] = in ? v[off] : 0.f;
-    }
-    for (int j = tid; j < BK; j += NTHREADS) {
-      const int key = k0 + j;
-      // keys past S leave the softmax (-inf); padded keys keep the finite
-      // reference bias, so a fully padded row averages the real keys
-      bias[j] = key >= S ? -INFINITY
-                         : ((pad != nullptr && pad[size_t(b) * S + key]) ? MASK_BIAS : 0.f);
-    }
-    __syncthreads();
-
-    float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(&qt[d * LDT + rg * RPT]);
-      const float4 ka = *reinterpret_cast<const float4*>(&kt[d * LDT + cg * CPT]);
-      const float4 kb = *reinterpret_cast<const float4*>(&kt[d * LDT + cg * CPT + 4]);
-      const float qr[RPT] = {qv.x, qv.y, qv.z, qv.w};
-      const float kc[CPT] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
-    }
-
-    float corr[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        s[i][j] = s[i][j] * scale + bias[cg * CPT + j];
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the 8 threads of a row group are adjacent lanes of one warp
-#pragma unroll
-      for (int o = 1; o < CPT; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      // every tile holds at least one real key, so m_new is finite
-      const float m_new = fmaxf(m[i], mx);
-      corr[i] = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-#pragma unroll
-      for (int o = 1; o < CPT; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      l[i] = l[i] * corr[i] + sum;
-      m[i] = m_new;
-    }
-
-    __syncthreads();  // every thread is done reading k^T before P^T overwrites it
-#pragma unroll
-    for (int j = 0; j < CPT; ++j)
-      *reinterpret_cast<float4*>(&pt[(cg * CPT + j) * LDT + rg * RPT]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= corr[i];
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float4 pv = *reinterpret_cast<const float4*>(&pt[j * LDT + rg * RPT]);
-      const float pr[RPT] = {pv.x, pv.y, pv.z, pv.w};
-      float vv[DPT];
-#pragma unroll
-      for (int c = 0; c < DPT; c += 4) {
-        const float4 t = *reinterpret_cast<const float4*>(&vs[j * LDV + cg * DPT + c]);
-        vv[c] = t.x;
-        vv[c + 1] = t.y;
-        vv[c + 2] = t.z;
-        vv[c + 3] = t.w;
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) acc[i][c] = fmaf(pr[i], vv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = q0 + rg * RPT + i;
-    if (r >= S) continue;
-    const float inv = 1.f / l[i];
-    float* o = out + base + size_t(r) * D + cg * DPT;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) o[c] = acc[i][c] * inv;
-  }
-}
 
 // ------------------------------------------------------- bf16: tensor cores
 
 constexpr int TC_MAX_WARPS = 8;  // 16 query rows per warp
 constexpr int TC_BK = 64;        // keys per streamed tile
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 b16 matrices from shared memory; lane i gives the row address of
-// row i % 8 of matrix i / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// 16 bytes global -> shared without passing through registers; with
-// valid = false the 16 bytes are zero-filled and nothing is read
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(a), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// two floats -> a bf16 pair, the lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // Fragment layouts of mma.m16n8k16 (lane = 4 g + t): A rows g and g + 8,
 // columns 2t, 2t + 1 (+8); B column g, rows 2t, 2t + 1 (+8); C rows g and
@@ -442,23 +234,6 @@ mha_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       *reinterpret_cast<uint32_t*>(out + base + size_t(r1) * D + col) =
           pack_bf16(o[c][2] * inv1, o[c][3] * inv1);
   }
-}
-
-template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* pad,
-                       void* out, int B, int H, int S, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  // above 48 KB a block's shared memory has to be opted into
-  cudaError_t err = cudaFuncSetAttribute(mha_fwd_f32_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(unsigned(B) * unsigned(H), unsigned((S + BQ - 1) / BQ));
-  mha_fwd_f32_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const uint8_t*>(pad),
-      static_cast<float*>(out), H, S, 1.0f / sqrtf(float(D)));
-  return cudaGetLastError();
 }
 
 template <int D>
@@ -770,35 +545,6 @@ mha_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     consume<NWG, STAGES>(sm, &to, a, t0, nt);
 }
 
-// out[bh, r, :] from the key splits' partials, in split order: M = max of the
-// splits' maxima, out = sum O_s 2^(m_s - M) / sum l_s 2^(m_s - M); one thread
-// per 8 output columns of a row
-__global__ void mha_fwd_merge_kernel(const float* __restrict__ part_o,
-                                     const float2* __restrict__ part_ml, uint4* __restrict__ out,
-                                     int BH, int S, int Sq, int splits) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= BH * S * 8) return;
-  const int c = idx % 8, row = idx / 8, bh = row / S, r = row % S;
-  float M = -INFINITY;
-  for (int s = 0; s < splits; ++s) M = fmaxf(M, part_ml[(size_t(s) * BH + bh) * Sq + r].x);
-  float L = 0.f, acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int s = 0; s < splits; ++s) {
-    const size_t i = (size_t(s) * BH + bh) * Sq + r;
-    const float2 ml = part_ml[i];
-    const float w = ex2(ml.x - M);
-    L += ml.y * w;
-    const float4* po = reinterpret_cast<const float4*>(part_o + i * 64 + 8 * c);
-    const float4 x0 = po[0], x1 = po[1];
-    acc[0] += w * x0.x, acc[1] += w * x0.y, acc[2] += w * x0.z, acc[3] += w * x0.w;
-    acc[4] += w * x1.x, acc[5] += w * x1.y, acc[6] += w * x1.z, acc[7] += w * x1.w;
-  }
-  const float inv = 1.f / L;
-  out[size_t(row) * 8 + c] = make_uint4(pack_bf16x2(acc[0] * inv, acc[1] * inv),
-                                        pack_bf16x2(acc[2] * inv, acc[3] * inv),
-                                        pack_bf16x2(acc[4] * inv, acc[5] * inv),
-                                        pack_bf16x2(acc[6] * inv, acc[7] * inv));
-}
-
 template <int NWG, int STAGES>
 cudaError_t launch_plan(const CUtensorMap* maps, const Args& a, dim3 grid, cudaStream_t stream) {
   using P = Plan<NWG, STAGES>;
@@ -814,16 +560,13 @@ cudaError_t launch_plan(const CUtensorMap* maps, const Args& a, dim3 grid, cudaS
 
 }  // namespace
 
-// The f32 kernel (dtype 0) and the v1 bf16 kernel (dtype 1).  Returns a
-// cudaError_t (0 = launched).
-extern "C" int mha_fwd(const void* q, const void* k, const void* v, const void* pad,
-                       void* out, int B, int H, int S, int D, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || D != 64 || (S + BQ - 1) / BQ > 65535)
+// The v1 bf16 kernel (mma.sync), which no route takes: kept to be timed
+// beside the wgmma routes.  Returns a cudaError_t (0 = launched).
+extern "C" int mha_fwd_v1(const void* q, const void* k, const void* v, const void* pad, void* out,
+                          int B, int H, int S, int D, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || D != 64 || (S + 63) / 64 > 65535)
     return int(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return int(launch_f32<64>(q, k, v, pad, out, B, H, S, st));
-  if (dtype == 1) return int(launch_bf16<64>(q, k, v, pad, out, B, H, S, st));
-  return int(cudaErrorInvalidValue);
+  return int(launch_bf16<64>(q, k, v, pad, out, B, H, S, static_cast<cudaStream_t>(stream)));
 }
 
 // The wgmma routes, bf16: "short" for S <= 128 (one block per (row, head),
@@ -875,8 +618,5 @@ extern "C" int mha_fwd_wgmma(const void* q, const void* k, const void* v, const 
   else
     err = fwd::launch_plan<2, 4>(maps, a, grid, st);
   if (err != cudaSuccess || splits == 1) return int(err);
-  const int n = BH * S * 8;
-  fwd::mha_fwd_merge_kernel<<<unsigned((n + 255) / 256), 256, 0, st>>>(
-      a.part_o, a.part_ml, static_cast<uint4*>(out), BH, S, a.Sq, splits);
-  return int(cudaGetLastError());
+  return int(mha_merge::launch_merge<__nv_bfloat16>(a.part_o, a.part_ml, out, BH, S, a.Sq, splits, st));
 }

@@ -1,16 +1,21 @@
-"""ctypes wrapper of the Hopper attention backward kernels in csrc/mha_bwd.cu.
+"""ctypes wrapper of the Hopper attention backward kernels in csrc/mha_bwd.cu
+(bf16) and csrc/mha_bwd_f32.cu, csrc/mha_bwd_f32_wide.cu (f32).
 
 ``mha_bwd`` replaces temporalalignnet_tpu/ops/pallas_attention.py::_mha_bwd_kernel
 on CUDA tensors: from q, k, v, the key padding mask and the output's
 cotangent it returns (dq, dk, dv) of ``mha_fwd``.  It checks its inputs,
 allocates the outputs (and the row-statistics scratch of the two-kernel
-routes), launches on PyTorch's current stream and raises if a launch was
+plans), launches on PyTorch's current stream and raises if a launch was
 refused.  The route depends on the dtype and S alone (``route``):
 
 - ``fused``: bf16 with S <= 128, every training shape.  One wgmma/TMA kernel
   per call, a block per (batch row, head) holding the whole head.
 - ``v2``: bf16 with S > 128.  The dq kernel and the dk/dv kernel on mma.sync.
-- ``f32``: the same two-kernel scheme as f32 FMAs, the parity path.
+- ``f32``: float32 at any S, the ``--f32`` training path.  Split TF32 on the
+  tensor cores (each product big·small + small·big + big·big of TF32 halves,
+  f32 accumulators): f32 accuracy, as the TPU kernel's Precision.HIGHEST
+  asks.  Up to S = 128 one kernel, a block per (batch row, head), one pass,
+  no scratch; past it v2's two-kernel plan.
 
 ``mha_bwd.launches`` counts its calls, ``mha_bwd.launches_by_route`` them by
 route.
@@ -31,7 +36,7 @@ import torch
 
 from temporalalignnet_torch.ops import _build
 from temporalalignnet_torch.ops.attention import NEG_INF
-from temporalalignnet_torch.ops.mha_fwd import _DTYPES, check_inputs
+from temporalalignnet_torch.ops.mha_fwd import check_inputs
 
 
 def mha_bwd_reference(
@@ -60,6 +65,9 @@ def mha_bwd_reference(
 
 
 FUSED_MAX_S = 128  # the fused kernel holds a head's rows in two warpgroups of 64
+# the f32 whole-head kernel past this S is built in a source of its own,
+# csrc/mha_bwd_f32_wide.cu, so that its instantiations compile in parallel
+F32_WIDE_MIN_S = 81
 ROUTES = ("fused", "v2", "f32")
 
 
@@ -70,11 +78,10 @@ def route(dtype: torch.dtype, S: int) -> str:
     return "fused" if S <= FUSED_MAX_S else "v2"
 
 
-def _kernel(name: str, n_ptrs: int):
-    fn = getattr(_build.load("mha_bwd"), name)
+def _kernel(lib: str, name: str, n_ptrs: int):
+    fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + (
-            [ctypes.c_int] if name == "mha_bwd" else []) + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -114,11 +121,17 @@ def _launch(which, q, k, v, key_padding_mask, dout):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if which == "fused":
-            rc = _kernel("mha_bwd_fused", 8)(*ptrs, B, H, S, D, stream)
-        else:
-            stats = torch.empty(3 * B * H * S, dtype=torch.float32, device=q.device)
-            rc = _kernel("mha_bwd", 9)(*ptrs, stats.data_ptr(), B, H, S, D,
-                                       _DTYPES[q.dtype], stream)
+            rc = _kernel("mha_bwd", "mha_bwd_fused", 8)(*ptrs, B, H, S, D, stream)
+        else:  # the row statistics of the two-kernel plans (v2; f32 past S = 128)
+            stats = (None if which == "f32" and S <= FUSED_MAX_S else
+                     torch.empty(3 * B * H * S, dtype=torch.float32, device=q.device))
+            if which == "v2":
+                lib, name = "mha_bwd", "mha_bwd_v2"
+            else:  # each f32 library exports one function of its own name
+                lib = name = ("mha_bwd_f32_wide" if F32_WIDE_MIN_S <= S <= FUSED_MAX_S
+                              else "mha_bwd_f32")
+            rc = _kernel(lib, name, 9)(*ptrs, None if stats is None else stats.data_ptr(),
+                                       B, H, S, D, stream)
     if rc != 0:
         raise RuntimeError(f"mha_bwd ({which}) launch failed: cudaError {rc} at shape "
                            f"{tuple(q.shape)}")

@@ -1,4 +1,5 @@
-"""ctypes wrapper of the Hopper attention kernels in csrc/mha_fwd.cu.
+"""ctypes wrapper of the Hopper attention kernels in csrc/mha_fwd.cu (bf16)
+and csrc/mha_fwd_f32.cu (f32).
 
 ``mha_fwd`` replaces temporalalignnet_tpu/ops/pallas_attention.py::_mha_kernel
 on a CUDA tensor.  It checks its inputs, allocates the output (and the split
@@ -13,7 +14,13 @@ if the launch was refused.  The route depends on the dtype and S alone
   queries a block; where that grid is short of the card the key range is
   split across blocks (``key_splits``) and a merge kernel combines the
   splits in split order.
-- ``f32``: f32 FMAs on the CUDA cores, the parity path.
+- ``f32``: float32 at any S, the eval's ``--f32``, the punctuator and f32
+  training.  Split TF32 on the tensor cores (each product big·small +
+  small·big + big·big of TF32 halves, f32 accumulators): f32 accuracy, as the
+  TPU kernel's Precision.HIGHEST asks.  The same block plan as bf16: up to
+  S = 128 one block per (batch row, head), past it ``F32_LONG_QUERIES``
+  queries a block with key splits (``f32_key_splits``) merged by the merge
+  kernel in f32.
 
 The kernel is the ``torch.library`` custom op ``temporalalignnet::mha_fwd``
 (``torch.ops.temporalalignnet.mha_fwd``, ``mha_fwd_op``): its CUDA
@@ -50,10 +57,11 @@ import torch
 
 from temporalalignnet_torch.ops import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)  # the kernels' input dtypes
 HEAD_DIMS = (64,)  # the kernels' template instantiations
 SHORT_MAX_S = 128  # the short route holds a head's queries in two warpgroups of 64
 LONG_QUERIES = 128  # queries per block of the long route
+F32_LONG_QUERIES = 64  # queries per block of the f32 route past S = 128
 KEY_TILE = 64
 ROUTES = ("short", "long", "f32")
 
@@ -78,8 +86,26 @@ def key_splits(blocks: int, key_tiles: int, sms: int) -> int:
     return -(-key_tiles // per)
 
 
-def _fn(name: str, argtypes):
-    fn = getattr(_build.load("mha_fwd"), name)
+F32_SPLIT_TILES = 4  # key tiles a split of the f32 route walks when its grid is short
+
+
+def f32_key_splits(blocks: int, key_tiles: int, sms: int) -> int:
+    """Key-range splits of the f32 route past S = 128 (``F32_LONG_QUERIES``
+    queries a block, two blocks resident per SM).  A grid of ``blocks`` that
+    holds two blocks per SM, or whose blocks walk at most 2 ``F32_SPLIT_TILES``
+    key tiles, is not split: the merge pass and the partials would cost more
+    than they win (the punctuator's [4, 12, 258, 64], 240 blocks of 5 tiles,
+    ran 10 % slower split on an H100).  Else the key range goes in parts of
+    ``F32_SPLIT_TILES`` tiles, so that a short grid with long key walks (the
+    global method's [1, 8, 1088, 64]: 136 blocks of 17 tiles, 35 % faster
+    in 4 parts there) fills the card."""
+    if blocks >= 2 * sms or key_tiles <= 2 * F32_SPLIT_TILES:
+        return 1
+    return -(-key_tiles // F32_SPLIT_TILES)
+
+
+def _fn(lib: str, name: str, argtypes):
+    fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -173,21 +199,24 @@ def _launch(which, q, k, v, key_padding_mask):
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if which in ("f32", "v1"):
-            fn = _fn("mha_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        if which == "v1":
+            fn = _fn("mha_fwd", "mha_fwd_v1",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(),
-                    B, H, S, D, _DTYPES[q.dtype], stream)
+                    B, H, S, D, stream)
         else:
             part, splits = None, 1
-            if which == "long":
-                qblocks = -(-S // LONG_QUERIES)
-                splits = key_splits(B * H * qblocks, -(-S // KEY_TILE),
-                                    _build.sm_count(q.device))
+            if S > SHORT_MAX_S:  # long and f32: key splits where the grid is short
+                rows = F32_LONG_QUERIES if which == "f32" else LONG_QUERIES
+                qblocks = -(-S // rows)
+                choose = f32_key_splits if which == "f32" else key_splits
+                splits = choose(B * H * qblocks, -(-S // KEY_TILE), _build.sm_count(q.device))
                 if splits > 1:
-                    part = torch.empty(splits * B * H * qblocks * LONG_QUERIES * (D + 2),
+                    part = torch.empty(splits * B * H * qblocks * rows * (D + 2),
                                        dtype=torch.float32, device=q.device)
-            fn = _fn("mha_fwd_wgmma", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                     + [ctypes.c_void_p])
+            lib, name = ("mha_fwd_f32", "mha_fwd_f32") if which == "f32" else (
+                "mha_fwd", "mha_fwd_wgmma")
+            fn = _fn(lib, name, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, out.data_ptr(),
                     None if part is None else part.data_ptr(), B, H, S, D, splits, stream)
     if rc != 0:
