@@ -34,10 +34,10 @@ Phases, each printing JSON lines:
      kernel_bwd  mha_bwd (dq, dk, dv) against mha_bwd_reference, the plain
              version with the kernel's bf16 roundings, per element
              (GRAD_TOL); planted faults must exceed the limit.  Each route:
-             bf16 "fused" at the training shapes, BERT's and an odd S, bf16 "v2" at
-             S = 200, "f32" at all four (at the training shapes also the
-             plain version in single-pass TF32 as a planted fault); the
-             route each call took is checked.
+             bf16 "fused" at the training shapes, BERT's and an odd S, bf16 "long"
+             at S = 200 and 144 (two calls bit-equal), "f32" at all of them
+             (at the training shapes also the plain version in single-pass
+             TF32 as a planted fault); the route each call took is checked.
      kernel_milnce  milnce_fwd against milnce_reference (the loss's
              elements) and its four logsumexps against milnce_lse_reference,
              milnce_dv and milnce_dt against milnce_grad_reference, at the
@@ -46,8 +46,10 @@ Phases, each printing JSON lines:
              K = 5120) and at a small one whose video gradient splits its
              column stream, f32 and bf16; planted faults as above (for the
              forward: padded columns left unmasked, the last row block left
-             out of the column logsumexps); the routes of the three (bf16
-             "wgmma", f32 "f32") are checked.
+             out of the column logsumexps; for the f32 gradients their
+             products in single-pass TF32); the routes of the three (bf16
+             "wgmma", f32 "f32") are checked, and two gradient calls must
+             be bit-equal.
   3. eval    AlignmentEvaluator (overlap-seq and global) on a synthetic corpus,
              random E6D6 weights from a seed, bf16; every overlap-seq
              forward call must launch the kernel 12 times on the "short"
@@ -66,6 +68,12 @@ Phases, each printing JSON lines:
              each MIL-NCE kernel twice (on the wgmma route).  The
              fused path against the plain-logits path on the card (bf16), and
              an f32 step on the card against the CPU's.
+     train_t128  the same model at T = 128 (joint S = 144): T128_STEPS bf16
+             steps launching mha_bwd 6 times on the fused route (the dual
+             encoder) and 6 on the long one (the joint encoder), two kernel
+             steps against two plain ones (attention_reference and the plain
+             logits) at the train phase's limits; then two f32 steps, every
+             kernel on its f32 route.
      train_cli  python -m temporalalignnet_torch.train --max_steps on those
              files, then python -m temporalalignnet_torch.eval on the
              .pth.tar it wrote: --task align, and at the same time --task
@@ -98,8 +106,9 @@ Phases, each printing JSON lines:
              twin checkpoint it wrote.
      resume  the train CLI run uninterrupted for 2k steps twice, and stopped
              at step k (a runtime checkpoint there, and the YC2 eval after
-             it), in this process; then continued with --resume auto in a
-             new process, both cases' at once: Stage 1
+             it), each in a process of its own, both cases' at once; then
+             continued with --resume auto in a new process, both cases' at
+             once: Stage 1
              at E6D6, B = 64, bf16, fused, and cotrain at E2D2 with
              backprop_freq 2 (stopped mid-accumulation); per-step losses and
              final params (with the twin's) must stay within the two
@@ -157,8 +166,8 @@ Phases, each printing JSON lines:
      bert_cli  the train CLI with --language_model bert --bert_dir (3 steps
              at B = 16), --model cotrain --pretrain on its checkpoint, then
              the eval CLI's two tasks on the twin checkpoint at once (since
-             slice 11 in a thread beside resume and the ranks, its lines
-             printed here).
+             slice 11 in a thread beside the ranks, its lines printed
+             here).
      clip_baseline  the eval CLI's CLIP baseline (--clip_text_ckpt of random
              HF-key-space ViT-B/32 text weights, byte-BPE files, cos) on a
              corpus of 512-d features: f32 card and CPU agree, bf16 runs; the
@@ -188,8 +197,9 @@ Phases, each printing JSON lines:
              replays, the host syncs of a group; in two children the train CLI with
              --steps_per_dispatch GROUP_K --max_steps 10 (overshooting to 12,
              with its [stop] line) against --max_steps 12 per step.
-     dp_two_ranks  slice 9 (started before resume, running beside it, read
-             after it): two children on the card joined
+     dp_two_ranks  slice 9 (started after serving_export, running beside
+             the phases up to make_bert_dir, read after it): two children on
+             the card joined
              by gloo (initialize_multihost(backend="gloo"); NCCL refuses two
              ranks on one device), the global B = 64 split 32 + 32: Stage-1
              and cotrain steps in f32 and bf16 against the 1-process step
@@ -206,7 +216,7 @@ Phases, each printing JSON lines:
              1-process steps of half the cases itself.
      dp_world1  the train CLI (E6D6, B = 64, bf16, fused, 4 steps) with
              --multihost in a world of one over NCCL, beside the same run
-             without a group (both started before dp_two_ranks): losses and
+             without a group (both started after resume, on its files): losses and
              params against each other, the [multihost] line, and in its
              --profile_dir trace NCCL's kernel and the port's per step;
              since slice 10 beside them the same world-of-one run with
@@ -214,8 +224,8 @@ Phases, each printing JSON lines:
              one CUDA graph): losses and params equal to the eager run's to
              the bit, NCCL's kernel once per step, once per replay among the
              kernels the graph launches issued.
-     tp_two_ranks  slice 10 (started after dp_two_ranks, running beside the
-             world-of-one CLIs, s3d and e2e_step): tensor parallelism over
+     tp_two_ranks  slice 10 (started after profile_dir, running beside
+             the phases up to e2e_step): tensor parallelism over
              TP = 2 children on the card joined by gloo, E6D6 width 512, 8
              heads (4 a rank: mha_fwd and mha_bwd on [64, 4, S, 64]), B = 64
              on both ranks: Stage-1 and cotrain steps in f32 and bf16 against
@@ -242,14 +252,17 @@ Phases, each printing JSON lines:
              the kernel phase, before any larger profile, and eval-forward
              windows/s of the bench.py workload right after the eval phase,
              beside the same forward as a loaded torch.export program.
-             Last, in child processes, the device ms of a retrieval forward
-             call at Lb = 96 and 256, and train steps/s at B = 64 (Stage 1
-             plain and with --remat, cotrain, both also as a CUDA graph per
-             step (--steps_per_dispatch GROUP_K), and the BERT TAN's Stage 1
-             and cotrain), each with its device time, peak memory and top
-             kernels; and e2e steps/s and clips/s at E2E with the device
-             time, idle share, peak memory and the bound from S3D's
-             multiply-adds; in the Stage-1 child, after its plain step, the
+             Last, in child processes (STEP_TIME_CHILDREN), train steps/s
+             at B = 64 (Stage 1 and cotrain), each with its device time,
+             peak memory and top kernels; and e2e steps/s and clips/s at
+             E2E with the device time, idle share, peak memory and the bound
+             from S3D's multiply-adds; ``--step-times`` adds the rest
+             (STEP_TIME_MORE): the device ms of a retrieval forward call at
+             Lb = 96 and 256, Stage 1 with --remat, Stage 1 and cotrain as a
+             CUDA graph per step (--steps_per_dispatch GROUP_K), the BERT
+             TAN's Stage 1 and cotrain, the bf16 Stage-1 step at T = 128 and
+             the f32 one (``step_view``: device ms and steps/s).  In the
+             Stage-1 child, after its plain step, the
              same step in a world of one over NCCL (device ms, idle share,
              NCCL's kernel ms per step), and since slice 10 that step and
              the plain one as CUDA graphs (a group of GROUP_K replays:
@@ -271,24 +284,29 @@ Phases, each printing JSON lines:
              "timing": "cuda_events".
   5. bench_tools  slice 11, after the step-time children (started with
              them, released one after another): python -m
-             temporalalignnet_torch.tools.bench_train_step at its defaults
-             (B = 64, 3 warm-up steps and 3 rounds of 30) with --stage 1
+             temporalalignnet_torch.tools.bench_train_step (B = 64, 3
+             warm-up steps and 2 rounds of 10) with --stage 1
              --fused 1, --stage 2 --fused 1 and --stage 1 --fused 0: the
              wrappers' launches over the run must be the step's (BENCH_LAUNCHES)
-             times 93, on the step's routes, and the steps/s at most
+             times 23, on the step's routes, and the steps/s at most
              BENCH_RATE_MAX x 1000 / the init (cotrain) child's device ms a
              step (a higher rate means the fence is missing);
-             tools.bench_e2e_step --batch_size 16 (the e2e child's step): its
-             steps/s within BENCH_E2E_RATE of 1000 / that child's device ms;
-             at its default 8 videos with --profile_dir under build/: the
-             trace must exist (its device events printed); tools.bench_loader
+             tools.bench_e2e_step --batch_size 16 (the e2e child's step, 2
+             rounds of 10, then a trace of 10 steps under build/): its
+             steps/s within BENCH_E2E_RATE of 1000 / that child's device ms,
+             and the trace must exist (its device events printed); tools.bench_loader
              at its defaults, --metadata 20000 and --vlen_files 2000, each
              line parsed.  A bench_tool line per run.
 A ``phase_seconds`` line gives each phase's wall seconds.  The child
 processes (the CLIs, the step-time runs) share one bytecode cache under
 build/pycache, and runs that time nothing go at once: the eval CLI's two
-methods, its two tasks on the trained checkpoint, the two resumed training
-runs, the BERT CLIs beside resume.  Since slice 11 each python -m child runs
+methods, its two tasks on the trained checkpoint, the resume phase's runs,
+the BERT CLIs beside the ranks.  Three phases of child processes that time
+nothing and launch no kernel in this process run in threads beside the
+others (``in_background``): train_cli (from after the train phase to
+retrieval), resume with dp_world1 after it, and cotrain_cli (from after
+retrieval to the step times); the step-time and bench children make ready
+beside htm_aa_pipeline and the phases after it.  Since slice 11 each python -m child runs
 in a spare process made ready ahead (make_spares: Python started, torch and
 the port imported), so that the CLIs pay no process start.
 The card's name and power limit (nvidia-smi) and a ``kernels`` line come
@@ -301,6 +319,17 @@ alone in a directory) it exits 1 before any output.
 
 runs the build, the kernel checks, the kernel rows and the f32 eval forward
 alone (a few minutes), and prints no result line.
+
+    python3 chip_smoke.py --step-times [<child> ...]
+
+runs the build and the step-time children (STEP_TIME_CHILDREN and
+STEP_TIME_MORE, or those named) alone, and prints no result line.
+
+    python3 chip_smoke.py --step-view bf16_t128|f32 [<tree>]
+
+prints one end-to-end step line (STEP_VIEWS) with the port of another
+checkout (<tree>, e.g. the parent commit's unpacked under build/), so that
+two trees are timed in turns by the same code.
 """
 
 from __future__ import annotations
@@ -365,19 +394,29 @@ YC2_TIMED_SHAPES = [(250, 8, 96, 64), (250, 8, 256, 64)]  # one per route
 BENCH = dict(B=192, T=64, C=1024, N=8, W=32)
 TRAIN = dict(B=64, T=64, N=16, W=32)  # the train CLI's defaults
 MHA_BWD_SHAPES = [(64, 8, 64, 64), (64, 8, 80, 64), (8, 8, 37, 64)]  # dual, joint, odd S
-MHA_BWD_V2_SHAPE = (8, 8, 200, 64)  # bf16 past S = 128 takes the v2 route
+# bf16 past S = 128 takes the long route: a sentence bucket, the joint encoder at T = 128
+MHA_BWD_LONG_SHAPES = [(8, 8, 200, 64), (8, 8, 144, 64)]
 # (S, B, T, N, C, shared text): R = B T rows, K = B N columns
 MILNCE_SHAPES = [(6, 64, 64, 16, 512, True), (6, 64, 64, 16, 512, False),
                  (6, 128, 64, 16, 512, False), (2, 64, 64, 80, 512, False)]
 MILNCE_SPLIT_SHAPE = (2, 8, 64, 16, 512, False)  # milnce_dv in two column splits
 TRAIN_STEPS = 10
+# the bf16 Stage-1 step at T = 128 (--seq_len 128): the dual encoder's S = 128 on
+# mha_fwd's short and mha_bwd's fused route, the joint encoder's S = 128 + N = 144 on
+# their long routes; T128_STEPS counted steps
+T128_STEPS = 3
 # expected launches per train step: 6 + 6 encoder blocks; the dual and joint MIL-NCE
 STEP_LAUNCHES = {"mha_fwd": 12, "mha_bwd": 12, "milnce_fwd": 2, "milnce_dv": 2,
                  "milnce_dt": 2}
 # ... and the routes they take (bf16, S = 64 and 80)
 STEP_ROUTES = {"mha_fwd": {"short": 12, "long": 0, "f32": 0},
-               "mha_bwd": {"fused": 12, "v2": 0, "f32": 0}, "milnce_fwd": {"wgmma": 2, "f32": 0},
+               "mha_bwd": {"fused": 12, "long": 0, "f32": 0}, "milnce_fwd": {"wgmma": 2, "f32": 0},
                "milnce_dv": {"wgmma": 2, "f32": 0}, "milnce_dt": {"wgmma": 2, "f32": 0}}
+T128_ROUTES = dict(STEP_ROUTES, mha_fwd={"short": 6, "long": 6, "f32": 0},
+                   mha_bwd={"fused": 6, "long": 6, "f32": 0})
+# the f32 Stage-1 step (T = 64, f32 compute): every kernel on its f32 route
+F32_STEP_ROUTES = {k: {r: (STEP_LAUNCHES[k] if r == "f32" else 0) for r in v}
+                   for k, v in STEP_ROUTES.items()}
 # fused against plain logits on the card, bf16, two steps on two batches
 # (the first update has lr 0, so both steps see the initial params): the
 # loss differs by the order of f32 sums over the same bf16 features; the
@@ -483,7 +522,7 @@ BERT_STEPS = 6
 # blocks; the cotrain step's twin adds 24 forward launches (its BERT and its aligner)
 BERT_STEP_LAUNCHES = dict(STEP_LAUNCHES, mha_fwd=24, mha_bwd=24)
 BERT_STEP_ROUTES = dict(STEP_ROUTES, mha_fwd={"short": 24, "long": 0, "f32": 0},
-                        mha_bwd={"fused": 24, "v2": 0, "f32": 0})
+                        mha_bwd={"fused": 24, "long": 0, "f32": 0})
 BERT_COTRAIN_LAUNCHES = dict(BERT_STEP_LAUNCHES, mha_fwd=48)
 BERT_COTRAIN_ROUTES = dict(BERT_STEP_ROUTES, mha_fwd={"short": 48, "long": 0, "f32": 0})
 # openai/clip-vit-base-patch32's config: text 512 wide, 12 layers of 8 heads, 77 tokens,
@@ -537,7 +576,9 @@ PUNCT_SHAPE = (4, 12, 258, 64)
 # mha_fwd's f32 route, timed at the eval's dual and joint shapes, the training's,
 # the global method's and the punctuator's; mha_bwd's at the training's
 F32_TIMED_SHAPES = KERNEL_SHAPES[:2] + MHA_BWD_SHAPES[:2] + [KERNEL_SHAPES[3], PUNCT_SHAPE]
-MHA_BWD_V2_TIMED_SHAPE = (64, 8, 200, 64)  # bf16 past S = 128: the v2 route, timed
+# bf16 past S = 128, timed: the joint encoder at --seq_len 128 (S = 128 + 16) and a long
+# sentence bucket
+MHA_BWD_LONG_TIMED_SHAPES = [(64, 8, 144, 64), (64, 8, 200, 64)]
 PUNCT_STOPWORDS = ("so", "we", "the", "and", "to", "it", "now", "you", "is", "this", "of",
                    "in", "a", "that", "then", "just")
 # a label the card and the CPU disagree on must be a near-tie: the two labels' biased
@@ -593,8 +634,9 @@ def spare_child(go) -> int:
     import importlib
     import runpy
 
-    for module in ("torch", "temporalalignnet_torch.train.cli", "temporalalignnet_torch.eval.cli",
-                   "temporalalignnet_torch.train.end2end_cli"):
+    # torch._dynamo: the first optimizer's constructor imports it (seconds)
+    for module in ("torch", "torch._dynamo", "temporalalignnet_torch.train.cli",
+                   "temporalalignnet_torch.eval.cli", "temporalalignnet_torch.train.end2end_cli"):
         importlib.import_module(module)
     wait_for_release(go)
     with open(go) as f:
@@ -625,8 +667,42 @@ def stop(procs):
             proc.communicate()
 
 
+EMIT_LOCK = threading.Lock()  # phases in the background (in_background) emit too
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj) + "\n"
+    with EMIT_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
+
+
+def in_background(fn, *args):
+    """``fn(*args)`` in a thread: a phase whose runs are child processes, that
+    times nothing and launches no kernel in this process (the wrappers'
+    counts stay the main thread's).  Joined by ``joined``."""
+    result = {}
+
+    def run():
+        try:
+            result["value"] = fn(*args)
+        except BaseException as e:  # raised again by joined
+            result["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, result
+
+
+def joined(started, what, timeout=1800):
+    """The result of an ``in_background`` phase once its thread has ended;
+    its failure raised."""
+    thread, result = started
+    thread.join(timeout)
+    check(not thread.is_alive(), f"{what} did not end")
+    if "error" in result:
+        raise result["error"]
+    return result["value"]
 
 
 def check(ok: bool, what: str) -> None:
@@ -963,11 +1039,11 @@ def phase_mha_bwd_check(torch):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 4)
     worst = {}
-    for shape in MHA_BWD_SHAPES + [MHA_BWD_V2_SHAPE, BERT_SHAPE] + TP_SHAPES:
+    for shape in MHA_BWD_SHAPES + MHA_BWD_LONG_SHAPES + [BERT_SHAPE] + TP_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             tol = GRAD_TOL[name]
-            expected = "f32" if dtype == torch.float32 else "fused" if shape[2] <= 128 else "v2"
+            expected = "f32" if dtype == torch.float32 else "fused" if shape[2] <= 128 else "long"
             for masked in (False, True):
                 q, k, v, g = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(4))
                 mask = tower_mask(torch, shape, gen, dev) if masked else None
@@ -983,20 +1059,26 @@ def phase_mha_bwd_check(torch):
                                                             mask, g)
                 if masked:
                     faults["padded_keys_unmasked"] = mha_bwd_reference(q, k, v, None, g)
+                # the long route sums in a fixed order: its calls are bit-equal
+                again = [mha_bwd(q, k, v, mask, g) for _ in range(2)] if taken == "long" else []
                 torch.cuda.synchronize()
+                bit_equal = all(torch.equal(a, b) for run in again for a, b in zip(run, ours))
                 errs = [elem_err(a, b) for a, b in zip(ours, plain)]
                 abs_errs = [abs_err(a, b) for a, b in zip(ours, plain)]
                 fault_errs = {f: max(elem_err(a, b) for a, b in zip(fg, plain))
                               for f, fg in faults.items()}
                 worst[name] = max(worst.get(name, 0.0), *abs_errs)
+                worst[taken] = max(worst.get(taken, 0.0), *abs_errs)
                 emit({"phase": "kernel_bwd", "name": "mha_bwd", "route": taken,
                       "shape": list(shape), "dtype": name, "masked": masked,
                       "elem_err_dq_dk_dv": errs,
                       "norm_err_dq_dk_dv": [norm_err(a, b) for a, b in zip(ours, plain)],
                       "abs_err_dq_dk_dv": abs_errs, "rms_dq_dk_dv": [rms(b) for b in plain],
-                      "tol": tol, "planted_fault_elem_err": fault_errs})
+                      "tol": tol, "planted_fault_elem_err": fault_errs,
+                      **({"calls_bit_equal": bit_equal} if again else {})})
                 check(all(bool(torch.isfinite(t).all()) and t.dtype == dtype for t in ours),
                       f"mha_bwd output at {shape} {name}")
+                check(bit_equal, f"mha_bwd {name} {shape}: two calls differ")
                 check(taken == expected, f"mha_bwd {name} {shape} took route {taken}")
                 check(max(errs) <= tol, f"mha_bwd {name} {shape} masked={masked}: {errs}")
                 for f, err in fault_errs.items():
@@ -1048,7 +1130,7 @@ def phase_milnce_check(torch):
     catch."""
     from temporalalignnet_torch.ops import _build
     from temporalalignnet_torch.ops.milnce import (
-        TILE, _wave_splits, fused_milnce_elements, milnce_dt, milnce_dt_v2, milnce_dv,
+        F32_TILE, TILE, _wave_splits, fused_milnce_elements, milnce_dt, milnce_dt_v2, milnce_dv,
         milnce_dv_v2, milnce_fwd, milnce_fwd_v1, milnce_grad_reference, milnce_lse_reference,
         milnce_reference)
 
@@ -1075,6 +1157,9 @@ def phase_milnce_check(torch):
             plain = milnce_grad_reference(v, t, pm, cv, lse, gv, gt, inv_temp)
             faults = {"column_term_dropped": milnce_grad_reference(
                 v, t, pm, cv, lse, gv, torch.zeros_like(gt), inv_temp)}
+            if dtype == torch.float32:  # the products in single-pass TF32
+                faults["tf32_single_pass"] = tf32_plain(torch, milnce_grad_reference, v, t, pm, cv,
+                                                        lse, gv, gt, inv_temp)
             fwd_faults = milnce_fwd_faults(torch, v, t, pm, cv, lse, mv, inv_temp)
             if "padded_columns_unmasked" in fwd_faults:  # in the forward and the backward
                 faults["padded_columns_unmasked"] = milnce_grad_reference(
@@ -1085,15 +1170,17 @@ def phase_milnce_check(torch):
             # earlier kernels: without the ~1e-6 logsumexp difference, which
             # moves some dsim entries to the neighbouring bf16 value
             same_lse, v1_lse_err = {}, None
+            kargs = (v, t, pm, cv, klse, gv, gt, inv_temp)
             if dtype == torch.bfloat16:
                 v1_lse_err = max(elem_err(a, b) for a, b in zip(
                     milnce_fwd_v1(v, t, pm, cv, mv, inv_temp), lse))
                 kdv, kdt = milnce_grad_reference(v, t, pm, cv, klse, gv, gt, inv_temp)
-                kargs = (v, t, pm, cv, klse, gv, gt, inv_temp)
                 same_lse = {"dv": {"milnce_dv": elem_err(ins[0].grad, kdv),
                                    "milnce_dv_v2": elem_err(milnce_dv_v2(*kargs), kdv)},
                             "dt": {"milnce_dt": elem_err(ins[1].grad, kdt),
                                    "milnce_dt_v2": elem_err(milnce_dt_v2(*kargs), kdt)}}
+            # every split's sum is taken in a fixed order: two calls are bit-equal
+            bit_equal = all(torch.equal(f(*kargs), f(*kargs)) for f in (milnce_dv, milnce_dt))
             torch.cuda.synchronize()
             pairs = {"milnce_fwd": list(zip(out, ref)), "milnce_fwd_lse": list(zip(klse, lse)),
                      "milnce_dv": [(ins[0].grad, plain[0])],
@@ -1106,7 +1193,8 @@ def phase_milnce_check(torch):
                               for f, fl in fwd_faults.items()}
             tols = {"milnce_fwd": MILNCE_VALUE_TOL, "milnce_fwd_lse": MILNCE_VALUE_TOL,
                     "milnce_dv": GRAD_TOL[name], "milnce_dt": GRAD_TOL[name]}
-            dv_splits = _wave_splits(-(-B * T // TILE) * S, -(-B * N // TILE), _build.sm_count(dev))
+            tile = TILE if dtype == torch.bfloat16 else F32_TILE
+            dv_splits = _wave_splits(-(-B * T // tile) * S, -(-B * N // tile), _build.sm_count(dev))
             emit({"phase": "kernel_milnce", "S": S, "R": B * T, "K": B * N, "C": C,
                   "text": "shared" if shared else "per-layer", "dtype": name,
                   "milnce_fwd_route": taken["milnce_fwd"],
@@ -1119,7 +1207,9 @@ def phase_milnce_check(torch):
                   "planted_fault_elem_err_fwd_lse": fwd_fault_errs,
                   "elem_err_fwd_lse_v1": v1_lse_err,
                   "elem_err_dv_vs_plain_from_kernel_lse": same_lse.get("dv", {}),
-                  "elem_err_dt_vs_plain_from_kernel_lse": same_lse.get("dt", {})})
+                  "elem_err_dt_vs_plain_from_kernel_lse": same_lse.get("dt", {}),
+                  "grad_calls_bit_equal": bit_equal})
+            check(bit_equal, f"MIL-NCE gradients {name}: two calls differ")
             for kname, err in errs.items():
                 worst[(kname, name)] = max(worst.get((kname, name), 0.0), abs_errs[kname])
                 check(err <= tols[kname], f"{kname} {name} (S, R, K) = {(S, B * T, B * N)}: {err}")
@@ -1521,6 +1611,83 @@ def phase_train(torch, files):
     check(loss_err <= F32_STEP_TOL, f"f32 step card vs cpu loss {loss_err}")
     check(grad_err <= F32_STEP_TOL, f"f32 step card vs cpu grads {grad_err} ({worst_grad})")
     return totals, stage1_state
+
+
+class PlainAttention:
+    """Within ``with``, attention on the card runs attention_reference
+    (autograd through plain PyTorch) in place of the kernels."""
+
+    def __enter__(self):
+        from temporalalignnet_torch.ops import attention
+
+        self.cls = attention.KernelAttention
+        self.cls.apply = lambda q, k, v, mask: attention.attention_reference(q, k, v, mask)
+        return self
+
+    def __exit__(self, *exc):
+        del self.cls.apply  # autograd.Function's own again
+
+
+def phase_train_t128(torch):
+    """The bf16 Stage-1 step at T = 128 (E6D6 width 512, B = 64, N = 16, fused
+    MIL-NCE; joint S = 144, past the fused mha_bwd's 128): T128_STEPS counted
+    steps on synthetic batches, each launching mha_bwd 6 times on the fused
+    route (the dual encoder) and 6 on the long one (the joint encoder); two
+    kernel steps against two plain ones (attention_reference and the plain
+    logits) at phase_train's limits.  Then two counted f32 Stage-1 steps at
+    T = 64, every kernel on its f32 route.  Returns the launches of both."""
+    import contextlib
+
+    from temporalalignnet_torch.data.synthetic import synthetic_batch
+
+    dev = torch.device("cuda")
+    B, N, W = (TRAIN[k] for k in "BNW")
+
+    def batch_of(T, seed):
+        return {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+            np.random.RandomState(seed), batch_size=B, seq_len=T, max_sentences=N,
+            feature_dim=1024, vocab_size=66250, max_words=W).items()}
+
+    def counted(step, batches, steps, routes, what):
+        per_step, by_route, losses = [], [], []
+        for i in range(steps):
+            out, launches, r = counted_step(torch, step, batches[i % len(batches)])
+            per_step.append(launches)
+            by_route.append(r)
+            losses.append(out["loss"].item())
+        check(all(np.isfinite(losses)), f"{what}: non-finite loss {losses}")
+        return losses, per_step[0], check_launches(per_step, by_route, STEP_LAUNCHES, routes, what)
+
+    batches = [batch_of(128, SEED + 20 + i) for i in range(2)]
+    model, _, step, _ = train_setup(torch, dev, fused=True)
+    init_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    losses, per_step, totals = counted(step, batches, T128_STEPS, T128_ROUTES, "train_t128")
+    del model, step
+    runs = {}
+    for kernels in (True, False):
+        m, _, st, _ = train_setup(torch, dev, fused=kernels, state=init_state)
+        with contextlib.nullcontext() if kernels else PlainAttention():
+            runs[kernels] = two_steps(m, st, batches)
+        del m, st
+    loss_err, grad_err, worst_grad = compare_steps(runs[True], runs[False])
+    emit({"phase": "train_t128", "model": "E6D6 width 512, word2vec, fused MIL-NCE, bf16",
+          "batch": dict(TRAIN, T=128), "losses": losses, "launches_per_step": per_step,
+          "routes_per_step": T128_ROUTES, "losses_kernels": runs[True][0],
+          "losses_plain": runs[False][0], "loss_max_abs_err": loss_err,
+          "grad_max_norm_err": grad_err, "worst_grad": worst_grad,
+          "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL})
+    check(loss_err <= TRAIN_LOSS_TOL, f"T = 128 kernels vs plain loss {loss_err}")
+    check(grad_err <= TRAIN_GRAD_TOL, f"T = 128 kernels vs plain grads {grad_err} ({worst_grad})")
+    del runs
+    m, _, st, _ = train_setup(torch, dev, fused=True, compute=torch.float32)
+    f32_losses, f32_per_step, f32_totals = counted(st, [batch_of(TRAIN["T"], SEED + 22)], 2,
+                                                   F32_STEP_ROUTES, "train_f32")
+    emit({"phase": "train_f32_steps", "model": "E6D6 width 512, word2vec, fused MIL-NCE, f32",
+          "batch": TRAIN, "losses": f32_losses, "launches_per_step": f32_per_step,
+          "routes_per_step": F32_STEP_ROUTES})
+    del m, st
+    torch.cuda.empty_cache()
+    return totals, f32_totals
 
 
 def two_steps(model, step, batches, twin=None):
@@ -2047,32 +2214,38 @@ def phase_resume(torch, yc2_files):
     run done twice, whose difference is the card's own spread: per-step
     losses and final params (and the twin's) must stay within it.  Stage 1
     at E6D6, B = 64, bf16, fused; cotrain at E2D2 with backprop_freq 2,
-    stopped mid-accumulation.  The runs of both cases go in this process
-    one after the other (the stopped ones time their runtime save); then
-    both resumed runs at once.  Returns the training files (RESUME["videos"]
-    videos, kept for the data-parallel phase)."""
+    stopped mid-accumulation.  The runs of both cases (two whole, one
+    stopped each) go at once, each a train CLI process; then both resumed
+    runs at once.  Returns the training files (RESUME["videos"] videos, kept
+    for the data-parallel phase)."""
     t_phase = time.perf_counter()
+    make_spares(3 * len(RESUME["cases"]))  # in place of the ones these runs take
     feats, captions, vocab = make_train_files(os.path.join(REPO, "build", "chip_smoke_resume"),
                                               RESUME["videos"], SEED + 20)
     y_feats, y_anno, _ = yc2_files
-    runs = {}
+    cli = [sys.executable, "-m", "temporalalignnet_torch.train"]
+    first, runs = {}, {}
+    t0 = time.perf_counter()
     for case, k, extra in RESUME["cases"]:
         root = os.path.join(REPO, "build", "chip_smoke_resume", case)
         base = ["--feature_dir", feats, "--captions", captions, "--vocab", vocab,
                 "--log_every", "1", "--epochs", "4", "--warmup_iterations", "2", *extra]
-        t0 = time.perf_counter()
-        whole = [train_cli_in_process(base + ["--prefix", os.path.join(root, f"whole{i}"),
-                                              "--max_steps", str(2 * k),
-                                              "--runtime_save_iter", "0"])
-                 for i in range(2)]
-        t1 = time.perf_counter()
-        _, stopped_log = train_cli_in_process(base + [
-            "--prefix", os.path.join(root, "stopped"), "--max_steps", str(k),
-            "--runtime_save_iter", str(k), "--yc2_anno", y_anno, "--yc2_features", y_feats])
-        runs[case] = (k, root, base, whole, stopped_log,
-                      {"whole_two": t1 - t0, "stopped": time.perf_counter() - t1})
+        first[case] = (k, root, base, [start(cli + base + [
+            "--prefix", os.path.join(root, f"whole{i}"), "--max_steps", str(2 * k),
+            "--runtime_save_iter", "0"]) for i in range(2)] + [start(cli + base + [
+                "--prefix", os.path.join(root, "stopped"), "--max_steps", str(k),
+                "--runtime_save_iter", str(k), "--yc2_anno", y_anno, "--yc2_features", y_feats])])
+    try:
+        for case, (k, root, base, procs) in first.items():
+            outs = [finish(proc, f"{case} {what} run", timeout=900)
+                    for proc, what in zip(procs, ("whole", "whole", "stopped"))]
+            whole = [(json.loads(out.strip().splitlines()[-1]), out) for out in outs[:2]]
+            runs[case] = (k, root, base, whole, outs[2],
+                          {"whole_two_and_stopped_all_at_once": time.perf_counter() - t0})
+    finally:
+        stop([proc for *_, procs in first.values() for proc in procs])
     t0 = time.perf_counter()
-    procs = {case: start([sys.executable, "-m", "temporalalignnet_torch.train", *base,
+    procs = {case: start([*cli, *base,
                           "--prefix", os.path.join(root, "stopped"), "--max_steps", str(2 * k),
                           "--runtime_save_iter", "0", "--resume", "auto"])
              for case, (k, root, base, *_) in runs.items()}
@@ -2135,18 +2308,18 @@ def phase_train_times(torch, card):
 
     from temporalalignnet_torch.ops import milnce
     from temporalalignnet_torch.ops.attention import attention_reference
-    from temporalalignnet_torch.ops.mha_bwd import mha_bwd, mha_bwd_v2, route
+    from temporalalignnet_torch.ops.mha_bwd import mha_bwd, route
 
     dev = torch.device("cuda")
     bw, peak = peaks(card)
     gen = torch.Generator().manual_seed(SEED + 7)
     rows = {}
     bf16, f32 = torch.bfloat16, torch.float32
-    # bf16 at the training shapes (beside the earlier v2 kernel), BERT's and the
-    # tensor-parallel ones, and past S = 128 (the v2 route itself); f32 at the
-    # training shapes
+    # bf16 at the training shapes, BERT's and the tensor-parallel ones, and past
+    # S = 128 (the long route); f32 at the training shapes
     specs = ([(sh, bf16) for sh in MHA_BWD_SHAPES[:2] + [BERT_SHAPE] + TP_SHAPES]
-             + [(MHA_BWD_V2_TIMED_SHAPE, bf16)] + [(sh, f32) for sh in MHA_BWD_SHAPES[:2]])
+             + [(sh, bf16) for sh in MHA_BWD_LONG_TIMED_SHAPES]
+             + [(sh, f32) for sh in MHA_BWD_SHAPES[:2]])
     for shape, dtype in specs:
         Bq, H, S, D = shape
         q, k, v, g = (torch.randn(shape, generator=gen).to(dev, dtype) for _ in range(4))
@@ -2156,12 +2329,9 @@ def phase_train_times(torch, card):
         lib = [t.clone().requires_grad_() for t in (q, k, v)]
         lib_out = F.scaled_dot_product_attention(*lib, attn_mask=~pad[:, None, None, :])
         fns = {"": lambda: mha_bwd(q, k, v, pad, g),
-               "v2_": lambda: mha_bwd_v2(q, k, v, pad, g),
                "plain_": lambda: torch.autograd.grad(plain_out, leaves, g, retain_graph=True),
                "library_": lambda: torch.autograd.grad(lib_out, lib, g, retain_graph=True)}
         which = route(dtype, S)
-        if which != "fused":  # the v2 route is the v2 kernel; f32 has no earlier bf16 kernel
-            del fns["v2_"]
         # q, dout, dq, dk, dv; QK^T, dout V^T, P^T dout, dS K, dS^T Q
         nbytes, flops = attention_work(q, pad, full=5, passes=5)
         row = timed_row(torch, fns, nbytes, flops, bw, peak, shape=list(shape),
@@ -2347,7 +2517,7 @@ def phase_remat(torch):
     step (REMAT_STEP_LAUNCHES: the backward recomputes each block's forward,
     so mha_fwd twice per block); a cotrain step with remat (36 mha_fwd);
     the peak memory of a step at B = 64 and 256 both ways.  The device ms
-    per step come from a child (--step-time remat, beside init)."""
+    per step come from ``chip_smoke.py --step-times remat``."""
     dev = torch.device("cuda")
     batch = synthetic_train_batch(torch, TRAIN["B"], SEED + 9)
     big = {B: synthetic_train_batch(torch, B, SEED + 10) for B in REMAT_MEMORY_BATCHES}
@@ -2948,7 +3118,8 @@ def phase_htm_aa_pipeline(torch, card):
     widths (--decoder synthetic, 6 steps, runtime and epoch checkpoints,
     params_latest.pth), and a second 2-step run starts from that file with
     --pretrain; (4) linear_probe on the card equals the CPU's on the
-    extracted features."""
+    extracted features.  The first e2e run goes beside the f32 rows of (2),
+    the second beside (4)."""
     from temporalalignnet_torch.eval.linear_probe import linear_probe
     from temporalalignnet_torch.tools import extract_features, generate_htm_aa
 
@@ -3015,6 +3186,13 @@ def phase_htm_aa_pipeline(torch, card):
     torch.cuda.synchronize()
     gen_seconds = time.perf_counter() - t0
     launches, routes = read_counts(), read_routes()
+    cli = [sys.executable, "-m", "temporalalignnet_torch.train.end2end_cli",
+           "--htm_aa_csv", csv_path, "--video_root", dirs["videos"], "--vocab", vocab,
+           "--decoder", "synthetic"]
+    t_cli = time.perf_counter()
+    first_proc = start(cli + ["--pretrain", s3d_path, "--max_steps", "6", "--epochs", "6",
+                              "--runtime_save_iter", "3", "--log_every", "1",
+                              "--prefix", dirs["e2e"]])
     f32 = {d: generate_htm_aa.main(args + ["--out", os.path.join(root, f"htm_aa_{d}.csv"),
                                            "--device", d, "--f32"])
            for d in ("cuda", "cpu")}
@@ -3036,20 +3214,24 @@ def phase_htm_aa_pipeline(torch, card):
     check(out["generate"]["f32_rows_equal"] and score_err <= HTM_AA_SCORE_TOL,
           f"generate_htm_aa f32 card vs cpu: {out['generate']}")
 
-    # (3) the e2e CLI on that csv, then again from its export
-    cli = [sys.executable, "-m", "temporalalignnet_torch.train.end2end_cli",
-           "--htm_aa_csv", csv_path, "--video_root", dirs["videos"], "--vocab", vocab,
-           "--decoder", "synthetic"]
-    t0 = time.perf_counter()
-    first = finish(start(cli + ["--pretrain", s3d_path, "--max_steps", "6", "--epochs", "6",
-                                "--runtime_save_iter", "3", "--log_every", "1",
-                                "--prefix", dirs["e2e"]]), "e2e CLI", timeout=900)
-    first_seconds = time.perf_counter() - t0
+    # (3) the e2e CLI on that csv (started above), then again from its export
+    first = finish(first_proc, "e2e CLI", timeout=900)
+    first_seconds = time.perf_counter() - t_cli
     exp = os.path.join(dirs["e2e"], os.listdir(dirs["e2e"])[0])  # e2e_bs16_lr1e-05_f16
     final = json.loads(first.strip().splitlines()[-1])
     export = os.path.join(exp, "params_latest.pth")
-    again = finish(start(cli + ["--pretrain", export, "--max_steps", "2", "--epochs", "2",
-                                "--prefix", dirs["e2e_again"]]), "e2e CLI --pretrain", 900)
+    again_proc = start(cli + ["--pretrain", export, "--max_steps", "2", "--epochs", "2",
+                              "--prefix", dirs["e2e_again"]])
+
+    # (4) the probe: each video a class, its first 24 s to train, the rest to test
+    X = np.stack([feats[v].astype(np.float32) for v in sorted(feats)])  # [V, secs, 1024]
+    y = np.repeat(np.arange(V), secs).reshape(V, secs)
+    split = (X[:, :24].reshape(-1, 1024), y[:, :24].reshape(-1),
+             X[:, 24:].reshape(-1, 1024), y[:, 24:].reshape(-1))
+    probe = {d: linear_probe(*split, num_classes=V, device=d) for d in ("cuda", "cpu")}
+    out["probe"] = probe
+
+    again = finish(again_proc, "e2e CLI --pretrain", 900)
     final_again = json.loads(again.strip().splitlines()[-1])
     listing = {d: sorted(os.listdir(os.path.join(exp, d))) for d in ("runtime", "epoch")}
     out["e2e_cli"] = {"final": final, "seconds": first_seconds, "checkpoints": listing,
@@ -3063,14 +3245,6 @@ def phase_htm_aa_pipeline(torch, card):
     check(final_again["final_step"] == 2 and np.isfinite(final_again["loss"])
           and not out["e2e_cli"]["again_pretrain_lines"],
           f"e2e CLI from its params_latest.pth: {final_again}")
-
-    # (4) the probe: each video a class, its first 24 s to train, the rest to test
-    X = np.stack([feats[v].astype(np.float32) for v in sorted(feats)])  # [V, secs, 1024]
-    y = np.repeat(np.arange(V), secs).reshape(V, secs)
-    split = (X[:, :24].reshape(-1, 1024), y[:, :24].reshape(-1),
-             X[:, 24:].reshape(-1, 1024), y[:, 24:].reshape(-1))
-    probe = {d: linear_probe(*split, num_classes=V, device=d) for d in ("cuda", "cpu")}
-    out["probe"] = probe
     emit({"phase": "htm_aa_pipeline", "card": card, "videos": V, "seconds_per_video": secs,
           **out})
     check((probe["cuda"]["top1"], probe["cuda"]["top5"]) == (probe["cpu"]["top1"],
@@ -3249,30 +3423,21 @@ def phase_bert_cli(files, bert_path, eval_files, yc2_files, say=emit):
 
 
 def start_bert_cli(files, bert_path, eval_files, yc2_files):
-    """phase_bert_cli in a thread (its CLIs time nothing), its lines kept;
-    joined by finish_bert_cli."""
-    result = {"lines": [], "error": None}
-
-    def run():
-        try:
-            phase_bert_cli(files, bert_path, eval_files, yc2_files, say=result["lines"].append)
-        except BaseException as e:  # raised again by finish_bert_cli
-            result["error"] = e
-
-    thread = threading.Thread(target=run, daemon=True)
-    thread.start()
-    return thread, result
+    """phase_bert_cli in the background (its CLIs time nothing), its lines
+    kept; joined by finish_bert_cli."""
+    lines = []
+    return in_background(phase_bert_cli, files, bert_path, eval_files, yc2_files,
+                         lines.append), lines
 
 
 def finish_bert_cli(started):
     """The BERT CLIs' lines, once their thread has ended; its failure raised."""
-    thread, result = started
-    thread.join(timeout=1800)
-    check(not thread.is_alive(), "the BERT CLIs did not end")
-    for line in result["lines"]:
-        emit(line)
-    if result["error"] is not None:
-        raise result["error"]
+    background, lines = started
+    try:
+        joined(background, "the BERT CLIs")
+    finally:
+        for line in lines:
+            emit(line)
 
 
 def hf_shapes(tower):
@@ -3877,6 +4042,10 @@ NCCL_KERNEL_MARKS = ("nccl", "onerank")
 # the kernel names of a trace, per step of the train CLI (milnce_grad_wgmma: dv and dt)
 DP_TRACE_KERNELS = {"mha_fwd_wgmma": 12, "mha_bwd_fused": 12, "milnce_fwd_wgmma": 2,
                     "milnce_grad_wgmma": 4}
+# each kernel line entry's name among them
+DP_GRAPH_SYMBOLS = {"mha_fwd": "mha_fwd_wgmma", "mha_bwd": "mha_bwd_fused",
+                    "milnce_fwd": "milnce_fwd_wgmma", "milnce_dv": "milnce_grad_wgmma",
+                    "milnce_dt": "milnce_grad_wgmma"}
 
 
 def card_power() -> str:
@@ -3915,6 +4084,16 @@ def start_dp_world1(files):
                                     "--steps_per_dispatch", str(GROUP_K),
                                     "--profile_dir", os.path.join(root, "trace_graph")])}
     return procs, root
+
+
+def phase_resume_and_world1(torch, yc2_files):
+    """phase_resume, then the world-of-one CLIs (start_dp_world1) on its
+    training files, read by phase_dp_world1, whose graph row it returns."""
+    world1 = start_dp_world1(phase_resume(torch, yc2_files))
+    try:
+        return phase_dp_world1(torch, world1)
+    finally:
+        stop(world1[0].values())
 
 
 def phase_dp_world1(torch, children):
@@ -4196,8 +4375,8 @@ def dp_rank(torch, rank, port, work):
 
 def start_dp_two_ranks(torch, stage1_state, stage1_ckpt, eval_files, yc2_files):
     """dp_two_ranks' two children (``dp_rank``), started on the inputs they
-    share (written to build/chip_smoke_dp/); they run beside the resume
-    phase and phase_dp_two_ranks reads them."""
+    share (written to build/chip_smoke_dp/); phase_dp_two_ranks reads
+    them."""
     from temporalalignnet_torch.data.synthetic import synthetic_batch
 
     work = os.path.join(REPO, "build", "chip_smoke_dp")
@@ -4223,8 +4402,7 @@ def start_dp_two_ranks(torch, stage1_state, stage1_ckpt, eval_files, yc2_files):
 def phase_dp_two_ranks(children, eval_files, cli_metrics):
     """Two processes on the one card joined by gloo through the library's
     entry points (``initialize_multihost(backend="gloo")``; the CLIs keep
-    NCCL), started by start_dp_two_ranks before the resume phase and read
-    here.  Each rank holds its B / 2 rows: the Stage-1 and cotrain steps,
+    NCCL), started by start_dp_two_ranks and read here.  Each rank holds its B / 2 rows: the Stage-1 and cotrain steps,
     f32 compute and bf16, each against the 1-process step on the same two
     global batches (loss, per-tensor norm-relative gradients, params and
     the twin after the second step; the launches and routes per rank and
@@ -4708,8 +4886,16 @@ def phase_tp_two_ranks(children):
     return per_rank
 
 
-STEP_TIME_CHILDREN = ("agreement", "init", "init_graph", "remat", "cotrain", "cotrain_graph",
-                      "e2e", "bert_init", "bert_cotrain")
+# the step-time children of a whole run: the steps whose device ms bound the bench
+# tools' rates (init, cotrain, e2e)
+STEP_TIME_CHILDREN = ("init", "cotrain", "e2e")
+# the other step-time children, run by ``chip_smoke.py --step-times``: each times a
+# path that a phase of the whole run drives and checks (the agreement in cotrain, the
+# retrieval forward, the world-of-one NCCL step and its graph in dp_world1, the graphed
+# steps in grouped_dispatch, remat, the BERT TAN, the Stage-1 step at T = 128 and in
+# f32 in train_t128)
+STEP_TIME_MORE = ("agreement", "dp_world1", "init_graph", "remat", "cotrain_graph",
+                  "bert_init", "bert_cotrain", "bf16_t128", "f32")
 
 
 def start_gated(flag, which, extra=(), name=None):
@@ -4754,20 +4940,26 @@ def release(child, what, timeout):
     return out, time.perf_counter() - t0
 
 
-def phase_step_times():
-    """The agreement self-labelling's and a retrieval forward call's device
-    time, and Stage-1 (plain, remat and graphed) and cotrain (plain and
-    graphed) steps/s with their device time, each in a process of its own: on an H100, profiler sessions
+def start_step_times(which_children=STEP_TIME_CHILDREN):
+    """The step-time children of ``which_children``, started now; each makes
+    ready and waits for its release by phase_step_times."""
+    return {which: start_gated("--step-time", which) for which in which_children}
+
+
+def phase_step_times(children):
+    """The step times of the started ``children`` (STEP_TIME_CHILDREN in a
+    whole run; with STEP_TIME_MORE the agreement self-labelling's and a
+    retrieval forward call's device time, and Stage-1 (plain, remat, in a
+    world of one and graphed) and cotrain (plain and graphed) steps/s with
+    their device time), each in a process of its own: on an H100, profiler sessions
     that followed one of thousands of kernels (a train step, an eval
     forward) lost device activity.  The children start at once; each makes
     ready (its model, batch and inputs on the card) and waits until its go
     file exists; once all are ready they are released one after another, so
     that no two time at once and none times beside another's set-up.
     ``process_seconds`` counts from a child's release."""
-    children, lines = {}, []
+    lines = []
     try:
-        for which in STEP_TIME_CHILDREN:
-            children[which] = start_gated("--step-time", which)
         wait_ready(children, "step-time child", timeout=600)
         for which, child in children.items():
             out, seconds = release(child, f"step times of {which}", timeout=900)
@@ -4825,16 +5017,21 @@ def host_syncs(torch, fn):
 
 def step_time(torch, which, card, ready=lambda: None):
     """One JSON line of times at B = 64: ``which`` 'init' (a Stage-1 train
-    step), 'remat' (the same with --remat) or 'cotrain' (a Stage-2 one),
+    step), 'dp_world1' (the same, then in a world of one: dp_world1_step_time),
+    'remat' (the same with --remat) or 'cotrain' (a Stage-2 one),
     'init_graph' / 'cotrain_graph' (those steps as a CUDA graph, a group of
     GROUP_K replays timed per step), and 'bert_init' / 'bert_cotrain' (the
     same of the BERT TAN): steps/s with the device time, idle share, peak
     memory, every kernel's device ms and the top host ops; 'agreement': the
     agreement self-labelling alone at the cotrain step's shapes.  Each also
     counts the call's host-device synchronisations.  'e2e': the end-to-end
-    S3D step at E2E (``e2e_step_time``)."""
+    S3D step at E2E (``e2e_step_time``); 'bf16_t128' and 'f32' the
+    Stage-1 steps of STEP_VIEWS (``step_view``)."""
     if which == "e2e":
         e2e_step_time(torch, card, ready)
+        return
+    if which in STEP_VIEWS:
+        step_view(torch, which, card, ready)
         return
     from temporalalignnet_torch.core.config import LossConfig
     from temporalalignnet_torch.data.synthetic import synthetic_batch
@@ -4889,12 +5086,13 @@ def step_time(torch, which, card, ready=lambda: None):
     top_host = sorted(host_ms.items(), key=lambda kv: -kv[1])[:15]
     model = (f"E6D6 width 512, {'BERT 12 x 768' if bert else 'word2vec'}, fused MIL-NCE, "
              "bf16 compute, f32 params")
-    metric = {"init": "train_steps_per_s", "remat": "train_remat_steps_per_s",
+    metric = {"init": "train_steps_per_s", "dp_world1": "train_steps_per_s",
+              "remat": "train_remat_steps_per_s",
               "cotrain": "cotrain_steps_per_s", "bert_init": "bert_train_steps_per_s",
               "bert_cotrain": "bert_cotrain_steps_per_s",
               "init_graph": "train_graph_steps_per_s",
               "cotrain_graph": "cotrain_graph_steps_per_s"}[which]
-    kind = ("" if which in ("init", "bert_init", "init_graph") else
+    kind = ("" if which in ("init", "dp_world1", "bert_init", "init_graph") else
             ", --remat 1" if remat else ", EMA twin, agreement keep, head on")
     if graph:
         kind += f", --steps_per_dispatch {GROUP_K} (a CUDA graph replayed per step)"
@@ -4907,11 +5105,53 @@ def step_time(torch, which, card, ready=lambda: None):
           "kernels_ms_per_step": by_name(per_kernel), "kernels_per_step": len(per_kernel),
           "host_self_ms_per_step_under_profiler": sum(host_ms.values()) / per_call,
           "top_host_ops_self_ms_per_step": {k[:90]: v / per_call for k, v in top_host}})
-    if which == "init":  # slice 9: the same step in a world of one
+    if which == "dp_world1":  # slice 9: the same step in a world of one
         del step, run
         dp_world1_step_time(torch, card, batch, {
             "ms_per_step": step_ms, "device_busy_ms_per_step": busy_ms, "timing": timing,
             "idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / step_ms)})
+
+
+# end-to-end views of the Stage-1 step (E6D6 width 512, B = 64, N = 16, fused MIL-NCE):
+# bf16 at T = 128 (joint S = 144: mha_bwd's fused route on the dual encoder's S = 128,
+# the route past S = 128 on the joint encoder's), and f32 compute at T = 64 (every
+# kernel on its f32 route)
+STEP_VIEWS = {"bf16_t128": dict(T=128, compute="bfloat16"),
+              "f32": dict(T=TRAIN["T"], compute="float32")}
+
+
+def step_view(torch, which, card, ready=lambda: None):
+    """One line of the Stage-1 step of STEP_VIEWS[which]: device ms (profiler)
+    and steps/s (CUDA events) of back-to-back steps on one batch, the
+    launches and routes of one step and every kernel's device ms.  Run as
+    ``chip_smoke.py --step-view <which> [<tree>]``, with the port of <tree>
+    (another checkout, e.g. the parent commit's) in place of this one's, so
+    that two trees are timed in turns by the same code."""
+    from temporalalignnet_torch.data.synthetic import synthetic_batch
+
+    dev = torch.device("cuda")
+    view = STEP_VIEWS[which]
+    B, N, W = (TRAIN[k] for k in "BNW")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+        np.random.RandomState(SEED + 6), batch_size=B, seq_len=view["T"], max_sentences=N,
+        feature_dim=1024, vocab_size=66250, max_words=W).items()}
+    _, _, step, _ = train_setup(torch, dev, fused=True, compute=getattr(torch, view["compute"]))
+    step(batch)
+    ready()
+    out, launches, routes = counted_step(torch, step, batch)
+    run = lambda: step(batch)
+    step_ms = cuda_ms(torch, run, reps=10, warmup=2)
+    busy, per_kernel, _, timing = device_profile(torch, run, reps=5, warmup=1)
+    import temporalalignnet_torch
+
+    emit({"phase": "times", "metric": f"step_view_{which}", "card": card_power(),
+          "port": os.path.dirname(os.path.dirname(os.path.abspath(temporalalignnet_torch.__file__))),
+          "batch": dict(TRAIN, T=view["T"]), "compute": view["compute"],
+          "model": "E6D6 width 512, word2vec, fused MIL-NCE, f32 params",
+          "loss": out["loss"].item(), "ms_per_step": step_ms, "steps_per_s": 1e3 / step_ms,
+          "device_ms_per_step": busy if timing == "profiler" else None, "timing": timing,
+          "launches_per_step": launches, "routes_per_step": routes,
+          "kernels_ms_per_step": by_name(per_kernel)})
 
 
 def dp_world1_step_time(torch, card, batch, plain):
@@ -4960,7 +5200,7 @@ def dp_world1_step_time(torch, card, batch, plain):
             run = lambda: multi(pinned)
             run()  # the warm-up steps and the capture
             ms = cuda_ms(torch, run, reps=3, warmup=1) / GROUP_K
-            busy, per_kernel, _, timing = device_profile(torch, run, reps=5, warmup=1)
+            busy, per_kernel, _, timing = device_profile(torch, run, reps=2, warmup=1)
             busy = busy / GROUP_K if timing == "profiler" else None
             graphed[which] = {
                 "ms_per_step": ms, "steps_per_s": 1e3 / ms, "timing": timing,
@@ -5069,20 +5309,21 @@ def phase_times(torch, card):
 # ------------------------------------------------------ slice 11: bench tools
 
 # (name, tool, arguments): each run of phase_bench_tools, in the order released
+BENCH_ROUNDS = ("--iters", "10", "--repeats", "2")
 BENCH_RUNS = (
-    ("train_stage1_fused", "bench_train_step", ("--stage", "1", "--fused", "1")),
-    ("train_stage2_fused", "bench_train_step", ("--stage", "2", "--fused", "1")),
-    ("train_stage1_plain", "bench_train_step", ("--stage", "1", "--fused", "0")),
-    ("e2e_b16", "bench_e2e_step", ("--batch_size", str(E2E["B"]))),
-    # at the default 8 videos, for its trace: one timed round of 5 steps
-    ("e2e_trace", "bench_e2e_step", ("--iters", "5", "--repeats", "1", "--profile_dir",
-                                     os.path.join(REPO, "build", "chip_smoke_bench_trace"))),
+    ("train_stage1_fused", "bench_train_step", ("--stage", "1", "--fused", "1", *BENCH_ROUNDS)),
+    ("train_stage2_fused", "bench_train_step", ("--stage", "2", "--fused", "1", *BENCH_ROUNDS)),
+    ("train_stage1_plain", "bench_train_step", ("--stage", "1", "--fused", "0", *BENCH_ROUNDS)),
+    # with a trace of 10 steps after the timed rounds
+    ("e2e_b16", "bench_e2e_step", ("--batch_size", str(E2E["B"]), *BENCH_ROUNDS,
+                                   "--profile_dir",
+                                   os.path.join(REPO, "build", "chip_smoke_bench_trace"))),
     ("loader", "bench_loader", ()),
     ("loader_metadata", "bench_loader", ("--metadata", "20000")),
     ("loader_vlen", "bench_loader", ("--vlen_files", "2000")),
 )
-# steps of a bench_train_step run at its defaults: 3 warm-up, 3 rounds of 30
-BENCH_TRAIN_STEPS = 3 + 3 * 30
+# steps of a bench_train_step run: 3 warm-up, then BENCH_ROUNDS (2 rounds of 10)
+BENCH_TRAIN_STEPS = 3 + 2 * 10
 # launches per step: --fused 1 as the train and cotrain phases', --fused 0 the
 # attention kernels alone (the loss from the plain logits)
 BENCH_PLAIN_LAUNCHES = dict(STEP_LAUNCHES, milnce_fwd=0, milnce_dv=0, milnce_dt=0)
@@ -5110,7 +5351,7 @@ def bench_tool_child(tool, go, argv) -> int:
     import runpy
 
     # the imports before the release (runpy runs the tool's module itself)
-    for module in ("torch", "temporalalignnet_torch.train.train_step",
+    for module in ("torch", "torch._dynamo", "temporalalignnet_torch.train.train_step",
                    "temporalalignnet_torch.train.end2end", "temporalalignnet_torch.data.prefetch",
                    "temporalalignnet_torch.utils.profiling",
                    "temporalalignnet_torch.tools.convert_captions"):
@@ -5232,20 +5473,18 @@ def phase_bench_tools(children, step_lines, card):
                   f"{name}: {result['value']} steps/s over {line['check']['rate_max']}")
             if name == "train_stage1_fused":
                 per_step = {k: v // BENCH_TRAIN_STEPS for k, v in counts["bench_counts"].items()}
-        elif name == "e2e_b16":
+        else:  # e2e_b16
             d_ms = device_ms.get("e2e_steps_per_s")
             lo, hi = BENCH_E2E_RATE
+            trace, events = trace_device_events(argv[-1])
             line["check"] = {"child_device_ms_per_step": d_ms,
                              "rate_range": None if d_ms is None else [lo * 1e3 / d_ms,
-                                                                      hi * 1e3 / d_ms]}
+                                                                      hi * 1e3 / d_ms],
+                             "trace": trace, "device_events": events}
             emit(line)
             check(d_ms is not None, "e2e: no device ms a step")
             check(lo * 1e3 / d_ms <= result["steps_per_sec"] <= hi * 1e3 / d_ms,
                   f"e2e tool at {result['steps_per_sec']} steps/s, child {d_ms} device ms")
-        else:
-            trace, events = trace_device_events(argv[-1])
-            line["check"] = {"trace": trace, "device_events": events}
-            emit(line)
         check(np.isfinite(result["value"]) and result["value"] > 0, f"{name}: {result}")
     return per_step
 
@@ -5266,6 +5505,8 @@ def main(argv) -> int:
         return bench_tool_child(argv[1], argv[2], argv[3:])
     if argv[:1] == ["--spare"]:  # a spare child (make_spares)
         return spare_child(argv[2])
+    if argv[:1] == ["--step-view"] and len(argv) > 2:  # the port of another tree
+        sys.path.insert(0, os.path.abspath(argv[2]))
     import torch
 
     if not torch.cuda.is_available():
@@ -5286,11 +5527,20 @@ def main(argv) -> int:
     if argv[:1] == ["--tp-rank"]:  # a child of phase_tp_two_ranks
         tp_rank(torch, int(argv[1]), int(argv[2]), argv[3])
         return 0
+    if argv[:1] == ["--step-view"]:
+        step_view(torch, argv[1], card)
+        return 0
     if argv[:1] == ["--step-time"]:  # a child of phase_step_times
         step_time(torch, argv[1], card, ready=lambda: wait_for_release(argv[2]))
         return 0
     emit({"python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "card": card})
+    if argv[:1] == ["--step-times"]:
+        # the step-time children alone (those named, else all), no result line
+        phase_build()
+        phase_step_times(start_step_times(tuple(argv[1:]) or STEP_TIME_CHILDREN + STEP_TIME_MORE))
+        print(card_power(), flush=True)
+        return 0
     if argv[:1] == ["--kernels-only"]:
         # the kernel phases alone (build, the checks against the plain
         # versions, the kernel rows, the f32 eval forward), no result line
@@ -5329,67 +5579,72 @@ def main(argv) -> int:
     files = timed(make_train_files, os.path.join(REPO, "build", "chip_smoke_train"), 96, SEED)
     launches, stage1_state = timed(phase_train, torch, files)
     yc2_files = timed(make_yc2_files, os.path.join(REPO, "build", "chip_smoke_yc2"), SEED + 4)
-    stage1_ckpt, retrieval_cli = timed(phase_train_cli, torch, files, eval_files, yc2_files)
-    retrieval_metrics, retrieval_launches = timed(phase_retrieval, torch, stage1_ckpt, yc2_files)
-    timed(phase_retrieval_cli, retrieval_cli, retrieval_metrics)
+    # phases of child processes that time nothing run in the background, beside the
+    # phases of this process: the train CLI and its evals; the resume runs, then the
+    # world-of-one CLIs; later the cotrain CLI and its eval
+    torch.cuda.empty_cache()  # this process's cached blocks, for the children
+    train_cli = in_background(timed, phase_train_cli, torch, files, eval_files, yc2_files)
+    resume = in_background(timed, phase_resume_and_world1, torch, yc2_files)
+    t128_launches, f32_launches = timed(phase_train_t128, torch)
     make_spares(14)  # for the CLIs from grouped_dispatch's to the e2e CLI's
     cotrain_launches = timed(phase_cotrain, torch, files, stage1_state)
+    stage1_ckpt, retrieval_cli = joined(train_cli, "phase_train_cli")
+    retrieval_metrics, retrieval_launches = timed(phase_retrieval, torch, stage1_ckpt, yc2_files)
+    timed(phase_retrieval_cli, retrieval_cli, retrieval_metrics)
+    cotrain_cli = in_background(timed, phase_cotrain_cli, torch, files, stage1_ckpt, eval_files)
     export_cli = start_export_cli()  # untimed work, beside cotrain_cli's children
     try:
-        timed(phase_cotrain_cli, torch, files, stage1_ckpt, eval_files)
         export_launches = timed(phase_serving_export, torch, card, stage1_ckpt, export_cli)
     finally:
         stop([export_cli[0]])
-    grouped_launches = timed(phase_grouped_dispatch, torch, files, stage1_state)
-    timed(phase_cache_videos, torch, files)
-    # the --profile_dir child (untimed work) runs beside the next three phases
-    profile_child = start_profile_dir(files)
-    try:
-        remat_launches = timed(phase_remat, torch)
-        milnce_path, milnce_launches = timed(phase_milnce_ckpt, torch, files)
-        timed(phase_baseline, torch, eval_files, yc2_files, milnce_path)
-        timed(phase_profile_dir, profile_child)
-    finally:
-        stop([profile_child[0]])
-    # the BERT CLIs (untimed) run beside the resume phase and the ranks
-    bert_path = timed(make_bert_dir, torch, os.path.join(REPO, "build", "chip_smoke_bert"))
-    bert_cli = start_bert_cli(files, bert_path, eval_files, yc2_files)
-    # slice 9: the two ranks run beside the resume phase, the world-of-one CLI
-    # children beside the end of the two ranks
+    # slice 9: the two ranks run beside the phases up to dp_two_ranks; slice 10: the
+    # tensor-parallel ranks beside those from make_bert_dir to tp_two_ranks (no timing)
     dp_ranks = timed(start_dp_two_ranks, torch, stage1_state, stage1_ckpt, eval_files,
                      yc2_files)
+    tp_ranks = None
     try:
-        resume_files = timed(phase_resume, torch, yc2_files)
-        world1 = start_dp_world1(resume_files)
+        grouped_launches = timed(phase_grouped_dispatch, torch, files, stage1_state)
+        timed(phase_cache_videos, torch, files)
+        # the --profile_dir child (untimed work) runs beside the next three phases
+        profile_child = start_profile_dir(files)
         try:
-            dp_launches = timed(phase_dp_two_ranks, dp_ranks, eval_files, retrieval_cli)
-            # slice 10: the tensor-parallel ranks run beside the world-of-one CLIs' wait,
-            # s3d and e2e_step (no timing), read before the timed HTM-AA pipeline
-            tp_ranks = timed(start_tp_two_ranks, torch, stage1_state)
-            timed(phase_dp_world1, torch, world1)
+            remat_launches = timed(phase_remat, torch)
+            milnce_path, milnce_launches = timed(phase_milnce_ckpt, torch, files)
+            timed(phase_baseline, torch, eval_files, yc2_files, milnce_path)
+            timed(phase_profile_dir, profile_child)
         finally:
-            stop(world1[0].values())
-    finally:
-        stop(dp_ranks[0])
-    try:
+            stop([profile_child[0]])
+        tp_ranks = timed(start_tp_two_ranks, torch, stage1_state)
+        # the BERT CLIs (untimed) run beside the ranks
+        bert_path = timed(make_bert_dir, torch, os.path.join(REPO, "build", "chip_smoke_bert"))
+        bert_cli = start_bert_cli(files, bert_path, eval_files, yc2_files)
+        dp_launches = timed(phase_dp_two_ranks, dp_ranks, eval_files, retrieval_cli)
         timed(phase_s3d, torch, card)
         e2e_launches = timed(phase_e2e_step, torch)
         tp_launches = timed(phase_tp_two_ranks, tp_ranks)
     finally:
-        stop(tp_ranks[0])
-    htm_aa_launches, htm_aa_routes = timed(phase_htm_aa_pipeline, torch, card)
-    bert_launches = timed(phase_bert, torch, files, bert_path)
-    timed(finish_bert_cli, bert_cli)
-    timed(phase_clip_baseline, torch)
-    tower_launches = timed(phase_tower_extract, torch)
-    punct_launches = timed(phase_punctuate, torch, card)
-    bench_children = start_bench_tools()  # slice 11: waiting beside the step-time children
+        stop(dp_ranks[0])
+        if tp_ranks is not None:
+            stop(tp_ranks[0])
+    # slice 11's children and the step-time ones make ready beside the last phases
+    bench_children = start_bench_tools()
+    step_children = start_step_times()
     try:
-        step_lines = timed(phase_step_times)
+        htm_aa_launches, htm_aa_routes = timed(phase_htm_aa_pipeline, torch, card)
+        bert_launches = timed(phase_bert, torch, files, bert_path)
+        timed(finish_bert_cli, bert_cli)
+        timed(phase_clip_baseline, torch)
+        tower_launches = timed(phase_tower_extract, torch)
+        punct_launches = timed(phase_punctuate, torch, card)
+        dp_graph = joined(resume, "phase_resume_and_world1")
+        joined(cotrain_cli, "phase_cotrain_cli")
+        step_lines = timed(phase_step_times, step_children)
         bench_launches = timed(phase_bench_tools, bench_children, step_lines, card)
     finally:
-        stop([proc for proc, _ in bench_children.values()])
-    emit({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t_start})
+        stop([proc for proc, _ in [*bench_children.values(), *step_children.values()]])
+    emit({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t_start,
+          "in_the_background": ["phase_train_cli", "phase_resume_and_world1",
+                                "phase_cotrain_cli"]})
 
     print(card_power(), flush=True)
     fwd_rows = {tuple(r["shape"]): r for r in rows if r["dtype"] == "bfloat16"}
@@ -5405,6 +5660,7 @@ def main(argv) -> int:
     # path (the eval phase) and on slice 4's (the retrieval phase)
     entries = [
         dict(name="mha_fwd", source="temporalalignnet_torch/csrc/mha_fwd.cu",
+             cuda_kernels=["mha_fwd_wgmma_kernel", "mha_fwd_merge_kernel"],
              replaces="temporalalignnet_tpu/ops/pallas_attention.py:31 (_mha_kernel)",
              kernel_route="short (wgmma, TMA, warp specialised), bf16 S <= 128",
              launches_by_route=launches["routes"]["mha_fwd"],
@@ -5421,11 +5677,10 @@ def main(argv) -> int:
              long_route={"shape": glob["shape"], "ms": glob["ms"], "earlier_ms": glob["v1_ms"],
                          "library_ms": glob["library_ms"], "bound_ms": glob["bound_ms"]}),
         dict(name="mha_bwd", source="temporalalignnet_torch/csrc/mha_bwd.cu",
+             cuda_kernels=["mha_bwd_fused_kernel"],
              replaces="temporalalignnet_tpu/ops/pallas_attention.py:75 (_mha_bwd_kernel)",
              kernel_route="fused (wgmma, TMA), bf16 S <= 128",
              launches_by_route=launches["routes"]["mha_bwd"],
-             earlier_ms=train_rows[("mha_bwd", 80)]["v2_ms"],
-             earlier_version="v2 (mma.sync, two kernels)",
              launches=launches["mha_bwd"], max_abs_err=bwd_err["bfloat16"],
              launches_cotrain_path=cotrain_launches["mha_bwd"],
              launches_by_route_cotrain=cotrain_launches["routes"]["mha_bwd"],
@@ -5445,6 +5700,9 @@ def main(argv) -> int:
                    if name == "milnce_fwd" else {})
         entries.append(dict(**lse_err,
             name=name, source="temporalalignnet_torch/csrc/milnce_wgmma.cu", replaces=rep,
+            cuda_kernels=(["milnce_fwd_wgmma_kernel", "milnce_colmerge_kernel"]
+                          if name == "milnce_fwd" else
+                          ["milnce_grad_wgmma_kernel", "milnce_reduce_kernel"]),
             kernel_route="wgmma (TMA, warp specialised), bf16",
             launches_by_route=launches["routes"][name], earlier_ms=row[earlier + "_ms"],
             earlier_version=f"{earlier} (mma.sync)",
@@ -5481,19 +5739,20 @@ def main(argv) -> int:
     for e in entries:  # slice 9: each rank's launches over its bf16 Stage-1 and cotrain steps
         e["launches_dp_path"] = {r: n[e["name"]] for r, n in dp_launches.items()}
     # slice 10: the punctuator's pipeline over PUNCT's videos; each tensor-parallel rank
-    # over its bf16 Stage-1 and cotrain steps (2 each), and per step; the device launches
-    # of a group of GROUP_K replayed world-of-one steps (profiled, NCCL's kernel beside)
-    graph_counts = next(l for l in step_lines if l.get("metric") == "dp_world1_graph_step")[
-        "dp_world1_graph"]["device_launches_per_group"]
+    # over its bf16 Stage-1 and cotrain steps (2 each), and per step; in the trace of the
+    # world-of-one CLI with --steps_per_dispatch GROUP_K (phase_dp_world1), the kernel's
+    # launches per step, NCCL's beside (milnce_grad_wgmma: milnce_dv's and milnce_dt's)
     for e in entries:
         e["launches_punct_path"] = punct_launches[e["name"]]
         e["launches_tp_path"] = {r: {"bf16_stage1_and_cotrain_steps": n["steps"][e["name"]],
                                      "per_stage1_step": n["stage1_step"][e["name"]],
                                      "per_cotrain_step": n["cotrain_step"][e["name"]]}
                                  for r, n in tp_launches.items()}
-        e["launches_dp_graph_path"] = (None if graph_counts is None else
-                                       {"kernel": graph_counts[e["name"]],
-                                        "nccl": graph_counts["nccl"], "replays": GROUP_K})
+        symbol = DP_GRAPH_SYMBOLS[e["name"]]
+        e["launches_dp_graph_path"] = {
+            "trace_kernel": symbol, "per_step": dp_graph["port_kernels_per_step"][symbol],
+            "nccl_per_step": dp_graph["nccl_kernels"] / dp_graph["steps"],
+            "steps": dp_graph["steps"], "replayed_steps": dp_graph["replayed_steps"]}
         # slice 11: per step of the train-step bench tool, --stage 1 --fused 1
         e["launches_bench_path"] = bench_launches[e["name"]]
     entries[0]["launches_by_route_punct"] = punct_launches["routes"]["mha_fwd"]
@@ -5527,6 +5786,36 @@ def main(argv) -> int:
     entries[1]["bert_shape"] = {"shape": bert_bwd["shape"],
                                 **{k: bert_bwd[k] for k in ("ms", "plain_ms", "library_ms",
                                                             "bound_ms", "bound_by")}}
+    # the kernels redesigned since: mha_bwd's long route (on the T = 128 Stage-1 path)
+    # and the f32 MIL-NCE gradients (on the f32 Stage-1 path)
+    long_rows = [train_rows[("mha_bwd", sh[2])] for sh in MHA_BWD_LONG_TIMED_SHAPES]
+    entries.append(dict(
+        name="mha_bwd_long", source="temporalalignnet_torch/csrc/mha_bwd.cu",
+        cuda_kernels=["mha_bwd_long_dq_kernel", "mha_bwd_long_dkdv_kernel"],
+        replaces="temporalalignnet_tpu/ops/pallas_attention.py:75 (_mha_bwd_kernel)",
+        kernel_route="long (wgmma, TMA, producer warp), bf16 S > 128",
+        launches=t128_launches["routes"]["mha_bwd"]["long"], steps=T128_STEPS,
+        launches_by_route=t128_launches["routes"]["mha_bwd"], max_abs_err=bwd_err["long"],
+        shape=long_rows[0]["shape"], **{k: long_rows[0][k] for k in fields},
+        shapes=[{"shape": r["shape"], "kernels_ms": r["kernels_ms"],
+                 **{k: r[k] for k in fields}} for r in long_rows]))
+    for name, rep in replaces.items():
+        if name == "milnce_fwd":
+            continue
+        rows = {text: train_rows[(name, "f32", 6, TRAIN["B"] * TRAIN["T"], TRAIN["B"] * TRAIN["N"],
+                                  text == "shared")] for text in ("per-layer", "shared")}
+        row = rows["per-layer"]
+        entries.append(dict(
+            name=f"{name}_f32", source="temporalalignnet_torch/csrc/milnce_grad_f32.cu",
+            cuda_kernels=["milnce_grad_f32_kernel", "milnce_reduce_f32_kernel"], replaces=rep,
+            kernel_route="f32 (split TF32 on mma.sync), f32 features",
+            launches=f32_launches["routes"][name]["f32"], steps=2,
+            launches_by_route=f32_launches["routes"][name],
+            max_abs_err=milnce_err[(name, "float32")],
+            shape=[row["S"], row["R"], row["K"], row["C"]],
+            library_note="no single PyTorch call computes the masked MIL-NCE logsumexps",
+            **{k: row[k] for k in fields}, bound_ms_f32_cores=row["bound_ms_f32_cores"],
+            shared_text={k: rows["shared"][k] for k in fields + ("bound_ms_f32_cores",)}))
     emit({"kernels": [dict(route="cuda", **e) for e in entries]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

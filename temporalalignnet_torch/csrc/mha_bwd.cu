@@ -16,14 +16,8 @@
 // Three routes, chosen by dtype and S alone (ops/mha_bwd.py::route):
 // - "fused", bf16 with S <= 128 (every training shape): one kernel, one block
 //   per (batch row, head), one pass (mha_bwd_fused_kernel, below).
-// - "v2", bf16 with S > 128: two kernels on mma.sync (FlashAttention-2 shape,
-//   any S).  dq: a block owns (batch row, head, a run of queries) and streams
-//   the keys twice: first an online (max, sum, sum of e^s dP) recurrence
-//   gives each row's max m, 1 / sum and rowsum(dP P); then dS and dQ.  m,
-//   1 / sum and the row sum go to a [3, B H S] scratch, kept apart (not
-//   folded into one log-sum-exp), because at -1e30 the sum's log would
-//   vanish in f32.  dkdv: a block owns (batch row, head, a run of keys) and
-//   streams the queries, recomputing P from the saved m and 1 / sum.
+// - "long", bf16 with S > 128: a dq kernel and a dk/dv kernel on wgmma and
+//   TMA, the statistics through a small f32 scratch (below).
 // - "f32" (the --f32 training path): split TF32 on the tensor cores, in
 //   csrc/mha_bwd_f32.cu.
 //
@@ -38,7 +32,7 @@
 // interface, called through ctypes.
 
 #include "hopper.cuh"
-#include "mma.cuh"
+#include <math.h>
 
 namespace {
 
@@ -46,348 +40,501 @@ constexpr int D = 64;          // head dim
 constexpr int BT = 64;         // queries or keys per tile
 constexpr float MASK_BIAS = -1.0e30f;
 
-// key bias of keys [k0, k0 + BT): 0 real, -1e30 padded, -inf past S
-__device__ __forceinline__ void stage_bias(float* bias, const uint8_t* pad, int b, int k0,
-                                           int S) {
-  for (int j = threadIdx.x; j < BT; j += blockDim.x) {
-    const int key = k0 + j;
-    bias[j] = key >= S ? -INFINITY
-                       : ((pad != nullptr && pad[size_t(b) * S + key]) ? MASK_BIAS : 0.f);
-  }
-}
-
-// ------------------------------------------------------- bf16: tensor cores
+// ------------------------------------------- bf16, S > 128: long, wgmma + TMA
 //
-// One warp per 16 queries (dq) or 16 keys (dk, dv); up to S = 128 a block
-// holds all of a head's rows, longer S takes 64-row blocks.  The streamed
-// tiles (keys and values, or queries and dO) are double buffered in shared
-// memory by cp.async.  Every product is mma.sync m16n8k16 (f32 accumulate);
-// the score, dP, P and dS fragments never leave registers: a C fragment pair
-// is the A fragment of the next product (mma.cuh), rounded to bf16 there as
-// the TPU kernel rounds P and dS.  Entries are computed in 16-wide chunks up
-// to the last real row, so S = 80 costs 80 rows, not 128.
+// Past S = 128 a head's score rows no longer fit a block's registers, so the
+// long route streams: two kernels, each a consumer warpgroup (128 threads)
+// and a producer warp that keeps TMA loads in flight into a two-stage ring
+// guarded by mbarriers (full: the tile landed; empty: the four consumer
+// warps are done with it).  Tiles are [64 rows][64 D] bf16, 128-byte
+// swizzled, loaded through 3-D tensor maps over [B H, S, D] (rows past S
+// zero-filled, never the next head's), and every product is wgmma with f32
+// accumulators.
+//
+// - mha_bwd_long_dq_kernel, a block per (64 queries, batch row, head): Q and
+//   dO resident; the key tiles (K, V, and their keys' bias, which the
+//   producer stages beside them) stream twice.  Sweep 0: S = Q K^T and dP =
+//   dO V^T (A and B K-major), and per row an online max m, sum and sum of
+//   e^s dP (the unrounded P's rowsum(dP P), in f32).  Sweep 1: the same two
+//   products, P = e^(s - m) / sum, dS = P (dP - rowsum) from them in
+//   registers, and dQ += dS K with dS, rounded to bf16, as the A operand from
+//   registers (B = K read MN-major).  Each row's m, 1 / sum and rowsum(dP P)
+//   go to a [B H, tiles, 3, 64] f32 scratch, kept apart (not folded into one
+//   log-sum-exp: at -1e30 the sum's log would vanish in f32); rows past S get
+//   1 / sum = 0, so their P is 0.
+// - mha_bwd_long_dkdv_kernel, a block per (64 keys, batch row, head): K and
+//   V resident; the query tiles (Q, dO and their rows' statistics) stream
+//   once.  It computes the transposed products S^T = K Q^T and dP^T = V dO^T
+//   (A and B K-major), so that P^T and dS^T come out in the accumulator
+//   layout of the keys' rows and feed dV += P^T dO and dK += dS^T Q as the A
+//   operand from registers (B = dO and Q read MN-major): no shared-memory
+//   round trip of P or dS.  dK and dV stay in registers over the whole query
+//   stream and are stored once, by TMA.
+// The last tile of a stream takes its 16-row chunks up to the last row < S
+// only (m64n16 products; NL, a template parameter of both kernels, so that
+// no branch stands around a wgmma): S = 200 streams 208 keys, not 256.
+// Nine products per (query, key) pair (dQ's two sweeps five, dK/dV's four).
+// No atomics: every sum is taken in a fixed order, so two calls are
+// bit-equal.
+//
+// What bounds it on an H100: bytes at [64, 8, 200, 64] (q, k, v, dO, dq, dk,
+// dv, 78 MB with a ragged mask, 23 us at 3.35 TB/s, against 13 GFLOP of the
+// five products the function needs, 13 us of bf16 tensor-core time).  What
+// holds the kernels back is latency: each warpgroup's chain of products,
+// exponentials and products within a tile.  The dq kernel runs 3 blocks an
+// SM (the keys' bias comes from shared memory, not from 16 byte loads and
+// registers a thread), the dk/dv kernel 2.  (Tried on an H100 and slower:
+// A operands from registers for the first products, two consumer warpgroups
+// sharing one stream, a third ring stage, and issuing the next tile's
+// products before waiting on this one's last.)
 
-constexpr int TC_MAX_WARPS = 8;
-constexpr int LDB = D + 8;  // padded rows: ldmatrix rows hit distinct banks
+namespace lng {
 
-// rows [n0, n0 + 64) of a [S, D] bf16 head into dst[64][LDB], zero past S
-__device__ __forceinline__ void tc_stage(__nv_bfloat16* dst, const __nv_bfloat16* src, int n0,
-                                         int S) {
-  for (int e = threadIdx.x; e < BT * (D / 8); e += blockDim.x) {
-    const int j = e / (D / 8), c = (e % (D / 8)) * 8;
-    const bool in = n0 + j < S;
-    cp_async_16(dst + j * LDB + c, src + size_t(in ? n0 + j : 0) * D + c, in);
-  }
+constexpr int TILE_BYTES = BT * 128;  // one [64][64] bf16 tile
+constexpr int STAGES = 2;
+constexpr int THREADS = 128 + 32;  // a consumer warpgroup and the producer warp
+constexpr int STATS = 3 * BT;      // m, 1 / sum, rowsum(dP P) of a tile's rows
+
+// shared memory of the dq kernel: Q | dO | STAGES x (K | V | the keys' bias,
+// padded to 1024) | barriers
+constexpr int DQ_RING = 2 * TILE_BYTES;
+constexpr int DQ_BIAS = 2 * TILE_BYTES;  // offset of the bias in a stage
+constexpr int DQ_STAGE = DQ_BIAS + 1024;
+constexpr int DQ_BAR = DQ_RING + STAGES * DQ_STAGE;
+constexpr int DQ_BYTES = DQ_BAR + (2 * STAGES + 1) * 8 + 1024;  // + room to align to 1024
+// of the dk/dv kernel: K | V | STAGES x (Q | dO | the queries' statistics,
+// padded to 1024) | barriers
+constexpr int KV_RING = 2 * TILE_BYTES;
+constexpr int KV_STATS = 2 * TILE_BYTES;  // offset of the statistics in a stage
+constexpr int KV_STAGE = KV_STATS + 1024;
+constexpr int KV_BAR = KV_RING + STAGES * KV_STAGE;
+constexpr int KV_BYTES = KV_BAR + (2 * STAGES + 1) * 8 + 1024;
+static_assert(STATS * 4 <= 1024 && BT * 4 <= 1024, "a stage's statistics and bias");
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (hopper::smem_addr(p) & 1023u)) & 1023u);
 }
 
-// the A fragments of 16 rows (r0 = row g, r1 = row g + 8) over D, zero past S
-__device__ __forceinline__ void tc_rows(uint32_t f[D / 16][4], const __nv_bfloat16* src, int r0,
-                                        int r1, int S, int t) {
-#pragma unroll
-  for (int s = 0; s < D / 16; ++s) {
-    const int c = s * 16 + 2 * t;
-    f[s][0] = r0 < S ? ld_pair(src + size_t(r0) * D + c) : 0u;
-    f[s][1] = r1 < S ? ld_pair(src + size_t(r1) * D + c) : 0u;
-    f[s][2] = r0 < S ? ld_pair(src + size_t(r0) * D + c + 8) : 0u;
-    f[s][3] = r1 < S ? ld_pair(src + size_t(r1) * D + c + 8) : 0u;
-  }
+// key bias: 0 real, -1e30 padded, -inf past S
+__device__ __forceinline__ float key_bias(const uint8_t* pb, int key, int S) {
+  return key >= S ? -INFINITY : ((pb != nullptr && pb[key]) ? MASK_BIAS : 0.f);
 }
 
-// acc[n] (+)= A . tile^T for the 8-wide column chunks n < 2 chunks of a
-// staged [64][LDB] tile, over the D dims
-__device__ __forceinline__ void tc_dot(float acc[8][4], const uint32_t a[D / 16][4],
-                                       const __nv_bfloat16* tile, int chunks, int lane) {
+// full[i], empty[i] (one arrival per consumer warp), and the resident tiles' barrier
+__device__ __forceinline__ void init_barriers(uint64_t* bar) {
+  using namespace hopper;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&bar[i], 1);
+      mbar_init(&bar[STAGES + i], 4);
+    }
+    mbar_init(&bar[2 * STAGES], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void zero(float (&acc)[32]) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    if (n / 2 < chunks) {
+  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+  hopper::fence_regs(acc);
+}
+
+// acc += A B^T over D: A = the K-major [64][64] tile at shared address a, B =
+// the rows of the K-major [64][64] tile at b, its 16-row chunks below NCH only
+// (the rest of acc is left as it was); issued into the open commit group
+template <int NCH>
+__device__ __forceinline__ void rows_product(float (&acc)[32], uint32_t a, uint32_t b) {
+  using namespace hopper;
 #pragma unroll
-      for (int s = 0; s < D / 16; s += 2) {
-        uint32_t r[4];
-        ldsm_x4(r, &tile[(n * 8 + (lane & 7)) * LDB + (s + (lane >> 4)) * 16 +
-                         ((lane >> 3) & 1) * 8]);
-        mma_16816(acc[n], a[s], r[0], r[1]);
-        mma_16816(acc[n], a[s + 1], r[2], r[3]);
-      }
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t da = sw128_desc(a + kk * 32, 0);
+    if constexpr (NCH == 4) {
+      wgmma_ss_n64<0, 0>(acc, da, sw128_desc(b + kk * 32, 0));
+    } else {
+      wgmma_ss_n16_of64<0, 0, 0>(acc, da, sw128_desc(b + kk * 32, 0));
+      if constexpr (NCH > 1) wgmma_ss_n16_of64<0, 0, 1>(acc, da, sw128_desc(b + 2048 + kk * 32, 0));
+      if constexpr (NCH > 2) wgmma_ss_n16_of64<0, 0, 2>(acc, da, sw128_desc(b + 4096 + kk * 32, 0));
     }
   }
 }
 
-// out[c] += X . tile over 16-row chunks kc < chunks, X given as C fragments
-// x[8][4] (rounded to bf16 here), tile [64 rows][LDB] read transposed
-__device__ __forceinline__ void tc_acc(float out[D / 8][4], const float x[8][4],
-                                       const __nv_bfloat16* tile, int chunks, int lane) {
+// the bf16 A fragments of the four 16-deep k-steps of a 64 x 64 accumulator
+__device__ __forceinline__ void a_fragments(uint32_t (&af)[4][4], const float (&x)[32]) {
+  using namespace hopper;
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    if (kc < chunks) {
-      const uint32_t xa[4] = {pack_bf16(x[2 * kc][0], x[2 * kc][1]),
-                              pack_bf16(x[2 * kc][2], x[2 * kc][3]),
-                              pack_bf16(x[2 * kc + 1][0], x[2 * kc + 1][1]),
-                              pack_bf16(x[2 * kc + 1][2], x[2 * kc + 1][3])};
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int c = 0; c < D / 8; c += 2) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, &tile[(kc * 16 + (lane & 15)) * LDB + (c + (lane >> 4)) * 8]);
-        mma_16816(out[c], xa, r[0], r[1]);
-        mma_16816(out[c + 1], xa, r[2], r[3]);
-      }
-    }
-  }
+    for (int i = 0; i < 4; ++i) af[kk][i] = pack_bf16x2(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
 }
 
-__global__ void __launch_bounds__(32 * TC_MAX_WARPS)
-mha_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ pad,
-                       const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
-                       float* __restrict__ stats, int H, int S, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 ks[2][BT * LDB];
-  __shared__ __align__(16) __nv_bfloat16 vs[2][BT * LDB];
-  __shared__ float bias[2][BT];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+// acc += A B, A = the fragments af over 64 rows of K, B = a [64 K][64 N] tile
+// at shared address b read MN-major, its first NK k-steps; issued into the
+// open commit group
+template <int NK>
+__device__ __forceinline__ void frag_product(float (&acc)[32], const uint32_t (&af)[4][4],
+                                             uint32_t b) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) wgmma_rs_n64<1>(acc, af[kk], sw128_desc(b + kk * 2048, 0));
+}
+
+// the 64 x 64 accumulator x (times s) as bf16 into a swizzled tile at dst
+__device__ __forceinline__ void stage_tile(uint8_t* dst, const float (&x)[32], float s, int warp,
+                                           int g, int t) {
+  using namespace hopper;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(dst + sw128_offset(16 * warp + g + 8 * h, 8 * j + 2 * t)) =
+          pack_bf16x2(x[4 * j + 2 * h] * s, x[4 * j + 2 * h + 1] * s);
+}
+
+// accumulator register r of a 64 x 64 product: row 16 warp + g + 8 ((r >> 1) & 1),
+// column 8 (r >> 2) + 2 t + (r & 1)
+__device__ __forceinline__ int acc_col(int r, int t) { return 8 * (r >> 2) + 2 * t + (r & 1); }
+
+// what a consumer thread of the dq kernel carries through the key stream
+struct DqThread {
+  uint32_t qa;  // the shared address of Q (dO follows)
+  int t, lane;
+  float scale2;
+  // this thread's rows' online max (shared by the quad), its lanes' share of
+  // the sum and of the sum of e^s dP; then 1 / sum and rowsum(dP P)
+  float m[2], l[2], a[2], li[2], dl[2];
+  float dq[32];
+};
+
+// one key tile of the dq kernel (NCH: its 16-key chunks holding a key < S;
+// SWEEP1: dS and dQ, else the row statistics) at ring stage `ring` (K | V |
+// bias), then released
+template <int NCH, bool SWEEP1>
+__device__ __forceinline__ void dq_tile(DqThread& th, const uint8_t* ring, uint64_t* full,
+                                        uint64_t* empty, uint32_t parity) {
+  using namespace hopper;
+  const uint32_t ka = smem_addr(ring);
+  const float* bias = reinterpret_cast<const float*>(ring + DQ_BIAS);
+  mbar_wait(full, parity);
+  float sc[32], dp[32];
+  zero(sc);
+  zero(dp);
+  wgmma_fence();
+  rows_product<NCH>(sc, th.qa, ka);                            // S = Q K^T
+  rows_product<NCH>(dp, th.qa + TILE_BYTES, ka + TILE_BYTES);  // dP = dO V^T
+  wgmma_commit();
+  float kb[16];  // the bias of this thread's 16 keys, while the tensor cores run
+#pragma unroll
+  for (int c = 0; c < 16; ++c) kb[c] = bias[8 * (c >> 1) + 2 * th.t + (c & 1)];
+  wgmma_wait<0>();
+  fence_regs(sc);
+  fence_regs(dp);
+  if constexpr (!SWEEP1) {
+    float mx[2] = {th.m[0], th.m[1]};
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      sc[r] = fmaf(sc[r], th.scale2, kb[2 * (r >> 2) + (r & 1)]);
+      mx[(r >> 1) & 1] = fmaxf(mx[(r >> 1) & 1], sc[r]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // finite: the tile holds a key < S
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float corr = ex2(th.m[h] - mx[h]);
+      th.l[h] *= corr;
+      th.a[h] *= corr;
+      th.m[h] = mx[h];
+    }
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int h = (r >> 1) & 1;
+      const float p = ex2(sc[r] - th.m[h]);
+      th.l[h] += p;
+      th.a[h] += p * dp[r];
+    }
+  } else {  // dS = P (dP - rowsum(dP P)), then dQ += dS K
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int h = (r >> 1) & 1;
+      const float p =
+          ex2(fmaf(sc[r], th.scale2, kb[2 * (r >> 2) + (r & 1)]) - th.m[h]) * th.li[h];
+      dp[r] = p * (dp[r] - th.dl[h]);
+    }
+    uint32_t af[4][4];
+    a_fragments(af, dp);
+    wgmma_fence();
+    frag_product<NCH>(th.dq, af, ka);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(th.dq);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(af[kk]);
+  }
+  __syncwarp();
+  if (th.lane == 0) mbar_arrive(empty);  // this warp is done with the stage
+}
+
+// grid (query tiles, B H); NL: the 16-key chunks of the last key tile
+template <int NL>
+__global__ void __launch_bounds__(THREADS, 3)
+mha_bwd_long_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tdq, const uint8_t* __restrict__ pad,
+                       float* __restrict__ stats, int H, int S, float scale, float scale2) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + DQ_BAR);  // full | empty | Q and dO
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.x, b = bh / H;
-  const int q0 = blockIdx.y * (blockDim.x / 2) + warp * 16;  // 16 queries per warp
-  const bool active = q0 < S;
-  const size_t base = size_t(bh) * S * D;
-  const int r0 = q0 + g, r1 = q0 + g + 8;
-  const int ntiles = (S + BT - 1) / BT;
+  const int qt = blockIdx.x, bh = blockIdx.y, q0 = qt * BT;
+  const int nt = (S + BT - 1) / BT;
+  init_barriers(bar);
+  auto ring = [&](int n) { return sm + DQ_RING + (n % STAGES) * DQ_STAGE; };
 
-  auto load_tile = [&](int stage, int k0) {
-    tc_stage(ks[stage], k + base, k0, S);
-    tc_stage(vs[stage], v + base, k0, S);
-    stage_bias(bias[stage], pad, b, k0, S);
-    cp_async_commit();
-  };
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  tc_rows(qf, q + base, r0, r1, S, t);
-  tc_rows(df, dout + base, r0, r1, S, t);
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
-  float linv[2], delta[2];
-  float acc[D / 8][4];
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
-
-  // pass 0: row max, sum and sum of e^s dP, online; pass 1: dS and dQ
-  for (int pass = 0; pass < 2; ++pass) {
-    load_tile(0, 0);
-    for (int it = 0; it < ntiles; ++it) {
-      const int stage = it & 1, k0 = it * BT;
-      if (it + 1 < ntiles) {
-        load_tile(stage ^ 1, k0 + BT);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      if (active) {
-        const int chunks = (min(BT, S - k0) + 15) / 16;
-        float sc[8][4], dp[8][4];
-        tc_dot(sc, qf, ks[stage], chunks, lane);
-        tc_dot(dp, df, vs[stage], chunks, lane);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)  // chunks past the last key leave the softmax
-            sc[n][i] = n / 2 < chunks ? sc[n][i] * scale + bias[stage][n * 8 + 2 * t + (i & 1)]
-                                      : -INFINITY;
-        }
-        if (pass == 0) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float mx = -INFINITY;
-#pragma unroll
-            for (int n = 0; n < 8; ++n) mx = fmaxf(mx, fmaxf(sc[n][2 * h], sc[n][2 * h + 1]));
-            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-            const float m_new = fmaxf(m[h], mx);  // finite: the tile holds a key
-            float sl = 0.f, sa = 0.f;
-#pragma unroll
-            for (int n = 0; n < 8; ++n) {
-#pragma unroll
-              for (int j = 0; j < 2; ++j) {
-                const float e = expf(sc[n][2 * h + j] - m_new);
-                sl += e;
-                sa += e * dp[n][2 * h + j];
-              }
-            }
-            sl += __shfl_xor_sync(0xffffffffu, sl, 1);
-            sl += __shfl_xor_sync(0xffffffffu, sl, 2);
-            sa += __shfl_xor_sync(0xffffffffu, sa, 1);
-            sa += __shfl_xor_sync(0xffffffffu, sa, 2);
-            const float corr = expf(m[h] - m_new);
-            l[h] = l[h] * corr + sl;
-            a[h] = a[h] * corr + sa;
-            m[h] = m_new;
-          }
-        } else {
-#pragma unroll
-          for (int n = 0; n < 8; ++n)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float p = expf(sc[n][i] - m[i / 2]) * linv[i / 2];
-              sc[n][i] = p * (dp[n][i] - delta[i / 2]);  // dS
-            }
-          tc_acc(acc, sc, ks[stage], chunks, lane);
-        }
-      }
-      __syncthreads();  // every warp is done with `stage` before it is refilled
+  if (warp == 4) {  // the producer: Q and dO, then the key tiles and their bias twice
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&bar[2 * STAGES], 2 * TILE_BYTES);
+      tma_load_3d(sm, &tq, &bar[2 * STAGES], 0, q0, bh);
+      tma_load_3d(sm + TILE_BYTES, &tdo, &bar[2 * STAGES], 0, q0, bh);
     }
-    if (pass == 0) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        linv[h] = 1.f / l[h];
-        delta[h] = a[h] * linv[h];
-        const int r = h ? r1 : r0;
-        if (active && t == 0 && r < S) {
-          const size_t plane = size_t(gridDim.x) * S;
-          stats[size_t(bh) * S + r] = m[h];
-          stats[plane + size_t(bh) * S + r] = linv[h];
-          stats[2 * plane + size_t(bh) * S + r] = delta[h];
-        }
+    const uint8_t* pb = pad != nullptr ? pad + size_t(bh / H) * S : nullptr;
+    for (int n = 0; n < 2 * nt; ++n) {
+      const int st = n % STAGES, k0 = (n % nt) * BT;
+      mbar_wait(&bar[STAGES + st], (uint32_t(n / STAGES) & 1u) ^ 1u);
+      if (lane == 0) {
+        mbar_expect_tx(&bar[st], 2 * TILE_BYTES);
+        tma_load_3d(ring(n), &tk, &bar[st], 0, k0, bh);
+        tma_load_3d(ring(n) + TILE_BYTES, &tv, &bar[st], 0, k0, bh);
       }
+      float* bias = reinterpret_cast<float*>(ring(n) + DQ_BIAS);
+      for (int e = lane; e < BT; e += 32) bias[e] = key_bias(pb, k0 + e, S);
+      __threadfence_block();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bar[st]);
     }
+    return;
   }
-  if (!active) return;
+
+  DqThread th;
+  th.qa = smem_addr(sm);
+  th.t = t, th.lane = lane, th.scale2 = scale2;
 #pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
-    const int col = c * 8 + 2 * t;
-    if (r0 < S)
-      *reinterpret_cast<uint32_t*>(dq + base + size_t(r0) * D + col) =
-          pack_bf16(acc[c][0] * scale, acc[c][1] * scale);
-    if (r1 < S)
-      *reinterpret_cast<uint32_t*>(dq + base + size_t(r1) * D + col) =
-          pack_bf16(acc[c][2] * scale, acc[c][3] * scale);
-  }
-}
-
-__global__ void __launch_bounds__(32 * TC_MAX_WARPS)
-mha_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ pad,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int H, int S, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 qs[2][BT * LDB];
-  __shared__ __align__(16) __nv_bfloat16 dos[2][BT * LDB];
-  __shared__ float rm[2][BT], rl[2][BT], rd[2][BT];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.x, b = bh / H;
-  const int k0 = blockIdx.y * (blockDim.x / 2) + warp * 16;  // 16 keys per warp
-  const bool active = k0 < S;
-  const size_t base = size_t(bh) * S * D;
-  const size_t plane = size_t(gridDim.x) * S;
-  const int r0 = k0 + g, r1 = k0 + g + 8;
-  const int ntiles = (S + BT - 1) / BT;
-
-  auto load_tile = [&](int stage, int q0) {
-    tc_stage(qs[stage], q + base, q0, S);
-    tc_stage(dos[stage], dout + base, q0, S);
-    for (int j = tid; j < BT; j += blockDim.x) {
-      const bool in = q0 + j < S;  // a query past S gets P = 0
-      rm[stage][j] = in ? stats[size_t(bh) * S + q0 + j] : 0.f;
-      rl[stage][j] = in ? stats[plane + size_t(bh) * S + q0 + j] : 0.f;
-      rd[stage][j] = in ? stats[2 * plane + size_t(bh) * S + q0 + j] : 0.f;
-    }
-    cp_async_commit();
-  };
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  tc_rows(kf, k + base, r0, r1, S, t);
-  tc_rows(vf, v + base, r0, r1, S, t);
-  float kb[2];  // this thread's keys' bias: 0 real, -1e30 padded, -inf past S
+  for (int h = 0; h < 2; ++h) th.m[h] = -INFINITY, th.l[h] = th.a[h] = 0.f;
+  zero(th.dq);
+  mbar_wait(&bar[2 * STAGES], 0);
+  auto parity = [&](int n) { return uint32_t(n / STAGES) & 1u; };
+  auto full = [&](int n) { return &bar[n % STAGES]; };
+  auto empty = [&](int n) { return &bar[STAGES + n % STAGES]; };
+  // sweep 0, the row statistics, online; the last key tile NL chunks wide
+  int n = 0;
+  for (; n < nt - 1; ++n) dq_tile<4, false>(th, ring(n), full(n), empty(n), parity(n));
+  dq_tile<NL, false>(th, ring(n), full(n), empty(n), parity(n));
+  ++n;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int key = h ? r1 : r0;
-    kb[h] = key >= S ? -INFINITY
-                     : ((pad != nullptr && pad[size_t(b) * S + key]) ? MASK_BIAS : 0.f);
+    th.l[h] += __shfl_xor_sync(0xffffffffu, th.l[h], 1);
+    th.l[h] += __shfl_xor_sync(0xffffffffu, th.l[h], 2);
+    th.a[h] += __shfl_xor_sync(0xffffffffu, th.a[h], 1);
+    th.a[h] += __shfl_xor_sync(0xffffffffu, th.a[h], 2);
+    const int row = 16 * warp + g + 8 * h;
+    th.li[h] = q0 + row < S ? 1.f / th.l[h] : 0.f;  // a row past S gets P = 0
+    th.dl[h] = th.a[h] * th.li[h];
+    if (t == 0) {
+      float* o = stats + (size_t(bh) * nt + qt) * STATS + row;
+      o[0] = th.m[h];
+      o[BT] = th.li[h];
+      o[2 * BT] = th.dl[h];
+    }
   }
-  float gk[D / 8][4], gv[D / 8][4];
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) gk[c][i] = gv[c][i] = 0.f;
-
-  load_tile(0, 0);
-  for (int it = 0; it < ntiles; ++it) {
-    const int stage = it & 1, q0 = it * BT;
-    if (it + 1 < ntiles) {
-      load_tile(stage ^ 1, q0 + BT);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (active) {
-      const int chunks = (min(BT, S - q0) + 15) / 16;
-      float p[8][4], ds[8][4];
-      tc_dot(p, kf, qs[stage], chunks, lane);    // s^T [key][query]
-      tc_dot(ds, vf, dos[stage], chunks, lane);  // dP^T [key][query]
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qj = n * 8 + 2 * t + (i & 1);
-          const float pr = n / 2 < chunks
-                               ? expf(p[n][i] * scale + kb[i / 2] - rm[stage][qj]) * rl[stage][qj]
-                               : 0.f;
-          p[n][i] = pr;
-          ds[n][i] = pr * (ds[n][i] - rd[stage][qj]);
-        }
-      tc_acc(gv, p, dos[stage], chunks, lane);   // dV += P^T dO
-      tc_acc(gk, ds, qs[stage], chunks, lane);   // dK += dS^T Q
-    }
-    __syncthreads();  // every warp is done with `stage` before it is refilled
-  }
-  if (!active) return;
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
-    const int col = c * 8 + 2 * t;
-    if (r0 < S) {
-      *reinterpret_cast<uint32_t*>(dk + base + size_t(r0) * D + col) =
-          pack_bf16(gk[c][0] * scale, gk[c][1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + base + size_t(r0) * D + col) =
-          pack_bf16(gv[c][0], gv[c][1]);
-    }
-    if (r1 < S) {
-      *reinterpret_cast<uint32_t*>(dk + base + size_t(r1) * D + col) =
-          pack_bf16(gk[c][2] * scale, gk[c][3] * scale);
-      *reinterpret_cast<uint32_t*>(dv + base + size_t(r1) * D + col) =
-          pack_bf16(gv[c][2], gv[c][3]);
-    }
+  // sweep 1: dS and dQ
+  for (; n < 2 * nt - 1; ++n) dq_tile<4, true>(th, ring(n), full(n), empty(n), parity(n));
+  dq_tile<NL, true>(th, ring(n), full(n), empty(n), parity(n));
+  // dq as bf16 over the Q tile, which every product has read, stored by TMA
+  // (rows past S are not written)
+  named_barrier<1, 128>();
+  stage_tile(sm, th.dq, scale, warp, g, t);
+  fence_async_smem();
+  named_barrier<1, 128>();
+  if (threadIdx.x == 0) {
+    tma_store_3d(&tdq, sm, 0, q0, bh);
+    tma_store_commit_and_wait();
   }
 }
 
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* pad,
-                        const void* dout, void* dq, void* dk, void* dv, void* stats, int B, int H,
-                        int S, cudaStream_t stream) {
-  // up to 128 rows: one block per (row, head), one warp per 16 rows; longer
-  // S: 64-row blocks
-  const int warps = S <= 16 * TC_MAX_WARPS ? (S + 15) / 16 : 4;
-  const int rows = 16 * warps;
-  const dim3 grid(unsigned(B) * unsigned(H), unsigned((S + rows - 1) / rows));
-  const float scale = 1.0f / sqrtf(float(D));
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  const auto* db = static_cast<const __nv_bfloat16*>(dout);
-  const auto* pb = static_cast<const uint8_t*>(pad);
-  mha_bwd_dq_bf16_kernel<<<grid, 32 * warps, 0, stream>>>(
-      qb, kb, vb, pb, db, static_cast<__nv_bfloat16*>(dq), static_cast<float*>(stats), H, S,
-      scale);
-  cudaError_t err = cudaGetLastError();
+// one query tile of the dk/dv kernel (NCH: its 16-query chunks holding a
+// query < S) at ring stage qs (Q | dO | the queries' statistics), then released
+template <int NCH>
+__device__ __forceinline__ void dkdv_tile(float (&dk)[32], float (&dv)[32], uint32_t ka,
+                                          const uint8_t* qs, const float (&kb)[2], float scale2,
+                                          int t, int lane, uint64_t* full, uint64_t* empty,
+                                          uint32_t parity) {
+  using namespace hopper;
+  const float* ms = reinterpret_cast<const float*>(qs + KV_STATS);
+  const uint32_t qa = smem_addr(qs);
+  mbar_wait(full, parity);
+  float sc[32], dp[32];
+  zero(sc);
+  zero(dp);
+  wgmma_fence();
+  rows_product<NCH>(sc, ka, qa);                            // S^T = K Q^T
+  rows_product<NCH>(dp, ka + TILE_BYTES, qa + TILE_BYTES);  // dP^T = V dO^T
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  fence_regs(dp);
+  // P^T and dS^T: register r is key row 16 warp + g + 8 ((r >> 1) & 1), query acc_col(r)
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    const int qc = acc_col(r, t);
+    const float p = ex2(fmaf(sc[r], scale2, kb[(r >> 1) & 1]) - ms[qc]) * ms[BT + qc];
+    sc[r] = p;
+    dp[r] = p * (dp[r] - ms[2 * BT + qc]);
+  }
+  uint32_t ap[4][4], as[4][4];
+  a_fragments(ap, sc);
+  a_fragments(as, dp);
+  wgmma_fence();
+  frag_product<NCH>(dv, ap, qa + TILE_BYTES);  // dV += P^T dO
+  frag_product<NCH>(dk, as, qa);               // dK += dS^T Q
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dk);
+  fence_regs(dv);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    fence_regs(ap[kk]);
+    fence_regs(as[kk]);
+  }
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
+// grid (key tiles, B H); NL: the 16-query chunks of the last query tile
+template <int NL>
+__global__ void __launch_bounds__(THREADS, 2)
+mha_bwd_long_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tdk,
+                         const __grid_constant__ CUtensorMap tdv,
+                         const uint8_t* __restrict__ pad, const float* __restrict__ stats, int H,
+                         int S, float scale, float scale2) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + KV_BAR);  // full | empty | K and V
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int kt = blockIdx.x, bh = blockIdx.y, k0 = kt * BT;
+  const int nt = (S + BT - 1) / BT;
+  init_barriers(bar);
+  auto ring = [&](int n) { return sm + KV_RING + (n % STAGES) * KV_STAGE; };
+
+  if (warp == 4) {  // the producer: K and V, then each query tile with its statistics
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&bar[2 * STAGES], 2 * TILE_BYTES);
+      tma_load_3d(sm, &tk, &bar[2 * STAGES], 0, k0, bh);
+      tma_load_3d(sm + TILE_BYTES, &tv, &bar[2 * STAGES], 0, k0, bh);
+    }
+    for (int n = 0; n < nt; ++n) {
+      const int st = n % STAGES;
+      mbar_wait(&bar[STAGES + st], (uint32_t(n / STAGES) & 1u) ^ 1u);
+      if (lane == 0) {
+        mbar_expect_tx(&bar[st], 2 * TILE_BYTES);
+        tma_load_3d(ring(n), &tq, &bar[st], 0, n * BT, bh);
+        tma_load_3d(ring(n) + TILE_BYTES, &tdo, &bar[st], 0, n * BT, bh);
+      }
+      const float* src = stats + (size_t(bh) * nt + n) * STATS;
+      float* dst = reinterpret_cast<float*>(ring(n) + KV_STATS);
+      for (int e = lane; e < STATS; e += 32) dst[e] = src[e];
+      __threadfence_block();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bar[st]);
+    }
+    return;
+  }
+
+  const uint8_t* pb = pad != nullptr ? pad + size_t(bh / H) * S : nullptr;
+  const float kb[2] = {key_bias(pb, k0 + 16 * warp + g, S), key_bias(pb, k0 + 16 * warp + g + 8, S)};
+  float dk[32], dv[32];
+  zero(dk);
+  zero(dv);
+  mbar_wait(&bar[2 * STAGES], 0);
+  const uint32_t ka = smem_addr(sm);
+  auto parity = [&](int n) { return uint32_t(n / STAGES) & 1u; };
+  int n = 0;
+  for (; n < nt - 1; ++n)
+    dkdv_tile<4>(dk, dv, ka, ring(n), kb, scale2, t, lane, &bar[n % STAGES],
+                 &bar[STAGES + n % STAGES], parity(n));
+  dkdv_tile<NL>(dk, dv, ka, ring(n), kb, scale2, t, lane, &bar[n % STAGES],
+                &bar[STAGES + n % STAGES], parity(n));
+  // dk, dv as bf16 over the K and V tiles, stored by TMA (keys past S are not written)
+  named_barrier<1, 128>();
+  stage_tile(sm, dk, scale, warp, g, t);
+  stage_tile(sm + TILE_BYTES, dv, 1.f, warp, g, t);
+  fence_async_smem();
+  named_barrier<1, 128>();
+  if (threadIdx.x == 0) {
+    tma_store_3d(&tdk, sm, 0, k0, bh);
+    tma_store_3d(&tdv, sm + TILE_BYTES, 0, k0, bh);
+    tma_store_commit_and_wait();
+  }
+}
+
+template <int NL>
+cudaError_t launch_nl(const CUtensorMap* maps, const uint8_t* pad, float* stats, int BH, int H,
+                      int S, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(mha_bwd_long_dq_kernel<NL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_BYTES);
   if (err != cudaSuccess) return err;
-  mha_bwd_dkdv_bf16_kernel<<<grid, 32 * warps, 0, stream>>>(
-      qb, kb, vb, pb, db, static_cast<const float*>(stats), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, S, scale);
+  err = cudaFuncSetAttribute(mha_bwd_long_dkdv_kernel<NL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, KV_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid{unsigned((S + BT - 1) / BT), unsigned(BH)};
+  const float scale = 1.0f / sqrtf(float(D)), scale2 = scale * 1.4426950408889634f;
+  mha_bwd_long_dq_kernel<NL><<<grid, THREADS, DQ_BYTES, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], pad, stats, H, S, scale, scale2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mha_bwd_long_dkdv_kernel<NL><<<grid, THREADS, KV_BYTES, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[5], maps[6], pad, stats, H, S, scale, scale2);
   return cudaGetLastError();
 }
+
+cudaError_t launch(const void* q, const void* k, const void* v, const void* pad, const void* dout,
+                   void* dq, void* dk, void* dv, void* stats, int B, int H, int S,
+                   cudaStream_t stream) {
+  const int BH = B * H;
+  const uint64_t dims[3] = {uint64_t(D), uint64_t(S), uint64_t(BH)};
+  const uint64_t strides[2] = {uint64_t(D) * 2, uint64_t(S) * D * 2};
+  const uint32_t box[3] = {uint32_t(D), uint32_t(BT), 1};
+  const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
+  CUtensorMap maps[7];
+  for (int i = 0; i < 7; ++i)
+    if (!hopper::make_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptrs[i], dims, strides,
+                          box, CU_TENSOR_MAP_SWIZZLE_128B))
+      return cudaErrorInvalidValue;
+  const auto* pb = static_cast<const uint8_t*>(pad);
+  auto* st = static_cast<float*>(stats);
+  switch ((S - 1) % BT / 16 + 1) {  // the last tile's 16-row chunks
+    case 1: return launch_nl<1>(maps, pb, st, BH, H, S, stream);
+    case 2: return launch_nl<2>(maps, pb, st, BH, H, S, stream);
+    case 3: return launch_nl<3>(maps, pb, st, BH, H, S, stream);
+  }
+  return launch_nl<4>(maps, pb, st, BH, H, S, stream);
+}
+
+}  // namespace lng
 
 // ------------------------------------------- bf16, S <= 128: fused, wgmma + TMA
 //
 // The TPU kernel's own schedule: a block holds a whole head, so each score
 // row is complete and the softmax exact, with no statistics scratch and no
-// second sweep.  Five products instead of v2's nine, each input read once.
+// second sweep.  Five products instead of the long route's nine, each input
+// read once.
 //
 // - TMA loads q, k, v, dO of the head into shared memory (3-D tensor maps
 //   over [B H, S, D], 128-byte swizzle; rows past S, up to the tile, are
@@ -404,7 +551,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
 // - Keys are computed in 16-wide chunks up to the last real key (NCH = S / 16
 //   rounded up, a template parameter): S = 80 costs 80 keys, not 128.
 //
-// What bounds it on an H100: bytes, as for v2 (7 [S, D] tensors per head, ~30
+// What bounds it on an H100: bytes (7 [S, D] tensors per head, ~30
 // MB at the joint training shape against ~2 us of tensor-core work).  With
 // every input read once and the stats scratch gone, the kernel moves only
 // those bytes; what is left is the latency of one head's load -> five
@@ -701,16 +848,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pad,
 
 }  // namespace
 
-// The v2 route: bf16 at any S (taken past S = 128), the dq kernel and the
-// dk/dv kernel on mma.sync.  stats: 3 B H S f32 of scratch.  Returns a
-// cudaError_t (0 = launched).
-extern "C" int mha_bwd_v2(const void* q, const void* k, const void* v, const void* pad,
-                          const void* dout, void* dq, void* dk, void* dv, void* stats, int B,
-                          int H, int S, int head_dim, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || head_dim != D || (S + BT - 1) / BT > 65535 ||
-      stats == nullptr)
+// The long route: bf16 at any S (taken past S = 128), the dq and the dk/dv
+// kernels.  stats: 3 x 64 x B H x ceil(S / 64) f32 of scratch.  Pointers
+// 16-byte aligned (TMA).  Returns a cudaError_t (0 = launched).
+extern "C" int mha_bwd_long(const void* q, const void* k, const void* v, const void* pad,
+                            const void* dout, void* dq, void* dk, void* dv, void* stats, int B,
+                            int H, int S, int head_dim, void* stream) {
+  const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return int(cudaErrorInvalidValue);
+  if (B <= 0 || H <= 0 || S <= 0 || head_dim != D || size_t(B) * H > 65535 || stats == nullptr)
     return int(cudaErrorInvalidValue);
-  return int(launch_bf16(q, k, v, pad, dout, dq, dk, dv, stats, B, H, S,
+  return int(lng::launch(q, k, v, pad, dout, dq, dk, dv, stats, B, H, S,
                          static_cast<cudaStream_t>(stream)));
 }
 

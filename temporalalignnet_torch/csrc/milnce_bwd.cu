@@ -1,7 +1,10 @@
-// Fused MIL-NCE backward for Hopper (sm_90a): the feature gradients of
-// v_el = vden - vnum and t_el = tden - tnum (milnce_fwd.cu) from the saved
-// logsumexps, without writing sim.  Per 64 x 64 tile the sim tile is
-// recomputed and turned into
+// MIL-NCE backward for Hopper (sm_90a), the earlier bf16 kernels (v2): the
+// feature gradients of v_el = vden - vnum and t_el = tden - tnum
+// (milnce_fwd.cu) from the saved logsumexps, without writing sim.  No route
+// takes them any more (bf16 runs csrc/milnce_wgmma.cu, f32
+// csrc/milnce_grad_f32.cu); ops/milnce.py's milnce_dv_v2 and milnce_dt_v2
+// call them, uncounted, so that a run can time the redesign beside them.
+// Per 64 x 64 tile the sim tile is recomputed and turned into
 //   dsim = inv_temp * (gv[r] (p_neg - p_pos) + gt[k] (q_neg - q_pos)),
 //   p_pos = pm ? exp(sim - vnum[r]) : 0,  p_neg = cv ? exp(sim - vden[r]) : 0,
 //   q_pos = pm ? exp(sim - tnum[k]) : 0,  q_neg = cv ? exp(sim - tden[k]) : 0,
@@ -10,158 +13,27 @@
 // leaks into dsim.  gv and gt are the cotangents of v_el and t_el (the JAX
 // contract's four cotangents are -gv, gv, -gt, gt).
 //
-// Two kernels, each one template over the orientation (ROWS_OUTER):
+// One template over the orientation (ROWS_OUTER):
 // - milnce_dv, ROWS_OUTER: a block owns 64 rows of one layer and streams the
 //   text columns: dv[r] = sum_k dsim[r, k] t[k].
 // - milnce_dt: a block owns 64 text columns and streams rows: dt[k] =
 //   sum_r dsim[r, k] v[r].  With the dual branch's shared text it also sums
 //   over the layers (the broadcast's VJP, pallas_milnce.py:921-924).
-// Replaces temporalalignnet_tpu/ops/pallas_milnce.py::_milnce_bwd_kernel
-// (untiled: dv and dt in one pass), ::_milnce_dv_kernel and
-// ::_milnce_dt_kernel (the column-tiled pair the TPU takes at B >= 128):
-// these kernels take any R and K, so one pair covers all three.
+// The counterparts of temporalalignnet_tpu/ops/pallas_milnce.py::
+// _milnce_bwd_kernel, ::_milnce_dv_kernel and ::_milnce_dt_kernel.
 //
-// dsim is cast to the input dtype before the product, as the TPU kernel does
+// dsim is cast to bf16 before the product, as the TPU kernel does
 // (pallas_milnce.py:174-187), and the product accumulates in f32 ([64, C],
-// C <= 512): in registers on the bf16 path, in shared memory on the f32 one.
-// Both kernels are deterministic: the stream
-// over the inner axis may be split across blocks (to fill the card when the
-// outer axis is short, e.g. dt at K = 1024), and every split writes its own
-// f32 partial, which milnce_reduce_kernel sums in a fixed order and casts.
-//
-// What bounds it on an H100: 4 S R K C FLOPs per kernel (sim again, then the
-// product) = 51.5 GFLOP at the B = 64 training shape, 52 us of bf16
-// tensor-core time, against ~40 MB of inputs and outputs: bound by
-// operations.  bf16 runs on the tensor cores (mma.sync, ldmatrix, cp.async;
-// milnce_grad_bf16_kernel), f32 as f32 FMAs on the CUDA cores
-// (milnce_grad_f32_kernel), the parity path.
+// C <= 512) in registers, on mma.sync, ldmatrix and cp.async.  The stream
+// over the inner axis may be split across blocks, and every split writes its
+// own f32 partial, which milnce_reduce_kernel sums in a fixed order and
+// casts: deterministic.
 
 #include "milnce_tile.cuh"
 
 namespace {
 
 using namespace milnce;
-
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// rows [n0, n0 + 64) x 64 channels from c0 of a row-major f32 [n, C] array
-// into dst[64][F_LD]
-__device__ __forceinline__ void stage_f32_rows(float* dst, const float* src, int n0, int n,
-                                               int C, int c0) {
-  for (int e = threadIdx.x; e < TILE * TILE; e += NTHREADS) {
-    const int j = e / TILE, c = e % TILE;
-    dst[j * F_LD + c] = (n0 + j < n) ? src[size_t(n0 + j) * C + c0 + c] : 0.f;
-  }
-}
-
-constexpr size_t smem_bytes(int C) {
-  // acc [64][C] f32 | stage | sim / dsim [64][SIM_LD] f32 | pm [64][64]
-  return size_t(TILE) * C * 4 + STAGE_BYTES + size_t(TILE) * SIM_LD * 4 + size_t(TILE) * TILE;
-}
-
-// ------------------------------------------------------- f32: CUDA cores
-//
-// 4 warps; the sim tile through shared memory (milnce_tile.cuh), dsim in
-// place, and the product accumulated into a [64][C] f32 tile in shared
-// memory, 64 channels at a time (thread (rg, cg): rows 4 rg .., channels 8 cg ..).
-
-template <bool ROWS_OUTER>
-__global__ void __launch_bounds__(NTHREADS)
-milnce_grad_f32_kernel(const float* __restrict__ v, const float* __restrict__ t, long long t_ls,
-                       const uint8_t* __restrict__ pm, const uint8_t* __restrict__ cv,
-                       const float* __restrict__ vnum, const float* __restrict__ vden,
-                       const float* __restrict__ tnum, const float* __restrict__ tden,
-                       const float* __restrict__ gv, const float* __restrict__ gt,
-                       float* __restrict__ part, int R, int K, int C, int layers,
-                       int tiles_per_split, float inv_temp) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* acc = reinterpret_cast<float*>(smem);
-  unsigned char* stage = smem + size_t(TILE) * C * 4;
-  float* sim = reinterpret_cast<float*>(stage + STAGE_BYTES);
-  uint8_t* pms = reinterpret_cast<uint8_t*>(sim + TILE * SIM_LD);
-
-  const int nO = ROWS_OUTER ? R : K, nI = ROWS_OUTER ? K : R;
-  const int o0 = blockIdx.x * TILE;
-  const int y = blockIdx.y;  // output layer (dv, per-layer dt) or 0 (shared-text dt)
-  const int split = blockIdx.z;
-  const int it0 = split * tiles_per_split;
-  const int it1 = min(it0 + tiles_per_split, (nI + TILE - 1) / TILE);
-  const int tid = threadIdx.x, rg = tid / 8, cg = tid % 8;
-
-  for (int e = tid; e < TILE * C; e += NTHREADS) acc[e] = 0.f;
-
-  for (int s = y * layers; s < (y + 1) * layers; ++s) {
-    const float* vs = v + size_t(s) * R * C;
-    const float* ts = t + size_t(s) * size_t(t_ls);
-    const float* O = ROWS_OUTER ? vs : ts;
-    const float* I = ROWS_OUTER ? ts : vs;
-    const float* vn = vnum + size_t(s) * R;
-    const float* vd = vden + size_t(s) * R;
-    const float* gvs = gv + size_t(s) * R;
-    const float* tn = tnum + size_t(s) * K;
-    const float* td = tden + size_t(s) * K;
-    const float* gts = gt + size_t(s) * K;
-    for (int it = it0; it < it1; ++it) {
-      const int i0 = it * TILE;
-      __syncthreads();  // the last tile's readers of pms, sim and stage are done
-      if (ROWS_OUTER)
-        stage_mask(pms, pm, o0, R, i0, K);
-      else
-        stage_mask(pms, pm, i0, R, o0, K);
-      sim_tile<float>(O, o0, nO, I, i0, nI, C, stage, sim);
-
-      // d loss / d sim of the tile, in place
-      for (int e = tid; e < TILE * TILE; e += NTHREADS) {
-        const int a = e / TILE, b = e % TILE;  // outer, inner
-        const int r = ROWS_OUTER ? o0 + a : i0 + b;
-        const int k = ROWS_OUTER ? i0 + b : o0 + a;
-        float d = 0.f;
-        if (r < R && k < K) {
-          const float x = sim[a * SIM_LD + b] * inv_temp;
-          const bool pos = (ROWS_OUTER ? pms[a * TILE + b] : pms[b * TILE + a]) != 0;
-          if (pos) d -= gvs[r] * expf(x - vn[r]) + gts[k] * expf(x - tn[k]);
-          if (cv[k]) d += gvs[r] * expf(x - vd[r]) + gts[k] * expf(x - td[k]);
-          d *= inv_temp;
-        }
-        sim[a * SIM_LD + b] = d;
-      }
-
-      // acc[a][:] += dsim[a][b] I[i0 + b][:], 64 channels at a time
-      for (int c0 = 0; c0 < C; c0 += TILE) {
-        __syncthreads();  // dsim is complete; the last chunk's readers are done
-        float* ist = reinterpret_cast<float*>(stage);
-        stage_f32_rows(ist, I, i0, nI, C, c0);
-        __syncthreads();
-        float p[4][8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) p[i][j] = 0.f;
-#pragma unroll 4
-        for (int b = 0; b < TILE; ++b) {
-          const float4 ia = *reinterpret_cast<const float4*>(&ist[b * F_LD + cg * 8]);
-          const float4 ib = *reinterpret_cast<const float4*>(&ist[b * F_LD + cg * 8 + 4]);
-          const float iv[8] = {ia.x, ia.y, ia.z, ia.w, ib.x, ib.y, ib.z, ib.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float d = sim[(rg * 4 + i) * SIM_LD + b];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) p[i][j] = fmaf(d, iv[j], p[i][j]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[(rg * 4 + i) * C + c0 + cg * 8 + j] += p[i][j];
-      }
-    }
-  }
-  __syncthreads();
-  const int nrow = min(TILE, nO - o0);
-  float* out = part + ((size_t(split) * gridDim.y + y) * nO + o0) * C;
-  for (int e = tid; e < nrow * C; e += NTHREADS) out[e] = acc[e];
-}
 
 // ------------------------------------------------ bf16: tensor cores, v2
 //
@@ -329,58 +201,14 @@ milnce_grad_bf16_kernel(const __nv_bfloat16* __restrict__ v, const __nv_bfloat16
   }
 }
 
-// out[y, o, c] = sum over splits of part[split, y, o, c], cast to T
-template <typename T>
-__global__ void milnce_reduce_kernel(const float* __restrict__ part, T* __restrict__ out,
+// out[y, o, c] = sum over splits of part[split, y, o, c], cast to bf16
+__global__ void milnce_reduce_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
                                      size_t n, int splits) {
   const size_t idx = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n) return;
   float x = 0.f;
   for (int s = 0; s < splits; ++s) x += part[size_t(s) * n + idx];
-  store_out(out + idx, x);
-}
-
-template <typename T, bool ROWS_OUTER>
-cudaError_t launch(const void* v, const void* t, long long t_ls, const void* pm, const void* cv,
-                   const void* vnum, const void* vden, const void* tnum, const void* tden,
-                   const void* gv, const void* gt, void* out, void* part, int S, int R, int K,
-                   int C, int out_layers, int splits, float inv_temp, cudaStream_t stream) {
-  constexpr bool BF16 = sizeof(T) == 2;
-  const size_t smem = BF16 ? v2_smem_bytes(C) : smem_bytes(C);
-  const void* kernel = BF16 ? reinterpret_cast<const void*>(milnce_grad_bf16_kernel<ROWS_OUTER>)
-                            : reinterpret_cast<const void*>(milnce_grad_f32_kernel<ROWS_OUTER>);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(smem));
-  if (err != cudaSuccess) return err;
-  const int nO = ROWS_OUTER ? R : K, nI = ROWS_OUTER ? K : R;
-  const int itiles = (nI + TILE - 1) / TILE;
-  const int per_split = (itiles + splits - 1) / splits;
-  splits = (itiles + per_split - 1) / per_split;  // no empty split
-  const dim3 grid(unsigned((nO + TILE - 1) / TILE), unsigned(out_layers), unsigned(splits));
-  const int layers = S / out_layers;
-  if constexpr (BF16) {
-    milnce_grad_bf16_kernel<ROWS_OUTER><<<grid, V2_THREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(t), t_ls,
-        static_cast<const uint8_t*>(pm), static_cast<const uint8_t*>(cv),
-        static_cast<const float*>(vnum), static_cast<const float*>(vden),
-        static_cast<const float*>(tnum), static_cast<const float*>(tden),
-        static_cast<const float*>(gv), static_cast<const float*>(gt), static_cast<float*>(part),
-        R, K, C, layers, per_split, inv_temp);
-  } else {
-    milnce_grad_f32_kernel<ROWS_OUTER><<<grid, NTHREADS, smem, stream>>>(
-        static_cast<const float*>(v), static_cast<const float*>(t), t_ls,
-        static_cast<const uint8_t*>(pm), static_cast<const uint8_t*>(cv),
-        static_cast<const float*>(vnum), static_cast<const float*>(vden),
-        static_cast<const float*>(tnum), static_cast<const float*>(tden),
-        static_cast<const float*>(gv), static_cast<const float*>(gt), static_cast<float*>(part),
-        R, K, C, layers, per_split, inv_temp);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t n = size_t(out_layers) * nO * C;
-  milnce_reduce_kernel<T><<<unsigned((n + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<T*>(out), n, splits);
-  return cudaGetLastError();
+  out[idx] = __float2bfloat16(x);
 }
 
 template <bool ROWS_OUTER>
@@ -389,17 +217,31 @@ int dispatch(const void* v, const void* t, long long t_ls, const void* pm, const
              const void* gv, const void* gt, void* out, void* part, int S, int R, int K, int C,
              int out_layers, int splits, int dtype, float inv_temp, void* stream) {
   if (S <= 0 || S > 65535 || R <= 0 || K <= 0 || C <= 0 || C % 64 != 0 || C > 512 ||
-      splits <= 0 || splits > 65535 || (out_layers != S && out_layers != 1))
+      splits <= 0 || splits > 65535 || (out_layers != S && out_layers != 1) || dtype != 1)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return int(launch<float, ROWS_OUTER>(v, t, t_ls, pm, cv, vnum, vden, tnum, tden, gv, gt, out,
-                                         part, S, R, K, C, out_layers, splits, inv_temp, st));
-  if (dtype == 1)
-    return int(launch<__nv_bfloat16, ROWS_OUTER>(v, t, t_ls, pm, cv, vnum, vden, tnum, tden, gv,
-                                                 gt, out, part, S, R, K, C, out_layers, splits,
-                                                 inv_temp, st));
-  return int(cudaErrorInvalidValue);
+  const size_t smem = v2_smem_bytes(C);
+  cudaError_t err = cudaFuncSetAttribute(milnce_grad_bf16_kernel<ROWS_OUTER>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const int nO = ROWS_OUTER ? R : K, nI = ROWS_OUTER ? K : R;
+  const int itiles = (nI + TILE - 1) / TILE;
+  const int per_split = (itiles + splits - 1) / splits;
+  splits = (itiles + per_split - 1) / per_split;  // no empty split
+  const dim3 grid(unsigned((nO + TILE - 1) / TILE), unsigned(out_layers), unsigned(splits));
+  milnce_grad_bf16_kernel<ROWS_OUTER><<<grid, V2_THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(t), t_ls,
+      static_cast<const uint8_t*>(pm), static_cast<const uint8_t*>(cv),
+      static_cast<const float*>(vnum), static_cast<const float*>(vden),
+      static_cast<const float*>(tnum), static_cast<const float*>(tden),
+      static_cast<const float*>(gv), static_cast<const float*>(gt), static_cast<float*>(part), R,
+      K, C, S / out_layers, per_split, inv_temp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const size_t n = size_t(out_layers) * nO * C;
+  milnce_reduce_kernel<<<unsigned((n + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(out), n, splits);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -407,8 +249,8 @@ int dispatch(const void* v, const void* t, long long t_ls, const void* pm, const
 // Inputs as milnce_fwd (v [S, R, C]; t at t_layer_stride per layer; pm [R, K],
 // cv [K] bytes), the saved vnum, vden [S, R] and tnum, tden [S, K], and the
 // cotangents gv [S, R], gt [S, K] (f32).  part: splits * out_layers * n_out * C
-// f32 of scratch.  dtype: 0 = float32, 1 = bfloat16.  C <= 512.  Returns a
-// cudaError_t (0 = launched).
+// f32 of scratch.  dtype: 1 = bfloat16, the only one taken.  C <= 512.
+// Returns a cudaError_t (0 = launched).
 //
 // milnce_dv: dv [S, R, C] (out_layers = S).
 extern "C" int milnce_dv(const void* v, const void* t, long long t_layer_stride, const void* pm,

@@ -4,16 +4,17 @@
 // sim[r][k] = v[r] . t[k] of one layer, with r the B*T video rows and k the
 // B*N text columns.  A block owns 64 "outer" entries (rows, or for the dt
 // kernel columns) and streams the "inner" ones in tiles of 64.  Two schemes:
-// - sim_tile<T> (the forward, and the f32 backward): 4 warps; the tile's dot
-//   products land in a shared f32 sim[64][SIM_LD], from which the masked
-//   logsumexp or d loss / d sim passes read in any orientation.  bf16 runs on
+// - sim_tile<T> (the forward): 4 warps; the tile's dot products land in a
+//   shared f32 sim[64][SIM_LD], from which the masked logsumexp passes read
+//   in either orientation.  bf16 runs on
 //   the tensor cores (mma.sync m16n8k16, f32 accumulate; both operands staged
 //   in 64-channel chunks, fragments through ldmatrix; warp w owns outer
 //   16w .. +15 and all 64 inner); f32 as f32 FMAs on the CUDA cores (no
 //   TF32; 32-channel chunks staged transposed; thread (rg, cg) owns outer
 //   4rg .. +3 and inner 8cg .. +7).
-// - "v2" below (the bf16 backward): 8 warps, the outer rows resident, the
-//   inner tiles double buffered by cp.async, the sim fragment in registers.
+// - "v2" below (the earlier bf16 backward): 8 warps, the outer rows
+//   resident, the inner tiles double buffered by cp.async, the sim fragment
+//   in registers.
 // Entries past the end of either axis are zero-filled; the callers mask them.
 
 #pragma once
@@ -29,10 +30,10 @@ constexpr int BF_KC = 64;      // channels per staged chunk, bf16
 constexpr int BF_LD = BF_KC + 8;  // padded rows: ldmatrix rows hit distinct banks
 constexpr int F_KC = 32;       // channels per staged chunk, f32
 constexpr int F_LD = TILE + 4;
-// bytes of the operand staging area: two [64][72] bf16 chunks, two
-// [32][68] f32 chunks, or one [64][68] f32 chunk of the f32 backward product
+// bytes of the operand staging area: two [64][72] bf16 chunks or two [32][68]
+// f32 chunks
 constexpr int imax(int a, int b) { return a > b ? a : b; }
-constexpr int STAGE_BYTES = imax(2 * TILE * BF_LD * 2, imax(2 * F_KC * F_LD * 4, TILE * F_LD * 4));
+constexpr int STAGE_BYTES = imax(2 * TILE * BF_LD * 2, 2 * F_KC * F_LD * 4);
 
 // rows [n0, n0 + 64) x channels [c0, c0 + BF_KC) of a row-major [n, C] bf16
 // array into dst[64][BF_LD]; 16 bytes per load (C is a multiple of 64)

@@ -110,7 +110,9 @@ class TimeSformerEncoder(nn.Module):
         # patch-major / frame-minor, then the time table per frame slot
         x = x.transpose(1, 2) + self.time_embedding.to(x.dtype)
         x = x.reshape(B, P * T, D)
-        cls = (self.cls_token.to(x.dtype) + pos[0]).expand(B, 1, D)
+        # the class token and its position added in f32 and rounded once, as JAX does
+        cls = (self.cls_token.float() + self.position_embedding[0].float()).to(x.dtype)
+        cls = cls.expand(B, 1, D)
         x = torch.cat([cls, x], dim=1)
         for layer in self.layers:
             x = layer(x, P, T)

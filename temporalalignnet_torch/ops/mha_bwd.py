@@ -10,12 +10,15 @@ refused.  The route depends on the dtype and S alone (``route``):
 
 - ``fused``: bf16 with S <= 128, every training shape.  One wgmma/TMA kernel
   per call, a block per (batch row, head) holding the whole head.
-- ``v2``: bf16 with S > 128.  The dq kernel and the dk/dv kernel on mma.sync.
+- ``long``: bf16 with S > 128.  A dq kernel and a dk/dv kernel on wgmma and
+  TMA, each fed by a producer warp, the row statistics through a small f32
+  scratch.
 - ``f32``: float32 at any S, the ``--f32`` training path.  Split TF32 on the
   tensor cores (each product big·small + small·big + big·big of TF32 halves,
   f32 accumulators): f32 accuracy, as the TPU kernel's Precision.HIGHEST
   asks.  Up to S = 128 one kernel, a block per (batch row, head), one pass,
-  no scratch; past it v2's two-kernel plan.
+  no scratch; past it a dq and a dk/dv kernel with the row statistics'
+  scratch.
 
 ``mha_bwd.launches`` counts its calls, ``mha_bwd.launches_by_route`` them by
 route.
@@ -68,14 +71,15 @@ FUSED_MAX_S = 128  # the fused kernel holds a head's rows in two warpgroups of 6
 # the f32 whole-head kernel past this S is built in a source of its own,
 # csrc/mha_bwd_f32_wide.cu, so that its instantiations compile in parallel
 F32_WIDE_MIN_S = 81
-ROUTES = ("fused", "v2", "f32")
+LONG_TILE = 64  # rows per tile of the long route's kernels (its statistics scratch)
+ROUTES = ("fused", "long", "f32")
 
 
 def route(dtype: torch.dtype, S: int) -> str:
     """The kernel route of a call, from its dtype and sequence length alone."""
     if dtype == torch.float32:
         return "f32"
-    return "fused" if S <= FUSED_MAX_S else "v2"
+    return "fused" if S <= FUSED_MAX_S else "long"
 
 
 def _kernel(lib: str, name: str, n_ptrs: int):
@@ -100,16 +104,9 @@ def mha_bwd(
     return dq, dk, dv
 
 
-def mha_bwd_v2(q, k, v, key_padding_mask, dout):
-    """The two-kernel bf16 backward (mma.sync) at any S, which no route takes
-    at S <= 128 any more: kept so that a run can time the fused kernel beside
-    it.  Not counted."""
-    if q.dtype != torch.bfloat16:
-        raise ValueError("mha_bwd_v2 takes bfloat16")
-    return _launch("v2", q, k, v, key_padding_mask, dout)
-
-
 def _launch(which, q, k, v, key_padding_mask, dout):
+    if which != "f32" and q.dtype != torch.bfloat16:
+        raise ValueError(f"mha_bwd's {which} route takes bfloat16, got {q.dtype}")
     pad_ptr = check_inputs("mha_bwd", q, k, v, key_padding_mask)
     if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
         raise ValueError(f"mha_bwd takes dout like q, got {dout.dtype} {tuple(dout.shape)}")
@@ -122,11 +119,14 @@ def _launch(which, q, k, v, key_padding_mask, dout):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if which == "fused":
             rc = _kernel("mha_bwd", "mha_bwd_fused", 8)(*ptrs, B, H, S, D, stream)
-        else:  # the row statistics of the two-kernel plans (v2; f32 past S = 128)
-            stats = (None if which == "f32" and S <= FUSED_MAX_S else
-                     torch.empty(3 * B * H * S, dtype=torch.float32, device=q.device))
-            if which == "v2":
-                lib, name = "mha_bwd", "mha_bwd_v2"
+        else:  # the row statistics of the two-kernel plans (long; f32 past S = 128)
+            if which == "long":
+                size = 3 * LONG_TILE * B * H * -(-S // LONG_TILE)
+            else:
+                size = 0 if S <= FUSED_MAX_S else 3 * B * H * S
+            stats = torch.empty(size, dtype=torch.float32, device=q.device) if size else None
+            if which == "long":
+                lib, name = "mha_bwd", "mha_bwd_long"
             else:  # each f32 library exports one function of its own name
                 lib = name = ("mha_bwd_f32_wide" if F32_WIDE_MIN_S <= S <= FUSED_MAX_S
                               else "mha_bwd_f32")

@@ -20,10 +20,12 @@ layer and its gradient is summed over them.
   logsumexps (``milnce_dv``, ``milnce_dt``).  There is no fallback: a CUDA
   tensor launches the kernels or raises.  Each takes its route from the
   dtype alone (``fwd_route``, ``dv_route``, ``dt_route``): bf16 the
-  wgmma/TMA kernels of csrc/milnce_wgmma.cu (one skeleton), f32 the FMA
-  kernels of csrc/milnce_fwd.cu and csrc/milnce_bwd.cu.  ``milnce_fwd_v1``,
-  ``milnce_dv_v2`` and ``milnce_dt_v2`` call the earlier bf16 kernels of
-  those two files, uncounted, for timing.
+  wgmma/TMA kernels of csrc/milnce_wgmma.cu (one skeleton); f32 the FMA
+  forward of csrc/milnce_fwd.cu and the split-TF32 gradients of
+  csrc/milnce_grad_f32.cu (one template over the orientation).
+  ``milnce_fwd_v1``, ``milnce_dv_v2`` and ``milnce_dt_v2`` call the earlier
+  bf16 kernels of csrc/milnce_fwd.cu and csrc/milnce_bwd.cu, uncounted, for
+  timing.
 
 - With ``group`` (a process group), ``MilNCEFunction`` keeps the
   ``_sharded_milnce`` contract (pallas_milnce.py:822-897).  Each rank holds its rows of the video and
@@ -57,8 +59,9 @@ from temporalalignnet_torch.parallel.distributed import (all_gather, all_reduce_
                                                          all_reduce_sum, reduce_scatter)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 64  # rows and columns per kernel tile (csrc/milnce_tile.cuh)
-MAX_CHANNELS = 512  # the backward keeps a [64, C] f32 accumulator per block
+TILE = 64  # rows and columns per kernel tile (csrc/milnce_tile.cuh, csrc/milnce_wgmma.cu)
+F32_TILE = 32  # outer entries per block and inner entries per tile of the f32 gradients
+MAX_CHANNELS = 512  # the gradient kernels keep a [64 or 32, C] f32 accumulator per block
 _WAVES = 2  # gradient grids: about two waves of one block per SM
 
 
@@ -181,7 +184,8 @@ FWD_ROUTES = DV_ROUTES = DT_ROUTES = ("wgmma", "f32")
 
 def fwd_route(dtype: torch.dtype) -> str:
     """The kernel route of each MIL-NCE kernel, from the dtype alone: bf16
-    the wgmma/TMA kernels of csrc/milnce_wgmma.cu, f32 the FMA ones."""
+    the wgmma/TMA kernels of csrc/milnce_wgmma.cu, f32 the FMA forward and
+    the split-TF32 gradients."""
     return "wgmma" if dtype == torch.bfloat16 else "f32"
 
 
@@ -231,9 +235,8 @@ def milnce_fwd_v1(video, text, pos_mask, col_valid, mask_value: float, inv_temp:
 
 
 def _splits(outer_tiles: int, out_layers: int, inner_tiles: int, sms: int) -> int:
-    """Inner-axis splits that bring the grid near ``_WAVES`` waves of one
-    block per SM (the bf16 kernel's registers and the f32 kernel's shared
-    memory each allow one)."""
+    """Inner-axis splits of the earlier bf16 kernels that bring the grid
+    near ``_WAVES`` waves of one block per SM (their registers allow one)."""
     return max(1, min(inner_tiles, -(-_WAVES * sms // (outer_tiles * out_layers))))
 
 
@@ -246,7 +249,10 @@ def _wave_splits(blocks: int, inner_tiles: int, sms: int) -> int:
     return next(sp for sp, c in enumerate(cost, 1) if c <= 1.05 * min(cost))
 
 
-def _grad(name, video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp, wgmma=False):
+def _grad(name, video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp, kernel):
+    """``name``'s gradient through ``kernel``: "wgmma" (bf16,
+    csrc/milnce_wgmma.cu), "f32" (csrc/milnce_grad_f32.cu) or "v2" (the
+    earlier bf16 kernels, csrc/milnce_bwd.cu)."""
     S, R, K, C, t_ls = _check(name, video, text, pos_mask, col_valid)
     vnum, vden, tnum, tden = lse
     g_v, g_t = g_v.float().contiguous(), g_t.float().contiguous()
@@ -262,17 +268,19 @@ def _grad(name, video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp, wgmma
             g_t.data_ptr(), out.data_ptr()]
     argtypes = [_P, _P, _L] + [_P] * 9
     sms = _build.sm_count(video.device)
-    if wgmma:
-        splits = _wave_splits(-(-n_out // TILE) * out_layers, -(-n_in // TILE), sms)
-        ints = [S, R, K, C, out_layers, splits]
-        lib, fname = "milnce_wgmma", f"{name}_wgmma"
-    else:
+    if kernel == "v2":
         splits = _splits(-(-n_out // TILE), out_layers, -(-n_in // TILE), sms)
         ints = ([S, R, K, C] + ([out_layers] if name == "milnce_dt" else [])
                 + [splits, _DTYPES[video.dtype]])
         lib, fname = "milnce_bwd", name
-    # one split of the wgmma kernel writes the output straight away
-    part = (torch.empty(splits * out_layers * n_out * C, **f32) if splits > 1 or not wgmma
+    else:
+        tile = TILE if kernel == "wgmma" else F32_TILE
+        splits = _wave_splits(-(-n_out // tile) * out_layers, -(-n_in // tile), sms)
+        ints = [S, R, K, C, out_layers, splits]
+        lib, fname = ("milnce_wgmma", f"{name}_wgmma") if kernel == "wgmma" else (
+            "milnce_grad_f32", f"{name}_f32")
+    # one split of the wgmma and f32 kernels writes the output straight away
+    part = (torch.empty(splits * out_layers * n_out * C, **f32) if splits > 1 or kernel == "v2"
             else None)
     fn = _fn(lib, fname, argtypes + [_P] + [_I] * len(ints) + [_F, _P])
     args += [None if part is None else part.data_ptr()] + ints
@@ -286,8 +294,7 @@ def _grad(name, video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp, wgmma
 def milnce_dv(video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp: float):
     """d/d video [S, R, C] of sum(g_v · v_el) + sum(g_t · t_el), on the card."""
     which = dv_route(video.dtype)
-    out = _grad("milnce_dv", video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp,
-                wgmma=which == "wgmma")
+    out = _grad("milnce_dv", video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp, which)
     milnce_dv.launches += 1
     milnce_dv.launches_by_route[which] += 1
     return out
@@ -296,8 +303,7 @@ def milnce_dv(video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp: float):
 def milnce_dt(video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp: float):
     """d/d text, [S, K, C] or (shared text) [K, C] summed over the layers."""
     which = dt_route(video.dtype)
-    out = _grad("milnce_dt", video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp,
-                wgmma=which == "wgmma")
+    out = _grad("milnce_dt", video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp, which)
     milnce_dt.launches += 1
     milnce_dt.launches_by_route[which] += 1
     return out
@@ -307,12 +313,16 @@ def milnce_dv_v2(video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp: floa
     """The earlier bf16 video-gradient kernel (mma.sync, csrc/milnce_bwd.cu),
     which no route takes any more: kept so that a run can time the redesign
     beside it.  Not counted."""
-    return _grad("milnce_dv", video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp)
+    if video.dtype != torch.bfloat16:
+        raise ValueError(f"milnce_dv_v2 takes bfloat16 features, got {video.dtype}")
+    return _grad("milnce_dv", video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp, "v2")
 
 
 def milnce_dt_v2(video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp: float):
     """The earlier bf16 text-gradient kernel, as ``milnce_dv_v2``.  Not counted."""
-    return _grad("milnce_dt", video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp)
+    if video.dtype != torch.bfloat16:
+        raise ValueError(f"milnce_dt_v2 takes bfloat16 features, got {video.dtype}")
+    return _grad("milnce_dt", video, text, pos_mask, col_valid, lse, g_v, g_t, inv_temp, "v2")
 
 
 milnce_fwd.launches = milnce_dv.launches = milnce_dt.launches = 0

@@ -21,6 +21,14 @@ the forward, ``GRAD_TOL["float32"]`` per element for the gradients).
   dK and dV per 16 keys in 32-query steps from the rows' statistics); past
   it the dq kernel's two online passes over 64-key tiles and the dkdv
   kernel's 32-query steps.
+- ``f32_grad_schedule`` follows csrc/milnce_grad_f32.cu (milnce_dv and
+  milnce_dt in f32): 32 outer entries a block, 32-entry inner tiles, the
+  channels zero-padded to 32 NQ; sim summed over the four channel quarters
+  in quarter order, dsim in f32 with the probabilities re-masked, the
+  product over 8-deep k-steps of the inner entries, every short partial sum
+  added to its running sum in f32 (``mm_steps``); inner splits from
+  ``ops.milnce._wave_splits`` over 32-entry tiles, their partials summed in
+  split order; a shared text's gradient summed over the layers in the block.
 
 The planted fault: the same schedules with single-pass TF32 products
 (big·big alone) must exceed both limits, which shows the limits tell TF32
@@ -35,10 +43,11 @@ import pytest
 import torch
 
 from chip_smoke import F32_TOL, GRAD_TOL, elem_err
+from temporalalignnet_torch.ops import milnce
 from temporalalignnet_torch.ops import mha_fwd as fwd
 from temporalalignnet_torch.ops.attention import NEG_INF
 from temporalalignnet_torch.ops.mha_bwd import FUSED_MAX_S
-from temporalalignnet_tpu.ops import pallas_attention
+from temporalalignnet_tpu.ops import pallas_attention, pallas_milnce
 
 torch.set_num_threads(2)
 
@@ -63,6 +72,24 @@ def tf32_rz(x):
 def split(x):
     big = tf32(x)
     return big, tf32_rz(x - big)
+
+
+def mm_steps(a, b, passes=3):
+    """a @ b as csrc/milnce_grad_f32.cu forms it: each 8-deep k-step's three
+    products (big·small + small·big + big·big) summed into a short partial,
+    the partials added in f32 in k order (``passes=1``: big·big alone).  The
+    kernel's gradient product keeps a 32-entry tile's four k-steps in one
+    mma accumulator before that add, which an f32 emulation cannot tell
+    apart."""
+    (ab, as_), (bb, bs) = split(a), split(b)
+    c = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        x = ab[..., ks] @ bb[..., ks, :]
+        if passes == 3:
+            x = ab[..., ks] @ bs[..., ks, :] + as_[..., ks] @ bb[..., ks, :] + x
+        c = c + x
+    return c
 
 
 def mm3(a, b, passes=3):
@@ -298,3 +325,125 @@ def test_f32_bwd_schedule_matches_jax_kernel_and_plain_tf32_does_not(S):
         assert bool(torch.isfinite(a).all()), name
         assert elem_err(a, b) <= tol, name
     assert max(elem_err(a, b) for a, b in zip(fault, ref)) > tol
+
+
+# ------------------------------------------------------ MIL-NCE gradients
+
+MV, INV_TEMP = -6.0e4, 1.0 / 0.07
+
+
+def f32_grad_schedule(v, t, pm, cv, lse, gv, gt, inv_temp, rows_outer, sms=SMS, passes=3):
+    """dv (``rows_outer``) or dt as milnce_grad_f32_kernel computes it, block
+    by block, in its order of sums."""
+    vnum, vden, tnum, tden = (x.float() for x in lse)
+    S, R, C = v.shape
+    shared = t.dim() == 2
+    K = t.shape[-2]
+    text = (lambda s: t) if shared else (lambda s: t[s])
+    out_layers = S if rows_outer or not shared else 1
+    layers = S // out_layers
+    nO, nI = (R, K) if rows_outer else (K, R)
+    nq = 4 if C <= 128 else 8 if C <= 256 else 16
+    cp, quarter = 32 * nq, 8 * nq
+    itiles = -(-nI // 32)
+    splits = milnce._wave_splits(-(-nO // 32) * out_layers, itiles, sms)
+    per = -(-itiles // splits)
+    splits = -(-itiles // per)
+
+    def staged(x, n):  # [m, C] -> [n, cp], zero-filled as cp.async fills
+        out = torch.zeros(n, cp)
+        out[:x.shape[0], :C] = x.float()
+        return out
+
+    nOp, nIp = 32 * -(-nO // 32), 32 * itiles
+    out = torch.zeros(out_layers, nO, C)
+    for y in range(out_layers):
+        O = staged(v[y * layers] if rows_outer else text(y * layers), nOp)
+        parts = []
+        for sp in range(splits):
+            acc = torch.zeros(nOp, cp)
+            for s in range(y * layers, (y + 1) * layers):
+                I = staged(text(s) if rows_outer else v[s], nIp)
+                for it in range(sp * per, min(sp * per + per, itiles)):
+                    ins = slice(32 * it, 32 * it + 32)
+                    sim = torch.zeros(nOp, 32)
+                    for q in range(4):  # the channel quarters, reduced in quarter order
+                        cs = slice(q * quarter, q * quarter + quarter)
+                        sim = sim + mm_steps(O[:, cs], I[ins, cs].T, passes)
+                    o = torch.arange(nOp)[:, None]
+                    i = torch.arange(32 * it, 32 * it + 32)[None, :]
+                    live = (o < nO) & (i < nI)
+                    r, k = ((o, i) if rows_outer else (i, o))
+                    r, k = r.clamp(max=R - 1).expand(nOp, 32), k.clamp(max=K - 1).expand(nOp, 32)
+                    x = sim * inv_temp
+                    zero = torch.zeros(())
+                    d = torch.where(pm[r, k], -(gv[s][r] * torch.exp(x - vnum[s][r])
+                                                + gt[s][k] * torch.exp(x - tnum[s][k])), zero)
+                    d = d + torch.where(cv[k], gv[s][r] * torch.exp(x - vden[s][r])
+                                        + gt[s][k] * torch.exp(x - tden[s][k]), zero)
+                    d = torch.where(live, d * inv_temp, zero)
+                    acc = acc + mm_steps(d, I[ins], passes)
+            parts.append(acc[:nO, :C])
+        total = torch.zeros(nO, C)
+        for p in parts:  # split order
+            total = total + p
+        out[y] = total
+    return out[0] if not rows_outer and shared else out
+
+
+def _milnce_problem(seed, S, R, K, C, shared):
+    rng = np.random.RandomState(seed)
+    unit = lambda *s: (lambda x: x / np.linalg.norm(x, axis=-1, keepdims=True))(
+        rng.randn(*s).astype(np.float32))
+    v = unit(S, R, C)
+    t = unit(K, C) if shared else unit(S, K, C)
+    cv = rng.rand(K) < 0.8
+    pm = (rng.rand(R, K) < 0.1) & cv[None]
+    pm[3] = False  # a row with no positive
+    gv, gt = rng.randn(S, R).astype(np.float32), rng.randn(S, K).astype(np.float32)
+    return v, t, pm, cv, gv, gt
+
+
+def _jax_milnce_bwd(v, t, pm, cv, lse, gv, gt, tiled):
+    """(dv, dt) of the JAX backward kernel in f32 (the untiled _bwd_call or the
+    column-tiled _bwd_call_tiled), interpret mode; a shared text is broadcast
+    and its gradient summed over the layers, as fused_milnce_elements does."""
+    S = v.shape[0]
+    K = t.shape[-2]
+    tt = np.broadcast_to(t, (S,) + t.shape) if t.ndim == 2 else t
+    vnum, vden, tnum, tden = (jnp.asarray(x.numpy()) for x in lse)
+    args = (jnp.asarray(v), jnp.asarray(np.ascontiguousarray(tt)),
+            jnp.asarray(pm.astype(np.float32)), jnp.asarray(cv.astype(np.float32))[None],
+            vnum, vden, tnum, tden, jnp.asarray(-gv), jnp.asarray(gv), jnp.asarray(-gt),
+            jnp.asarray(gt))
+    if tiled:
+        dv, dt = pallas_milnce._bwd_call_tiled(*args, True, INV_TEMP, MV, 8, K // 2)
+    else:
+        dv, dt = pallas_milnce._bwd_call(*args, True, INV_TEMP, MV, 8)
+    dt = np.array(dt, np.float32)
+    return np.array(dv, np.float32), dt.sum(0) if t.ndim == 2 else dt
+
+
+@pytest.mark.parametrize("shape", [(2, 96, 70, 192), (2, 64, 96, 512)])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_f32_milnce_grad_schedule_matches_jax_kernels_and_plain_tf32_does_not(shape, shared,
+                                                                                 tiled):
+    """Ragged R and K (32-entry tiles), C = 192 (zero-padded to 256 channels,
+    quarters of 64) and 512; inner splits (a card of 4 SMs); per element
+    against the JAX kernels' gradients at GRAD_TOL["float32"], which the
+    single-pass TF32 products exceed."""
+    S, R, K, C = shape
+    v, t, pm, cv, gv, gt = _milnce_problem(R + int(shared) + 2 * int(tiled), S, R, K, C, shared)
+    tv, tt, tpm, tcv, tgv, tgt = (torch.from_numpy(x) for x in (v, t, pm, cv, gv, gt))
+    lse = milnce.milnce_lse_reference(tv, tt, tpm, tcv, MV, INV_TEMP)
+    ref = [torch.from_numpy(x) for x in _jax_milnce_bwd(v, t, pm, cv, lse, gv, gt, tiled)]
+    tol = GRAD_TOL["float32"]
+    faults = []
+    for rows_outer, b in zip((True, False), ref):
+        args = (tv, tt, tpm, tcv, lse, tgv, tgt, INV_TEMP, rows_outer)
+        ours = f32_grad_schedule(*args, sms=4)
+        assert ours.shape == b.shape and bool(torch.isfinite(ours).all())
+        assert elem_err(ours, b) <= tol, ("dv" if rows_outer else "dt")
+        faults.append(elem_err(f32_grad_schedule(*args, sms=4, passes=1), b))
+    assert max(faults) > tol, faults

@@ -7,6 +7,14 @@ tests/test_fused_milnce.py run them) and against the port's plain versions.
   16-key chunks (zero-filled past S, as TMA fills them), exact softmax of
   whole rows, P and dS through the bf16 "panels" (64 keys x the queries),
   dQ over key chunks, dV and dK per 64-key warpgroup over 16-query steps.
+- ``long_mha_bwd_schedule`` follows csrc/mha_bwd.cu's long route:
+  mha_bwd_long_dq_kernel per 64-query tile, the 64-key tiles (zero-filled
+  past S) streamed twice, an online (max, sum, sum of e^x dP) in the log2
+  domain, then dS rounded to the input dtype into dQ; each row's m, 1 / sum
+  and rowsum(dP P) to a per-tile scratch (1 / sum = 0 past S); then
+  mha_bwd_long_dkdv_kernel per 64-key tile, the query tiles streamed with
+  their statistics, P^T and dS^T from the transposed products, rounded, into
+  dV and dK.
 - ``mha_fwd_schedule`` follows csrc/mha_fwd.cu::mha_fwd_wgmma_kernel: 64-query
   warpgroup tiles, 64-key tiles zero-filled past S (16-key chunks up to the
   last key < S), the online softmax in the log2 domain with the unnormalised
@@ -299,9 +307,95 @@ def test_fused_mha_bwd_schedule_bf16_rounds_as_the_plain_version(S):
         assert elem_err(a, torch.from_numpy(np.asarray(c, np.float32))) <= BF16_TOL, name
 
 
+def long_mha_bwd_schedule(q, k, v, mask, dout):
+    """(dq, dk, dv) as the long route's two kernels compute them, in their order."""
+    dtype = q.dtype
+    B, H, S, D = q.shape
+    nt = -(-S // 64)
+    n = 64 * nt
+    scale = 1.0 / math.sqrt(D)
+    scale2 = scale * math.log2(math.e)
+    rnd = lambda x: x.to(dtype).float()
+
+    def rows(x):  # [B, H, S, D] -> [B, H, n, D], zero past S (TMA's fill)
+        out = torch.zeros(B, H, n, D)
+        out[:, :, :S] = x.float()
+        return out
+
+    Q, dO, K, V = rows(q), rows(dout), rows(k), rows(v)
+    bias = torch.full((B, n), -math.inf)  # the key bias, not scaled: 0, -1e30, -inf past S
+    bias[:, :S] = 0.0 if mask is None else torch.where(mask, NEG_INF, 0.0)
+    stats = torch.zeros(B, H, nt, 3, 64)  # m, 1 / sum, rowsum(dP P) per query tile
+    dq = torch.zeros(B, H, n, D)
+    for qt in range(nt):  # mha_bwd_long_dq_kernel
+        qs = slice(64 * qt, 64 * qt + 64)
+        m = torch.full((B, H, 64, 1), -math.inf)
+        l, a = torch.zeros(B, H, 64, 1), torch.zeros(B, H, 64, 1)
+        for sweep in range(2):
+            for kt in range(nt):
+                ks = slice(64 * kt, 64 * kt + 64)
+                x = Q[:, :, qs] @ K[:, :, ks].transpose(-1, -2) * scale2 + bias[:, None, None, ks]
+                dp = dO[:, :, qs] @ V[:, :, ks].transpose(-1, -2)
+                if sweep == 0:
+                    mx = torch.maximum(m, x.amax(-1, keepdim=True))
+                    corr = torch.exp2(m - mx)
+                    p = torch.exp2(x - mx)
+                    l, a, m = l * corr + p.sum(-1, keepdim=True), a * corr + (p * dp).sum(
+                        -1, keepdim=True), mx
+                    continue
+                p = torch.exp2(x - m) * li
+                dq[:, :, qs] += rnd(p * (dp - dl)) @ K[:, :, ks]
+            if sweep == 0:
+                live = (torch.arange(64 * qt, 64 * qt + 64) < S)[:, None]
+                li = torch.where(live, 1.0 / l, torch.zeros(()))
+                dl = a * li
+                stats[:, :, qt] = torch.cat([m, li, dl], -1).transpose(-1, -2)
+    dk, dv = torch.zeros(B, H, n, D), torch.zeros(B, H, n, D)
+    for kt in range(nt):  # mha_bwd_long_dkdv_kernel
+        ks = slice(64 * kt, 64 * kt + 64)
+        for qt in range(nt):
+            qs = slice(64 * qt, 64 * qt + 64)
+            m, li, dl = (stats[:, :, qt, i][:, :, None, :] for i in range(3))  # per query column
+            x = K[:, :, ks] @ Q[:, :, qs].transpose(-1, -2) * scale2 + bias[:, None, ks, None]
+            pt = torch.exp2(x - m) * li  # P^T [keys][queries]
+            dst = pt * (V[:, :, ks] @ dO[:, :, qs].transpose(-1, -2) - dl)
+            dv[:, :, ks] += rnd(pt) @ dO[:, :, qs]
+            dk[:, :, ks] += rnd(dst) @ Q[:, :, qs]
+    return ((dq[:, :, :S] * scale).to(dtype), (dk[:, :, :S] * scale).to(dtype),
+            dv[:, :, :S].to(dtype))
+
+
+@pytest.mark.parametrize("S,masked", [(129, True), (144, False), (144, True), (200, True)])
+def test_long_mha_bwd_schedule_matches_jax_kernel_and_plain_f32(S, masked):
+    """f32: past S = 128, ragged last tiles (1, 16 and 8 rows), a fully padded row."""
+    q, k, v, g, mask = _attn_problem(S, 2, 2, S, masked=masked)
+    tm = None if mask is None else to_torch(mask)
+    ours = long_mha_bwd_schedule(*(to_torch(x) for x in (q, k, v)), tm, to_torch(g))
+    plain = bwd.mha_bwd_reference(*(to_torch(x) for x in (q, k, v)), tm, to_torch(g))
+    jax_ref = _jax_attn_bwd(q, k, v, mask, g)
+    for a, b, c, name in zip(ours, plain, jax_ref, ("dq", "dk", "dv")):
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, b, rtol=F32_TOL, atol=F32_TOL, msg=name)
+        np.testing.assert_allclose(a.numpy(), c, atol=JAX_ATTN_TOL, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("S,masked", [(129, True), (144, False), (200, True)])
+def test_long_mha_bwd_schedule_bf16_rounds_as_the_plain_version(S, masked):
+    """bf16 inputs, P and dS rounded where the kernels round them: against
+    mha_bwd_reference by the chip check's limit."""
+    q, k, v, g, mask = _attn_problem(S + 1, 2, 2, S, masked=masked)
+    tq, tk, tv, tg = (to_torch(x).bfloat16() for x in (q, k, v, g))
+    tm = None if mask is None else to_torch(mask)
+    ours = long_mha_bwd_schedule(tq, tk, tv, tm, tg)
+    plain = bwd.mha_bwd_reference(tq, tk, tv, tm, tg)
+    for a, b, name in zip(ours, plain, ("dq", "dk", "dv")):
+        assert a.dtype == torch.bfloat16, name
+        assert elem_err(a, b) <= BF16_TOL, name
+
+
 @pytest.mark.parametrize("dtype,S,expected", [
     (torch.bfloat16, 1, "fused"), (torch.bfloat16, 64, "fused"), (torch.bfloat16, 80, "fused"),
-    (torch.bfloat16, 128, "fused"), (torch.bfloat16, 129, "v2"), (torch.bfloat16, 1088, "v2"),
+    (torch.bfloat16, 128, "fused"), (torch.bfloat16, 129, "long"), (torch.bfloat16, 1088, "long"),
     (torch.float32, 64, "f32"), (torch.float32, 200, "f32")])
 def test_mha_bwd_route_depends_on_dtype_and_length(dtype, S, expected):
     assert bwd.route(dtype, S) == expected
@@ -317,15 +411,17 @@ def test_mha_bwd_counts_the_route_it_launches(monkeypatch):
         bwd.mha_bwd(q, q, q, None, q)
     bwd.mha_bwd(torch.zeros(1, 1, 64, 64), *[torch.zeros(1, 1, 64, 64)] * 2, None,
                 torch.zeros(1, 1, 64, 64))
-    assert taken == ["fused", "fused", "v2", "f32"]
+    assert taken == ["fused", "fused", "long", "f32"]
     after = bwd.mha_bwd.launches_by_route
-    assert {r: after[r] - before[r] for r in after} == {"fused": 2, "v2": 1, "f32": 1}
+    assert {r: after[r] - before[r] for r in after} == {"fused": 2, "long": 1, "f32": 1}
 
 
-def test_mha_bwd_v2_takes_only_bf16():
-    q = torch.zeros(1, 1, 64, 64)
+def test_mha_bwd_long_entry_refuses_f32():
+    """The long route's kernels take bf16 only: f32 past S = 128 is the f32
+    route's, and the long entry refuses it before any launch."""
+    q = torch.zeros(1, 1, 200, 64)
     with pytest.raises(ValueError, match="bfloat16"):
-        bwd.mha_bwd_v2(q, q, q, None, q)
+        bwd._launch("long", q, q, q, None, q)
 
 
 # ------------------------------------------------------- MIL-NCE text grad
@@ -554,14 +650,21 @@ def test_wave_splits_leave_the_video_gradient_in_one_split(blocks, inner, sms, e
 
 @pytest.mark.parametrize("dtype,expected", [(torch.bfloat16, "wgmma"), (torch.float32, "f32")])
 def test_milnce_dv_route_depends_on_dtype(dtype, expected, monkeypatch):
+    """The route names the kernel _grad launches; the uncounted earlier
+    kernel (milnce_dv_v2) takes bf16 only."""
     seen = []
-    monkeypatch.setattr(milnce, "_grad", lambda name, *a, wgmma=False: seen.append((name, wgmma)))
+    monkeypatch.setattr(milnce, "_grad", lambda name, *a: seen.append((name, a[-1])))
     before = dict(milnce.milnce_dv.launches_by_route)
     x = torch.zeros(2, 2, dtype=dtype)
     milnce.milnce_dv(x, x, None, None, None, None, None, 1.0)
-    milnce.milnce_dv_v2(x, x, None, None, None, None, None, 1.0)  # uncounted
+    if dtype == torch.bfloat16:
+        milnce.milnce_dv_v2(x, x, None, None, None, None, None, 1.0)  # uncounted
+    else:
+        with pytest.raises(ValueError, match="bfloat16"):
+            milnce.milnce_dv_v2(x, x, None, None, None, None, None, 1.0)
     assert milnce.dv_route(dtype) == expected
-    assert seen == [("milnce_dv", expected == "wgmma"), ("milnce_dv", False)]
+    assert seen == [("milnce_dv", expected)] + ([("milnce_dv", "v2")] if expected == "wgmma"
+                                                else [])
     after = milnce.milnce_dv.launches_by_route
     assert {r: after[r] - before[r] for r in after} == {
         r: int(r == expected) for r in milnce.DV_ROUTES}
@@ -570,11 +673,11 @@ def test_milnce_dv_route_depends_on_dtype(dtype, expected, monkeypatch):
 @pytest.mark.parametrize("dtype,expected", [(torch.bfloat16, "wgmma"), (torch.float32, "f32")])
 def test_milnce_dt_route_depends_on_dtype(dtype, expected, monkeypatch):
     seen = []
-    monkeypatch.setattr(milnce, "_grad", lambda *a, wgmma=False: seen.append(wgmma))
+    monkeypatch.setattr(milnce, "_grad", lambda *a: seen.append(a[-1]))
     before = dict(milnce.milnce_dt.launches_by_route)
     x = torch.zeros(2, 2, dtype=dtype)
     milnce.milnce_dt(x, x, None, None, None, None, None, 1.0)
-    assert milnce.dt_route(dtype) == expected and seen == [expected == "wgmma"]
+    assert milnce.dt_route(dtype) == expected and seen == [expected]
     after = milnce.milnce_dt.launches_by_route
     assert {r: after[r] - before[r] for r in after} == {
         r: int(r == expected) for r in milnce.DT_ROUTES}

@@ -98,3 +98,53 @@ def test_make_timesformer_encoder_matches_jax(rng):
     with pytest.raises(ValueError, match="expected 2 frames"):
         make_timesformer_encoder(timesformer_state_dict(hf.state_dict()), device="cpu",
                                  image_size=32, **KW)(clips[:, :1])
+
+
+def test_bf16_token_sequence_before_the_first_block_equals_jax(rng, monkeypatch):
+    """In bf16 the class token is cls_token + position_embedding[0] added in
+    f32 and rounded once, as JAX adds them: the whole sequence that enters the
+    first block (class token, patches with their position and time tables)
+    equals JAX's to the bit.  The patch tokens are made exact in bf16 (pixels,
+    weights and their tables of few bits), so that the two frameworks' other
+    roundings cannot differ; the class token and its position are random
+    normals, which the old order of rounding (each to bf16, then the sum)
+    moves."""
+    import temporalalignnet_tpu.models.timesformer as jax_tsf
+
+    hf = _hf(seed=2)
+    eighths = lambda shape, lo=-8, hi=9: torch.from_numpy(rng.randint(lo, hi, shape) / 8.0)
+    with torch.no_grad():  # every patch token a multiple of 1/8 below 8: exact in bf16
+        emb = hf.embeddings
+        conv = emb.patch_embeddings.projection
+        conv.weight.copy_(eighths(conv.weight.shape, -1, 2) * (rng.rand(*conv.weight.shape) < 0.02))
+        conv.bias.copy_(eighths(conv.bias.shape, -4, 5))
+        emb.position_embeddings[:, 1:] = eighths(emb.position_embeddings[:, 1:].shape)
+        emb.time_embeddings.copy_(eighths(emb.time_embeddings.shape))
+    clip = rng.randint(-1, 2, (2, 2, 32, 32, 3)).astype(np.float32)
+    ours = TimeSformerEncoder(**KW, image_size=32)
+    ours.load_state_dict(timesformer_state_dict(hf.state_dict()), strict=True)
+    seen = []
+    ours.layers[0].register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
+    with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):
+        ours(torch.from_numpy(clip))
+
+    class Spy:  # the JAX module's jnp, recording the sequence it concatenates
+        def __getattr__(self, name):
+            return getattr(jnp, name)
+
+        def concatenate(self, xs, axis=0):
+            out = jnp.concatenate(xs, axis=axis)
+            jax_seen.append(np.asarray(out.astype(jnp.float32)))
+            return out
+
+    jax_seen = []
+    monkeypatch.setattr(jax_tsf, "jnp", Spy())
+    jm = JaxTimeSformerEncoder(**KW, dtype=jnp.bfloat16)
+    jm.apply({"params": timesformer_torch_to_params(hf.state_dict())}, jnp.asarray(clip))
+    seq = seen[0]
+    assert seq.dtype == torch.bfloat16 and seq.shape == (2, 1 + 4 * 2, 32)
+    np.testing.assert_array_equal(seq.float().numpy(), jax_seen[0])
+    # the rounding this order avoids: the two tables rounded to bf16 first
+    sd = ours.state_dict()
+    old = (sd["cls_token"].bfloat16() + sd["position_embedding"][0].bfloat16()).float().numpy()
+    assert (old != jax_seen[0][0, 0]).any()

@@ -241,7 +241,17 @@ STEP_CASES = {
 def test_train_steps_match_jax(case):
     """The slice as a whole: train steps of the port against the JAX package's
     from the same weights on the same synthetic batch."""
-    flags, loss_kw, train_kw, steps = STEP_CASES[case]
+    _steps_match_jax(*STEP_CASES[case], _batch())
+
+
+def test_train_step_at_seq_len_128_matches_jax():
+    """A Stage-1 step at T = 128, N = 16: the joint encoder's S = 144 is past
+    the 128 that the fused attention backward holds (on the card the long
+    route), against JAX's step."""
+    _steps_match_jax(dict(fused=True), {}, {}, 2, _batch(T=128, N=16))
+
+
+def _steps_match_jax(flags, loss_kw, train_kw, steps, batch):
     model_extra = dict(flags)
     fused = model_extra.pop("fused")
     remat = model_extra.pop("remat", False)
@@ -250,7 +260,6 @@ def test_train_steps_match_jax(case):
                     use_alignability_head=loss_kw.get("use_alignability_head", False),
                     **model_extra)
     train_kw = dict(dict(lr=1e-3, warmup_iterations=2, total_iterations=100), **train_kw)
-    batch = _batch()
 
     jm = JaxTANWithText(jcfg.ModelConfig(**model_kw), vocab_size=VOCAB + 1, remat=remat)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
