@@ -46,10 +46,13 @@ Phases, each printing JSON lines:
              K = 5120) and at a small one whose video gradient splits its
              column stream, f32 and bf16; planted faults as above (for the
              forward: padded columns left unmasked, the last row block left
-             out of the column logsumexps; for the f32 gradients their
-             products in single-pass TF32); the routes of the three (bf16
-             "wgmma", f32 "f32") are checked, and two gradient calls must
-             be bit-equal.
+             out of the column logsumexps; for the f32 kernels their
+             products in single-pass TF32); in f32 the four logsumexps
+             also per element in logit units (lse_err) against
+             MILNCE_LSE_F32_TOL, which the single-pass fault must exceed;
+             the routes of the three (bf16 "wgmma", f32 "f32") are
+             checked, and two forward and two gradient calls must be
+             bit-equal.
   3. eval    AlignmentEvaluator (overlap-seq and global) on a synthetic corpus,
              random E6D6 weights from a seed, bf16; every overlap-seq
              forward call must launch the kernel 12 times on the "short"
@@ -378,6 +381,16 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # MIL-NCE values v_el, t_el (f32 from the exact products of the features),
 # the same per-element measure: the order of the f32 sums only
 MILNCE_VALUE_TOL = 1e-4
+# the f32 forward's four logsumexps (split TF32) against the plain version,
+# per element in logit units up to |b| = 1 and relative above (lse_err).
+# elem_err's rms term is set by the mask-valued entries (a row without a
+# positive, a padded column: |b| ~ 6e4), which hides a logit-unit error in
+# the others.  tests/test_torch_f32_split.py emulates the kernel's schedule:
+# at most 4.3e-7 from the plain version and from the JAX kernels, and
+# 1.4e-4 and up with single-pass TF32 products (the planted fault
+# tf32_single_pass here), at tiny shapes where elem_err would read that
+# fault as low as 6.6e-6.
+MILNCE_LSE_F32_TOL = 1e-5
 # f32 eval, card against CPU: canvases are logits / 0.07, summed over windows
 CANVAS_TOL = 1e-3
 AUC_TOL = 1e-3
@@ -965,6 +978,17 @@ def elem_err(a, b) -> float:
     return ((a - b).abs() / (b.abs() + max(rms(b), 1e-30))).max().item()
 
 
+def lse_err(a, b) -> float:
+    """max |a - b| / (1 + |b|), over the elements (MILNCE_LSE_F32_TOL)."""
+    a, b = a.double(), b.double()
+    return ((a - b).abs() / (1.0 + b.abs())).max().item()
+
+
+def lse_err_max(ours, ref) -> float:
+    """lse_err over paired tensors (the four logsumexps), the worst."""
+    return max(lse_err(a, b) for a, b in zip(ours, ref))
+
+
 def norm_err(a, b) -> float:
     """|a - b| / |b| (Frobenius)."""
     a, b = a.float(), b.float()
@@ -1161,6 +1185,11 @@ def phase_milnce_check(torch):
                 faults["tf32_single_pass"] = tf32_plain(torch, milnce_grad_reference, v, t, pm, cv,
                                                         lse, gv, gt, inv_temp)
             fwd_faults = milnce_fwd_faults(torch, v, t, pm, cv, lse, mv, inv_temp)
+            f32_lse_faults = {}  # the f32 logsumexps in logit units (lse_err)
+            if dtype == torch.float32:
+                f32_lse_faults = {"tf32_single_pass": lse_err_max(tf32_plain(
+                    torch, milnce_lse_reference, v, t, pm, cv, mv, inv_temp), lse)}
+                f32_lse_faults.update({f: lse_err_max(fl, lse) for f, fl in fwd_faults.items()})
             if "padded_columns_unmasked" in fwd_faults:  # in the forward and the backward
                 faults["padded_columns_unmasked"] = milnce_grad_reference(
                     v, t, pm, torch.ones_like(cv), fwd_faults["padded_columns_unmasked"], gv, gt,
@@ -1179,9 +1208,12 @@ def phase_milnce_check(torch):
                                    "milnce_dv_v2": elem_err(milnce_dv_v2(*kargs), kdv)},
                             "dt": {"milnce_dt": elem_err(ins[1].grad, kdt),
                                    "milnce_dt_v2": elem_err(milnce_dt_v2(*kargs), kdt)}}
-            # every split's sum is taken in a fixed order: two calls are bit-equal
+            # every sum is taken in a fixed order: two calls are bit-equal
             bit_equal = all(torch.equal(f(*kargs), f(*kargs)) for f in (milnce_dv, milnce_dt))
+            fwd_bit_equal = all(torch.equal(a, b) for a, b in zip(
+                klse, milnce_fwd(v, t, pm, cv, mv, inv_temp)))
             torch.cuda.synchronize()
+            f32_lse = lse_err_max(klse, lse) if dtype == torch.float32 else None
             pairs = {"milnce_fwd": list(zip(out, ref)), "milnce_fwd_lse": list(zip(klse, lse)),
                      "milnce_dv": [(ins[0].grad, plain[0])],
                      "milnce_dt": [(ins[1].grad, plain[1])]}
@@ -1205,11 +1237,23 @@ def phase_milnce_check(torch):
                   "rms_dv_dt": [rms(b) for b in plain], "tol": tols,
                   "planted_fault_elem_err": fault_errs,
                   "planted_fault_elem_err_fwd_lse": fwd_fault_errs,
+                  **({"lse_err_fwd": f32_lse, "tol_lse_f32": MILNCE_LSE_F32_TOL,
+                      "planted_fault_lse_err_fwd": f32_lse_faults}
+                     if dtype == torch.float32 else {}),
                   "elem_err_fwd_lse_v1": v1_lse_err,
                   "elem_err_dv_vs_plain_from_kernel_lse": same_lse.get("dv", {}),
                   "elem_err_dt_vs_plain_from_kernel_lse": same_lse.get("dt", {}),
-                  "grad_calls_bit_equal": bit_equal})
+                  "fwd_calls_bit_equal": fwd_bit_equal, "grad_calls_bit_equal": bit_equal})
             check(bit_equal, f"MIL-NCE gradients {name}: two calls differ")
+            check(fwd_bit_equal, f"milnce_fwd {name}: two calls differ")
+            if dtype == torch.float32:
+                worst[("milnce_fwd_lse_err", name)] = max(
+                    worst.get(("milnce_fwd_lse_err", name), 0.0), f32_lse)
+                check(f32_lse <= MILNCE_LSE_F32_TOL,
+                      f"milnce_fwd f32 logsumexps (S, R, K) = {(S, B * T, B * N)}: {f32_lse}")
+                for f, ferr in f32_lse_faults.items():
+                    check(ferr > MILNCE_LSE_F32_TOL, f"limit {MILNCE_LSE_F32_TOL} misses the "
+                                                     f"planted fault {f}: {ferr}")
             for kname, err in errs.items():
                 worst[(kname, name)] = max(worst.get((kname, name), 0.0), abs_errs[kname])
                 check(err <= tols[kname], f"{kname} {name} (S, R, K) = {(S, B * T, B * N)}: {err}")
@@ -5787,7 +5831,7 @@ def main(argv) -> int:
                                 **{k: bert_bwd[k] for k in ("ms", "plain_ms", "library_ms",
                                                             "bound_ms", "bound_by")}}
     # the kernels redesigned since: mha_bwd's long route (on the T = 128 Stage-1 path)
-    # and the f32 MIL-NCE gradients (on the f32 Stage-1 path)
+    # and the f32 MIL-NCE kernels (on the f32 Stage-1 path)
     long_rows = [train_rows[("mha_bwd", sh[2])] for sh in MHA_BWD_LONG_TIMED_SHAPES]
     entries.append(dict(
         name="mha_bwd_long", source="temporalalignnet_torch/csrc/mha_bwd.cu",
@@ -5800,14 +5844,20 @@ def main(argv) -> int:
         shapes=[{"shape": r["shape"], "kernels_ms": r["kernels_ms"],
                  **{k: r[k] for k in fields}} for r in long_rows]))
     for name, rep in replaces.items():
-        if name == "milnce_fwd":
-            continue
         rows = {text: train_rows[(name, "f32", 6, TRAIN["B"] * TRAIN["T"], TRAIN["B"] * TRAIN["N"],
                                   text == "shared")] for text in ("per-layer", "shared")}
         row = rows["per-layer"]
+        fwd = name == "milnce_fwd"
+        # the SIMT forward it replaced is deleted; its times are in PERF.md section 6
+        fwd_extra = dict(max_lse_err=milnce_err[("milnce_fwd_lse_err", "float32")],
+                         earlier_version="SIMT milnce_fwd_kernel<float> (f32 FMAs; deleted)"
+                         ) if fwd else {}
         entries.append(dict(
-            name=f"{name}_f32", source="temporalalignnet_torch/csrc/milnce_grad_f32.cu",
-            cuda_kernels=["milnce_grad_f32_kernel", "milnce_reduce_f32_kernel"], replaces=rep,
+            name=f"{name}_f32", **fwd_extra,
+            source="temporalalignnet_torch/csrc/" + ("milnce_fwd.cu" if fwd else
+                                                     "milnce_grad_f32.cu"),
+            cuda_kernels=(["milnce_fwd_f32_kernel", "milnce_colmerge_kernel"] if fwd else
+                          ["milnce_grad_f32_kernel", "milnce_reduce_f32_kernel"]), replaces=rep,
             kernel_route="f32 (split TF32 on mma.sync), f32 features",
             launches=f32_launches["routes"][name]["f32"], steps=2,
             launches_by_route=f32_launches["routes"][name],

@@ -64,15 +64,7 @@
 
 namespace {
 
-// one k-step of a split-TF32 product into x: a_big b_small + a_small b_big +
-// a_big b_big (x is a short partial sum that the caller adds to its running
-// sum in f32)
-__device__ __forceinline__ void mma_split(float x[4], const uint32_t ab[4], const uint32_t as[4],
-                                          const uint32_t bb[2], const uint32_t bs[2]) {
-  tf32x3::mma_tf32(x, ab, bs[0], bs[1]);
-  tf32x3::mma_tf32(x, as, bb[0], bb[1]);
-  tf32x3::mma_tf32(x, ab, bb[0], bb[1]);
-}
+using tf32x3::mma_split;
 
 constexpr int TO = 32;  // outer entries per block
 constexpr int TI = 32;  // inner entries per tile

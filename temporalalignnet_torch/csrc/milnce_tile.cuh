@@ -1,17 +1,15 @@
-// Shared tile code of the MIL-NCE kernels (milnce_fwd.cu, milnce_bwd.cu).
+// Shared tile code of the earlier bf16 MIL-NCE kernels (milnce_fwd.cu's
+// milnce_fwd_v1_kernel, milnce_bwd.cu), which no route takes any more.
 //
-// Every MIL-NCE kernel walks 64 x 64 tiles of the similarity matrix
+// Every one of them walks 64 x 64 tiles of the similarity matrix
 // sim[r][k] = v[r] . t[k] of one layer, with r the B*T video rows and k the
 // B*N text columns.  A block owns 64 "outer" entries (rows, or for the dt
 // kernel columns) and streams the "inner" ones in tiles of 64.  Two schemes:
-// - sim_tile<T> (the forward): 4 warps; the tile's dot products land in a
+// - sim_tile (the forward): 4 warps; the tile's dot products land in a
 //   shared f32 sim[64][SIM_LD], from which the masked logsumexp passes read
-//   in either orientation.  bf16 runs on
-//   the tensor cores (mma.sync m16n8k16, f32 accumulate; both operands staged
-//   in 64-channel chunks, fragments through ldmatrix; warp w owns outer
-//   16w .. +15 and all 64 inner); f32 as f32 FMAs on the CUDA cores (no
-//   TF32; 32-channel chunks staged transposed; thread (rg, cg) owns outer
-//   4rg .. +3 and inner 8cg .. +7).
+//   in either orientation.  The tensor cores in bf16 (mma.sync m16n8k16, f32
+//   accumulate; both operands staged in 64-channel chunks, fragments through
+//   ldmatrix; warp w owns outer 16w .. +15 and all 64 inner).
 // - "v2" below (the earlier bf16 backward): 8 warps, the outer rows
 //   resident, the inner tiles double buffered by cp.async, the sim fragment
 //   in registers.
@@ -28,12 +26,7 @@ constexpr int NTHREADS = 128;  // 4 warps (the sim_tile kernels)
 constexpr int SIM_LD = TILE + 1;
 constexpr int BF_KC = 64;      // channels per staged chunk, bf16
 constexpr int BF_LD = BF_KC + 8;  // padded rows: ldmatrix rows hit distinct banks
-constexpr int F_KC = 32;       // channels per staged chunk, f32
-constexpr int F_LD = TILE + 4;
-// bytes of the operand staging area: two [64][72] bf16 chunks or two [32][68]
-// f32 chunks
-constexpr int imax(int a, int b) { return a > b ? a : b; }
-constexpr int STAGE_BYTES = imax(2 * TILE * BF_LD * 2, 2 * F_KC * F_LD * 4);
+constexpr int STAGE_BYTES = 2 * TILE * BF_LD * 2;  // two [64][72] bf16 chunks
 
 // rows [n0, n0 + 64) x channels [c0, c0 + BF_KC) of a row-major [n, C] bf16
 // array into dst[64][BF_LD]; 16 bytes per load (C is a multiple of 64)
@@ -47,27 +40,11 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
-// rows [n0, n0 + 64) x channels [c0, c0 + F_KC) of a row-major f32 [n, C]
-// array, transposed into dst[c][j]
-__device__ __forceinline__ void stage_f32_t(float* dst, const float* src, int n0, int n, int C,
-                                            int c0) {
-  for (int e = threadIdx.x; e < TILE * F_KC; e += NTHREADS) {
-    const int j = e / F_KC, c = e % F_KC;
-    dst[c * F_LD + j] = (n0 + j < n) ? src[size_t(n0 + j) * C + c0 + c] : 0.f;
-  }
-}
-
 // sim[a][b] = O[o0 + a] . I[i0 + b] over C channels, into shared sim[64][SIM_LD].
 // Starts and ends with __syncthreads(): the staging area and sim are free
 // for the caller afterwards.
-template <typename T>
-__device__ void sim_tile(const T* O, int o0, int nO, const T* I, int i0, int nI, int C,
-                         unsigned char* stage, float* sim);
-
-template <>
-__device__ void sim_tile<__nv_bfloat16>(const __nv_bfloat16* O, int o0, int nO,
-                                        const __nv_bfloat16* I, int i0, int nI, int C,
-                                        unsigned char* stage, float* sim) {
+inline __device__ void sim_tile(const __nv_bfloat16* O, int o0, int nO, const __nv_bfloat16* I,
+                                int i0, int nI, int C, unsigned char* stage, float* sim) {
   __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(stage);
   __nv_bfloat16* is = os + TILE * BF_LD;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -107,43 +84,6 @@ __device__ void sim_tile<__nv_bfloat16>(const __nv_bfloat16* O, int o0, int nO,
     sim[(r0 + 8) * SIM_LD + col] = sc[n][2];
     sim[(r0 + 8) * SIM_LD + col + 1] = sc[n][3];
   }
-  __syncthreads();
-}
-
-template <>
-__device__ void sim_tile<float>(const float* O, int o0, int nO, const float* I, int i0, int nI,
-                                int C, unsigned char* stage, float* sim) {
-  float* ot = reinterpret_cast<float*>(stage);
-  float* it = ot + F_KC * F_LD;
-  const int rg = threadIdx.x / 8, cg = threadIdx.x % 8;
-  float s[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-  for (int c0 = 0; c0 < C; c0 += F_KC) {
-    __syncthreads();
-    stage_f32_t(ot, O, o0, nO, C, c0);
-    stage_f32_t(it, I, i0, nI, C, c0);
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < F_KC; ++c) {
-      const float4 ov = *reinterpret_cast<const float4*>(&ot[c * F_LD + rg * 4]);
-      const float4 ia = *reinterpret_cast<const float4*>(&it[c * F_LD + cg * 8]);
-      const float4 ib = *reinterpret_cast<const float4*>(&it[c * F_LD + cg * 8 + 4]);
-      const float orow[4] = {ov.x, ov.y, ov.z, ov.w};
-      const float icol[8] = {ia.x, ia.y, ia.z, ia.w, ib.x, ib.y, ib.z, ib.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(orow[i], icol[j], s[i][j]);
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) sim[(rg * 4 + i) * SIM_LD + cg * 8 + j] = s[i][j];
   __syncthreads();
 }
 

@@ -113,8 +113,8 @@ constexpr int CONSUMERS = 2;         // warpgroups
 constexpr int THREADS = 128 * (CONSUMERS + 1);
 constexpr int CHUNK = TILE * 128;    // [64 entries][64 channels] bf16, 8 KB
 constexpr int MAX_NC = 8;            // C / 64
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
+using milnce::LN2;
+using milnce::LOG2E;
 
 template <int NC>
 struct Plan {
@@ -366,41 +366,11 @@ __device__ __forceinline__ void consume(uint8_t* sm, const Args& a, const CUtens
 
 // ------------------------------------------------- the forward's (max, sum)
 
-// the exponent reference of a log2-domain (max, sum): the max, or 0 where it
-// is -inf (every entry is, and each 2^(-inf - 0) = 0 keeps the sum at 0)
-__device__ __forceinline__ float ex2_ref(float m) { return m == -INFINITY ? 0.f : m; }
-
-// (m, s) with s = sum 2^(x - m), folded with the 8 entries x
-__device__ __forceinline__ void fold8(float& m, float& s, const float (&x)[8]) {
-  float mx = m;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) mx = fmaxf(mx, x[c]);
-  const float r = ex2_ref(mx);
-  float sum = s * ex2(m - r);
-#pragma unroll
-  for (int c = 0; c < 8; ++c) sum += ex2(x[c] - r);
-  m = mx, s = sum;
-}
-
-// (m, s) merged with (m2, s2)
-__device__ __forceinline__ void merge2(float& m, float& s, float m2, float s2) {
-  const float mx = fmaxf(m, m2), r = ex2_ref(mx);
-  s = s * ex2(m - r) + s2 * ex2(m2 - r);
-  m = mx;
-}
-
-// over the 8 lanes of a warp that share t (the rows g of a column)
-__device__ __forceinline__ float max_over_g(float x) {
-#pragma unroll
-  for (int off = 4; off < 32; off <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float sum_over_g(float x) {
-#pragma unroll
-  for (int off = 4; off < 32; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
+using milnce::ex2_ref;
+using milnce::fold8;
+using milnce::max_over_g;
+using milnce::merge2;
+using milnce::sum_over_g;
 
 // forward consumer H: the partial sim over channel chunks C0 .. C0 + NB - 1,
 // then the masked (max, sum) of text columns 32 H .. 32 H + 31 of each tile

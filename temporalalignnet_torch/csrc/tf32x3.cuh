@@ -1,5 +1,5 @@
 // Split-TF32 ("3xTF32") products on the tensor cores, the f32 routes of
-// mha_fwd and mha_bwd (sm_80+, built for sm_90a).
+// mha_fwd, mha_bwd and the MIL-NCE kernels (sm_80+, built for sm_90a).
 //
 // The TPU kernels ask for f32 products at Precision.HIGHEST, an accuracy
 // level that the TPU meets with several passes of its bf16 matrix unit.  The
@@ -65,6 +65,16 @@ __device__ __forceinline__ void mma3(float c[4], const uint32_t ab[4], const uin
 #pragma unroll
   for (int i = 0; i < 4; ++i) c[i] += x[i];
   mma_tf32(c, ab, bb[0], bb[1]);
+}
+
+// one k-step of a split-TF32 product into x: a_big b_small + a_small b_big +
+// a_big b_big (x is a short partial sum that the caller adds to its running
+// sum in f32; the MIL-NCE kernels)
+__device__ __forceinline__ void mma_split(float x[4], const uint32_t ab[4], const uint32_t as[4],
+                                          const uint32_t bb[2], const uint32_t bs[2]) {
+  mma_tf32(x, ab, bs[0], bs[1]);
+  mma_tf32(x, as, bb[0], bb[1]);
+  mma_tf32(x, ab, bb[0], bb[1]);
 }
 
 // c[n] = A B_n^T for the 8-row chunks n < nch of B (n < N; the rest are

@@ -20,8 +20,8 @@ layer and its gradient is summed over them.
   logsumexps (``milnce_dv``, ``milnce_dt``).  There is no fallback: a CUDA
   tensor launches the kernels or raises.  Each takes its route from the
   dtype alone (``fwd_route``, ``dv_route``, ``dt_route``): bf16 the
-  wgmma/TMA kernels of csrc/milnce_wgmma.cu (one skeleton); f32 the FMA
-  forward of csrc/milnce_fwd.cu and the split-TF32 gradients of
+  wgmma/TMA kernels of csrc/milnce_wgmma.cu (one skeleton); f32 split TF32
+  on mma.sync, the forward of csrc/milnce_fwd.cu and the gradients of
   csrc/milnce_grad_f32.cu (one template over the orientation).
   ``milnce_fwd_v1``, ``milnce_dv_v2`` and ``milnce_dt_v2`` call the earlier
   bf16 kernels of csrc/milnce_fwd.cu and csrc/milnce_bwd.cu, uncounted, for
@@ -59,9 +59,11 @@ from temporalalignnet_torch.parallel.distributed import (all_gather, all_reduce_
                                                          all_reduce_sum, reduce_scatter)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 64  # rows and columns per kernel tile (csrc/milnce_tile.cuh, csrc/milnce_wgmma.cu)
+TILE = 64  # video rows per block of every forward kernel (the column merge's row blocks)
 F32_TILE = 32  # outer entries per block and inner entries per tile of the f32 gradients
-MAX_CHANNELS = 512  # the gradient kernels keep a [64 or 32, C] f32 accumulator per block
+# the gradient kernels keep a [64 or 32, C] f32 accumulator a block, the f32
+# forward 64 rows of C channels resident
+MAX_CHANNELS = 512
 _WAVES = 2  # gradient grids: about two waves of one block per SM
 
 
@@ -184,8 +186,8 @@ FWD_ROUTES = DV_ROUTES = DT_ROUTES = ("wgmma", "f32")
 
 def fwd_route(dtype: torch.dtype) -> str:
     """The kernel route of each MIL-NCE kernel, from the dtype alone: bf16
-    the wgmma/TMA kernels of csrc/milnce_wgmma.cu, f32 the FMA forward and
-    the split-TF32 gradients."""
+    the wgmma/TMA kernels of csrc/milnce_wgmma.cu, f32 the split-TF32
+    kernels of csrc/milnce_fwd.cu and csrc/milnce_grad_f32.cu."""
     return "wgmma" if dtype == torch.bfloat16 else "f32"
 
 
@@ -194,8 +196,9 @@ dv_route = dt_route = fwd_route  # one skeleton, three kernels
 
 def _fwd(video, text, pos_mask, col_valid, mask_value, inv_temp, wgmma=False):
     """The four logsumexps through the wgmma/TMA kernel of csrc/milnce_wgmma.cu
-    (``wgmma``) or the kernel of csrc/milnce_fwd.cu; both write the same
-    per-row-block column partials and merge them with the same kernel."""
+    (``wgmma``) or a kernel of csrc/milnce_fwd.cu (f32: split TF32; bf16:
+    the earlier kernel); each writes the same per-64-row-block column
+    partials and merges them with the same kernel."""
     S, R, K, C, t_ls = _check("milnce_fwd", video, text, pos_mask, col_valid)
     f32 = dict(dtype=torch.float32, device=video.device)
     vnum, vden = torch.empty(S, R, **f32), torch.empty(S, R, **f32)

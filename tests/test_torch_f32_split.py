@@ -21,6 +21,17 @@ the forward, ``GRAD_TOL["float32"]`` per element for the gradients).
   dK and dV per 16 keys in 32-query steps from the rows' statistics); past
   it the dq kernel's two online passes over 64-key tiles and the dkdv
   kernel's 32-query steps.
+- ``f32_fwd_milnce_schedule`` follows csrc/milnce_fwd.cu's f32 route
+  (milnce_fwd_f32_kernel) and milnce_colmerge_kernel: 64-row blocks,
+  128-column tiles, sim over all C channels with each 16-channel step's
+  products summed apart (``mm_steps``, ``depth=16``); in the log2 domain
+  (mask_value where masked, -inf past R or K) each thread's running
+  (max, sum) of its 8 columns a tile for each of its rows, merged over the
+  quad (lanes t ^ 1, then t ^ 2) and then over the 4 column warps in order;
+  each column's (max, sum) over each row warp's 32 rows, the two merged,
+  in natural-log terms to the partials, which ``colmerge_schedule`` folds.
+  Held against the JAX forward kernels (``_fwd_call``, ``_fwd_call_tiled``)
+  and the plain version at ``MILNCE_LSE_F32_TOL`` (``lse_err``).
 - ``f32_grad_schedule`` follows csrc/milnce_grad_f32.cu (milnce_dv and
   milnce_dt in f32): 32 outer entries a block, 32-entry inner tiles, the
   channels zero-padded to 32 NQ; sim summed over the four channel quarters
@@ -31,7 +42,7 @@ the forward, ``GRAD_TOL["float32"]`` per element for the gradients).
   split order; a shared text's gradient summed over the layers in the block.
 
 The planted fault: the same schedules with single-pass TF32 products
-(big·big alone) must exceed both limits, which shows the limits tell TF32
+(big·big alone) must exceed the limits, which shows the limits tell TF32
 from f32 accuracy.
 """
 
@@ -42,12 +53,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import F32_TOL, GRAD_TOL, elem_err
+from chip_smoke import F32_TOL, GRAD_TOL, MILNCE_LSE_F32_TOL, elem_err, lse_err
 from temporalalignnet_torch.ops import milnce
 from temporalalignnet_torch.ops import mha_fwd as fwd
 from temporalalignnet_torch.ops.attention import NEG_INF
 from temporalalignnet_torch.ops.mha_bwd import FUSED_MAX_S
 from temporalalignnet_tpu.ops import pallas_attention, pallas_milnce
+from test_torch_schedules import _jax_fwd, colmerge_schedule
 
 torch.set_num_threads(2)
 
@@ -74,17 +86,17 @@ def split(x):
     return big, tf32_rz(x - big)
 
 
-def mm_steps(a, b, passes=3):
+def mm_steps(a, b, passes=3, depth=8):
     """a @ b as csrc/milnce_grad_f32.cu forms it: each 8-deep k-step's three
     products (big·small + small·big + big·big) summed into a short partial,
     the partials added in f32 in k order (``passes=1``: big·big alone).  The
     kernel's gradient product keeps a 32-entry tile's four k-steps in one
     mma accumulator before that add, which an f32 emulation cannot tell
-    apart."""
+    apart; the forward (csrc/milnce_fwd.cu) keeps two (``depth=16``)."""
     (ab, as_), (bb, bs) = split(a), split(b)
     c = torch.zeros(*a.shape[:-1], b.shape[-1])
-    for k0 in range(0, a.shape[-1], 8):
-        ks = slice(k0, k0 + 8)
+    for k0 in range(0, a.shape[-1], depth):
+        ks = slice(k0, k0 + depth)
         x = ab[..., ks] @ bb[..., ks, :]
         if passes == 3:
             x = ab[..., ks] @ bs[..., ks, :] + as_[..., ks] @ bb[..., ks, :] + x
@@ -447,3 +459,92 @@ def test_f32_milnce_grad_schedule_matches_jax_kernels_and_plain_tf32_does_not(sh
         assert elem_err(ours, b) <= tol, ("dv" if rows_outer else "dt")
         faults.append(elem_err(f32_grad_schedule(*args, sms=4, passes=1), b))
     assert max(faults) > tol, faults
+
+
+# ------------------------------------------------------- MIL-NCE forward
+
+LOG2E_F = math.log2(math.e)
+
+
+def f32_fwd_milnce_schedule(v, t, pm, cv, mv, inv_temp, passes=3):
+    """(vnum, vden [S, R], tnum, tden [S, K]) as milnce_fwd_f32_kernel and
+    milnce_colmerge_kernel compute them, in their tiles and order of sums."""
+    S, R, C = v.shape
+    K = t.shape[-2]
+    rp, kp = 64 * -(-R // 64), 128 * -(-K // 128)  # rows and columns padded to the tiles
+    c2, mv2, ln2 = inv_temp * LOG2E_F, mv * LOG2E_F, math.log(2.0)
+    zero = torch.zeros(())
+    ref = lambda m: torch.where(m == -math.inf, zero, m)  # ex2_ref
+
+    def merge(m, s, m2, s2):  # merge2, log2 domain
+        mx = torch.maximum(m, m2)
+        r = ref(mx)
+        return mx, s * torch.exp2(m - r) + s2 * torch.exp2(m2 - r)
+
+    live = torch.zeros(rp, kp, dtype=torch.bool)
+    live[:R, :K] = True
+    pmp = torch.zeros(rp, kp, dtype=torch.bool)
+    pmp[:R, :K] = pm
+    cvp = torch.zeros(kp, dtype=torch.bool)
+    cvp[:K] = cv
+    vnum, vden = torch.zeros(S, R), torch.zeros(S, R)
+    part = torch.zeros(4, S, rp // 64, K)
+    for s in range(S):
+        text = t if t.dim() == 2 else t[s]
+        sim = torch.zeros(rp, kp)
+        sim[:R, :K] = mm_steps(v[s].float(), text.float().T, passes, depth=16)
+        x = sim * c2
+        xs = [torch.where(live, torch.where(keep, x, torch.tensor(mv2)), -math.inf)
+              for keep in (pmp, cvp[None].expand(rp, kp))]
+        rows_out = []
+        for q, xq in enumerate(xs):
+            # rows: lane t of column warp wc folds its 8 columns of each tile
+            xt = xq.reshape(rp, kp // 128, 4, 4, 8)  # [row, tile, wc, t, 8]
+            m = torch.full((rp, 4, 4), -math.inf)
+            ssum = torch.zeros(rp, 4, 4)
+            for it in range(kp // 128):  # fold8
+                tm = torch.maximum(m, xt[:, it].amax(-1))
+                r = ref(tm)
+                ssum = ssum * torch.exp2(m - r) + torch.exp2(xt[:, it] - r[..., None]).sum(-1)
+                m = tm
+            for off in (1, 2):  # the quad's butterfly
+                pair = [i ^ off for i in range(4)]
+                m, ssum = merge(m, ssum, m[..., pair], ssum[..., pair])
+            m, ssum = m[..., 0], ssum[..., 0]  # [row, wc], every lane alike
+            mr, sr = m[:, 0], ssum[:, 0]
+            for wc in range(1, 4):
+                mr, sr = merge(mr, sr, m[:, wc], ssum[:, wc])
+            rows_out.append(((mr + torch.log2(sr)) * ln2)[:R])
+            # columns: each row warp's 32 rows, then the two merged
+            xw = xq.reshape(rp // 64, 2, 32, kp)  # [row block, wr, 32 rows, column]
+            mw = xw.amax(2)
+            sw = torch.exp2(xw - ref(mw)[:, :, None]).sum(2)
+            mc, sc = merge(mw[:, 0], sw[:, 0], mw[:, 1], sw[:, 1])
+            part[2 * q, s] = (mc * ln2)[:, :K]
+            part[2 * q + 1, s] = sc[:, :K]
+        vnum[s], vden[s] = rows_out
+    return (vnum, vden) + colmerge_schedule(part)
+
+
+@pytest.mark.parametrize("shape", [(2, 96, 70, 192), (2, 64, 96, 512)])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_f32_milnce_fwd_schedule_matches_jax_kernels_and_plain_tf32_does_not(shape, shared,
+                                                                              tiled):
+    """Ragged R and K (a 32-row second block; one 128-column tile whose upper
+    column warps lie past K), C = 192 and 512, a row without a positive,
+    padded columns; the four logsumexps per element (lse_err) against the
+    JAX kernels and the plain version at MILNCE_LSE_F32_TOL, which the
+    single-pass TF32 products exceed."""
+    S, R, K, C = shape
+    v, t, pm, cv, _, _ = _milnce_problem(R + K + int(shared) + 2 * int(tiled), S, R, K, C, shared)
+    tv, tt, tpm, tcv = (torch.from_numpy(x) for x in (v, t, pm, cv))
+    ours = f32_fwd_milnce_schedule(tv, tt, tpm, tcv, MV, INV_TEMP)
+    fault = f32_fwd_milnce_schedule(tv, tt, tpm, tcv, MV, INV_TEMP, passes=1)
+    plain = milnce.milnce_lse_reference(tv, tt, tpm, tcv, MV, INV_TEMP)
+    jax_ref = [torch.from_numpy(np.array(x)) for x in _jax_fwd(v, t, pm, cv, tiled)]
+    for a, b, c, name in zip(ours, plain, jax_ref, ("vnum", "vden", "tnum", "tden")):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        assert lse_err(a, b) <= MILNCE_LSE_F32_TOL, name
+        assert lse_err(a, c) <= MILNCE_LSE_F32_TOL, name
+    assert max(lse_err(a, b) for a, b in zip(fault, plain)) > MILNCE_LSE_F32_TOL

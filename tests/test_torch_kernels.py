@@ -8,8 +8,8 @@ card's tests run on a machine without it:
 import pytest
 import torch
 
-from chip_smoke import (BF16_TOL, GRAD_TOL, MILNCE_VALUE_TOL, elem_err, mha_bwd_dropped_rowsum,
-                        milnce_fwd_faults, milnce_problem)
+from chip_smoke import (BF16_TOL, GRAD_TOL, MILNCE_LSE_F32_TOL, MILNCE_VALUE_TOL, elem_err,
+                        lse_err, mha_bwd_dropped_rowsum, milnce_fwd_faults, milnce_problem)
 from temporalalignnet_torch.core.config import ModelConfig
 from temporalalignnet_torch.models.net import TANWithText
 from temporalalignnet_torch.ops.attention import attention_reference, multihead_attention
@@ -428,7 +428,7 @@ def test_milnce_fwd_takes_the_route_of_its_dtype_on_card(cuda, dtype, expected, 
                                                          shared):
     """One launch on the expected route; its four logsumexps, and in bf16 the
     earlier kernel's (milnce_fwd_v1), against milnce_lse_reference per
-    element: ragged R and K (the pm tile by TMA at K = 320, staged at 70 and
+    element (in f32 also in logit units, lse_err): ragged R and K (the pm tile by TMA at K = 320, staged at 70 and
     30), a row without a positive, padded columns."""
     from temporalalignnet_torch.ops import milnce
 
@@ -445,6 +445,8 @@ def test_milnce_fwd_takes_the_route_of_its_dtype_on_card(cuda, dtype, expected, 
         for a, b in zip(lse, ref):
             assert a.shape == b.shape and bool(torch.isfinite(a).all())
             assert elem_err(a, b) <= MILNCE_VALUE_TOL
+            if dtype == torch.float32:  # split TF32: f32 accuracy in logit units
+                assert lse_err(a, b) <= MILNCE_LSE_F32_TOL
 
 
 @pytest.mark.cuda

@@ -32,7 +32,9 @@ tests/test_fused_milnce.py run them) and against the port's plain versions.
   and K, sim summed over the two consumers' channel chunks, the masked
   entries in the log2 domain (mask_value where masked, -inf where dead), row
   (max, sum) pairs per consumer half merged at the end, column partials per
-  row block in natural-log terms, merged in row-block order.
+  row block in natural-log terms, merged as milnce_colmerge_kernel merges
+  them (``colmerge_schedule``: eight groups of row blocks, each in order,
+  then the groups in order).
 
 Also the route selection of ``mha_fwd``, ``mha_bwd``, ``milnce_fwd``,
 ``milnce_dv`` and ``milnce_dt`` (dtype and S), and the key-split chooser of
@@ -741,16 +743,37 @@ def milnce_fwd_schedule(v, t, pm, cv, mv, inv_temp):
             for q in range(2):  # the two consumers' row states
                 m, ssum = merge(rm[q, 0], rsum[q, 0], rm[q, 1], rsum[q, 1])
                 rows_out[q, s, rs_] = ((m + torch.log2(ssum)) * ln2)[:nr]
-    cols_out = []
-    for q in range(2):  # milnce_colmerge_kernel: natural log, row-block order
-        m, ssum = torch.full((S, K), -math.inf), torch.zeros(S, K)
-        for rb in range(rtiles):
-            m2, s2 = part[2 * q, :, rb], part[2 * q + 1, :, rb]
-            mx = torch.maximum(m, m2)
-            ssum = ssum * torch.exp(m - mx) + s2 * torch.exp(m2 - mx)
-            m = mx
-        cols_out.append(m + torch.log(ssum))
-    return rows_out[0], rows_out[1], cols_out[0], cols_out[1]
+    return (rows_out[0], rows_out[1]) + colmerge_schedule(part)
+
+
+def colmerge_schedule(part):
+    """(tnum, tden [S, K]) from the column partials [4, S, row blocks, K]
+    (natural-log (max, sum) pairs: planes mp, sp, mn, sn) as
+    milnce_colmerge_kernel folds them: eight groups of ceil(row blocks / 8),
+    each in order, then the groups in order."""
+    nrb = part.shape[2]
+    per = -(-nrb // 8)
+
+    def fold(m, s, m2, s2):  # lse_merge: an all -inf pair leaves (m, s) as it is
+        mx = torch.maximum(m, m2)
+        live = mx > -math.inf
+        r = torch.where(live, mx, torch.zeros(()))
+        return mx, torch.where(live, s * torch.exp(m - r) + s2 * torch.exp(m2 - r), s)
+
+    out = []
+    for q in range(2):
+        empty = (torch.full(part.shape[1::2], -math.inf), torch.zeros(part.shape[1::2]))
+        groups = []
+        for w in range(8):
+            m, ssum = empty
+            for rb in range(w * per, min(nrb, w * per + per)):
+                m, ssum = fold(m, ssum, part[2 * q, :, rb], part[2 * q + 1, :, rb])
+            groups.append((m, ssum))
+        m, ssum = groups[0]
+        for m2, s2 in groups[1:]:
+            m, ssum = fold(m, ssum, m2, s2)
+        out.append(m + torch.log(ssum))
+    return tuple(out)
 
 
 def _jax_fwd(v, t, pm, cv, tiled):
