@@ -191,15 +191,20 @@ Phases, each printing JSON lines:
              directory, its file loaded strict with a forward equal to the
              trained checkpoint's.
      grouped_dispatch  Stage 1 and cotrain (from the train phase's state)
-             at B = 64, bf16: two groups of GROUP_K steps (the first's
-             eager warm-up steps, the capture, replays of the CUDA graph)
-             against as many eager steps from the same state, equal
-             losses, params and twin to the bit; the launches the wrappers
-             counted at capture (STEP_LAUNCHES, COTRAIN_STEP_LAUNCHES per
-             step), GROUP_K times that on the device in a profiled group of
-             replays, the host syncs of a group; in two children the train CLI with
-             --steps_per_dispatch GROUP_K --max_steps 10 (overshooting to 12,
-             with its [stop] line) against --max_steps 12 per step.
+             at B = 64, bf16, and since slice 12 Stage 1 at --backprop_freq
+             3, cotrain at --backprop_freq 2 and Stage 1 at --skip_nonfinite
+             1 with a non-finite batch (GROUPED_CASES): two groups of
+             GROUP_K steps (the first's eager warm-up steps, a capture a
+             kind of step, replays of the CUDA graphs) against as many
+             eager steps from the same state, equal losses, params, twin,
+             update and non-finite counts to the bit; the launches the
+             wrappers counted at capture (STEP_LAUNCHES,
+             COTRAIN_STEP_LAUNCHES per step), GROUP_K times that on the
+             device in a profiled group of replays, one host sync a group;
+             in children the train CLI with --steps_per_dispatch GROUP_K
+             --max_steps 10 (overshooting to 12, with its [stop] line)
+             against --max_steps 12 per step, and with --backprop_freq 2
+             grouped against per step.
      dp_two_ranks  slice 9 (started after serving_export, running beside
              the phases up to make_bert_dir, read after it): two children on
              the card joined
@@ -262,7 +267,9 @@ Phases, each printing JSON lines:
              from S3D's multiply-adds; ``--step-times`` adds the rest
              (STEP_TIME_MORE): the device ms of a retrieval forward call at
              Lb = 96 and 256, Stage 1 with --remat, Stage 1 and cotrain as a
-             CUDA graph per step (--steps_per_dispatch GROUP_K), the BERT
+             CUDA graph per step (--steps_per_dispatch GROUP_K), Stage 1 at
+             --backprop_freq 2 and at --skip_nonfinite 1, eager and graphed
+             (with the masked restore's device ms beside its bound), the BERT
              TAN's Stage 1 and cotrain, the bf16 Stage-1 step at T = 128 and
              the f32 one (``step_view``: device ms and steps/s).  In the
              Stage-1 child, after its plain step, the
@@ -3852,27 +3859,40 @@ def profiled_launches(torch, fn, nccl=False):
     return None
 
 
-def grouped_against_eager(torch, batches, cotrain, state):
+def same_floats(a, b) -> bool:
+    """Two lists of floats equal to the bit, NaN where the other is NaN."""
+    return len(a) == len(b) and all(x == y or (x != x and y != y) for x, y in zip(a, b))
+
+
+def grouped_against_eager(torch, batches, cotrain, state, train_kw=None):
     """From one state (the seed's, or ``state``), two groups of ``batches``
-    as eager train steps and as grouped ones (E6D6, B = 64, bf16, fused):
-    the first group's GraphedStep.WARMUP eager steps, the capture, and
-    replays.  Each run's losses, params (and the twin's), wrapper launch
-    counts and routes, update counts and generator state; for the grouped
-    run also the launches at capture, the device's launches in one more
-    group of replays (``profiled_launches``) and the host syncs of a
-    group."""
+    as eager train steps and as grouped ones (E6D6, B = 64, bf16, fused;
+    ``train_kw`` the TrainConfig flags): the first group's eager warm-up
+    steps, the captures (one a kind of step), and replays.  Each run's
+    losses, params (and the twin's), wrapper launch counts and routes,
+    update and non-finite counts and generator state; for the grouped run
+    also the launches at capture, the device's launches in one more group
+    of replays (``profiled_launches``) and the host syncs of a group and
+    its one fetch (``fetch_group``)."""
+    from temporalalignnet_torch.train.train_step import fetch_group
+
     dev = torch.device("cuda")
     runs = {}
     for mode in ("eager", "graph"):
         model, opt, step, twin = train_setup(torch, dev, fused=True, state=state,
-                                             cotrain=cotrain, multi=mode == "graph")
+                                             cotrain=cotrain, multi=mode == "graph",
+                                             train_kw=train_kw)
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
         if mode == "eager":
             losses = torch.stack([step(b)["loss"] for b in batches + batches])
         else:
-            losses = torch.cat([step(batches)["loss"], step(batches)["loss"]])
+            first = step(batches)["loss"]
+            updates_after = step.updates_after
+            second = step(batches)["loss"]
+            losses = torch.cat([first, second])
+            updates_after = torch.cat([updates_after, step.updates_after]).tolist()
         torch.cuda.synchronize()
         runs[mode] = {
             "seconds": time.perf_counter() - t0, "losses": losses.tolist(),
@@ -3880,37 +3900,50 @@ def grouped_against_eager(torch, batches, cotrain, state):
             "params": {k: v.detach().clone() for k, v in model.state_dict().items()},
             "target": None if twin is None else {k: v.detach().clone()
                                                  for k, v in twin.model.state_dict().items()},
-            "updates": opt.updates, "micro_steps": None if twin is None else twin.micro_steps,
+            "updates": opt.updates, "notfinite": opt.notfinite, "micro": opt.micro,
+            "micro_steps": None if twin is None else twin.micro_steps,
             "generator": step.generator.get_state()}
         if mode == "graph":
-            runs[mode]["per_step"] = step.launches_per_step
+            runs[mode].update(per_step=step.launches_per_step, warmup=step.warmup,
+                              captures=len(step.kinds), updates_after=updates_after)
             runs[mode]["replayed"] = profiled_launches(torch, lambda: step(batches))
             more = batches[:2]
             runs[mode]["host_syncs_per_group"] = host_syncs(
-                torch, lambda: torch.stack(list(step(more).values())).cpu())
+                torch, lambda: fetch_group(step(more), step.updates_after))
         del model, opt, step, twin
     return runs
 
 
+# grouped dispatch's cases: (case, cotrain, TrainConfig flags, the batch of a group made
+# non-finite); the first two since slice 8, the rest since slice 12
+GROUPED_CASES = (("stage1", False, {}, None), ("cotrain", True, {}, None),
+                 ("stage1_backprop_freq_3", False, dict(backprop_freq=3), None),
+                 ("cotrain_backprop_freq_2", True, dict(backprop_freq=2), None),
+                 ("stage1_skip_nonfinite", False, dict(skip_nonfinite_updates=True), 2))
+
+
 def phase_grouped_dispatch(torch, files, stage1_state):
-    """--steps_per_dispatch on the card: Stage 1 and cotrain (from the train
-    phase's Stage-1 state) at E6D6, B = 64, bf16, fused: from one state, two
-    groups of GROUP_K batches as grouped steps (GraphedStep.WARMUP eager
-    steps, the capture, replays) and as as many eager steps must give equal
-    losses, params and twin params (to the bit).  The wrappers count the
-    eager steps' launches and the capture's, and none of a replay's: the
-    capture's must be STEP_LAUNCHES / COTRAIN_STEP_LAUNCHES on their routes,
-    and a group of GROUP_K replays, profiled, must run GROUP_K times that on
-    the device; then the host syncs of a group (its metrics fetch).  Beside
-    it, in two children, the train CLI at GROUP_CLI_STEPS steps an epoch
-    with --steps_per_dispatch GROUP_K --max_steps 10, which must overshoot
-    to 12 and say so, against --max_steps 12 per step: equal losses and
-    params.  Returns, per case, the launches on the device in one group of
-    replays and the wrappers' count at capture."""
+    """--steps_per_dispatch on the card (GROUPED_CASES): Stage 1 and cotrain
+    (from the train phase's Stage-1 state) at E6D6, B = 64, bf16, fused,
+    plain, at --backprop_freq 3 (Stage 1) and 2 (cotrain), and Stage 1 at
+    --skip_nonfinite 1 with a non-finite batch in each group (a NaN feature:
+    a NaN loss, its update skipped): from one state, two groups of GROUP_K
+    batches as grouped steps (eager warm-up steps, a capture a kind of
+    step, replays) and as as many eager steps must give equal losses,
+    params, twin params, update and non-finite counts and generator state
+    (to the bit).  The wrappers count the eager steps' launches and the
+    captures', and none of a replay's: a capture's must be STEP_LAUNCHES /
+    COTRAIN_STEP_LAUNCHES on their routes, and a group of GROUP_K replays,
+    profiled, must run GROUP_K times that on the device; then the host syncs
+    of a group (its one fetch).  Beside it, in children, the train CLI at
+    GROUP_CLI_STEPS steps an epoch with --steps_per_dispatch GROUP_K
+    --max_steps 10, which must overshoot to 12 and say so, against
+    --max_steps 12 per step, and with --backprop_freq 2 grouped against per
+    step: equal losses and params.  Returns, per case, the launches on the
+    device in one group of replays and the wrappers' count at capture."""
     from temporalalignnet_torch.core.config import DataConfig
     from temporalalignnet_torch.data import HTMFeatureDataset, TrainLoader
     from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
-    from temporalalignnet_torch.train.train_step import GraphedStep
 
     feats, captions, vocab = files
     B, T, N, W = (TRAIN[k] for k in "BTNW")
@@ -3926,11 +3959,16 @@ def phase_grouped_dispatch(torch, files, stage1_state):
             "--captions", captions, "--vocab", vocab, "--batch_size", str(cli_b),
             "--epochs", "2", "--log_every", "1", "--warmup_iterations", "2",
             "--runtime_save_iter", "0"]
+    bf2 = ["--backprop_freq", "2", "--max_steps", str(GROUP_CLI_STEPS)]
     children = {
         "grouped": start(base + ["--steps_per_dispatch", str(GROUP_K), "--max_steps", "10",
                                  "--prefix", os.path.join(prefix, "grouped")]),
         "per_step": start(base + ["--max_steps", str(stop_at), "--prefix",
-                                  os.path.join(prefix, "per_step")])}
+                                  os.path.join(prefix, "per_step")]),
+        "grouped_backprop_freq_2": start(base + bf2 + [
+            "--steps_per_dispatch", str(GROUP_K), "--prefix", os.path.join(prefix, "g_bf2")]),
+        "per_step_backprop_freq_2": start(base + bf2 + [
+            "--prefix", os.path.join(prefix, "p_bf2")])}
     try:
         loader = TrainLoader(ds, B, seed=SEED + 30, num_workers=8, pin_memory=True)
         batches = []
@@ -3939,65 +3977,92 @@ def phase_grouped_dispatch(torch, files, stage1_state):
             batches += list(loader)
         batches = batches[:GROUP_K]
         launches = {}
-        for case, cotrain, state, per_step, by_route in (
-                ("stage1", False, None, STEP_LAUNCHES, STEP_ROUTES),
-                ("cotrain", True, stage1_state, COTRAIN_STEP_LAUNCHES, COTRAIN_STEP_ROUTES)):
-            runs = grouped_against_eager(torch, batches, cotrain, state)
+        for case, cotrain, flags, bad in GROUPED_CASES:
+            per_step, by_route = ((COTRAIN_STEP_LAUNCHES, COTRAIN_STEP_ROUTES) if cotrain
+                                  else (STEP_LAUNCHES, STEP_ROUTES))
+            group = list(batches)
+            if bad is not None:  # a copy, so that the other cases see the finite batch
+                group[bad] = dict(group[bad], video=group[bad]["video"].clone().pin_memory())
+                group[bad]["video"][0, 0, 0] = float("nan")
+            runs = grouped_against_eager(torch, group, cotrain, stage1_state if cotrain
+                                         else None, flags)
             eager, graph = runs["eager"], runs["graph"]
             param_err = max((eager["params"][k] - graph["params"][k]).abs().max().item()
                             for k in eager["params"])
             target_err = None if eager["target"] is None else max(
                 (eager["target"][k] - graph["target"][k]).abs().max().item()
                 for k in eager["target"])
+            param_equal = all(torch.equal(eager["params"][k], graph["params"][k])
+                              for k in eager["params"])
+            target_equal = None if eager["target"] is None else all(
+                torch.equal(eager["target"][k], graph["target"][k]) for k in eager["target"])
             captured = {k: v[""] for k, v in graph["per_step"].items()}
             captured_routes = {k: {r: n for r, n in v.items() if r} for k, v in
                                graph["per_step"].items()}
             steps = 2 * GROUP_K
-            row = {"phase": "grouped_dispatch", "case": case, "steps": steps,
-                   "eager_warmup_steps": GraphedStep.WARMUP,
+            k = flags.get("backprop_freq", 1)
+            skipped = 0 if bad is None else 2
+            row = {"phase": "grouped_dispatch", "case": case, "flags": flags, "steps": steps,
+                   "nonfinite_batch": bad, "eager_warmup_steps": graph["warmup"],
+                   "captures": graph["captures"],
                    "losses_eager": eager["losses"], "losses_grouped": graph["losses"],
                    "param_max_abs_err": param_err, "target_max_abs_err": target_err,
+                   "params_bit_equal": param_equal, "target_bit_equal": target_equal,
                    "launches_per_step_at_capture": captured,
                    "routes_per_step_at_capture": captured_routes,
                    "launches_wrappers_grouped": graph["launches"],
                    "launches_wrappers_eager": eager["launches"],
                    "launches_device_group_of_replays": graph["replayed"],
                    "updates": [eager["updates"], graph["updates"]],
+                   "updates_after_grouped": graph["updates_after"],
+                   "notfinite": [eager["notfinite"], graph["notfinite"]],
                    "twin_micro_steps": [eager["micro_steps"], graph["micro_steps"]],
                    "host_syncs_per_group": graph["host_syncs_per_group"],
                    "seconds": {m: r["seconds"] for m, r in runs.items()}}
             emit(row)
-            check(eager["losses"] == graph["losses"] and param_err == 0.0
-                  and target_err in (None, 0.0), f"{case}: grouped steps differ from eager")
+            check(same_floats(eager["losses"], graph["losses"]) and param_equal
+                  and target_equal in (None, True), f"{case}: grouped steps differ from eager")
+            check(sum(x != x for x in graph["losses"]) == skipped,
+                  f"{case}: NaN losses {graph['losses']}")
             check(captured == per_step and captured_routes == by_route,
                   f"{case}: launches per step at capture {captured} {captured_routes}")
-            check(eager["launches"] == {k: steps * v for k, v in per_step.items()}
-                  and graph["launches"] == {k: (GraphedStep.WARMUP + 1) * v
-                                            for k, v in per_step.items()},
+            wrapper_steps = graph["warmup"] + graph["captures"]
+            check(eager["launches"] == {n: steps * v for n, v in per_step.items()}
+                  and graph["launches"] == {n: wrapper_steps * v for n, v in per_step.items()},
                   f"{case}: wrapper launches {graph['launches']}, eager {eager['launches']}")
-            check(graph["replayed"] == {k: GROUP_K * per_step[k] for k in KERNEL_SYMBOLS},
+            check(graph["replayed"] == {n: GROUP_K * per_step[n] for n in KERNEL_SYMBOLS},
                   f"{case}: kernels on the device in a group of replays {graph['replayed']}")
-            check(eager["updates"] == graph["updates"] == steps
+            check(eager["updates"] == graph["updates"] == steps // k - skipped
+                  and graph["updates_after"][-1] == graph["updates"]
+                  and eager["notfinite"] == graph["notfinite"]
+                  and eager["micro"] == graph["micro"]
                   and eager["micro_steps"] == graph["micro_steps"]
                   and torch.equal(eager["generator"], graph["generator"]),
                   f"{case}: counters or generator differ")
+            check(sum(graph["host_syncs_per_group"].values()) == 1,
+                  f"{case}: host syncs of a group {graph['host_syncs_per_group']}")
             launches[case] = {"replayed": graph["replayed"], "at_capture": captured}
-        outs = {k: finish(p, f"train CLI {k}", timeout=900) for k, p in children.items()}
+        outs = {c: finish(p, f"train CLI {c}", timeout=900) for c, p in children.items()}
     finally:
         stop(children.values())
-    finals = {k: json.loads(o.strip().splitlines()[-1]) for k, o in outs.items()}
-    losses = {k: logged_losses(o) for k, o in outs.items()}
+    finals = {c: json.loads(o.strip().splitlines()[-1]) for c, o in outs.items()}
+    losses = {c: logged_losses(o) for c, o in outs.items()}
     overshoot = [l for l in outs["grouped"].splitlines() if l.startswith("[stop]")]
-    err = state_err(torch, finals["grouped"]["checkpoint"], finals["per_step"]["checkpoint"])
-    emit({"phase": "grouped_dispatch_cli", "batch": cli_b, "steps_per_epoch": len(ds) // cli_b,
-          "stop_lines": overshoot, "finals": finals,
-          "losses": losses, "param_max_abs_err": err})
+    for suffix in ("", "_backprop_freq_2"):
+        grouped, per_step = f"grouped{suffix}", f"per_step{suffix}"
+        err = state_err(torch, finals[grouped]["checkpoint"], finals[per_step]["checkpoint"])
+        emit({"phase": "grouped_dispatch_cli" + suffix, "batch": cli_b,
+              "steps_per_epoch": len(ds) // cli_b,
+              "stop_lines": overshoot if not suffix else None,
+              "finals": {c: finals[c] for c in (grouped, per_step)},
+              "losses": {c: losses[c] for c in (grouped, per_step)}, "param_max_abs_err": err})
+        want = stop_at if not suffix else GROUP_CLI_STEPS
+        check(finals[grouped]["final_step"] == finals[per_step]["final_step"] == want
+              and losses[grouped] == losses[per_step] and err == 0.0,
+              f"grouped CLI run{suffix} differs from the per-step one")
     check(overshoot == [f"[stop] --steps_per_dispatch group overshot --max_steps 10 by "
                         f"{stop_at - 10} steps (stopped at {stop_at})"],
           f"no overshoot line: {overshoot}")
-    check(finals["grouped"]["final_step"] == finals["per_step"]["final_step"] == stop_at
-          and losses["grouped"] == losses["per_step"] and err == 0.0,
-          "grouped CLI run differs from the per-step one")
     return launches
 
 
@@ -4937,9 +5002,13 @@ STEP_TIME_CHILDREN = ("init", "cotrain", "e2e")
 # path that a phase of the whole run drives and checks (the agreement in cotrain, the
 # retrieval forward, the world-of-one NCCL step and its graph in dp_world1, the graphed
 # steps in grouped_dispatch, remat, the BERT TAN, the Stage-1 step at T = 128 and in
-# f32 in train_t128)
+# f32 in train_t128; since slice 12 the Stage-1 step at --backprop_freq 2 and at
+# --skip_nonfinite 1, eager and graphed, as grouped_dispatch drives them)
 STEP_TIME_MORE = ("agreement", "dp_world1", "init_graph", "remat", "cotrain_graph",
-                  "bert_init", "bert_cotrain", "bf16_t128", "f32")
+                  "bert_init", "bert_cotrain", "bf16_t128", "f32", "init_bf2",
+                  "init_bf2_graph", "init_skip", "init_skip_graph")
+# the TrainConfig flags of the step-time children named ``init_<variant>[_graph]``
+STEP_TIME_FLAGS = {"bf2": dict(backprop_freq=2), "skip": dict(skip_nonfinite_updates=True)}
 
 
 def start_gated(flag, which, extra=(), name=None):
@@ -5064,7 +5133,11 @@ def step_time(torch, which, card, ready=lambda: None):
     step), 'dp_world1' (the same, then in a world of one: dp_world1_step_time),
     'remat' (the same with --remat) or 'cotrain' (a Stage-2 one),
     'init_graph' / 'cotrain_graph' (those steps as a CUDA graph, a group of
-    GROUP_K replays timed per step), and 'bert_init' / 'bert_cotrain' (the
+    GROUP_K replays timed per step), 'init_bf2' / 'init_skip' and their
+    '_graph' forms (the Stage-1 step at --backprop_freq 2, per micro-step,
+    and at --skip_nonfinite 1, STEP_TIME_FLAGS; the latter also times the
+    masked restore of a step alone, beside its bytes over the card's rate),
+    and 'bert_init' / 'bert_cotrain' (the
     same of the BERT TAN): steps/s with the device time, idle share, peak
     memory, every kernel's device ms and the top host ops; 'agreement': the
     agreement self-labelling alone at the cotrain step's shapes.  Each also
@@ -5108,12 +5181,15 @@ def step_time(torch, which, card, ready=lambda: None):
     bert = which.startswith("bert_")
     graph = which.endswith("_graph")
     cotrain, remat = which.startswith(("cotrain", "bert_cotrain")), which == "remat"
+    variant = which.removesuffix("_graph").removeprefix("init_")
+    flags = STEP_TIME_FLAGS.get(variant)
     if bert:  # BERT's vocab (ids 1 ... 30521)
         batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
             np.random.RandomState(SEED + 6), batch_size=B, seq_len=T, max_sentences=N,
             feature_dim=1024, vocab_size=BERT_CFG["vocab_size"] - 1, max_words=W).items()}
-    _, _, step, _ = train_setup(torch, dev, fused=True, cotrain=cotrain, bert=bert,
-                                cfg_kw=dict(remat=True) if remat else None, multi=graph)
+    _, opt, step, _ = train_setup(torch, dev, fused=True, cotrain=cotrain, bert=bert,
+                                  cfg_kw=dict(remat=True) if remat else None, multi=graph,
+                                  train_kw=flags)
     per_call = GROUP_K if graph else 1
     if graph:  # a group of GROUP_K replays, each batch copied in from pinned memory
         group = [{k: v.cpu().pin_memory() for k, v in batch.items()}] * GROUP_K
@@ -5135,9 +5211,13 @@ def step_time(torch, which, card, ready=lambda: None):
               "cotrain": "cotrain_steps_per_s", "bert_init": "bert_train_steps_per_s",
               "bert_cotrain": "bert_cotrain_steps_per_s",
               "init_graph": "train_graph_steps_per_s",
-              "cotrain_graph": "cotrain_graph_steps_per_s"}[which]
-    kind = ("" if which in ("init", "dp_world1", "bert_init", "init_graph") else
+              "cotrain_graph": "cotrain_graph_steps_per_s"}.get(
+                  which, f"train_{which}_steps_per_s")
+    kind = ("" if which in ("init", "dp_world1", "bert_init", "init_graph") or flags else
             ", --remat 1" if remat else ", EMA twin, agreement keep, head on")
+    if flags:
+        kind += {"bf2": ", --backprop_freq 2 (per micro-step)",
+                 "skip": ", --skip_nonfinite 1 (every update finite)"}[variant]
     if graph:
         kind += f", --steps_per_dispatch {GROUP_K} (a CUDA graph replayed per step)"
     emit({"phase": "times", "metric": metric,
@@ -5149,11 +5229,40 @@ def step_time(torch, which, card, ready=lambda: None):
           "kernels_ms_per_step": by_name(per_kernel), "kernels_per_step": len(per_kernel),
           "host_self_ms_per_step_under_profiler": sum(host_ms.values()) / per_call,
           "top_host_ops_self_ms_per_step": {k[:90]: v / per_call for k, v in top_host}})
+    if variant == "skip":  # the snapshot and the select of a step, alone
+        masked_restore_times(torch, opt, card, which)
     if which == "dp_world1":  # slice 9: the same step in a world of one
         del step, run
         dp_world1_step_time(torch, card, batch, {
             "ms_per_step": step_ms, "device_busy_ms_per_step": busy_ms, "timing": timing,
             "idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / step_ms)})
+
+
+def masked_restore_times(torch, opt, card, which):
+    """--skip_nonfinite's cost on the device: the copy of the params and both
+    moments before the update and the select after it
+    (``Optimizer._undo_unless``), as a step runs them, timed alone (the
+    flag set: the select writes back what it reads, the state unmoved),
+    beside the bytes they move (per element: the copy reads and writes, the
+    select reads two and writes one) over the card's rate."""
+    moved = opt._guarded()
+    apply = torch.ones((), dtype=torch.bool, device=moved[0].device)
+
+    @torch.no_grad()
+    def guard():
+        torch._foreach_copy_(opt._keep, moved)
+        opt._undo_unless(apply, moved)
+
+    busy_ms, per_kernel, _, timing = device_profile(torch, guard, reps=5, warmup=2)
+    elements = sum(t.numel() for t in moved)
+    moved_bytes = 5 * elements * moved[0].element_size()
+    bandwidth, _ = peaks(card)
+    emit({"phase": "times", "metric": "masked_restore_ms", "card": card, "step": which,
+          "device_ms": busy_ms if timing == "profiler" else None, "timing": timing,
+          "wall_ms": cuda_ms(torch, guard, reps=10, warmup=2), "tensors": len(moved),
+          "elements": elements, "bytes": moved_bytes,
+          "bound_ms": moved_bytes / bandwidth * 1e3, "kernels_per_call": len(per_kernel),
+          "kernels_ms": by_name(per_kernel)})
 
 
 # end-to-end views of the Stage-1 step (E6D6 width 512, B = 64, N = 16, fused MIL-NCE):
@@ -5630,7 +5739,7 @@ def main(argv) -> int:
     train_cli = in_background(timed, phase_train_cli, torch, files, eval_files, yc2_files)
     resume = in_background(timed, phase_resume_and_world1, torch, yc2_files)
     t128_launches, f32_launches = timed(phase_train_t128, torch)
-    make_spares(14)  # for the CLIs from grouped_dispatch's to the e2e CLI's
+    make_spares(16)  # for the CLIs from grouped_dispatch's to the e2e CLI's
     cotrain_launches = timed(phase_cotrain, torch, files, stage1_state)
     stage1_ckpt, retrieval_cli = joined(train_cli, "phase_train_cli")
     retrieval_metrics, retrieval_launches = timed(phase_retrieval, torch, stage1_ckpt, yc2_files)
@@ -5776,7 +5885,10 @@ def main(argv) -> int:
         # that ran on the device in one group of GROUP_K replayed Stage-1
         # steps, and cotrain steps (profiled), and the wrappers' count at capture
         e["launches_export_path"] = export_launches[e["name"]]
-        for case, key in (("stage1", "grouped"), ("cotrain", "grouped_cotrain")):
+        # (slice 12: also at --backprop_freq 3 and 2 and --skip_nonfinite 1)
+        for case in grouped_launches:
+            key = {"stage1": "grouped", "cotrain": "grouped_cotrain"}.get(case,
+                                                                        f"grouped_{case}")
             e[f"launches_{key}_path"] = grouped_launches[case]["replayed"][e["name"]]
             e[f"launches_{key}_per_step_at_capture"] = \
                 grouped_launches[case]["at_capture"][e["name"]]

@@ -69,10 +69,10 @@ installed), and a progress line to stderr.
 ``--steps_per_dispatch K`` runs K steps per dispatch (JAX's ``lax.scan``
 over stacked batches): on the card one CUDA graph of the whole step,
 replayed per batch (``train_step.make_multi_train_step``), on the CPU K
-eager steps; the same numbers as K single steps.  The save, eval and stop
+eager steps; the same numbers as K single steps, under any
+``--backprop_freq`` and ``--skip_nonfinite``.  The save, eval and stop
 checks run once per group, so the last group may run past ``--max_steps``
-(a ``[stop]`` line says by how much); an epoch's tail group is shorter.  On
-the card it refuses ``--backprop_freq > 1`` and ``--skip_nonfinite``.
+(a ``[stop]`` line says by how much); an epoch's tail group is shorter.
 
 Data parallelism (JAX train/cli.py:113-130, 190-196, 340-351): one process
 per card, started by torchrun (``torchrun --nproc_per_node N -m
@@ -353,8 +353,8 @@ def _train(args, mesh) -> dict:
     from temporalalignnet_torch.models.net import TANWithText
     from temporalalignnet_torch.models.word2vec import Word2VecTokenizer
     from temporalalignnet_torch.train.optimizer import Optimizer, lr_at
-    from temporalalignnet_torch.train.train_step import (EMATwin, make_multi_train_step,
-                                                         make_train_step)
+    from temporalalignnet_torch.train.train_step import (EMATwin, fetch_group,
+                                                         make_multi_train_step, make_train_step)
     from temporalalignnet_torch.parallel.distributed import (barrier, is_master, master_print,
                                                              process_device, rank, world_size)
     from temporalalignnet_torch.parallel.mesh import local_batch_rows
@@ -557,10 +557,9 @@ def _train(args, mesh) -> dict:
                         stacked = step_fn(pending)
                     pending = []
                     with breakdown.measure("fence"):  # one fetch fences the group
-                        host = torch.stack(list(stacked.values())).cpu()
-                    rows = [({k: host[j, i] for j, k in enumerate(stacked)},
-                             float(host[list(stacked).index("loss"), i]), u)
-                            for i, u in enumerate(step_fn.updates_after)]
+                        host, updates_after = fetch_group(stacked, step_fn.updates_after)
+                    rows = [({k: v[i] for k, v in host.items()}, float(host["loss"][i]), u)
+                            for i, u in enumerate(updates_after)]
                 for metrics, last_loss, updates in rows:
                     global_step += 1
                     steps_since += 1

@@ -32,16 +32,30 @@ parameters, and ``state_dict`` / ``load_state_dict`` gather them and the
 collective over the tp ranks).
 
 On the card (``capturable``, the default where the params lie on a CUDA
-device) an update issues device work only, so a CUDA graph can hold it
-(``train_step.make_multi_train_step``): AdamW runs with ``capturable=True``
-and its lr is a device scalar, filled with ``lr_at`` per update, or, once
-``lr_from_table`` was called (before a capture), read from a device table
-of ``lr_at`` at a device update count.  Capturable AdamW computes its bias
-corrections on the device in float32 where the other computes them on the
-host in double, so every card run of the trainer, grouped or not, takes
-this one mode, and differs from the CPU's update by float32 rounding.  The
-Python counters ``updates``, ``micro`` and ``notfinite`` go on counting on
-the host.
+device) a micro-step issues device work only and makes no host
+synchronisation, so a CUDA graph can hold it
+(``train_step.make_multi_train_step``), with either flag:
+- AdamW runs with ``capturable=True``; its lr is a device scalar read from
+  a device table of ``lr_at`` (computed on the host: a device cosine would
+  differ from NumPy's float32 in the last bit) at the device count of
+  applied updates, ``_u``.  The table ends at ``total_iterations``: the host
+  counts the emit steps, a bound of ``_u``, and refuses to read past it
+  (``check_lr_table``).  Capturable AdamW computes its bias corrections on
+  the device in float32 where the other computes them on the host in
+  double, so every card run of the trainer, grouped or not, takes this one
+  mode.
+- ``updates`` and ``notfinite`` are device counters (reading them is a host
+  sync); ``micro`` stays on the host, since whether a micro-step emits an
+  update depends on the step count only (``emits_next``, ``next_micro``).
+- The accumulator is a static buffer, zeroed in place at the emit step; the
+  Welford divisor is read from a device micro-step count.
+- The non-finite check is a device flag; the update runs whatever it says
+  and is then undone by selection (``torch.where``) where it says skip:
+  the params, AdamW's moments and its step count, and ``_u`` stay as they
+  were, bit for bit.  AdamW's state is made (zero, as its first step makes
+  it) at construction, so that a skipped first update leaves it zero too.
+This form also runs on the CPU (``capturable=True``), with AdamW's own
+host-side mode, so that the tests hold it against optax.
 """
 
 from __future__ import annotations
@@ -99,8 +113,8 @@ def lr_table(cfg: TrainConfig, device) -> torch.Tensor:
 class Optimizer:
     """Call ``step()`` after every backward (micro-step); it applies an update
     every ``backprop_freq`` calls.  ``updates`` counts applied updates.
-    ``capturable`` (None: where the params lie on a CUDA device) issues an
-    update as device work only (the module's docstring)."""
+    ``capturable`` (None: where the params lie on a CUDA device) issues a
+    micro-step as device work only (the module's docstring)."""
 
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig, policy: str = "default",
                  capturable: Optional[bool] = None):
@@ -121,37 +135,100 @@ class Optimizer:
         self._sharded = [tp_ops.is_sharded(p) for p in self.params]
         device = self.grad_params[0].device if self.grad_params else torch.device("cpu")
         self.capturable = device.type == "cuda" if capturable is None else capturable
-        if self.capturable:
-            self._lr = torch.zeros((), dtype=torch.float32, device=device)
-        self._lr_table = self._u = None  # lr_from_table's
-        self.adamw = torch.optim.AdamW(groups, lr=self._lr if self.capturable else 0.0,
-                                       betas=(0.9, 0.999), eps=1e-8,
-                                       capturable=self.capturable)
-        self.updates = 0
         self.micro = 0
-        self.notfinite = 0
         self._acc = None
+        if not self.capturable:
+            self.adamw = torch.optim.AdamW(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+            self._u = self._notfinite = 0
+            return
+        self._lr = torch.zeros((), dtype=torch.float32, device=device)
+        self.adamw = torch.optim.AdamW(groups, lr=self._lr, betas=(0.9, 0.999), eps=1e-8,
+                                       capturable=device.type == "cuda")
+        self._ordered = [p for g in self.adamw.param_groups for p in g["params"]]
+        self._lr_table = lr_table(cfg, device)
+        self._u = torch.zeros(1, dtype=torch.long, device=device)  # the lr table's index
+        self._notfinite = torch.zeros((), dtype=torch.long, device=device)
+        self._bound = 0  # the host's count of emit steps: the most _u can hold
+        if cfg.backprop_freq > 1:
+            self._acc = [torch.zeros_like(p) for p in self.grad_params]
+            self._micro_d = torch.zeros((), dtype=torch.long, device=device)
+        self._fill_state()
+        self._keep = ([torch.empty_like(t) for t in self._guarded()]
+                      if cfg.skip_nonfinite_updates else None)
 
-    def lr_from_table(self) -> None:
-        """From now on read each update's lr from a device table of ``lr_at``
-        at a device update count, so that a CUDA graph of ``step`` reads
-        every replay's own.  The table is computed on the host (a device
-        cosine would differ from NumPy's float32 in the last bit) and ends
-        at ``total_iterations`` (``check_lr_table``)."""
-        self._lr_table = lr_table(self.cfg, self._lr.device)
-        self._u = torch.full((1,), self.updates, dtype=torch.long, device=self._lr.device)
+    @property
+    def updates(self) -> int:
+        """Applied updates (in the device form a read of the device count)."""
+        return int(self._u)
+
+    @updates.setter
+    def updates(self, n: int) -> None:
+        if self.capturable:
+            self._u.fill_(n)
+            self._bound = n
+        else:
+            self._u = n
+
+    @property
+    def notfinite(self) -> int:
+        """Consecutive non-finite updates (``optax.apply_if_finite``'s count)."""
+        return int(self._notfinite)
+
+    @notfinite.setter
+    def notfinite(self, n: int) -> None:
+        if self.capturable:
+            self._notfinite.fill_(n)
+        else:
+            self._notfinite = n
+
+    def emits_next(self) -> bool:
+        """Whether the next micro-step ends a ``backprop_freq`` cycle."""
+        return self.micro + 1 == self.cfg.backprop_freq
+
+    def emits_in(self, steps: int) -> int:
+        """How many of the next ``steps`` micro-steps end a cycle."""
+        return (self.micro + steps) // self.cfg.backprop_freq
+
+    def next_micro(self) -> bool:
+        """The host's count of one micro-step (``step`` makes it; a replayed
+        CUDA graph of a step makes it in its place); returns whether the
+        micro-step ended a cycle."""
+        emits = self.emits_next()
+        self.micro = 0 if emits else self.micro + 1
+        if emits and self.capturable:
+            self.check_lr_table(1)
+            self._bound += 1
+        return emits
 
     def check_lr_table(self, updates: int) -> None:
-        """Raise where ``updates`` more updates would read past the device lr
+        """Raise where ``updates`` more updates could read past the device lr
         table (a replayed graph reads it unchecked)."""
-        if self.updates + updates > self._lr_table.numel():
+        if self._bound + updates > self._lr_table.numel():
             raise ValueError(
-                f"updates {self.updates} + {updates} run past the lr table of total_iterations "
-                f"{self.cfg.total_iterations}: a graphed run stops at total_iterations")
+                f"updates {self._bound} + {updates} run past the lr table of total_iterations "
+                f"{self.cfg.total_iterations}: a run on the card stops at total_iterations")
 
     def zero_grad(self) -> None:
         for p in self.grad_params:
             p.grad = None
+
+    def _guarded(self) -> List[torch.Tensor]:
+        """What an update moves besides AdamW's step counts: the params, then
+        their first and second moments."""
+        state = self.adamw.state
+        return (self._ordered + [state[p]["exp_avg"] for p in self._ordered]
+                + [state[p]["exp_avg_sq"] for p in self._ordered])
+
+    def _fill_state(self) -> None:
+        """AdamW's state of every param that has none, made as its first step
+        makes it (zero moments, step 0) through ``load_state_dict``, which
+        puts each tensor where AdamW's mode wants it."""
+        sd = self.adamw.state_dict()
+        missing = {i: {"step": torch.tensor(0.0), "exp_avg": torch.zeros_like(p),
+                       "exp_avg_sq": torch.zeros_like(p)}
+                   for i, p in enumerate(self._ordered) if i not in sd["state"]}
+        if missing:
+            self.adamw.load_state_dict(dict(sd, state={**sd["state"], **missing}))
 
     def _map_shards(self, state: dict, fn) -> dict:
         """``state`` with ``fn(name, tensor)`` applied to AdamW's moments and
@@ -165,49 +242,110 @@ class Optimizer:
 
     def state_dict(self) -> dict:
         """Everything an exact resume needs: AdamW's moments, the counters,
-        and the accumulator of a part-done ``backprop_freq`` cycle; under
-        tensor parallelism gathered to the full shapes."""
+        and the accumulator of a part-done ``backprop_freq`` cycle (None at a
+        cycle's end); under tensor parallelism gathered to the full shapes."""
         state = {"adamw": self.adamw.state_dict(), "updates": self.updates, "micro": self.micro,
-                 "notfinite": self.notfinite, "acc": self._acc}
+                 "notfinite": self.notfinite,
+                 "acc": None if self.micro == 0 else [a.clone() for a in self._acc]}
         if self.tp_group is None:
             return state
         return self._map_shards(state, lambda n, x: tp_ops.gather_tensor(n, x, self.tp_group))
 
     def load_state_dict(self, state: dict) -> None:
+        """Before the first step of a CUDA graph: the device form's AdamW
+        state is replaced."""
         if self.tp_group is not None:  # a full state: this rank's shard of it
             r, tp = rank(self.tp_group), world_size(self.tp_group)
             state = self._map_shards(state, lambda n, x: tp_ops.shard_tensor(n, x, r, tp))
         adamw = state["adamw"]  # this optimizer's mode, whichever device wrote the state
-        adamw = dict(adamw, param_groups=[dict(g, capturable=self.capturable)
+        capturable = self.adamw.defaults["capturable"]
+        adamw = dict(adamw, param_groups=[dict(g, capturable=capturable)
                                           for g in adamw["param_groups"]])
         self.adamw.load_state_dict(adamw)
-        self.updates, self.micro, self.notfinite = (
-            int(state["updates"]), int(state["micro"]), int(state["notfinite"]))
-        if self._u is not None:
-            self._u.fill_(self.updates)
+        self.micro = int(state["micro"])
+        self.updates, self.notfinite = int(state["updates"]), int(state["notfinite"])
         acc = state["acc"]
-        self._acc = None if acc is None else [
-            a.to(p.device, p.dtype, copy=True) for a, p in zip(acc, self.grad_params)]
+        if not self.capturable:
+            self._acc = None if acc is None else [
+                a.to(p.device, p.dtype, copy=True) for a, p in zip(acc, self.grad_params)]
+            return
+        self._fill_state()
+        if self._acc is not None:
+            for i, a in enumerate(self._acc):
+                a.zero_() if acc is None else a.copy_(acc[i])
+            self._micro_d.fill_(self.micro)
 
     @torch.no_grad()
     def step(self) -> bool:
-        """Returns whether an update was applied."""
+        """Returns whether an update was applied; in the device form whether
+        the micro-step ended a cycle (the device decides whether its update
+        applies)."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.grad_params]
-        k = self.cfg.backprop_freq
-        if k > 1:
+        if self.capturable:
+            return self._device_step(grads)
+        if self.cfg.backprop_freq > 1:
             if self._acc is None:
                 self._acc = [torch.zeros_like(g) for g in grads]
             for a, g in zip(self._acc, grads):
                 a.add_((g - a) / (self.micro + 1))
-            self.micro += 1
-            if self.micro < k:
+            if not self.next_micro():
                 return False
-            grads, self._acc, self.micro = self._acc, None, 0
+            grads, self._acc = self._acc, None
         if self.cfg.skip_nonfinite_updates:
             finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
             self.notfinite = 0 if finite else self.notfinite + 1
             if not finite and self.notfinite <= MAX_CONSECUTIVE_ERRORS:
                 return False
+        self._update(grads, lr_at(self.cfg, self.updates))
+        self.updates += 1
+        return True
+
+    def _device_step(self, grads: List[torch.Tensor]) -> bool:
+        """``step`` as device work: the Welford mean over a static
+        accumulator, the lr from the table, and under
+        ``skip_nonfinite_updates`` the update undone where the device flag
+        says skip (the module's docstring)."""
+        emits = self.next_micro()
+        if self._acc is not None:
+            diff = torch._foreach_sub(grads, self._acc)
+            torch._foreach_div_(diff, (self._micro_d + 1).float())
+            torch._foreach_add_(self._acc, diff)
+            if not emits:
+                self._micro_d += 1
+                return False
+            self._micro_d.zero_()
+            grads = self._acc
+        self._lr.copy_(self._lr_table.index_select(0, self._u)[0])
+        if self._keep is None:
+            self._update(grads, self._lr)
+            self._u += 1
+        else:
+            # x·0 is NaN exactly where x is not finite
+            zeros = torch._foreach_mul(grads, 0.0)
+            finite = torch.isfinite(torch.stack(torch._foreach_norm(zeros))).all()
+            self._notfinite.copy_(torch.where(finite, 0, self._notfinite + 1))
+            apply = finite | (self._notfinite > MAX_CONSECUTIVE_ERRORS)
+            moved = self._guarded()
+            torch._foreach_copy_(self._keep, moved)
+            self._update(grads, self._lr)
+            self._undo_unless(apply, moved)
+            self._u += apply
+        if self._acc is not None:
+            torch._foreach_zero_(self._acc)
+        return True
+
+    def _undo_unless(self, apply: torch.Tensor, moved: List[torch.Tensor]) -> None:
+        """Where the device flag ``apply`` is false, ``moved`` (``_guarded``)
+        back to the copy in ``_keep`` and AdamW's step counts back by one.
+        A select, not a product with the flag: a NaN that the update made
+        goes too."""
+        for t, kept in zip(moved, self._keep):
+            torch.where(apply, t, kept, out=t)
+        steps = [self.adamw.state[p]["step"] for p in self._ordered]
+        torch._foreach_sub_(steps, [(~apply).float()] * len(steps))
+
+    def _update(self, grads: List[torch.Tensor], lr) -> None:
+        """Clip the (averaged) gradients and take AdamW's step at ``lr``."""
         by_param = dict(zip(map(id, self.grad_params), grads))
         train = [by_param[id(p)] for p in self.params]
         if self.cfg.clip_grad_norm > 0:
@@ -223,18 +361,9 @@ class Optimizer:
                 train = [torch.where(norm < mx, g, g / norm * mx) for g in train]
         for p, g in zip(self.params, train):
             p.grad = g
-        if self._lr_table is not None:
-            self.check_lr_table(1)
-            self._lr.copy_(self._lr_table.index_select(0, self._u)[0])
-            self._u += 1
-        elif self.capturable:
-            self._lr.fill_(lr_at(self.cfg, self.updates))
-        lr = self._lr if self.capturable else lr_at(self.cfg, self.updates)
         for group in self.adamw.param_groups:
             group["lr"] = lr
         self.adamw.step()
-        self.updates += 1
-        return True
 
 
 def whole_norms(norms, sharded, tp_group) -> torch.Tensor:

@@ -197,10 +197,15 @@ def make_train_step(
     return step
 
 
-def check_graphable(model: TANWithText, train_cfg: TrainConfig, group=None) -> None:
+def check_graphable(model: TANWithText, group=None) -> None:
     """Raise where a CUDA graph cannot hold the train step: a process group
-    that is not NCCL's, a tensor-parallel model, and the host branches of
-    ``--backprop_freq > 1`` and ``--skip_nonfinite``."""
+    that is not NCCL's (a gloo collective is host code, by design: gloo is
+    the port's host-collective stand-in) and a tensor-parallel model (its
+    graph would hold NCCL collectives over two or more ranks, one a card,
+    and no such run has been made).  ``--backprop_freq > 1`` and
+    ``--skip_nonfinite`` pass: no step branches on data on the host (the
+    optimizer counts on the device, and which kind of step comes next is
+    the host's count of steps, ``GraphedStep``)."""
     if group is not None:
         import torch.distributed as dist
 
@@ -212,12 +217,9 @@ def check_graphable(model: TANWithText, train_cfg: TrainConfig, group=None) -> N
                 "NCCL, or --steps_per_dispatch 1)")
     if tp_ops.model_tp_group(model) is not None:
         raise ValueError("grouped dispatch on the card takes no tensor-parallel model (--tp "
-                         "> 1): its steps run one at a time (--steps_per_dispatch 1)")
-    if train_cfg.backprop_freq != 1 or train_cfg.skip_nonfinite_updates:
-        raise ValueError(
-            "grouped dispatch on the card captures one update per step: --backprop_freq "
-            "> 1 and --skip_nonfinite branch on the host per step (they come with "
-            "ROADMAP 'Kernel and card work' item 2)")
+                         "> 1): its graph would hold NCCL collectives over two or more "
+                         "ranks, one a card, which no run has checked; its steps run one at "
+                         "a time (--steps_per_dispatch 1)")
 
 
 def make_multi_train_step(
@@ -233,45 +235,62 @@ def make_multi_train_step(
     device: the train steps of a group (``--steps_per_dispatch``), equal to
     as many ``make_train_step`` steps in order (counterpart of JAX
     train/train_step.py::make_multi_train_step, a ``lax.scan`` over the
-    group).  ``multi.generator`` is the step's; ``multi.updates_after``
-    lists ``optimizer.updates`` after each step of the last group.
+    group).  ``multi.generator`` is the step's; ``multi.updates_after`` is
+    ``optimizer.updates`` after each step of the last group, a [len(batches)]
+    tensor on the device (``fetch_group`` reads both in one copy).
 
     On the CPU a group is that many eager steps.  On the card
-    (``GraphedStep``) the first ``GraphedStep.WARMUP`` batches are eager
-    steps; then one whole step (``step.run``: forward, loss, backward,
-    update and, in Stage 2, the EMA) is captured in a CUDA graph on static
-    input buffers, and each later batch is one replay.  A shorter tail
-    group is fewer replays.  A failed capture raises; the card never falls
-    back to eager steps.  The graph holds device work only, so what the host
-    does per step runs per replay outside it: the pos-start draws (all of a
-    group's, in step order, copied in one pinned transfer) and the training
-    counters that a step advances in Python (``optimizer.updates``,
-    ``EMATwin.micro_steps``).  A replay passes no kernel wrapper, so the
-    wrappers' launch counts hold the eager steps' launches and the
-    capture's, once.  ``--backprop_freq > 1`` and ``--skip_nonfinite``
-    branch on the host per step and are refused on the card, and so is a
-    group that would run past ``total_iterations``, where the device lr
-    table ends (``Optimizer.lr_from_table``).  Under an NCCL process group
-    the graph holds the step's collectives too (the text all-gather, the
-    column-logsumexp merges, the ``milnce_dt`` reduce-scatter, the loss
-    statistics, the gradient average), each on buffers of the graph's pool,
-    the same on every replay.  The card refuses a gloo group (a gloo
-    collective is host code, which a CUDA graph cannot hold) and a
-    tensor-parallel model; the CPU runs its eager steps under any group."""
+    (``GraphedStep``) the first batches are eager steps, at least
+    ``GraphedStep.WARMUP`` and at least one ``backprop_freq`` cycle; then
+    the whole step (``step.run``: forward, loss, backward, the optimizer's
+    micro-step and, in Stage 2, the EMA) is captured in a CUDA graph on
+    static input buffers, once per kind of step: with ``backprop_freq`` k >
+    1 an accumulate-only step and an accumulate-and-emit step (two graphs
+    in one memory pool), else one.  Each later batch is one replay of its
+    kind's graph; a shorter tail group is fewer replays.  Whether a step
+    emits is the host's count of steps, not data; the optimizer's counters
+    that depend on data (applied updates, consecutive non-finite updates)
+    and the Welford divisor live on the device (``Optimizer``, the device
+    form), so ``--backprop_freq > 1`` and ``--skip_nonfinite`` replay as
+    any step does.  A failed capture raises; the card never falls back to
+    eager steps.  The graph holds device work only, so what the host does
+    per step runs per replay outside it: the pos-start draws (all of a
+    group's, in step order, copied in one pinned transfer) and the
+    counts of steps (``Optimizer.next_micro``, ``EMATwin.micro_steps``).  A
+    replay passes no kernel wrapper, so the wrappers' launch counts hold
+    the eager steps' launches and the captures'.  A group that could run
+    past ``total_iterations``, where the device lr table ends, is refused.
+    Under an NCCL process group the graph holds the step's collectives too
+    (the text all-gather, the column-logsumexp merges, the ``milnce_dt``
+    reduce-scatter, the loss statistics, the gradient average), each on
+    buffers of the graph's pool, the same on every replay.  The card
+    refuses a gloo group and a tensor-parallel model
+    (``check_graphable``); the CPU runs its eager steps under any group."""
     step = make_train_step(model, optimizer, train_cfg, loss_cfg, compute_dtype, twin, group)
     if step.device.type == "cuda":
-        check_graphable(model, train_cfg, group)
+        check_graphable(model, group)
+        if not optimizer.capturable:
+            raise ValueError("a CUDA graph of the train step takes a capturable Optimizer")
         multi = GraphedStep(step)
     else:
         def multi(batches):
-            rows = []
-            multi.updates_after = []
+            rows, counts = [], []
             for b in batches:
                 rows.append(step(b))
-                multi.updates_after.append(optimizer.updates)
+                counts.append(optimizer.updates)
+            multi.updates_after = torch.tensor(counts)
             return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
     multi.generator = step.generator
     return multi
+
+
+def fetch_group(metrics: Dict[str, torch.Tensor], updates_after: torch.Tensor):
+    """A group's metrics ({name: [K]}) and update counts ([K]) on the host in
+    one copy (float64: exact for both).  Returns ({name: [K] float64}, [K]
+    ints)."""
+    host = torch.cat([torch.stack([v.double() for v in metrics.values()]),
+                      updates_after.double()[None]]).cpu()
+    return dict(zip(metrics, host[:-1])), host[-1].long().tolist()
 
 
 def _read_counts() -> Dict[str, Dict[str, int]]:
@@ -280,23 +299,28 @@ def _read_counts() -> Dict[str, Dict[str, int]]:
 
 
 class GraphedStep:
-    """One train step (``make_train_step``'s) captured in a CUDA graph and
-    replayed per batch.
+    """One train step (``make_train_step``'s) captured in a CUDA graph per
+    kind of step and replayed per batch.
 
-    The first WARMUP batches are eager steps on a side stream, which train
-    as any step does and leave made what a capture must not make (cuBLAS's
-    handles, the kernels' libraries, AdamW's state).  The next batch's
-    shapes fix the static buffers, on which ``step.run`` is captured once;
-    that batch and every later one is a replay.  The capture trains
-    nothing, so the counters it advanced in Python are set back.
-    ``launches_per_step`` is what the wrappers counted at capture (they
-    count no replay)."""
+    The first ``warmup`` batches (WARMUP, and at least one ``backprop_freq``
+    cycle, so that every kind of step ran) are eager steps on a side
+    stream, which train as any step does and leave made what a capture must
+    not make (cuBLAS's handles, the kernels' libraries).  The next batch's
+    shapes fix the static buffers, on which ``step.run`` is captured once
+    per kind (``kinds``: whether the step emits an update); that batch and
+    every later one is a replay.  A capture trains nothing (its device work
+    is recorded, not run), so the counts of steps it advanced on the host
+    are set back.  ``launches_per_step`` is what the wrappers counted at a
+    capture (they count no replay)."""
 
     WARMUP = 2
 
     def __init__(self, step):
         self.step = step
-        self.graph = None
+        k = step.optimizer.cfg.backprop_freq
+        self.kinds = (False, True) if k > 1 else (True,)
+        self.warmup = max(self.WARMUP, k)
+        self.graphs = {}
         self.warm = 0
 
     def _warm_up(self, batches: List[Dict[str, torch.Tensor]]) -> List[torch.Tensor]:
@@ -308,9 +332,9 @@ class GraphedStep:
             for b in batches:
                 metrics = step(b)
                 rows.append(torch.stack([v.float() for v in metrics.values()]))
-                self.updates_after.append(step.optimizer.updates)
+                self.counts.append(step.optimizer._u.clone())
         main.wait_stream(side)
-        for r in rows:
+        for r in rows + self.counts:
             r.record_stream(main)
         self.names = list(metrics)
         self.warm += len(batches)
@@ -319,43 +343,52 @@ class GraphedStep:
     def _capture(self, batch: Dict[str, torch.Tensor], random_starts: bool) -> None:
         step, dev = self.step, self.step.device
         opt, twin = step.optimizer, step.twin
-        self.static = {k: v.to(dev, copy=True) for k, v in batch.items()}
+        k = opt.cfg.backprop_freq
+        if twin is not None and twin.micro_steps % k != opt.micro:
+            raise ValueError("the EMA twin and the optimizer count their micro-steps apart")
+        self.static = {key: v.to(dev, copy=True) for key, v in batch.items()}
         self.pos = torch.zeros(3, dtype=torch.long, device=dev) if random_starts else None
-        opt.lr_from_table()
-        opt.zero_grad()
-        counters = (opt.updates, twin.micro_steps if twin is not None else 0)
+        counters = (opt.micro, opt._bound, twin.micro_steps if twin is not None else 0)
+        pool = torch.cuda.graph_pool_handle()
         before = _read_counts()
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: the loader's threads may pin host memory meanwhile
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            metrics = step.run(self.static, self.pos)
-            self.row = torch.stack([v.float() for v in metrics.values()])
+        for emits in self.kinds:
+            opt.micro = k - 1 if emits else 0  # the host branches of this kind of step
+            if twin is not None:
+                twin.micro_steps = opt.micro
+            opt.zero_grad()
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: the loader's threads may pin host memory meanwhile
+            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+                metrics = step.run(self.static, self.pos)
+                row = torch.stack([v.float() for v in metrics.values()])
+            self.graphs[emits] = graph, row
         after = _read_counts()
-        self.launches_per_step = {n: {r: after[n][r] - before[n][r] for r in after[n]}
-                                  for n in after}
-        opt.updates = counters[0]
+        n = len(self.kinds)
+        self.launches_per_step = {name: {r: (after[name][r] - before[name][r]) // n
+                                         for r in after[name]} for name in after}
+        opt.micro, opt._bound = counters[:2]
         if twin is not None:
-            twin.micro_steps = counters[1]
-        self.graph = graph
+            twin.micro_steps = counters[2]
 
     def __call__(self, batches: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
         step, dev = self.step, self.step.device
-        self.updates_after = []
+        opt = step.optimizer
+        self.counts = []
         rows = []
-        n = min(self.WARMUP - self.warm, len(batches))
+        n = min(self.warmup - self.warm, len(batches))
         if n > 0:
             rows = self._warm_up(batches[:n])
             batches = batches[n:]
         if batches:
             starts = [step.draw(b) for b in batches]  # on the host, in step order
-            if self.graph is None:
+            if not self.graphs:
                 self._capture(batches[0], starts[0] is not None)
             for b in batches:
                 if b.keys() != self.static.keys() or any(
                         b[k].shape != v.shape or b[k].dtype != v.dtype
                         for k, v in self.static.items()):
                     raise ValueError("a graphed train step takes batches of one shape and dtype")
-            step.optimizer.check_lr_table(len(batches))
+            opt.check_lr_table(opt.emits_in(len(batches)))
             if self.pos is not None:
                 starts = torch.tensor(starts).pin_memory().to(dev, non_blocking=True)
             for i, b in enumerate(batches):
@@ -363,11 +396,13 @@ class GraphedStep:
                     v.copy_(b[k], non_blocking=True)
                 if self.pos is not None:
                     self.pos.copy_(starts[i])
-                self.graph.replay()
-                rows.append(self.row.clone())
-                step.optimizer.updates += 1
-                self.updates_after.append(step.optimizer.updates)
+                graph, row = self.graphs[opt.emits_next()]
+                graph.replay()
+                rows.append(row.clone())
+                opt.next_micro()
+                self.counts.append(opt._u.clone())
                 if step.twin is not None:
                     step.twin.micro_steps += 1
+        self.updates_after = torch.cat(self.counts)
         rows = torch.stack(rows)
         return {k: rows[:, j] for j, k in enumerate(self.names)}

@@ -2,11 +2,13 @@
 tests/test_resume.py:192-260) and what a CUDA graph of the train step needs
 of the model and the optimizer: on the CPU, a grouped run against the
 per-step run, bit-equal, with an epoch's tail group and a mid-epoch resume;
-the overshoot line; the random pos starts as a device index; the device lr
+the overshoot line; --backprop_freq 3 with --skip_nonfinite grouped and
+resumed mid-cycle; the random pos starts as a device index; the device lr
 table and its end; what a graph refuses (a gloo group, a tensor-parallel
-model, the host branches).  On a card (``cuda``): a group of eager warm-up
-steps and replays against as many eager steps, also under a world-of-one
-NCCL group (the collectives captured).  The CPU tests'
+model).  On a card (``cuda``): a group of eager warm-up steps and replays
+against as many eager steps, Stage 1 and cotrain, at --backprop_freq 1, 2
+and 3 and with --skip_nonfinite and a non-finite batch, also under a
+world-of-one NCCL group (the collectives captured).  The CPU tests'
 JAX-free fixtures are imported inside them, so the card's tests collect
 without JAX:
 
@@ -188,17 +190,19 @@ def test_device_lr_table_equals_lr_at():
 
 def test_lr_table_refuses_updates_past_total_iterations():
     """A graphed run reads the lr from the table unchecked, so a group that
-    would run past total_iterations is refused before it replays; the
-    eager lr needs no table."""
+    would run past total_iterations is refused before it replays, and so is
+    an eager step of the device form; the host form's lr needs no table."""
     model = _setup()[0]
+    assert not hasattr(Optimizer(model, TrainConfig(total_iterations=20)), "_lr_table")
     opt = Optimizer(model, TrainConfig(total_iterations=20), capturable=True)
-    assert opt._lr_table is None
     opt.updates = 19
-    opt.lr_from_table()
-    assert opt._u.tolist() == [19]
+    assert opt._u.tolist() == [19] and opt._lr_table.numel() == 21
     opt.check_lr_table(2)  # updates 19 and 20: the table's last two
-    with pytest.raises(ValueError, match="graphed run stops at total_iterations"):
+    with pytest.raises(ValueError, match="stops at total_iterations"):
         opt.check_lr_table(3)
+    opt.updates = 21
+    with pytest.raises(ValueError, match="stops at total_iterations"):
+        opt.step()
 
 
 def test_grouped_steps_equal_single_steps_on_the_cpu():
@@ -207,56 +211,74 @@ def test_grouped_steps_equal_single_steps_on_the_cpu():
     want = [step(b) for b in batches]
     model, opt, multi, twin = _setup(cotrain=True, multi=True)
     got = multi(batches)
-    assert multi.updates_after == [1, 2, 3] and twin.micro_steps == 3
+    assert multi.updates_after.tolist() == [1, 2, 3] and twin.micro_steps == 3
     for k in want[0]:
         assert torch.equal(got[k], torch.stack([w[k] for w in want])), k
     _assert_equal(ref_model.state_dict(), model.state_dict())
     assert torch.equal(multi.generator.get_state(), step.generator.get_state())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("cotrain", [False, True], ids=["init", "cotrain"])
-def test_graphed_group_equals_eager_steps_on_card(cuda, cotrain):
-    """A group (the eager warm-up steps, then replays of the captured step)
-    against as many eager steps from the same state: equal losses, params
-    and twin, to the bit.  The wrappers count the warm-up's launches and the
-    capture's, and no replay's."""
-    from temporalalignnet_torch.ops.mha_fwd import mha_fwd
-    from temporalalignnet_torch.train.train_step import GraphedStep
+# the card's grouped cases: (cotrain, TrainConfig flags, the batch made non-finite)
+CARD_CASES = {"init": (False, {}, None), "cotrain": (True, {}, None),
+              "init_backprop_freq_3": (False, dict(backprop_freq=3), None),
+              "cotrain_backprop_freq_2": (True, dict(backprop_freq=2), None),
+              "init_skip_nonfinite": (False, dict(skip_nonfinite_updates=True), 3)}
 
-    n = GraphedStep.WARMUP + 2
-    batches = [{k: v.pin_memory() for k, v in _batch(s).items()} for s in range(n)]
-    model, opt, step, twin = _setup(cotrain, cuda)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_graphed_group_equals_eager_steps_on_card(cuda, case):
+    """Groups (the eager warm-up steps, then replays of the captured steps,
+    one graph per kind of step) against as many eager steps from the same
+    state: equal losses, params, twin, update counts and non-finite count,
+    to the bit.  Two groups, so that replays of both kinds run at k = 3 and
+    a cycle crosses the groups; the non-finite batch is replayed.  The
+    wrappers count the warm-up's launches and the captures', and no
+    replay's."""
+    from temporalalignnet_torch.ops.mha_fwd import mha_fwd
+
+    cotrain, flags, bad = CARD_CASES[case]
+    batches = [{k: v.pin_memory() for k, v in _batch(s).items()} for s in range(8)]
+    if bad is not None:
+        batches[bad]["video"][0, 0, 0] = float("nan")
+    model, opt, step, twin = _setup(cotrain, cuda, **flags)
     want = torch.stack([step(b)["loss"] for b in batches])
-    gmodel, gopt, multi, gtwin = _setup(cotrain, cuda, multi=True)
+    gmodel, gopt, multi, gtwin = _setup(cotrain, cuda, multi=True, **flags)
     before = mha_fwd.launches
-    got = multi(batches)["loss"]
+    got = torch.cat([multi(batches[:4])["loss"], multi(batches[4:])["loss"]])
     torch.cuda.synchronize()
     per_step = multi.launches_per_step["mha_fwd"][""]
     assert per_step == (8 if cotrain else 4)
-    assert mha_fwd.launches == before + (GraphedStep.WARMUP + 1) * per_step
-    assert torch.equal(got, want) and gopt.updates == opt.updates == n
-    assert multi.updates_after == list(range(1, n + 1))
+    assert mha_fwd.launches == before + (multi.warmup + len(multi.kinds)) * per_step
+    assert torch.equal(got.isnan(), want.isnan()) and got.isnan().sum() == (bad is not None)
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert gopt.updates == opt.updates and gopt.notfinite == opt.notfinite
+    assert gopt.micro == opt.micro and multi.updates_after.tolist()[-1] == opt.updates
     _assert_equal(model.state_dict(), gmodel.state_dict())
+    _assert_equal(opt.adamw.state_dict(), gopt.adamw.state_dict())
     if cotrain:
         _assert_equal(twin.model.state_dict(), gtwin.model.state_dict())
-        assert gtwin.micro_steps == twin.micro_steps == n
+        assert gtwin.micro_steps == twin.micro_steps == len(batches)
+    if bad is not None:
+        assert opt.updates == len(batches) - 1
 
 
-@pytest.mark.cuda
-def test_graphed_steps_refuse_host_branches(cuda):
-    for kw in (dict(backprop_freq=2), dict(skip_nonfinite_updates=True)):
-        with pytest.raises(ValueError, match="host"):
-            _setup(device=cuda, multi=True, **kw)
-
-
-def test_cli_refuses_host_branches_grouped_on_card_only(data, tmp_path):
-    """On the CPU --steps_per_dispatch runs with --backprop_freq 2 (eager
-    steps); the card refuses it (test_graphed_steps_refuse_host_branches)."""
-    out, _ = _run(data, tmp_path, "--steps_per_dispatch", "2", "--backprop_freq", "2",
-                  "--max_steps", "4")
-    assert out["final_step"] == 4 and out["loss_finite"]
-    assert os.path.exists(out["checkpoint"])
+def test_cli_grouped_with_backprop_freq_equals_the_per_step_run(data, tmp_path, capsys):
+    """--steps_per_dispatch 2 with --backprop_freq 3 and --skip_nonfinite 1
+    (on the card captured as two kinds of step), stopped past --max_steps 3
+    mid-cycle and resumed grouped: the losses and the final weights and
+    optimizer state equal the uninterrupted per-step run's."""
+    flags = ("--backprop_freq", "3", "--skip_nonfinite", "1")
+    whole, whole_log = _run(data, tmp_path / "a", *flags, capsys=capsys)
+    _, stopped_log = _run(data, tmp_path / "b", *flags, "--steps_per_dispatch", "2",
+                          "--max_steps", "3", capsys=capsys)
+    resumed, resumed_log = _run(data, tmp_path / "b", *flags, "--steps_per_dispatch", "2",
+                                "--resume", "auto", capsys=capsys)
+    assert "[resume] at step 4 (epoch 0, batch 4)" in resumed_log
+    assert resumed["final_step"] == whole["final_step"] == 10
+    assert _losses(stopped_log) + _losses(resumed_log) == _losses(whole_log)
+    _assert_equal(_final(whole), _final(resumed))
+    assert _final(whole)[1]["updates"] == 3
 
 
 @pytest.fixture
@@ -272,25 +294,26 @@ def world_of_one():
         distributed.destroy()
 
 
-@pytest.mark.parametrize("what", ["gloo", "tensor_parallel", "host_branch"])
+@pytest.mark.parametrize("what", ["gloo", "tensor_parallel"])
 def test_graph_refusals_say_why(world_of_one, what):
     """What a CUDA graph of the step cannot hold, refused with its reason
     (``check_graphable``, which the card runs before a capture): a gloo
-    group's collectives are host code; a tensor-parallel model; the host
-    branches of --backprop_freq > 1.  An NCCL group passes."""
+    group's collectives are host code; a tensor-parallel model's graph
+    would hold NCCL collectives over two or more ranks, one a card.  A
+    model without either passes, whatever its --backprop_freq and
+    --skip_nonfinite (the card's cases run them)."""
     from temporalalignnet_torch.parallel.tensor import TPGroup
     from temporalalignnet_torch.train.train_step import check_graphable
 
     model = _setup()[0]
-    tcfg = TrainConfig(lr=1e-3, backprop_freq=2 if what == "host_branch" else 1)
     group = world_of_one if what == "gloo" else None
     if what == "tensor_parallel":
         model.joint_temporal_encoder.resblocks[0].attn.tp = TPGroup(world_of_one)
-    match = {"gloo": "gloo collective is host code", "tensor_parallel": "tensor-parallel",
-             "host_branch": "branch on the host"}[what]
+    match = {"gloo": "gloo collective is host code",
+             "tensor_parallel": "tensor-parallel model.*two or more ranks, one a card"}[what]
     with pytest.raises(ValueError, match=match):
-        check_graphable(model, tcfg, group)
-    check_graphable(_setup()[0], TrainConfig(lr=1e-3))  # no group, no branch: capturable
+        check_graphable(model, group)
+    check_graphable(_setup()[0])  # no group, no tensor parallelism: capturable
 
 
 def test_grouped_steps_under_a_group_equal_single_steps_on_the_cpu(world_of_one):

@@ -90,10 +90,13 @@ def _assert_equal(a, b, path=""):
 # ---------------------------------------------------------------- optimizer
 
 
-def test_optimizer_state_round_trip_mid_accumulation(tmp_path):
+@pytest.mark.parametrize("capturable", [False, True], ids=["host_form", "device_form"])
+def test_optimizer_state_round_trip_mid_accumulation(tmp_path, capturable):
     """backprop_freq 3, saved after 4 micro-steps (one update, one gradient
     in the accumulator) and loaded into a fresh optimizer of a copy of the
-    model: both continue bit-equal."""
+    model: both continue bit-equal, in either form of the optimizer (the
+    device form's static accumulator and device counters round-trip the
+    same file format)."""
     model = TANWithText(ModelConfig(**TINY), vocab_size=51)
     model.init_weights(torch.Generator().manual_seed(0))
     cfg = TrainConfig(lr=1e-3, warmup_iterations=1, total_iterations=10, backprop_freq=3,
@@ -108,12 +111,12 @@ def test_optimizer_state_round_trip_mid_accumulation(tmp_path):
                 p.grad = g.clone()
             opt.step()
 
-    opt = Optimizer(model, cfg)
+    opt = Optimizer(model, cfg, capturable=capturable)
     run(opt, model, grads[:4])
     assert opt.updates == 1 and opt.micro == 1
     torch.save(opt.state_dict(), tmp_path / "opt.pt")
     twin = copy.deepcopy(model)
-    opt2 = Optimizer(twin, cfg)
+    opt2 = Optimizer(twin, cfg, capturable=capturable)
     opt2.load_state_dict(torch.load(tmp_path / "opt.pt", weights_only=True))
     run(opt, model, grads[4:])
     run(opt2, twin, grads[4:])

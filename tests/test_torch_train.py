@@ -178,14 +178,17 @@ def test_param_groups():
     assert not no_decay("temporal_pos_embed")
 
 
+@pytest.mark.parametrize("capturable", [False, True], ids=["host_form", "device_form"])
 @pytest.mark.parametrize("clip_mode,backprop_freq,nan_at,n_updates", [
     ("global", 1, (3, 4), 8), ("per_param", 2, (), 5)])
 def test_optimizer_matches_optax_on_a_gradient_sequence(rng, clip_mode, backprop_freq, nan_at,
-                                                        n_updates):
+                                                        n_updates, capturable):
     """Global or per-param clipping, skip_nonfinite_updates and backprop_freq
-    against the JAX package's optax chain on the same gradients.  NaN
-    gradients are skipped (no update; moments and schedule untouched).  They
-    are not mixed with accumulation: in optax.MultiSteps a NaN stays in the
+    against the JAX package's optax chain on the same gradients, in the
+    optimizer's host form and its device form (the card's: device counters,
+    a static accumulator, the update undone by selection).  NaN gradients
+    are skipped (no update; moments and schedule untouched).  They are not
+    mixed with accumulation: in optax.MultiSteps a NaN stays in the
     accumulator after the skipped emit ((1 - emit) * NaN), so every later
     update is skipped too; the port resets its accumulator instead."""
     import optax
@@ -203,7 +206,7 @@ def test_optimizer_matches_optax_on_a_gradient_sequence(rng, clip_mode, backprop
     module = torch.nn.Module()
     for k, v in init.items():
         module.register_parameter(k, torch.nn.Parameter(to_torch(v.copy())))
-    opt = Optimizer(module, TrainConfig(**kw))
+    opt = Optimizer(module, TrainConfig(**kw), capturable=capturable)
     for i in range(10):
         grads = {k: rng.randn(*v.shape).astype(np.float32) for k, v in init.items()}
         if i in nan_at:
@@ -218,6 +221,56 @@ def test_optimizer_matches_optax_on_a_gradient_sequence(rng, clip_mode, backprop
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[k]), atol=1e-6,
                                        rtol=1e-5, err_msg=f"{k} after micro-step {i}")
     assert opt.updates == n_updates
+
+
+@pytest.mark.parametrize("capturable", [False, True], ids=["host_form", "device_form"])
+def test_consecutive_nonfinite_limit_matches_optax(rng, capturable):
+    """MAX_CONSECUTIVE_ERRORS non-finite gradients in a row are skipped; the
+    next one goes through (optax.apply_if_finite with the same limit, the
+    JAX package's chain): per-param clipping keeps the NaN in ``w``, so
+    ``w`` turns NaN in both and ``bias`` takes its update; a finite
+    gradient then resets the count."""
+    import optax
+
+    from temporalalignnet_torch.train.optimizer import MAX_CONSECUTIVE_ERRORS
+    from temporalalignnet_tpu.train.optimizer import make_optimizer
+
+    # the device form's lr table is bounded by the steps that end a cycle, skipped or not
+    kw = dict(lr=1e-2, wd=0.1, warmup_iterations=2, total_iterations=MAX_CONSECUTIVE_ERRORS + 4,
+              clip_grad_norm=0.5, clip_mode="per_param", skip_nonfinite_updates=True)
+    init = {"w": rng.randn(5, 3).astype(np.float32), "bias": rng.randn(3).astype(np.float32)}
+    tx = make_optimizer(jcfg.TrainConfig(**kw), init)
+    update = jax.jit(tx.update)
+    jparams = {k: jnp.asarray(v) for k, v in init.items()}
+    jstate = tx.init(jparams)
+    module = torch.nn.Module()
+    for k, v in init.items():
+        module.register_parameter(k, torch.nn.Parameter(to_torch(v.copy())))
+    opt = Optimizer(module, TrainConfig(**kw), capturable=capturable)
+    n = MAX_CONSECUTIVE_ERRORS + 3  # two finite, the run of skips, the one let through
+    for i in range(n):
+        grads = {k: rng.randn(*v.shape).astype(np.float32) for k, v in init.items()}
+        if i >= 2:
+            grads["w"][0, 0] = np.nan
+        updates, jstate = update({k: jnp.asarray(v) for k, v in grads.items()}, jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for k, p in module.named_parameters():
+            p.grad = to_torch(grads[k])
+        opt.step()
+        if i == n - 2:  # the last skip: as after the two finite updates
+            assert opt.updates == 2 and opt.notfinite == MAX_CONSECUTIVE_ERRORS
+            assert not np.isnan(module.w.detach().numpy()).any()
+    assert opt.updates == 3 and opt.notfinite == MAX_CONSECUTIVE_ERRORS + 1
+    assert int(jstate.notfinite_count) == MAX_CONSECUTIVE_ERRORS + 1
+    assert np.isnan(module.w.detach().numpy()).all() and np.isnan(np.asarray(jparams["w"])).all()
+    np.testing.assert_allclose(module.bias.detach().numpy(), np.asarray(jparams["bias"]),
+                               atol=1e-6, rtol=1e-5)
+    grads = {k: rng.randn(*v.shape).astype(np.float32) for k, v in init.items()}
+    _, jstate = update({k: jnp.asarray(v) for k, v in grads.items()}, jstate, jparams)
+    for k, p in module.named_parameters():
+        p.grad = to_torch(grads[k])
+    opt.step()
+    assert opt.notfinite == int(jstate.notfinite_count) == 0 and opt.updates == 4
 
 
 # ------------------------------------------------------ whole train steps
