@@ -10,8 +10,8 @@ linear probe), the BERT TAN at bert-base-uncased's widths (training, both
 CLIs), the CLIP baseline and the CLIP and TimeSformer feature extractors,
 data-parallel training and sharded evaluation (two ranks on the card by
 gloo, a world of one by NCCL, also as a CUDA graph), tensor parallelism
-(two ranks by gloo) and the offline text pipeline's BERT punctuator, and
-times them.
+(two ranks by gloo), the offline text pipeline's BERT punctuator and the
+cross-attention decoder stack, and times them.
 
     python3 chip_smoke.py
 
@@ -61,6 +61,19 @@ Phases, each printing JSON lines:
              those of the path that also ran the dual encoder (ms of one
              call both ways).  Then the same evaluation in f32 on the card
              and on the CPU must agree.
+     decoder  slice 13 (after the eval forward's times, before any child
+             runs): models/transformer.py::TemporalDecoder at the TAN's
+             width (DECODER: 512, 8 heads, 6 blocks) over B = 64 windows of
+             T = 64 video tokens (the last quarter of each padded) and a
+             ragged memory of M = 16 tokens: f32 taps and gradients (every
+             parameter, x, the memory) on the card against the CPU
+             (F32_STEP_TOL), bf16 (autocast) against the plain attention on
+             the card (TRAIN_GRAD_TOL, norm-relative), the padded memory
+             rows set to 999 leaving the taps as they were; each forward
+             launching mha_fwd 6 times (short; f32), each backward mha_bwd 6
+             (fused; f32), no MIL-NCE kernel; the cross-attention plain
+             (counted).  Its bf16 forward's and forward+backward's device
+             ms come from the ``decoder`` step-time child.
      cli     python -m temporalalignnet_torch.eval on a .pth.tar of that model
              and a corpus written to build/chip_smoke_cli/, against the
              in-process evaluator.
@@ -81,6 +94,11 @@ Phases, each printing JSON lines:
              files, then python -m temporalalignnet_torch.eval on the
              .pth.tar it wrote: --task align, and at the same time --task
              retrieval on the YC2 corpus below (checked in retrieval_cli).
+             Beside them since slice 13 the train CLI at --seq_len 128 (2
+             steps on build/chip_smoke_train_t128/, videos of 128 s or
+             more) in a child that counts the wrappers' launches: per step
+             12 mha_fwd (6 short, 6 long) and 12 mha_bwd (6 fused for the
+             dual encoder, 6 long for the joint encoder's S = 144).
      retrieval  RetrievalEvaluator (10 windows per clip, bf16) on the
              checkpoint train_cli wrote and a synthetic YouCook2-format corpus
              written to build/chip_smoke_yc2/ (64 videos, every window bucket
@@ -262,9 +280,10 @@ Phases, each printing JSON lines:
              beside the same forward as a loaded torch.export program.
              Last, in child processes (STEP_TIME_CHILDREN), train steps/s
              at B = 64 (Stage 1 and cotrain), each with its device time,
-             peak memory and top kernels; and e2e steps/s and clips/s at
+             peak memory and top kernels; e2e steps/s and clips/s at
              E2E with the device time, idle share, peak memory and the bound
-             from S3D's multiply-adds; ``--step-times`` adds the rest
+             from S3D's multiply-adds; since slice 13 the decoder phase's
+             bf16 forward and forward + backward (device ms, ms, idle share); ``--step-times`` adds the rest
              (STEP_TIME_MORE): the device ms of a retrieval forward call at
              Lb = 96 and 256, Stage 1 with --remat, Stage 1 and cotrain as a
              CUDA graph per step (--steps_per_dispatch GROUP_K), Stage 1 at
@@ -304,7 +323,13 @@ Phases, each printing JSON lines:
              tools.bench_e2e_step --batch_size 16 (the e2e child's step, 2
              rounds of 10, then a trace of 10 steps under build/): its
              steps/s within BENCH_E2E_RATE of 1000 / that child's device ms,
-             and the trace must exist (its device events printed); tools.bench_loader
+             and the trace must exist (its device events printed); since
+             slice 13 tools.bench_e2e_step --batch_size 32 with
+             --train_bn_stats 1, --freeze_early 1 and --f32 (a round of 5
+             steps and a trace of 10 each): the bf16 runs' steps/s within
+             BENCH_E2E_RATE of 1000 / the device ms a step of their own
+             trace, the f32 run's finite; no e2e run launches a port kernel;
+             tools.bench_loader
              at its defaults, --metadata 20000 and --vlen_files 2000, each
              line parsed.  A bench_tool line per run.
 A ``phase_seconds`` line gives each phase's wall seconds.  The child
@@ -1291,10 +1316,10 @@ def phase_milnce_check(torch):
     return worst
 
 
-def make_train_files(root, num_videos, seed):
+def make_train_files(root, num_videos, seed, min_len=80):
     """A HowTo100M-format feature dir ({vid}.mp4.npy, 1 fps S3D-width
-    features), sentencified captions over the vocab 'w0'..'w66249', and that
-    vocab as an s3d_dict-style .npy."""
+    features, min_len to 200 s), sentencified captions over the vocab
+    'w0'..'w66249', and that vocab as an s3d_dict-style .npy."""
     rng = np.random.RandomState(seed)
     feats = os.path.join(root, "features")
     os.makedirs(feats, exist_ok=True)
@@ -1302,7 +1327,7 @@ def make_train_files(root, num_videos, seed):
     np.save(vocab, np.array([f"w{i}" for i in range(66250)]))
     captions = {}
     for i in range(num_videos):
-        vlen = int(rng.randint(80, 201))
+        vlen = int(rng.randint(min_len, 201))
         np.save(os.path.join(feats, f"vid{i:03d}.mp4.npy"),
                 rng.randn(vlen, 1024).astype(np.float32))
         t, rec = float(rng.rand() * 3), {"text": [], "start": [], "end": []}
@@ -2033,15 +2058,17 @@ def phase_cotrain_cli(torch, files, stage1_ckpt, eval_files):
           f"eval of the twin checkpoint: {metrics}")
 
 
-def phase_train_cli(torch, files, eval_files, yc2_files):
+def phase_train_cli(torch, files, eval_files, yc2_files, cli_t128):
     """The user's entry point, ``python -m temporalalignnet_torch.train`` on the
     card (defaults: E6D6, B = 64, bf16, fused MIL-NCE), then at once the eval
     CLI's two tasks on the .pth.tar it wrote: HTM-Align, checked here, and YC2
     retrieval, whose metrics phase_retrieval_cli holds against the
-    in-process evaluator."""
+    in-process evaluator.  Beside them the ``start_cli_t128`` child, released
+    here and read last."""
     feats, captions, vocab = files
     prefix = os.path.join(REPO, "build", "chip_smoke_train", "exp")
     t0 = time.perf_counter()
+    open(cli_t128[1], "w").close()  # its release
     out = finish(start(
         [sys.executable, "-m", "temporalalignnet_torch.train", "--feature_dir", feats,
          "--captions", captions, "--vocab", vocab, "--max_steps", "4", "--epochs", "4",
@@ -2073,8 +2100,9 @@ def phase_train_cli(torch, files, eval_files, yc2_files):
     emit({"phase": "train_cli_eval", "metrics": metrics, "seconds_both_tasks": secs})
     check(0.0 <= metrics["Recall"] <= 1.0 and 0.0 <= metrics["AUC"] <= 1.0,
           f"eval of the trained checkpoint: {metrics}")
+    t128_per_step = finish_cli_t128(cli_t128, t0)
     return final["checkpoint"], {"metrics": outs["retrieval"], "align": metrics,
-                                 "seconds_both_tasks": secs}
+                                 "seconds_both_tasks": secs}, t128_per_step
 
 
 def make_yc2_files(root, seed):
@@ -2526,6 +2554,245 @@ def phase_eval_forward_f32_times(torch, card):
           f"f32 eval forward: mha_fwd launches per call {per_call}, expected 12 on f32")
     del model
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------ slice 13: the decoder stack
+
+# models/transformer.py::TemporalDecoder at the TAN's width over the dual
+# encoder's stream: B windows of T video tokens, the last quarter of each
+# window padded, on a memory of M sentence tokens with ragged padding
+DECODER = dict(width=512, heads=8, layers=6, mlp_ratio=4, B=64, T=64, M=16)
+
+
+def decoder_expected(kernel, route):
+    """(counts, routes) of a decoder call that launches ``kernel`` once a
+    block on ``route`` and nothing else."""
+    routes = {k: dict.fromkeys(v, 0) for k, v in STEP_ROUTES.items()}
+    routes[kernel][route] = DECODER["layers"]
+    return {k: sum(v.values()) for k, v in routes.items()}, routes
+
+
+def decoder_case(torch):
+    """The DECODER stack with random weights from the seed and its inputs, on
+    the CPU: (model, x, memory, tgt_pad, mem_pad, the scalar's weights)."""
+    from temporalalignnet_torch.models import TemporalDecoder
+
+    W, H, L, R, B, T, M = (DECODER[k] for k in ("width", "heads", "layers", "mlp_ratio", "B",
+                                                "T", "M"))
+    model = TemporalDecoder(W, L, H, R).init_weights(torch.Generator().manual_seed(SEED + 30))
+    gen = torch.Generator().manual_seed(SEED + 31)
+    x, memory = torch.randn(B, T, W, generator=gen), torch.randn(B, M, W, generator=gen)
+    tgt_pad = (torch.arange(T) >= T - T // 4)[None].repeat(B, 1)
+    mem_pad = torch.arange(M)[None] >= torch.randint(1, M + 1, (B,), generator=gen)[:, None]
+    weights = [torch.randn(B, T, W, generator=gen) for _ in range(L)]
+    return model, x, memory, tgt_pad, mem_pad, weights
+
+
+def decoder_scalar(taps, weights):
+    """A random projection of the decoder's taps: the backward's seed."""
+    return sum((t.float() * w).sum() / t.numel() ** 0.5 for t, w in zip(taps, weights))
+
+
+def phase_decoder(torch, card):
+    """The cross-attention decoder stack (random weights from the seed) on the
+    card: its self-attention through mha_fwd and, under autograd, mha_bwd;
+    its cross-attention plain (``ops/attention.py::cross_attention``).  The
+    f32 taps and gradients of a scalar of the taps (every parameter, x and
+    the memory) against the CPU's (routes ``f32``, F32_STEP_TOL); the bf16
+    ones (autocast, routes ``short`` and ``fused``) against the plain
+    attention on the card (PlainAttention) at phase_train's gradient bar;
+    the padded memory rows set to 999 must leave the taps as they were; each
+    forward and backward's launches by route (one a block, no MIL-NCE
+    kernel).  Its device ms come from the ``decoder`` step-time child
+    (``decoder_times``)."""
+    import contextlib
+    import copy
+
+    from temporalalignnet_torch.ops.attention import cross_attention
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    model, x, memory, tgt_pad, mem_pad, weights = decoder_case(torch)
+    on_card = copy.deepcopy(model).to(dev)
+    weights = {d: [w.to(d) for w in weights] for d in (cpu, dev)}
+    padded = memory.masked_fill(mem_pad[..., None], 999.0)
+    L = DECODER["layers"]
+
+    def scalar(taps, device):
+        return decoder_scalar(taps, weights[device])
+
+    def run(m, device, bf16, mem=memory, grads=True, plain=False):
+        """(taps f32 on the CPU, {name: gradient on the CPU} (with x's and the
+        memory's), the scalar, the forward's and the backward's (counts,
+        routes))."""
+        m.zero_grad(set_to_none=True)
+        xx, mm = (t.detach().to(device).requires_grad_(grads) for t in (x, mem))
+        masks = tgt_pad.to(device), mem_pad.to(device)
+        sync = torch.cuda.synchronize
+        with PlainAttention() if plain else contextlib.nullcontext(), \
+                torch.set_grad_enabled(grads):
+            sync()
+            reset_counts()
+            with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+                taps = m(xx, mm, *masks)
+            sync()
+            fwd = read_counts(), read_routes()
+            loss = scalar(taps, device)
+            bwd = None
+            if grads:
+                reset_counts()
+                loss.backward()
+                sync()
+                bwd = read_counts(), read_routes()
+        g = {n: p.grad.float().cpu() for n, p in m.named_parameters()} if grads else None
+        if grads:
+            g.update(x=xx.grad.float().cpu(), memory=mm.grad.float().cpu())
+        return [t.detach().float().cpu() for t in taps], g, loss.item(), fwd, bwd
+
+    def compare(ours, ref):
+        """(scalar |a - b|, worst tap norm_err, worst gradient norm_err, its name)."""
+        taps = max(norm_err(a, b) for a, b in zip(ours[0], ref[0]))
+        grad, name = max((norm_err(ours[1][n], b), n) for n, b in ref[1].items())
+        return abs(ours[2] - ref[2]), taps, grad, name
+
+    calls, t0 = cross_attention.calls, time.perf_counter()
+    f32_cpu = run(model, cpu, False)
+    seconds = {"f32_cpu": time.perf_counter() - t0}
+    f32_card = run(on_card, dev, False)
+    kernels, plain = run(on_card, dev, True), run(on_card, dev, True, plain=True)
+    moved = run(on_card, dev, True, mem=padded, grads=False)
+    cross_calls = cross_attention.calls - calls
+    seconds["all_runs"] = time.perf_counter() - t0
+    f32_err, bf16_err = compare(f32_card, f32_cpu), compare(kernels, plain)
+    pad_err = max(abs_err(a, b) for a, b in zip(moved[0], kernels[0]))
+
+    expected = {"f32_forward": decoder_expected("mha_fwd", "f32"),
+                "f32_backward": decoder_expected("mha_bwd", "f32"),
+                "bf16_forward": decoder_expected("mha_fwd", "short"),
+                "bf16_backward": decoder_expected("mha_bwd", "fused")}
+    seen = {"f32_forward": f32_card[3], "f32_backward": f32_card[4],
+            "bf16_forward": kernels[3], "bf16_backward": kernels[4]}
+    emit({"phase": "decoder", "card": card, "power": card_power(),
+          "model": decoder_name(),
+          "shape": {"B": x.shape[0], "T": x.shape[1], "M": memory.shape[1],
+                    "tgt_padded_per_window": int(tgt_pad[0].sum()),
+                    "memory_valid": [int(n) for n in (~mem_pad).sum(1)[:8]]},
+          "launches": {k: v[0] for k, v in seen.items()},
+          "routes": {k: {n: v[1][n] for n in ("mha_fwd", "mha_bwd")} for k, v in seen.items()},
+          "plain_launches": {"forward": plain[3][0], "backward": plain[4][0]},
+          "cross_attention_calls": cross_calls,
+          "f32_card_vs_cpu": dict(zip(("scalar_abs_err", "tap_norm_err", "grad_norm_err",
+                                       "worst_grad"), f32_err), tol=F32_STEP_TOL),
+          "bf16_kernels_vs_plain": dict(zip(("scalar_abs_err", "tap_norm_err", "grad_norm_err",
+                                             "worst_grad"), bf16_err),
+                                        scalar=plain[2], tol=TRAIN_GRAD_TOL),
+          "padded_memory_max_abs_err": pad_err, "padded_memory_tol": F32_TOL,
+          "seconds": seconds})
+    for what, (counts, routes) in expected.items():
+        check(seen[what] == (counts, routes), f"decoder {what} launched {seen[what]}")
+    zero = {k: 0 for k in STEP_LAUNCHES}
+    check(plain[3][0] == zero and plain[4][0] == zero, "the plain decoder launched a kernel")
+    check(cross_calls == 5 * L, f"cross_attention ran {cross_calls} times, expected {5 * L}")
+    check(all(torch.isfinite(t).all() for t in kernels[0] + f32_card[0]), "non-finite taps")
+    check(f32_err[0] <= F32_STEP_TOL and f32_err[1] <= F32_STEP_TOL
+          and f32_err[2] <= F32_STEP_TOL, f"decoder f32 card vs CPU {f32_err}")
+    # bf16: the taps and gradients norm-relative at phase_train's gradient bar;
+    # the scalar, a random projection of the taps, errs by their norm_err
+    # times their rms and has no bar of its own
+    check(bf16_err[1] <= TRAIN_GRAD_TOL and bf16_err[2] <= TRAIN_GRAD_TOL,
+          f"decoder bf16 kernels vs plain {bf16_err}")
+    check(pad_err <= F32_TOL, f"padded memory moved the taps by {pad_err}")
+    del on_card
+    torch.cuda.empty_cache()
+    return {name: {"bf16_forward": kernels[3][0][name], "bf16_backward": kernels[4][0][name]}
+            for name in STEP_LAUNCHES}, {k: v[1] for k, v in seen.items()}
+
+
+def decoder_name():
+    return "TemporalDecoder width {width}, {heads} heads, {layers} blocks, mlp ratio " \
+           "{mlp_ratio}".format(**DECODER)
+
+
+def decoder_times(torch, card, ready=lambda: None):
+    """The ``decoder`` step-time child: the device ms (profiler, 5 calls a
+    session) and the host-inclusive ms (CUDA events) of phase_decoder's bf16
+    forward and forward + backward, with the port's kernels' and the top
+    kernels' device ms.  In a process of its own: in the whole run's
+    process, after the eval forward's profiles, the profiler sessions of
+    these calls recorded no device time."""
+    dev = torch.device("cuda")
+    model, x, memory, tgt_pad, mem_pad, weights = decoder_case(torch)
+    model.to(dev)
+    x, memory, tgt_pad, mem_pad = (t.to(dev) for t in (x, memory, tgt_pad, mem_pad))
+    weights = [w.to(dev) for w in weights]
+
+    def forward():
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            model(x, memory, tgt_pad, mem_pad)
+
+    def forward_backward():
+        model.zero_grad(set_to_none=True)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            taps = model(x, memory, tgt_pad, mem_pad)
+        decoder_scalar(taps, weights).backward()
+
+    ready()
+    times = {}
+    for what, fn in (("forward", forward), ("forward_backward", forward_backward)):
+        ms, per_kernel, _, timing = device_profile(torch, fn, reps=5)
+        wall = cuda_ms(torch, fn, reps=5)
+        times[what] = {"device_ms": ms if timing == "profiler" else None, "timing": timing,
+                       "ms": wall, "idle_share": max(0.0, 1.0 - ms / wall)
+                       if timing == "profiler" else None,
+                       "port_kernels_ms": {k[:60]: v for k, v in per_kernel.items()
+                                           if "mha_fwd" in k or "mha_bwd" in k},
+                       "top_kernels_ms": dict(list(by_name(per_kernel, 60).items())[:8])}
+    emit({"phase": "times", "metric": "decoder_bf16_ms", "card": card, "power": card_power(),
+          "model": decoder_name() + ", bf16 autocast, f32 params",
+          "shape": {k: DECODER[k] for k in ("B", "T", "M")}, **times})
+
+
+# slice 13: the train CLI at --seq_len 128 (joint S = 144: mha_bwd's long route)
+# on feature files of 128 s or more, in a child that counts the wrappers'
+# launches over the run (bench_tool_child); CLI_T128["steps"] steps, as many
+# epochs (a filtered epoch of fewer than 2 B videos is one step)
+CLI_T128 = dict(videos=128, steps=2)
+
+
+def start_cli_t128(files):
+    """The --seq_len 128 train CLI child, started now; phase_train_cli
+    releases it and reads it."""
+    feats, captions, vocab = files
+    prefix = os.path.join(REPO, "build", "chip_smoke_train_t128", "exp")
+    return start_gated("--bench-tool", "temporalalignnet_torch.train", (
+        "--feature_dir", feats, "--captions", captions, "--vocab", vocab, "--seq_len", "128",
+        "--max_steps", str(CLI_T128["steps"]), "--epochs", str(CLI_T128["steps"]),
+        "--log_every", "1",
+        "--prefix", prefix), name="cli_t128")
+
+
+def finish_cli_t128(child, t0):
+    """The --seq_len 128 train CLI's lines, checked; returns its launches
+    per step and, by route, per step."""
+    out = finish(child[0], "train CLI at --seq_len 128", timeout=900)
+    jsons = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+    final = next(j for j in jsons if "final_step" in j)
+    counts = next(j for j in jsons if "bench_counts" in j)
+    n = final["final_step"]
+    per_step = {k: v / max(n, 1) for k, v in counts["bench_counts"].items()}
+    routes = {k: {r: c / max(n, 1) for r, c in v.items()}
+              for k, v in counts["bench_routes"].items()}
+    emit({"phase": "train_cli_t128", "final": final,
+          "losses": [j["loss"] for j in jsons if "step" in j and "loss" in j],
+          "launches": counts["bench_counts"], "routes": counts["bench_routes"],
+          "launches_per_step": per_step, "routes_per_step": routes,
+          "seconds_from_release": time.perf_counter() - t0})
+    check(n == CLI_T128["steps"] and final["loss_finite"], f"--seq_len 128 CLI final {final}")
+    check(counts["bench_counts"] == {k: v * n for k, v in STEP_LAUNCHES.items()},
+          f"--seq_len 128 CLI launched {counts['bench_counts']} over {n} steps")
+    check(counts["bench_routes"] == {k: {r: c * n for r, c in v.items()}
+                                     for k, v in T128_ROUTES.items()},
+          f"--seq_len 128 CLI routes {counts['bench_routes']}")
+    return per_step, routes
 
 
 def synthetic_train_batch(torch, B, seed):
@@ -4997,7 +5264,7 @@ def phase_tp_two_ranks(children):
 
 # the step-time children of a whole run: the steps whose device ms bound the bench
 # tools' rates (init, cotrain, e2e)
-STEP_TIME_CHILDREN = ("init", "cotrain", "e2e")
+STEP_TIME_CHILDREN = ("init", "cotrain", "e2e", "decoder")
 # the other step-time children, run by ``chip_smoke.py --step-times``: each times a
 # path that a phase of the whole run drives and checks (the agreement in cotrain, the
 # retrieval forward, the world-of-one NCCL step and its graph in dp_world1, the graphed
@@ -5143,9 +5410,13 @@ def step_time(torch, which, card, ready=lambda: None):
     agreement self-labelling alone at the cotrain step's shapes.  Each also
     counts the call's host-device synchronisations.  'e2e': the end-to-end
     S3D step at E2E (``e2e_step_time``); 'bf16_t128' and 'f32' the
-    Stage-1 steps of STEP_VIEWS (``step_view``)."""
+    Stage-1 steps of STEP_VIEWS (``step_view``); 'decoder' the decoder
+    stack's bf16 forward and forward + backward (``decoder_times``)."""
     if which == "e2e":
         e2e_step_time(torch, card, ready)
+        return
+    if which == "decoder":
+        decoder_times(torch, card, ready)
         return
     if which in STEP_VIEWS:
         step_view(torch, which, card, ready)
@@ -5463,6 +5734,8 @@ def phase_times(torch, card):
 
 # (name, tool, arguments): each run of phase_bench_tools, in the order released
 BENCH_ROUNDS = ("--iters", "10", "--repeats", "2")
+BENCH_MODE_ROUNDS = ("--iters", "5", "--repeats", "1")
+BENCH_TRACE_STEPS = 10  # the steps bench_e2e_step's --profile_dir trace holds
 BENCH_RUNS = (
     ("train_stage1_fused", "bench_train_step", ("--stage", "1", "--fused", "1", *BENCH_ROUNDS)),
     ("train_stage2_fused", "bench_train_step", ("--stage", "2", "--fused", "1", *BENCH_ROUNDS)),
@@ -5471,6 +5744,17 @@ BENCH_RUNS = (
     ("e2e_b16", "bench_e2e_step", ("--batch_size", str(E2E["B"]), *BENCH_ROUNDS,
                                    "--profile_dir",
                                    os.path.join(REPO, "build", "chip_smoke_bench_trace"))),
+    # slice 13: the e2e step's other modes at twice e2e_b16's batch, each with a
+    # trace of its own, whose device ms a step bound its rate.  The step must be
+    # card-bound for the lower bound to hold: on an H100 80GB HBM3 at 700 W,
+    # --train_bn_stats 1 at the tool's default batch of 8 ran at 67 % of its
+    # trace's rate (11.27 steps/s, 59.50 device ms a step), --freeze_early 1 at
+    # 16 at 81 % (17.79 steps/s, 45.57 device ms): the host's ~56 ms a step
+    *((f"e2e_{mode}", "bench_e2e_step", ("--batch_size", str(2 * E2E["B"]), *flags,
+                                         *BENCH_MODE_ROUNDS, "--profile_dir",
+                                         os.path.join(REPO, "build", f"chip_smoke_bench_{mode}")))
+      for mode, flags in (("train_bn_stats", ("--train_bn_stats", "1")),
+                          ("freeze_early", ("--freeze_early", "1")), ("f32", ("--f32",)))),
     ("loader", "bench_loader", ()),
     ("loader_metadata", "bench_loader", ("--metadata", "20000")),
     ("loader_vlen", "bench_loader", ("--vlen_files", "2000")),
@@ -5495,31 +5779,28 @@ BENCH_RATE_MAX = 1.05
 BENCH_E2E_RATE = (0.8, 1.05)
 
 
-def bench_tool_child(tool, go, argv) -> int:
-    """A child of phase_bench_tools: ``python -m
-    temporalalignnet_torch.tools.<tool> <argv>`` once its go file exists
-    (imports made before); for the train-step tool the wrappers' launch
-    counts, set to 0 just before the tool runs, follow as a JSON line."""
+def bench_tool_child(module, go, argv) -> int:
+    """A child of phase_bench_tools (``module``: a tool of
+    temporalalignnet_torch.tools) or the --seq_len 128 train CLI
+    (``start_cli_t128``): ``python -m <module> <argv>`` once its go file
+    exists (imports made before); the wrappers' launch counts, set to 0 just
+    before the module runs, follow as a JSON line."""
     import importlib
     import runpy
 
     # the imports before the release (runpy runs the tool's module itself)
-    for module in ("torch", "torch._dynamo", "temporalalignnet_torch.train.train_step",
-                   "temporalalignnet_torch.train.end2end", "temporalalignnet_torch.data.prefetch",
-                   "temporalalignnet_torch.utils.profiling",
-                   "temporalalignnet_torch.tools.convert_captions"):
-        importlib.import_module(module)
-    if tool != "bench_loader":  # the card's context too; the loader bench runs on the host
+    for name in ("torch", "torch._dynamo", "temporalalignnet_torch.train.train_step",
+                 "temporalalignnet_torch.train.end2end", "temporalalignnet_torch.train.cli",
+                 "temporalalignnet_torch.data.prefetch", "temporalalignnet_torch.utils.profiling",
+                 "temporalalignnet_torch.tools.convert_captions"):
+        importlib.import_module(name)
+    if not module.endswith("bench_loader"):  # the card's context; the loader runs on the host
         sys.modules["torch"].zeros(1, device="cuda")
     wait_for_release(go)
-    counted = tool == "bench_train_step"
-    if counted:
-        reset_counts()
-    sys.argv = [tool, *argv]
-    runpy.run_module(f"temporalalignnet_torch.tools.{tool}", run_name="__main__",
-                     alter_sys=True)
-    if counted:
-        emit({"bench_counts": read_counts(), "bench_routes": read_routes()})
+    reset_counts()
+    sys.argv = [module, *argv]
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    emit({"bench_counts": read_counts(), "bench_routes": read_routes()})
     # the tool has closed what it wrote; skip the interpreter's and the CUDA
     # context's teardown, which the parent would wait for before the next run
     sys.stdout.flush()
@@ -5529,7 +5810,8 @@ def bench_tool_child(tool, go, argv) -> int:
 
 def start_bench_tools():
     """Every BENCH_RUNS child, started now; each waits for its release."""
-    return {name: start_gated("--bench-tool", tool, argv, name=name)
+    return {name: start_gated("--bench-tool", f"temporalalignnet_torch.tools.{tool}", argv,
+                              name=name)
             for name, tool, argv in BENCH_RUNS}
 
 
@@ -5563,17 +5845,19 @@ def bench_loader_lines(text):
 
 def trace_device_events(trace_dir):
     """(the trace file a bench run wrote under ``trace_dir``, {category:
-    events} of its device events: kernels, copies and sets)."""
+    events} of its device events: kernels, copies and sets, and their
+    summed device ms)."""
     files = [f for f in os.listdir(trace_dir) if f.startswith("trace_") and f.endswith(".json")]
     check(len(files) == 1, f"one trace file under {trace_dir}, found {files}")
     with open(os.path.join(trace_dir, files[0])) as f:
         events = json.load(f).get("traceEvents", [])
-    cats = {}
+    cats, busy_ms = {}, 0.0
     for e in events:
         cat = e.get("cat", "")
         if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
             cats[cat] = cats.get(cat, 0) + 1
-    return files[0], cats
+            busy_ms += e.get("dur", 0) / 1e3
+    return files[0], cats, busy_ms
 
 
 def phase_bench_tools(children, step_lines, card):
@@ -5581,7 +5865,9 @@ def phase_bench_tools(children, step_lines, card):
     checked; returns the launches per step of the --stage 1 --fused 1 run."""
     device_ms = {l["metric"]: l.get("device_busy_ms_per_step") for l in step_lines
                  if "metric" in l}
-    shutil.rmtree(os.path.join(REPO, "build", "chip_smoke_bench_trace"), ignore_errors=True)
+    for _, tool, argv in BENCH_RUNS:
+        if "--profile_dir" in argv:
+            shutil.rmtree(argv[-1], ignore_errors=True)
     per_step = None
     for name, tool, argv in BENCH_RUNS:
         out, seconds = release(children[name], f"{tool} {' '.join(argv)}", timeout=600)
@@ -5626,18 +5912,25 @@ def phase_bench_tools(children, step_lines, card):
                   f"{name}: {result['value']} steps/s over {line['check']['rate_max']}")
             if name == "train_stage1_fused":
                 per_step = {k: v // BENCH_TRAIN_STEPS for k, v in counts["bench_counts"].items()}
-        else:  # e2e_b16
-            d_ms = device_ms.get("e2e_steps_per_s")
+        else:  # the e2e step, which launches none of the port's kernels
+            counts = next(j for j in jsons if "bench_counts" in j)["bench_counts"]
             lo, hi = BENCH_E2E_RATE
-            trace, events = trace_device_events(argv[-1])
-            line["check"] = {"child_device_ms_per_step": d_ms,
-                             "rate_range": None if d_ms is None else [lo * 1e3 / d_ms,
-                                                                      hi * 1e3 / d_ms],
-                             "trace": trace, "device_events": events}
+            trace, events, busy_ms = trace_device_events(argv[-1])
+            # e2e_b16: the e2e step-time child's step; the other modes: their own trace's
+            d_ms = (device_ms.get("e2e_steps_per_s") if name == "e2e_b16"
+                    else busy_ms / BENCH_TRACE_STEPS)
+            bounded = result["dtype"] == "bfloat16"  # --f32: finite and printed
+            line["check"] = {"device_ms_per_step": d_ms,
+                             "device_ms_from": "e2e child" if name == "e2e_b16" else "trace",
+                             "trace_device_ms_per_step": busy_ms / BENCH_TRACE_STEPS,
+                             "rate_range": [lo * 1e3 / d_ms, hi * 1e3 / d_ms]
+                             if d_ms and bounded else None,
+                             "trace": trace, "device_events": events, "launches": counts}
             emit(line)
-            check(d_ms is not None, "e2e: no device ms a step")
-            check(lo * 1e3 / d_ms <= result["steps_per_sec"] <= hi * 1e3 / d_ms,
-                  f"e2e tool at {result['steps_per_sec']} steps/s, child {d_ms} device ms")
+            check(not any(counts.values()), f"{name} launched the port's kernels: {counts}")
+            check(bool(d_ms), f"{name}: no device ms a step")
+            check(not bounded or lo * 1e3 / d_ms <= result["steps_per_sec"] <= hi * 1e3 / d_ms,
+                  f"{name} at {result['steps_per_sec']} steps/s, {d_ms} device ms a step")
         check(np.isfinite(result["value"]) and result["value"] > 0, f"{name}: {result}")
     return per_step
 
@@ -5727,21 +6020,27 @@ def main(argv) -> int:
     model, eval_launches = timed(phase_eval, torch)
     timed(phase_eval_forward_times, torch, model, card)
     timed(phase_eval_forward_f32_times, torch, card)
+    decoder_launches, decoder_routes = timed(phase_decoder, torch, card)
     make_spares(8)  # for the CLIs up to cotrain_cli's
     eval_files = timed(phase_cli, torch, model)
     files = timed(make_train_files, os.path.join(REPO, "build", "chip_smoke_train"), 96, SEED)
+    t128_files = make_train_files(os.path.join(REPO, "build", "chip_smoke_train_t128"),
+                                  CLI_T128["videos"], SEED + 40, min_len=128)
+    cli_t128 = start_cli_t128(t128_files)  # makes ready beside the train phase
     launches, stage1_state = timed(phase_train, torch, files)
     yc2_files = timed(make_yc2_files, os.path.join(REPO, "build", "chip_smoke_yc2"), SEED + 4)
     # phases of child processes that time nothing run in the background, beside the
     # phases of this process: the train CLI and its evals; the resume runs, then the
     # world-of-one CLIs; later the cotrain CLI and its eval
     torch.cuda.empty_cache()  # this process's cached blocks, for the children
-    train_cli = in_background(timed, phase_train_cli, torch, files, eval_files, yc2_files)
+    train_cli = in_background(timed, phase_train_cli, torch, files, eval_files, yc2_files,
+                              cli_t128)
     resume = in_background(timed, phase_resume_and_world1, torch, yc2_files)
     t128_launches, f32_launches = timed(phase_train_t128, torch)
     make_spares(16)  # for the CLIs from grouped_dispatch's to the e2e CLI's
     cotrain_launches = timed(phase_cotrain, torch, files, stage1_state)
-    stage1_ckpt, retrieval_cli = joined(train_cli, "phase_train_cli")
+    stage1_ckpt, retrieval_cli, (t128_cli_launches, t128_cli_routes) = joined(
+        train_cli, "phase_train_cli")
     retrieval_metrics, retrieval_launches = timed(phase_retrieval, torch, stage1_ckpt, yc2_files)
     timed(phase_retrieval_cli, retrieval_cli, retrieval_metrics)
     cotrain_cli = in_background(timed, phase_cotrain_cli, torch, files, stage1_ckpt, eval_files)
@@ -5911,6 +6210,10 @@ def main(argv) -> int:
             "steps": dp_graph["steps"], "replayed_steps": dp_graph["replayed_steps"]}
         # slice 11: per step of the train-step bench tool, --stage 1 --fused 1
         e["launches_bench_path"] = bench_launches[e["name"]]
+        # slice 13: one bf16 forward and one backward of the decoder stack; per
+        # step of the train CLI at --seq_len 128
+        e["launches_decoder_path"] = decoder_launches[e["name"]]
+        e["launches_cli_t128_path"] = t128_cli_launches[e["name"]]
     entries[0]["launches_by_route_punct"] = punct_launches["routes"]["mha_fwd"]
     entries[0]["punct_shape"] = {"shape": list(PUNCT_SHAPE), **{k: f32_rows[PUNCT_SHAPE][k] for k in (
         "dtype", "route", "masked", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -5932,6 +6235,10 @@ def main(argv) -> int:
                                                              "bound_ms", "bound_by")}}
         for sh in TP_SHAPES]
     entries[0]["launches_by_route_htm_aa"] = htm_aa_routes
+    for e, part in zip(entries[:2], ("forward", "backward")):
+        e["launches_by_route_decoder"] = {k: r[e["name"]] for k, r in decoder_routes.items()
+                                          if k.endswith(part)}
+        e["launches_by_route_cli_t128"] = t128_cli_routes[e["name"]]
     for e in entries[:2]:
         e["launches_by_route_bert"] = bert_launches["init"]["routes"][e["name"]]
     entries[0]["tower_shapes"] = [
@@ -5952,6 +6259,7 @@ def main(argv) -> int:
         kernel_route="long (wgmma, TMA, producer warp), bf16 S > 128",
         launches=t128_launches["routes"]["mha_bwd"]["long"], steps=T128_STEPS,
         launches_by_route=t128_launches["routes"]["mha_bwd"], max_abs_err=bwd_err["long"],
+        launches_cli_t128_path=t128_cli_routes["mha_bwd"]["long"],
         shape=long_rows[0]["shape"], **{k: long_rows[0][k] for k in fields},
         shapes=[{"shape": r["shape"], "kernels_ms": r["kernels_ms"],
                  **{k: r[k] for k in fields}} for r in long_rows]))

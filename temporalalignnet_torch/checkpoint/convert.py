@@ -6,9 +6,10 @@
   Dense kernels [in, out] transpose to ``weight [out, in]``, LayerNorm
   ``scale`` becomes ``weight``, and the separate q/k/v projections pack into
   ``attn.in_proj_weight [3D, D]`` rows [q; k; v] as nn.MultiheadAttention
-  stores them.  A BERT language model (FlaxBertModule's tree under
-  ``lang_model/bert``) goes to HF's ``bert.embeddings/encoder/pooler.*``
-  keys, the inverse of JAX ``torch_convert.py:62-88``: ``kernel`` transposed
+  stores them (``_block_state_dict``, which ``decoder_state_dict_from_jax``
+  shares for the cross-attention decoder's blocks).  A BERT language model
+  (FlaxBertModule's tree under ``lang_model/bert``) goes to HF's
+  ``bert.embeddings/encoder/pooler.*`` keys, the inverse of JAX ``torch_convert.py:62-88``: ``kernel`` transposed
   to ``weight``, ``scale`` and ``embedding`` to ``weight``.
 - ``s3d_state_dict_from_jax(variables)``: JAX S3D variables (the output of
   ``temporalalignnet_tpu/checkpoint/s3d_convert.py::s3d_torch_to_variables``)
@@ -99,21 +100,41 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         blocks = sorted((k for k in al.get(enc, {}) if k.startswith("resblocks_")),
                         key=lambda s: int(s.split("_")[1]))
         for bname in blocks:
-            blk = al[enc][bname]
-            pre = f"{enc}.resblocks.{bname.split('_')[1]}"
-            attn = blk["attn"]
-            qkv = ("q_proj", "k_proj", "v_proj")
-            out[f"{pre}.attn.in_proj_weight"] = torch.cat(
-                [_t(attn[p]["kernel"]).T for p in qkv]).contiguous()
-            out[f"{pre}.attn.in_proj_bias"] = torch.cat([_t(attn[p]["bias"]) for p in qkv])
-            out[f"{pre}.attn.out_proj.weight"] = _t(attn["out_proj"]["kernel"]).T.contiguous()
-            out[f"{pre}.attn.out_proj.bias"] = _t(attn["out_proj"]["bias"])
-            for ln in ("ln_1", "ln_2"):
-                out[f"{pre}.{ln}.weight"] = _t(blk[ln]["scale"])
-                out[f"{pre}.{ln}.bias"] = _t(blk[ln]["bias"])
-            for fc in ("c_fc", "c_proj"):
-                out[f"{pre}.mlp.{fc}.weight"] = _t(blk["mlp"][fc]["kernel"]).T.contiguous()
-                out[f"{pre}.mlp.{fc}.bias"] = _t(blk["mlp"][fc]["bias"])
+            out.update(_block_state_dict(al[enc][bname], f"{enc}.resblocks.{bname.split('_')[1]}",
+                                         ("attn",), ("ln_1", "ln_2")))
+    return out
+
+
+def decoder_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX TemporalDecoder params (``resblocks_{i}`` with ``self_attn``,
+    ``attn``, ``ln_1``-``ln_3``, ``mlp``) -> the port's TemporalDecoder
+    state_dict (``resblocks.{i}.*``), f32 tensors."""
+    out: Dict[str, torch.Tensor] = {}
+    for bname, blk in params.items():
+        out.update(_block_state_dict(blk, f"resblocks.{bname.split('_')[1]}",
+                                     ("self_attn", "attn"), ("ln_1", "ln_2", "ln_3")))
+    return out
+
+
+def _block_state_dict(blk: Dict[str, Any], pre: str, attns, lns) -> Dict[str, torch.Tensor]:
+    """One pre-LN block: each attention's separate q/k/v Dense layers packed
+    into ``in_proj_weight [3D, D]`` rows [q; k; v] and ``in_proj_bias``,
+    its ``out_proj``; the LayerNorms; the MLP's ``c_fc`` and ``c_proj``."""
+    out: Dict[str, torch.Tensor] = {}
+    qkv = ("q_proj", "k_proj", "v_proj")
+    for name in attns:
+        attn = blk[name]
+        out[f"{pre}.{name}.in_proj_weight"] = torch.cat(
+            [_t(attn[p]["kernel"]).T for p in qkv]).contiguous()
+        out[f"{pre}.{name}.in_proj_bias"] = torch.cat([_t(attn[p]["bias"]) for p in qkv])
+        out[f"{pre}.{name}.out_proj.weight"] = _t(attn["out_proj"]["kernel"]).T.contiguous()
+        out[f"{pre}.{name}.out_proj.bias"] = _t(attn["out_proj"]["bias"])
+    for ln in lns:
+        out[f"{pre}.{ln}.weight"] = _t(blk[ln]["scale"])
+        out[f"{pre}.{ln}.bias"] = _t(blk[ln]["bias"])
+    for fc in ("c_fc", "c_proj"):
+        out[f"{pre}.mlp.{fc}.weight"] = _t(blk["mlp"][fc]["kernel"]).T.contiguous()
+        out[f"{pre}.mlp.{fc}.bias"] = _t(blk["mlp"][fc]["bias"])
     return out
 
 

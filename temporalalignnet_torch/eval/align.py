@@ -311,3 +311,10 @@ def alignment_metrics(corpus: Sequence[Dict], per_video: Sequence[Dict]) -> Dict
             recall.append(s <= int(masked[i].argmax()) <= e)
     auc = roc_auc_score(np.concatenate(all_tgts), np.concatenate(all_scores))
     return {"Recall": float(np.mean(recall)), "AUC": auc}
+
+
+def test_alignment(model: torch.nn.Module, corpus: Sequence[Dict],
+                   cfg: Optional[EvalConfig] = None) -> Dict[str, float]:
+    """Functional entry mirroring test_alignment_htm (eval_zeroshot_align.py:97):
+    Recall and AUC of ``model`` (which carries its weights) on ``corpus``."""
+    return AlignmentEvaluator(model, cfg or EvalConfig()).evaluate(corpus)

@@ -1,6 +1,7 @@
 """Positional encodings (counterpart of temporalalignnet_tpu/models/posenc.py).
 
 - the table-form sine embedding (reference model/tfm_model.py:137-148);
+- the mask-driven sine embedding (reference model/tfm_model.py:106-134);
 - linear interpolation of the positional table for eval windows whose length
   differs from the training length (reference model/tan_model.py:157-160,
   F.interpolate(mode='linear', align_corners=False)), with ``effective_len``
@@ -27,6 +28,25 @@ def sine_position_embedding(
     # interleave sin of even channels with cos of odd channels
     emb = torch.stack((torch.sin(ang[:, 0::2]), torch.cos(ang[:, 1::2])), dim=2)
     return emb.reshape(num_features, feature_dim)
+
+
+def position_embedding_sine_from_mask(
+    padding_mask: torch.Tensor,  # [B, T] True = pad
+    feature_dim: int = 512,
+    temperature: float = 10000.0,
+    normalize: bool = True,
+) -> torch.Tensor:
+    """[B, T, feature_dim] DETR-style 1-D sine embedding whose positions count
+    only the valid steps (1 at the first), with ``normalize`` scaled so that
+    each sequence's last valid step sits at 2π."""
+    pos = torch.cumsum((~padding_mask.bool()).float(), dim=1)
+    if normalize:
+        pos = pos / (pos[:, -1:] + 1e-6) * (2 * math.pi)
+    dim_t = torch.arange(feature_dim, dtype=torch.float32, device=pos.device)
+    dim_t = temperature ** (2 * torch.floor(dim_t / 2) / feature_dim)
+    ang = pos[:, :, None] / dim_t
+    emb = torch.stack((torch.sin(ang[:, :, 0::2]), torch.cos(ang[:, :, 1::2])), dim=3)
+    return emb.reshape(*pos.shape, feature_dim)
 
 
 def linear_interpolate(

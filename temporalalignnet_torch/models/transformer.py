@@ -14,6 +14,13 @@ attention and the MLP hold their shard (``hold_shard``) and its group: the
 attention runs its H / tp heads between the column-parallel q, k, v and the
 row-parallel ``out_proj``, the MLP its columns of ``c_fc`` and rows of
 ``c_proj``.  Unsharded (tp = 1) their parameters and math are as before.
+
+``TemporalDecoder`` stacks ``ResidualDecoderBlock``s (reference
+tfm_model.py:59-103): self-attention (``self_attn``), cross-attention on a
+memory (``attn``, q from x, k and v from the memory, in the same packed key
+space) and the MLP, behind three pre-LNs ``ln_1``, ``ln_2``, ``ln_3``.  Its
+self-attention runs the port's kernels on the card; its cross-attention is
+plain on every device (``ops/attention.py::cross_attention``).
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from temporalalignnet_torch.ops.attention import multihead_attention
+from temporalalignnet_torch.ops.attention import cross_attention, multihead_attention
 from temporalalignnet_torch.parallel import tensor as tp_ops
 
 
@@ -151,6 +158,89 @@ class TemporalEncoder(nn.Module):
                 x, x_norm = checkpoint(block, x, key_padding_mask, use_reentrant=False)
             else:
                 x, x_norm = block(x, key_padding_mask)
+            taps.append(x_norm)
+        taps.pop(0)
+        taps.append(x)
+        return taps
+
+
+class MultiheadCrossAttention(nn.Module):
+    """Queries from x [B, S, D], keys and values from a memory [B, M, D]
+    (torch nn.MultiheadAttention's q != kv form): ``in_proj_weight`` rows
+    [q; k; v], ``memory_key_padding_mask`` [B, M] True = pad."""
+
+    def __init__(self, width: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
+        self.out_proj = nn.Linear(width, width)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor,
+                memory_key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, S, D = x.shape
+        M, dh = memory.shape[1], D // self.heads
+        w_q, w_kv = self.in_proj_weight.split([D, 2 * D])
+        b_q, b_kv = self.in_proj_bias.split([D, 2 * D])
+        q = F.linear(x, w_q, b_q).view(B, S, self.heads, dh).transpose(1, 2)
+        kv = F.linear(memory, w_kv, b_kv).view(B, M, 2, self.heads, dh).permute(2, 0, 3, 1, 4)
+        out = cross_attention(q, kv[0], kv[1], memory_key_padding_mask)
+        return self.out_proj(out.transpose(1, 2).reshape(B, S, D))
+
+
+class ResidualDecoderBlock(nn.Module):
+    """Self-attention, cross-attention on the memory, then the MLP, each behind
+    its pre-LN; returns (output, ln_1(input)) (tfm_model.py:59-87)."""
+
+    def __init__(self, width: int, heads: int, mlp_ratio: int = 4):
+        super().__init__()
+        self.self_attn = MultiheadSelfAttention(width, heads)
+        self.attn = MultiheadCrossAttention(width, heads)
+        self.ln_1 = nn.LayerNorm(width, eps=1e-5)
+        self.ln_2 = nn.LayerNorm(width, eps=1e-5)
+        self.ln_3 = nn.LayerNorm(width, eps=1e-5)
+        self.mlp = MLP(width, mlp_ratio)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor,
+                tgt_key_padding_mask: Optional[torch.Tensor] = None,
+                memory_key_padding_mask: Optional[torch.Tensor] = None):
+        x_norm = self.ln_1(x)
+        x = x + self.self_attn(x_norm, tgt_key_padding_mask)
+        x = x + self.attn(self.ln_2(x), memory, memory_key_padding_mask)
+        x = x + self.mlp(self.ln_3(x))
+        return x, x_norm
+
+
+class TemporalDecoder(nn.Module):
+    """Stack of decoder blocks (tfm_model.py:89-103); returns the taps as
+    TemporalEncoder does: each block's ln_1(input) from the second block on,
+    then the last output.  Both masks are True = pad."""
+
+    def __init__(self, width: int, layers: int, heads: int, mlp_ratio: int = 4):
+        super().__init__()
+        self.resblocks = nn.ModuleList(
+            ResidualDecoderBlock(width, heads, mlp_ratio) for _ in range(layers))
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "TemporalDecoder":
+        """The JAX module's flax defaults, drawn from ``generator``: each
+        weight matrix normal with std fan_in^-1/2 (lecun), biases 0, LayerNorms
+        1 and 0."""
+        for name, p in self.named_parameters():
+            if "ln_" in name:
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.copy_(torch.randn(p.shape, generator=generator) * p.shape[1] ** -0.5)
+        return self
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor,
+                tgt_key_padding_mask: Optional[torch.Tensor] = None,
+                memory_key_padding_mask: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        taps = []
+        for block in self.resblocks:
+            x, x_norm = block(x, memory, tgt_key_padding_mask, memory_key_padding_mask)
             taps.append(x_norm)
         taps.pop(0)
         taps.append(x)

@@ -20,6 +20,8 @@ softmax; queries at padded positions still produce values the caller masks.
   reference (autograd through plain PyTorch); a CUDA tensor goes through
   ``KernelAttention`` or raises.  Causal attention is plain PyTorch on every
   device, as in JAX; ``multihead_attention.causal_calls`` counts it.
+- ``cross_attention``: queries of length S on keys and values of length M
+  (the decoder's attention on its memory), plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -92,3 +94,23 @@ def multihead_attention(
 
 
 multihead_attention.causal_calls = 0
+
+
+def cross_attention(
+    q: torch.Tensor,  # [B, H, S, Dh]
+    k: torch.Tensor,  # [B, H, M, Dh]
+    v: torch.Tensor,  # [B, H, M, Dh]
+    memory_key_padding_mask: Optional[torch.Tensor] = None,  # [B, M] True = pad
+) -> torch.Tensor:
+    """Attention of S queries on a memory of M keys and values: two
+    ``torch.matmul``s and a masked softmax (``attention_reference``) on every
+    device, with autograd through plain PyTorch.  No kernel backs it: the JAX
+    package computes it as XLA outside any Pallas kernel
+    (models/transformer.py:209-211 there), and the port's kernels take q, k
+    and v of one length S (``ops/mha_fwd.py::check_shapes``).
+    ``cross_attention.calls`` counts it."""
+    cross_attention.calls += 1
+    return attention_reference(q, k, v, memory_key_padding_mask)
+
+
+cross_attention.calls = 0

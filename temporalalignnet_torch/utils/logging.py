@@ -10,6 +10,10 @@ for the end-to-end trainer), and TensorBoard events under
 dependency; ``torch.utils.tensorboard`` is not used, since it imports
 TensorFlow where that is installed).  Under a process group only rank 0
 writes: the other ranks' writers take the calls and write nothing.
+
+``Logger`` tees console lines into a file and ``denormalize`` undoes the
+ImageNet normalization for display (reference utils/utils.py:124-136,
+:73-86).
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import queue
 import threading
 import time
 from typing import Dict
+
+import numpy as np
 
 from temporalalignnet_torch.parallel.distributed import is_master
 
@@ -76,3 +82,26 @@ class MetricsWriter:
         self._file.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class Logger:
+    """Tee console lines into a log file (reference utils/utils.py:124-136)."""
+
+    def __init__(self, path: str):
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        self.path = path
+        self._file = open(path, "a", buffering=1)
+
+    def log(self, msg: str) -> None:
+        print(msg, flush=True)
+        self._file.write(msg + "\n")
+
+    def close(self) -> None:
+        self._file.close()
+
+
+def denormalize(frames, mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225)) -> np.ndarray:
+    """Undo ImageNet normalization on [..., H, W, 3] float frames, clipped to
+    [0, 1] (reference utils/utils.py:73-86, channel-last here)."""
+    frames = np.asarray(frames, np.float32)
+    return np.clip(frames * np.asarray(std) + np.asarray(mean), 0.0, 1.0)

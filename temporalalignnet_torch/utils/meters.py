@@ -1,13 +1,17 @@
 """Console meters (counterpart of temporalalignnet_tpu/utils/meters.py;
 reference utils/utils.py:139-231): ``AverageMeter`` keeps a global average
 and a sliding local window, ``ProgressMeter`` prints one status line per log
-step, to stderr: the trainer's stdout carries only its JSON lines."""
+step, to stderr: the trainer's stdout carries only its JSON lines.
+``calc_topk_accuracy`` and ``ConfusionMeter`` score classifiers
+(utils.py:89-114, :234-285)."""
 
 from __future__ import annotations
 
 import collections
 import sys
-from typing import Iterable
+from typing import Iterable, List
+
+import numpy as np
 
 
 class AverageMeter:
@@ -42,6 +46,33 @@ class AverageMeter:
     def __str__(self) -> str:
         fmtstr = "{name} {val" + self.fmt + "} ({avg" + self.fmt + "})"
         return fmtstr.format(name=self.name, val=self.val, avg=self.avg)
+
+
+def calc_topk_accuracy(scores, targets, topk=(1,)) -> List[float]:
+    """Fraction of rows whose target is among the top-k scores, for each k
+    (utils.py:89-114); numpy, [B, C] scores and [B] targets."""
+    scores, targets = np.asarray(scores), np.asarray(targets)
+    order = np.argsort(-scores, axis=1)
+    return [float((order[:, :k] == targets[:, None]).any(axis=1).mean()) for k in topk]
+
+
+class ConfusionMeter:
+    """Row = ground truth, column = prediction (utils.py:234-285)."""
+
+    def __init__(self, num_classes: int):
+        self.num_classes = num_classes
+        self.mat = np.zeros((num_classes, num_classes), np.int64)
+
+    def update(self, preds, targets) -> None:
+        for p, t in zip(np.asarray(preds).reshape(-1), np.asarray(targets).reshape(-1)):
+            self.mat[int(t), int(p)] += 1
+
+    def accuracy(self) -> float:
+        total = self.mat.sum()
+        return float(self.mat.trace() / total) if total else 0.0
+
+    def __str__(self) -> str:
+        return f"ConfusionMeter(acc={self.accuracy():.4f})\n{self.mat}"
 
 
 class ProgressMeter:
